@@ -1,0 +1,23 @@
+"""kubeflow_controller_tpu_torch — the PyTorch/CUDA port of the JAX workloads.
+
+``kubeflow_controller_tpu`` stays the reference; this package grows beside
+it, one slice at a time, and imports nothing from it (it keeps its own
+copies of the few JAX-free modules it needs).  Every entry point takes an
+explicit ``device`` that defaults to ``"cuda"`` and raises when CUDA is
+absent, so nothing silently runs on the CPU; the tests pass
+``device="cpu"``.
+
+Layer map of the current slice (the continuous-batching serving replica
+over a grouped-dispatch MoE Llama):
+
+- ``device``      — device resolution (no fallback) and dtype names
+- ``bridge``      — JAX parameter pytree (numpy) -> the port's modules
+- ``models/``     — ``llama`` (config, blocks, module tree, init), ``moe``
+                    (router + grouped dispatch), ``generate`` (paged KV cache)
+- ``ops/``        — hand-written Hopper kernels with plain PyTorch versions
+                    beside them, and the ``nvcc`` build that loads them
+- ``csrc/``       — the CUDA C++ sources (sm_90a)
+- ``obs/``, ``workloads/`` — phase names, progress beats, the serve engine
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,66 @@
+"""JAX parameter pytree -> the port's module tree.
+
+Takes the reference's ``llama_init`` pytree, converted leaf by leaf to
+numpy (``jax.tree.map(np.asarray, params)``; bf16 leaves arrive as
+``ml_dtypes`` bfloat16 arrays), with its stacked ``[L, ...]`` layer
+layout, and copies it into a ``models.llama.Llama``: layer i of the
+stacked array becomes ``model.layers[i]``'s parameter of the same name.
+Both the MoE keys (``router``, ``w_gate``, ``w_up``, ``w_down`` with an
+expert axis) and the dense ones are covered.  The tests use this so that
+both packages compute the same function.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .device import DeviceLike
+from .models.llama import Llama, LlamaConfig
+
+LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
+              "w_up", "w_down")
+MOE_KEYS = ("router",)
+
+
+def _to_tensor(a: Any) -> torch.Tensor:
+    arr = np.array(a)       # a writable copy: JAX hands out read-only views
+    if arr.dtype.name == "bfloat16":
+        # numpy has no bf16; widening to f32 is exact, and the copy into
+        # the bf16 parameter rounds nothing.
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(arr)
+
+
+def _copy(dst: torch.nn.Parameter, src: Any, name: str) -> None:
+    t = _to_tensor(src)
+    if tuple(t.shape) != tuple(dst.shape):
+        raise ValueError(f"{name}: JAX shape {tuple(t.shape)} != port shape "
+                         f"{tuple(dst.shape)}")
+    with torch.no_grad():
+        dst.copy_(t)
+
+
+def llama_from_jax(params: Mapping[str, Any], cfg: LlamaConfig,
+                   device: DeviceLike = "cuda") -> Llama:
+    """A ``Llama`` on ``device`` holding the values of the JAX pytree
+    ``params`` (numpy leaves), in ``cfg.param_dtype``."""
+    model = Llama(cfg, device)
+    layers = params["layers"]
+    keys = LAYER_KEYS + (MOE_KEYS if cfg.n_experts else ())
+    missing = [k for k in keys if k not in layers]
+    if missing:
+        raise KeyError(f"JAX params lack layer keys {missing}")
+    _copy(model.embed, params["embed"], "embed")
+    for key in keys:
+        stacked = np.asarray(layers[key])
+        if stacked.shape[0] != cfg.n_layers:
+            raise ValueError(f"layers/{key}: {stacked.shape[0]} layers, "
+                             f"config has {cfg.n_layers}")
+        for i, lp in enumerate(model.layers):
+            _copy(getattr(lp, key), stacked[i], f"layers/{key}[{i}]")
+    _copy(model.final_norm, params["final_norm"], "final_norm")
+    _copy(model.lm_head, params["lm_head"], "lm_head")
+    return model

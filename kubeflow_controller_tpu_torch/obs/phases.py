@@ -1,0 +1,13 @@
+"""Beat phases a serving replica reports — the port's copy of the serving
+subset of ``kubeflow_controller_tpu/obs/phases.py``.
+
+The values must stay equal to the reference's: the controller's stall
+detector and goodput ledger key on these strings (a serving replica holds
+its frozen-step deadline while it beats any of the three).
+"""
+
+from __future__ import annotations
+
+PHASE_LOAD = "load"               # serving model load
+PHASE_SERVING = "serving"         # serving decode loop — serving goodput
+PHASE_DRAIN = "drain"             # serving graceful drain

@@ -1,0 +1,140 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+At first use, every ``csrc/*.cu`` is compiled for ``sm_90a`` — one
+``nvcc`` process per source, all started together — and linked into one
+shared library with a plain C interface.  The library lands in
+``build/`` inside this package (listed in ``.gitignore``) under a name
+keyed by the sources' content hash, so an edited source never loads a
+stale build and a rebuilt checkout reuses nothing it should not.
+
+A build failure raises with the compiler's output.  Nothing here runs at
+import time: the CPU tests import every module of the port on hosts that
+have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import List, Optional
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              *ARCH_FLAGS]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points and their signatures (pointers and the stream as void*,
+# sizes as int; the return value is a cudaError_t code).
+_SIGNATURES = {
+    "kctpu_gmm": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "kctpu_gmm_swiglu": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "kctpu_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+class KernelLibrary:
+    """The loaded shared library plus what its build printed."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, build_seconds: float,
+                 log: str):
+        self.lib = lib
+        self.path = path
+        self.build_seconds = build_seconds
+        self.log = log
+
+    def check(self, code: int, what: str) -> None:
+        """Raise if a C entry point returned a CUDA error code."""
+        if code != 0:
+            msg = self.lib.kctpu_error_string(code).decode()
+            raise RuntimeError(f"{what} launch failed: CUDA error {code} "
+                               f"({msg})")
+
+
+_LOCK = threading.Lock()
+_LIBRARY: Optional[KernelLibrary] = None
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").is_file():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH); the CUDA kernels "
+                           "are built from source at first use")
+    return found
+
+
+def _content_key(srcs: List[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds: List[List[str]]) -> str:
+    """Run the commands in parallel; raise with the output of any that
+    failed, else return their combined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [(c, o) for c, p, o in zip(cmds, procs, outs) if p.returncode]
+    if failed:
+        detail = "\n".join(f"$ {' '.join(c)}\n{o}" for c, o in failed)
+        raise RuntimeError(f"kernel build failed:\n{detail}")
+    return "".join(outs)
+
+
+def build() -> KernelLibrary:
+    """Compile (unless a build of the same content exists) and load."""
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    lib_path = BUILD_DIR / f"libkctpu_kernels_{_content_key(srcs)}.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not lib_path.exists():
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [Path(tmp) / f"{s.stem}.o" for s in srcs]
+            log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+                            for s, o in zip(srcs, objs)])
+            staged = Path(tmp) / lib_path.name
+            log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o",
+                              str(staged), *map(str, objs)]])
+            os.replace(staged, lib_path)
+    build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(lib_path))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return KernelLibrary(lib, lib_path, build_seconds, log)
+
+
+def library() -> KernelLibrary:
+    """The process's kernel library, built and loaded on first call."""
+    global _LIBRARY
+    with _LOCK:
+        if _LIBRARY is None:
+            _LIBRARY = build()
+        return _LIBRARY

@@ -1,0 +1,134 @@
+"""Workload-side heartbeat publisher — the port's copy of the part of
+``kubeflow_controller_tpu/workloads/progress.py`` that the serve entry
+point uses.
+
+Heartbeats ``{step, examplesPerSec, loss, phase, <serving gauges>}`` flow
+over one of two transports, chosen from the environment the node agent
+injects: REST (``KCTPU_PROGRESS_URL``: PUT to the pod's ``progress``
+subresource) or a file drop (``KCTPU_PROGRESS_DIR``: one atomic JSON file
+per pod).  Both are best-effort: a lost beat never fails the workload.
+
+Left out against the reference: the ``compiling()`` context and the
+keepalive thread (PyTorch runs eagerly; there is no opaque compile window
+to cover) and the ``workload/first_step`` trace span.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+ENV_POD_NAMESPACE = "KCTPU_POD_NAMESPACE"
+ENV_POD_NAME = "KCTPU_POD_NAME"
+ENV_PROGRESS_DIR = "KCTPU_PROGRESS_DIR"
+ENV_PROGRESS_URL = "KCTPU_PROGRESS_URL"
+
+
+def drop_filename(namespace: str, name: str) -> str:
+    """The file-drop name for a pod (flat dir, '/' is not filename-safe)."""
+    return f"{namespace}__{name}.json"
+
+
+def camel(name: str) -> str:
+    """snake_case -> camelCase (``ttft_ms`` -> ``ttftMs``)."""
+    parts = name.split("_")
+    return parts[0] + "".join(p.title() for p in parts[1:])
+
+
+@dataclass
+class ProgressReporter:
+    """Publishes heartbeats for ONE pod; fields merge across beats so a
+    phase-only beat keeps the last reported step/rate/loss."""
+
+    namespace: str = ""
+    name: str = ""
+    url: str = ""       # API server base URL (REST transport)
+    drop_dir: str = ""  # file-drop directory (fallback transport)
+    _last: Dict[str, object] = field(default_factory=dict)
+    _lock: threading.Lock = field(default_factory=threading.Lock)
+
+    @staticmethod
+    def from_env(env: Optional[Dict[str, str]] = None) -> "ProgressReporter":
+        e = os.environ if env is None else env
+        return ProgressReporter(
+            namespace=e.get(ENV_POD_NAMESPACE, "default") or "default",
+            name=e.get(ENV_POD_NAME, ""),
+            url=e.get(ENV_PROGRESS_URL, "").rstrip("/"),
+            drop_dir=e.get(ENV_PROGRESS_DIR, ""),
+        )
+
+    @property
+    def enabled(self) -> bool:
+        return bool(self.name and (self.url or self.drop_dir))
+
+    def beat(self, step: Optional[int] = None,
+             examples_per_sec: Optional[float] = None,
+             loss: Optional[float] = None,
+             phase: Optional[str] = None,
+             serving: Optional[Dict] = None) -> None:
+        """Publish one heartbeat; None fields carry the previous value.
+        ``serving`` carries the serving-plane gauges
+        (``ServeStats.as_beat``), published under camelCase keys."""
+        if not self.enabled:
+            return
+        with self._lock:
+            if step is not None:
+                self._last["step"] = int(step)
+            if examples_per_sec is not None:
+                self._last["examplesPerSec"] = float(examples_per_sec)
+            if loss is not None:
+                self._last["loss"] = float(loss)
+            if phase is not None:
+                self._last["phase"] = phase
+            for snake, value in (serving or {}).items():
+                self._last[camel(snake)] = value
+            body = dict(self._last)
+        self._publish(body)
+
+    def _publish(self, body: Dict) -> None:
+        try:
+            if self.url:
+                self._publish_rest(body)
+            elif self.drop_dir:
+                self._publish_drop(body)
+        except Exception:  # noqa: BLE001 — beats never break the workload
+            pass
+
+    def _publish_rest(self, body: Dict) -> None:
+        import urllib.request
+
+        req = urllib.request.Request(
+            f"{self.url}/api/v1/namespaces/{self.namespace}/pods/"
+            f"{self.name}/progress",
+            data=json.dumps(body).encode(), method="PUT",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=5.0):
+            pass
+
+    def _publish_drop(self, body: Dict) -> None:
+        # Atomic tmp+rename so the ingesting kubelet never reads a torn
+        # write; mtime is the liveness signal, so rewrite even when the
+        # payload is unchanged.
+        path = os.path.join(self.drop_dir,
+                            drop_filename(self.namespace, self.name))
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as fh:
+            json.dump(body, fh)
+        os.replace(tmp, path)
+
+
+_REPORTER: Optional[ProgressReporter] = None
+_REPORTER_LOCK = threading.Lock()
+
+
+def reporter() -> ProgressReporter:
+    """The process-global reporter, built from the env once (a pod process
+    reports for exactly one pod)."""
+    global _REPORTER
+    with _REPORTER_LOCK:
+        if _REPORTER is None:
+            _REPORTER = ProgressReporter.from_env()
+        return _REPORTER
