@@ -7,17 +7,21 @@ explicit ``device`` that defaults to ``"cuda"`` and raises when CUDA is
 absent, so nothing silently runs on the CPU; the tests pass
 ``device="cpu"``.
 
-Layer map of the current slice (the continuous-batching serving replica
-over a grouped-dispatch MoE Llama):
+Layer map of the ported slices (the continuous-batching serving replica
+over a grouped-dispatch MoE Llama; the single-device Llama pretrain):
 
 - ``device``      — device resolution (no fallback) and dtype names
 - ``bridge``      — JAX parameter pytree (numpy) -> the port's modules
-- ``models/``     — ``llama`` (config, blocks, module tree, init), ``moe``
-                    (router + grouped dispatch), ``generate`` (paged KV cache)
+- ``models/``     — ``llama`` (config, blocks, module tree, init, training
+                    forward and loss), ``moe`` (router + grouped dispatch),
+                    ``generate`` (paged KV cache)
 - ``ops/``        — hand-written Hopper kernels with plain PyTorch versions
-                    beside them, and the ``nvcc`` build that loads them
+                    beside them (grouped matmuls, flash attention), and the
+                    ``nvcc`` build that loads them
 - ``csrc/``       — the CUDA C++ sources (sm_90a)
-- ``obs/``, ``workloads/`` — phase names, progress beats, the serve engine
+- ``parallel/``   — the attention oracle (``ring.attention_reference``)
+- ``obs/``, ``workloads/`` — phase names, progress beats, the serve engine,
+                    the pretrain driver with its data, optimizer and runtime
 """
 
 __version__ = "0.1.0"

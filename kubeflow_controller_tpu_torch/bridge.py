@@ -7,7 +7,9 @@ layout, and copies it into a ``models.llama.Llama``: layer i of the
 stacked array becomes ``model.layers[i]``'s parameter of the same name.
 Both the MoE keys (``router``, ``w_gate``, ``w_up``, ``w_down`` with an
 expert axis) and the dense ones are covered.  The tests use this so that
-both packages compute the same function.
+both packages compute the same function; ``requires_grad=True`` makes the
+bridged model trainable, so its gradients can be held against
+``jax.grad``.  ``tokens_from_jax`` carries a ``[B, T]`` token array across.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from .device import DeviceLike
+from .device import DeviceLike, resolve_device
 from .models.llama import Llama, LlamaConfig
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
@@ -44,10 +46,12 @@ def _copy(dst: torch.nn.Parameter, src: Any, name: str) -> None:
 
 
 def llama_from_jax(params: Mapping[str, Any], cfg: LlamaConfig,
-                   device: DeviceLike = "cuda") -> Llama:
+                   device: DeviceLike = "cuda",
+                   requires_grad: bool = False) -> Llama:
     """A ``Llama`` on ``device`` holding the values of the JAX pytree
-    ``params`` (numpy leaves), in ``cfg.param_dtype``."""
-    model = Llama(cfg, device)
+    ``params`` (numpy leaves), in ``cfg.param_dtype``; its parameters
+    require grad when asked."""
+    model = Llama(cfg, device, requires_grad)
     layers = params["layers"]
     keys = LAYER_KEYS + (MOE_KEYS if cfg.n_experts else ())
     missing = [k for k in keys if k not in layers]
@@ -64,3 +68,13 @@ def llama_from_jax(params: Mapping[str, Any], cfg: LlamaConfig,
     _copy(model.final_norm, params["final_norm"], "final_norm")
     _copy(model.lm_head, params["lm_head"], "lm_head")
     return model
+
+
+def tokens_from_jax(tokens: Any, device: DeviceLike = "cuda") -> torch.Tensor:
+    """A JAX (or numpy) ``[B, T]`` integer token array as an int64 tensor
+    on ``device``, values unchanged."""
+    arr = np.array(tokens)
+    if arr.ndim != 2 or arr.dtype.kind not in "iu":
+        raise ValueError(f"tokens must be a [B, T] integer array, got "
+                         f"{arr.dtype} {arr.shape}")
+    return torch.from_numpy(arr.astype(np.int64)).to(resolve_device(device))

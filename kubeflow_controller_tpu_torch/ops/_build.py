@@ -25,6 +25,8 @@ import time
 from pathlib import Path
 from typing import List, Optional
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
@@ -34,11 +36,19 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points and their signatures (pointers and the stream as void*,
-# sizes as int; the return value is a cudaError_t code).
+# sizes and flags as int, scales as float; the return value is a
+# cudaError_t code).
 _SIGNATURES = {
     "kctpu_gmm": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "kctpu_gmm_swiglu": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    # q, k, v, o, lse, B, H, T, D, scale, causal, stream
+    "kctpu_flash_fwd": ([_P] * 5 + [_I] * 4 + [_F, _I, _P], _I),
+    # q, k, v, do, lse, delta, dq, B, H, T, D, scale, causal, stream
+    "kctpu_flash_dq": ([_P] * 7 + [_I] * 4 + [_F, _I, _P], _I),
+    # q, k, v, do, lse, delta, dk, dv, B, H, T, D, scale, causal, stream
+    "kctpu_flash_dkv": ([_P] * 8 + [_I] * 4 + [_F, _I, _P], _I),
     "kctpu_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -129,6 +139,12 @@ def build() -> KernelLibrary:
         fn.argtypes = argtypes
         fn.restype = restype
     return KernelLibrary(lib, lib_path, build_seconds, log)
+
+
+def stream(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on ``t``'s device: every
+    kernel launches there."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def library() -> KernelLibrary:

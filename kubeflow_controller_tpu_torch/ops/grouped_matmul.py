@@ -19,7 +19,10 @@ wrapper counts its kernel launches in its ``launches`` attribute.
 
 Forward only: the custom VJPs (and the ``tgmm`` weight-gradient kernels
 behind them) and the ``valid_tiles`` compute-skip of the ep-sharded path
-come with MoE training (ROADMAP.md).
+come with MoE training (ROADMAP.md).  Until then both wrappers raise
+``NotImplementedError`` when grad mode is on and an operand requires
+grad, on every device: the CUDA kernels have no backward, and the CPU's
+plain versions must not differentiate what the card cannot.
 """
 
 from __future__ import annotations
@@ -99,8 +102,12 @@ def _check(lhs, weights, tile_experts, bm) -> None:
         raise ValueError("tile_experts must be contiguous")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _no_backward(name: str, *operands: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        raise NotImplementedError(
+            f"{name} has no backward yet (ROADMAP.md, M1: the gmm / "
+            "gmm_swiglu VJPs and the tgmm kernels); call it under "
+            "torch.no_grad() or on operands that do not require grad")
 
 
 def gmm(lhs: torch.Tensor, rhs: torch.Tensor, tile_experts: torch.Tensor,
@@ -110,6 +117,7 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, tile_experts: torch.Tensor,
     lhs [M, K], rhs [E, K, N], tile_experts [M // bm] int32 in [0, E);
     every bm-row tile belongs to one expert (``models/moe.py`` builds this
     layout)."""
+    _no_backward("gmm", lhs, rhs)
     if lhs.device.type == "cpu":
         return gmm_plain(lhs, rhs, tile_experts, bm)
     _check(lhs, (rhs,), tile_experts, bm)
@@ -119,7 +127,7 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, tile_experts: torch.Tensor,
     lib = _build.library()
     code = lib.lib.kctpu_gmm(lhs.data_ptr(), rhs.data_ptr(),
                              tile_experts.data_ptr(), out.data_ptr(),
-                             m, k, n, bm, _stream(lhs))
+                             m, k, n, bm, _build.stream(lhs))
     lib.check(code, "gmm")
     gmm.launches += 1
     return out
@@ -132,6 +140,7 @@ def gmm_swiglu(lhs: torch.Tensor, rhs_g: torch.Tensor, rhs_u: torch.Tensor,
                tile_experts: torch.Tensor, bm: int) -> torch.Tensor:
     """Fused grouped SwiGLU: ``silu(lhs @ rhs_g[e]) * (lhs @ rhs_u[e])``
     per row tile, the SwiGLU applied to the f32 products."""
+    _no_backward("gmm_swiglu", lhs, rhs_g, rhs_u)
     if lhs.device.type == "cpu":
         return gmm_swiglu_plain(lhs, rhs_g, rhs_u, tile_experts, bm)
     _check(lhs, (rhs_g, rhs_u), tile_experts, bm)
@@ -141,7 +150,7 @@ def gmm_swiglu(lhs: torch.Tensor, rhs_g: torch.Tensor, rhs_u: torch.Tensor,
     lib = _build.library()
     code = lib.lib.kctpu_gmm_swiglu(lhs.data_ptr(), rhs_g.data_ptr(),
                                     rhs_u.data_ptr(), tile_experts.data_ptr(),
-                                    h.data_ptr(), m, k, n, bm, _stream(lhs))
+                                    h.data_ptr(), m, k, n, bm, _build.stream(lhs))
     lib.check(code, "gmm_swiglu")
     gmm_swiglu.launches += 1
     return h

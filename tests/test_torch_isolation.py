@@ -24,13 +24,19 @@ import torch
 import kubeflow_controller_tpu_torch as port
 from kubeflow_controller_tpu_torch import bridge, device
 from kubeflow_controller_tpu_torch.models import generate, llama
-from kubeflow_controller_tpu_torch.workloads import serve
+from kubeflow_controller_tpu_torch.workloads import data, llama_pretrain, serve
 
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = Path(port.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "kubeflow_controller_tpu")
+
+
+# The modules of each slice, which the checks below must reach.
+SLICE_MODULES = ("workloads.serve", "ops.grouped_matmul", "ops.attention",
+                 "parallel.ring", "workloads.data", "workloads.trainer",
+                 "workloads.runtime", "workloads.llama_pretrain")
 
 
 def forbidden(name: str) -> bool:
@@ -66,7 +72,8 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     loaded = json.loads(res.stdout.strip().splitlines()[-1])
-    assert "kubeflow_controller_tpu_torch.workloads.serve" in loaded
+    for name in SLICE_MODULES:
+        assert f"kubeflow_controller_tpu_torch.{name}" in loaded, name
     assert "chip_smoke" in loaded
     assert [m for m in loaded if forbidden(m)] == []
 
@@ -103,8 +110,13 @@ def tiny():
     lambda: bridge.llama_from_jax({}, tiny()),
     lambda: serve.LlamaBackend(tiny()),
     lambda: serve.main(["--port", "0"]),
+    lambda: bridge.tokens_from_jax(np.zeros((1, 2), np.int32)),
+    lambda: data.synthetic_tokens(1, 2, 8, 16),
+    lambda: llama_pretrain.train(tiny(), steps=1, batch_size=1, seq_len=8),
+    lambda: llama_pretrain.main(["--steps", "1"]),
 ], ids=["resolve_device", "Llama", "llama_init", "init_paged_cache",
-        "llama_from_jax", "LlamaBackend", "serve.main"])
+        "llama_from_jax", "LlamaBackend", "serve.main", "tokens_from_jax",
+        "synthetic_tokens", "llama_pretrain.train", "llama_pretrain.main"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()

@@ -1,0 +1,331 @@
+"""Port parity: the single-device pretrain path of
+``kubeflow_controller_tpu_torch`` (``models/llama.py`` forward and loss,
+``workloads/{data,trainer,runtime,llama_pretrain}.py``) against the JAX
+package, from JAX parameters bridged into the port.
+
+- ``llama_loss`` and every parameter gradient against
+  ``jax.value_and_grad(llama_loss)`` on ``LlamaConfig.tiny`` (f32), dense
+  and GQA, across attention "flash" (JAX: the Pallas kernels under
+  ``interpret=True``; port: the flash op's plain versions) and "xla", remat
+  on and off, dense and chunked (``loss_chunks=4``) loss.  Tolerance: loss
+  within 1e-5 relative, each gradient within 1e-4 of its max |grad|.
+- one ``default_optimizer`` step against optax on the same gradients,
+  clipping on and off: parameters within 1e-6.
+- ``synthetic_tokens`` byte-equal across the packages.
+- three steps of the pretrain loop from one bridged init: each step's loss
+  within 1e-4 of the JAX loop's.
+- the CLI on the CPU, and what it refuses (a mesh, checkpointing, a gang).
+- what is not ported yet raises: gradients through the grouped matmuls,
+  MoE training, named remat policies, a mesh.
+"""
+
+import dataclasses
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from kubeflow_controller_tpu.models.llama import LlamaConfig as JaxLlamaConfig
+from kubeflow_controller_tpu.models.llama import llama_init as jax_llama_init
+from kubeflow_controller_tpu.models.llama import llama_loss as jax_llama_loss
+from kubeflow_controller_tpu.workloads import data as jax_data
+from kubeflow_controller_tpu.workloads.runtime import JobRuntime as JaxJobRuntime
+from kubeflow_controller_tpu.workloads.trainer import default_optimizer as jax_default_optimizer
+from kubeflow_controller_tpu_torch import bridge
+from kubeflow_controller_tpu_torch.models import llama as tllama
+from kubeflow_controller_tpu_torch.ops import grouped_matmul as tgm
+from kubeflow_controller_tpu_torch.workloads import data as tdata
+from kubeflow_controller_tpu_torch.workloads import llama_pretrain as tpre
+from kubeflow_controller_tpu_torch.workloads import runtime as truntime
+from kubeflow_controller_tpu_torch.workloads import trainer as ttrainer
+
+torch.set_num_threads(2)
+
+LOSS_RTOL = 1e-5
+GRAD_RTOL = 1e-4
+SEQ = 64
+
+
+def numpy_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def flat_grads(model, jax_grads):
+    """(name, port grad, JAX grad) for every parameter of the port."""
+    out = [("embed", model.embed.grad, jax_grads["embed"]),
+           ("final_norm", model.final_norm.grad, jax_grads["final_norm"]),
+           ("lm_head", model.lm_head.grad, jax_grads["lm_head"])]
+    for key in bridge.LAYER_KEYS:
+        for i, lp in enumerate(model.layers):
+            out.append((f"layers/{key}[{i}]", getattr(lp, key).grad,
+                        jax_grads["layers"][key][i]))
+    return out
+
+
+# (id, config overrides) — dense is n_kv_heads = n_heads; GQA is tiny's 2.
+CASES = [
+    ("dense-xla", dict(n_kv_heads=4, attention="xla")),
+    ("dense-flash-remat-chunks", dict(n_kv_heads=4, attention="flash",
+                                      remat=True, loss_chunks=4)),
+    ("gqa-flash", dict(attention="flash")),
+    ("gqa-xla-remat-chunks", dict(attention="xla", remat=True,
+                                  loss_chunks=4)),
+    ("gqa-flash-remat", dict(attention="flash", remat=True)),
+]
+
+
+@pytest.mark.parametrize("overrides", [c[1] for c in CASES],
+                         ids=[c[0] for c in CASES])
+def test_loss_and_every_gradient_match_jax(overrides):
+    jcfg = JaxLlamaConfig.tiny(**overrides)
+    cfg = tllama.LlamaConfig.tiny(**overrides)
+    params = jax_llama_init(jax.random.PRNGKey(0), jcfg)
+    tokens = jax_data.synthetic_tokens(3, 2, SEQ, jcfg.vocab_size)
+    ref_loss, ref_grads = jax.value_and_grad(jax_llama_loss)(
+        params, tokens, jcfg)
+    ref_grads = numpy_tree(ref_grads)
+
+    model = bridge.llama_from_jax(numpy_tree(params), cfg, device="cpu",
+                                  requires_grad=True)
+    loss = tllama.llama_loss(model, bridge.tokens_from_jax(tokens, "cpu"),
+                             cfg)
+    loss.backward()
+    assert abs(loss.item() - float(ref_loss)) <= LOSS_RTOL * abs(
+        float(ref_loss))
+    for name, got, ref in flat_grads(model, ref_grads):
+        assert got is not None, name
+        err = np.max(np.abs(got.numpy() - ref))
+        assert err <= GRAD_RTOL * np.max(np.abs(ref)), (name, err)
+
+
+def test_forward_aux_and_hidden_match_the_loss_path():
+    """``return_hidden`` gives the final-norm states the logits come from,
+    and ``return_aux`` the dense layers' zero router stats."""
+    cfg = tllama.LlamaConfig.tiny()
+    params = numpy_tree(jax_llama_init(jax.random.PRNGKey(1),
+                                       JaxLlamaConfig.tiny()))
+    model = bridge.llama_from_jax(params, cfg, device="cpu")
+    tokens = tdata.synthetic_tokens(5, 2, 32, cfg.vocab_size, "cpu")
+    with torch.no_grad():
+        logits, aux = tllama.llama_forward(model, tokens, cfg,
+                                           return_aux=True)
+        hidden = tllama.llama_forward(model, tokens, cfg, return_hidden=True)
+    assert logits.dtype == torch.float32
+    assert logits.shape == (2, 32, cfg.vocab_size)
+    torch.testing.assert_close(hidden @ model.lm_head, logits)
+    assert {k: float(v) for k, v in aux.items()} == {
+        "aux_loss": 0.0, "z_loss": 0.0, "overflow_frac": 0.0}
+
+
+@pytest.mark.parametrize("grad_scale", [0.01, 10.0],
+                         ids=["under-clip", "clipped"])
+def test_one_optimizer_step_matches_optax(grad_scale):
+    rng = np.random.default_rng(0)
+    shapes = {"a": (8, 16), "b": (16,), "c": (4, 4, 4)}
+    params = {k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()}
+    grads = {k: (rng.standard_normal(s) * grad_scale).astype(np.float32)
+             for k, s in shapes.items()}
+    norm = np.sqrt(sum(np.sum(g.astype(np.float64) ** 2)
+                       for g in grads.values()))
+    assert (norm >= 1.0) == (grad_scale > 1)
+
+    opt = jax_default_optimizer(3e-4, weight_decay=0.1)
+    state = opt.init(params)
+    updates, _ = opt.update(grads, state, params)
+    want = numpy_tree(optax.apply_updates(params, updates))
+
+    tparams = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+               for k, v in params.items()}
+    topt = ttrainer.default_optimizer(tparams.values(), 3e-4,
+                                      weight_decay=0.1)
+    for k, p in tparams.items():
+        p.grad = torch.from_numpy(grads[k].copy())
+    got_norm = topt.step()
+    assert abs(float(got_norm) - norm) <= 1e-5 * norm
+    for k, p in tparams.items():
+        assert np.max(np.abs(p.detach().numpy() - want[k])) <= 1e-6, k
+
+
+@pytest.mark.parametrize("seed", [1, 7])
+def test_synthetic_tokens_are_byte_equal(seed):
+    want = np.asarray(jax_data.synthetic_tokens(
+        jax.random.PRNGKey(seed), 16, 96, 300))
+    got = tdata.synthetic_tokens(seed, 16, 96, 300, device="cpu")
+    assert got.dtype == torch.int32 and want.dtype == np.int32
+    assert got.numpy().tobytes() == want.tobytes()
+    with pytest.raises(TypeError):
+        tdata.synthetic_tokens(jax.random.PRNGKey(seed), 1, 2, 3, "cpu")
+
+
+def test_pretrain_loop_losses_match_the_jax_loop():
+    """Three steps of the reference's ``llama_pretrain`` loop (jit'd
+    value_and_grad -> default_optimizer -> apply_updates, tokens from
+    ``synthetic_tokens(PRNGKey(1), ...)``) and of the port's ``train`` from
+    the same bridged init."""
+    steps, bs, lr = 3, 4, 3e-4
+    jcfg = JaxLlamaConfig.tiny(max_seq_len=SEQ)
+    params = jax_llama_init(jax.random.PRNGKey(0), jcfg)
+    opt = jax_default_optimizer(lr, weight_decay=0.1)
+    state = opt.init(params)
+
+    @jax.jit
+    def step_fn(p, s, tokens):
+        loss, grads = jax.value_and_grad(jax_llama_loss)(p, tokens, jcfg)
+        updates, s = opt.update(grads, s, p)
+        return optax.apply_updates(p, updates), s, loss
+
+    model = bridge.llama_from_jax(numpy_tree(params),
+                                  tllama.LlamaConfig.tiny(max_seq_len=SEQ),
+                                  device="cpu", requires_grad=True)
+    tokens_all = jax_data.synthetic_tokens(jax.random.PRNGKey(1),
+                                           max(64, 2 * bs), SEQ,
+                                           jcfg.vocab_size)
+    want = []
+    p = params
+    for i in range(steps):
+        lo = (i * bs) % max(1, tokens_all.shape[0] - bs + 1)
+        p, state, loss = step_fn(p, state, tokens_all[lo:lo + bs])
+        want.append(float(loss))
+
+    res = tpre.train(tllama.LlamaConfig.tiny(max_seq_len=SEQ), steps=steps,
+                     batch_size=bs, seq_len=SEQ, lr=lr, device="cpu",
+                     model=model)
+    assert len(res.losses) == steps
+    assert np.max(np.abs(np.array(res.losses) - want)) <= 1e-4, (
+        res.losses, want)
+
+
+def test_train_step_continues_the_loop():
+    """``TrainResult.step(i)`` is step i of the same loop (same optimizer
+    state, same token rows): two steps and then ``step(2)`` give the third
+    loss of a three-step run."""
+    cfg = tllama.LlamaConfig.tiny(max_seq_len=32)
+    kw = dict(batch_size=2, seq_len=32, device="cpu", seed=3)
+    three = tpre.train(cfg, steps=3, **kw)
+    two = tpre.train(cfg, steps=2, **kw)
+    assert two.losses == three.losses[:2]
+    assert two.step(2) == pytest.approx(three.losses[2], rel=0, abs=1e-6)
+
+
+def test_main_runs_on_the_cpu(capsys, tmp_path, monkeypatch):
+    monkeypatch.delenv("MODEL_DIR", raising=False)
+    monkeypatch.delenv("KCTPU_MESH", raising=False)
+    assert tpre.main(["--device", "cpu", "--steps", "2", "--batch-size", "2",
+                      "--seq-len", "32", "--fsdp", "-1", "--profile-dir",
+                      str(tmp_path / "trace")]) == 0
+    out = capsys.readouterr().out
+    assert "Training elapsed time:" in out
+    assert "Final loss:" in out and "tokens/s" in out
+    assert (tmp_path / "trace" / "trace.json").is_file()
+
+
+@pytest.mark.parametrize("argv,env", [
+    (["--tp", "2"], {}),
+    (["--fsdp", "2"], {}),
+    (["--pp", "2"], {}),
+    ([], {"KCTPU_MESH": '{"dp": 2}'}),
+    ([], {"MODEL_DIR": "/nonexistent/model"}),
+    (["--checkpoint-every", "5"], {}),
+    ([], {"JAX_NUM_PROCESSES": "2"}),
+], ids=["tp", "fsdp", "pp", "env-mesh", "model-dir", "checkpoint-every",
+        "gang"])
+def test_main_refuses_what_is_not_ported(argv, env, monkeypatch):
+    for name in ("MODEL_DIR", "KCTPU_MESH", "JAX_NUM_PROCESSES"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpre.main(["--device", "cpu", "--steps", "1", *argv])
+
+
+def test_runtime_from_env_matches_jax():
+    env = {"JAX_COORDINATOR_ADDRESS": "h0:1234", "JAX_NUM_PROCESSES": "4",
+           "JAX_PROCESS_ID": "2", "TPU_ACCELERATOR_TYPE": "v5p-32",
+           "TPU_WORKER_HOSTNAMES": "h0,h1,,h2", "MEGASCALE_NUM_SLICES": "2",
+           "MEGASCALE_SLICE_ID": "1",
+           "MEGASCALE_COORDINATOR_ADDRESS": "h2:1",
+           "KCTPU_MESH": '{"dp": 2, "fsdp": "4"}',
+           "KCTPU_GANG_GENERATION": "3", "MODEL_DIR": "/m", "LOG_DIR": "/l",
+           "DATA_DIR": "/d", "EXPORT_DIR": "/e"}
+    for e in (env, {}, {"KCTPU_MESH": "not json", "KCTPU_GANG_WIDTH": "5"}):
+        want = dataclasses.asdict(JaxJobRuntime.from_env(e))
+        got = dataclasses.asdict(truntime.JobRuntime.from_env(e))
+        assert got == want
+    one = truntime.JobRuntime.from_env({})
+    one.initialize()
+    with pytest.raises(NotImplementedError, match="M5"):
+        truntime.JobRuntime.from_env(env).initialize()
+
+
+def test_grouped_matmuls_refuse_gradients():
+    """No backward yet on any device: the CPU's plain versions would
+    differentiate what the card's kernels cannot."""
+    lhs = torch.randn(32, 16)
+    rhs = torch.randn(2, 16, 24)
+    te = torch.zeros(4, dtype=torch.int32)
+    for args in ((lhs.clone().requires_grad_(), rhs),
+                 (lhs, rhs.clone().requires_grad_())):
+        with pytest.raises(NotImplementedError, match="M1"):
+            tgm.gmm(*args, te, 8)
+        with pytest.raises(NotImplementedError, match="M1"):
+            tgm.gmm_swiglu(args[0], args[1], rhs, te, 8)
+    with torch.no_grad():
+        tgm.gmm(lhs.requires_grad_(), rhs, te, 8)
+    tgm.gmm_swiglu(lhs.detach(), rhs, rhs, te, 8)
+
+
+def test_not_ported_paths_raise():
+    cfg = tllama.LlamaConfig.tiny()
+    model = tllama.Llama(cfg, device="cpu", requires_grad=True)
+    tokens = torch.zeros((1, 8), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tllama.llama_forward(model, tokens, cfg, mesh=object())
+    for policy in ("dots", "ffn", "gateup", "gateup_attn", "moe"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tllama.llama_loss(model, tokens, dataclasses.replace(
+                cfg, remat=True, remat_policy=policy))
+    with pytest.raises(ValueError, match="unknown remat_policy"):
+        tllama.llama_loss(model, tokens, dataclasses.replace(
+            cfg, remat=True, remat_policy="nope"))
+    moe_cfg = tllama.LlamaConfig.tiny(n_experts=4, moe_dispatch="grouped")
+    moe = tllama.Llama(moe_cfg, device="cpu", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="M1"):
+        tllama.llama_loss(moe, tokens, moe_cfg)
+
+
+def test_flash_request_the_kernels_cannot_take_warns_once():
+    """On a non-CPU device the flash path obeys the kernels' rule: f32 (or
+    T off the tile) under attention='flash' warns once and takes the plain
+    path; 'auto' stays quiet.  The meta device stands in for CUDA."""
+    q = torch.empty((1, 100, 4, 16), device="meta")
+    flash = tllama.LlamaConfig.tiny(attention="flash")
+    tllama._FLASH_FALLBACK_WARNED.clear()
+    with pytest.warns(UserWarning, match="falling back"):
+        assert tllama._flash_path(q, q, q, True, flash) is None
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert tllama._flash_path(q, q, q, True, flash) is None
+        auto = tllama.LlamaConfig.tiny(attention="auto")
+        assert tllama._flash_path(q, q, q, True, auto) is None
+
+
+def test_auto_takes_the_plain_path_on_the_cpu():
+    q = torch.randn((1, 2048, 2, 8))
+    auto = tllama.LlamaConfig.tiny(attention="auto")
+    assert tllama._flash_path(q, q, q, True, auto) is None
+    flash = tllama.LlamaConfig.tiny(attention="flash")
+    assert tllama._flash_path(q[:, :64], q[:, :64], q[:, :64], True,
+                              flash) is not None
+
+
+def test_tokens_from_jax():
+    arr = jnp.arange(12, dtype=jnp.int32).reshape(3, 4)
+    t = bridge.tokens_from_jax(arr, "cpu")
+    assert t.dtype == torch.int64 and t.tolist() == np.asarray(arr).tolist()
+    with pytest.raises(ValueError):
+        bridge.tokens_from_jax(np.zeros((2, 2), np.float32), "cpu")
