@@ -4,7 +4,8 @@ serving path.
 - ``llama`` — ``LlamaConfig``, the parameter module tree, ``llama_init``,
   the building blocks (``rmsnorm``, RoPE, ``ffn_block``) and the training
   forward and loss (``llama_forward``, ``llama_loss``).
-- ``moe`` — router and the grouped (dropless) expert dispatch.
+- ``moe`` — router and the expert dispatches: ``einsum`` and ``scatter``
+  (capacity-dropping) and ``grouped`` (dropless, the CUDA kernels).
 - ``generate`` — the slot-paged KV cache: prefill, tail extend, decode
   step, row copy.
 """

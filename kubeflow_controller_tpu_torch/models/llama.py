@@ -16,9 +16,12 @@ to the activation dtype where they are used; logits and the loss are f32.
 Parameters are created with ``requires_grad=False`` (the serving default);
 training asks for gradients (``Llama(..., requires_grad=True)``).
 
+MoE layers train through the same path: their expert FFN is
+``models/moe.py`` (``cfg.moe_dispatch``, the grouped kernels' custom
+backward), and ``llama_loss`` adds the router losses.
+
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md): a mesh
-(multi-device pretrain), the named remat policies other than ``"full"``,
-and MoE layers under autograd (M1).
+(multi-device pretrain) and the named remat policies other than ``"full"``.
 """
 
 from __future__ import annotations
@@ -41,8 +44,8 @@ from .moe import moe_ffn, moe_ffn_stats
 class LlamaConfig:
     """A copy of the reference's ``LlamaConfig``: same fields, same
     defaults, so one set of keyword arguments builds either package's
-    config.  Fields the port does not read yet (``sp_attention``,
-    ``capacity_factor`` of the einsum dispatch) are kept for that reason."""
+    config.  Fields the port does not read yet (``sp_attention``) are kept
+    for that reason."""
 
     vocab_size: int = 32000
     dim: int = 4096
@@ -204,7 +207,9 @@ def ffn_block(h: torch.Tensor, lp: LlamaLayer,
     """SwiGLU FFN or MoE on [B, T, D] activations."""
     if cfg.n_experts:
         return moe_ffn(h, lp.router, lp.w_gate, lp.w_up, lp.w_down,
-                       top_k=cfg.moe_top_k, dispatch=cfg.moe_dispatch)
+                       top_k=cfg.moe_top_k,
+                       capacity_factor=cfg.capacity_factor,
+                       dispatch=cfg.moe_dispatch)
     dtype = h.dtype
     gate = torch.einsum("btd,df->btf", h, lp.w_gate.to(dtype))
     up = torch.einsum("btd,df->btf", h, lp.w_up.to(dtype))
@@ -348,11 +353,6 @@ def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     chunk by chunk)."""
     if mesh is not None:
         raise NotImplementedError(_MESH_NOT_PORTED)
-    if (cfg.n_experts and torch.is_grad_enabled()
-            and any(p.requires_grad for p in model.parameters())):
-        raise NotImplementedError(
-            "MoE training is not ported yet (ROADMAP.md, M1: the gmm / "
-            "gmm_swiglu VJPs and the tgmm kernels)")
     dtype = torch_dtype(cfg.dtype)
     t = tokens.shape[1]
     x = model.embed[tokens.long()].to(dtype)

@@ -1,42 +1,60 @@
-"""Mixture-of-Experts FFN, grouped (dropless) dispatch — the port of the
-forward of ``kubeflow_controller_tpu/models/moe.py``'s ``"grouped"`` path.
+"""Mixture-of-Experts FFN — the port of the single-device paths of
+``kubeflow_controller_tpu/models/moe.py``, forward and backward.
 
 Tokens are routed top-k (softmax over the selected k, the Mixtral
-convention), laid out by expert into a group-aligned row layout (every
-``bm``-row tile belongs to one expert), run through the grouped-matmul
-kernels (``ops/grouped_matmul.py``: fused gate/up/SwiGLU, then the
-down-projection) and gathered back, weighted by the router probabilities.
+convention) and reach their experts through one of three dispatches, as in
+the reference:
 
-The layout is built exactly as the reference builds it, sort-free: each
-slot's rank inside its expert is an exclusive cumsum over the one-hot
+- ``"einsum"`` (the default): each expert holds ``C = capacity or
+  max(1, ceil(T·k/E·capacity_factor))`` slots per sequence, filled in
+  routing order; overflow drops (contributes zero).  One-hot dispatch and
+  combine tensors ``[B, T, E, C]``, the k axis folded away before the
+  one-hot (a token routes to an expert at most once).
+- ``"scatter"``: the same capacity rule; tokens scatter into flat
+  ``[B, E·C]`` expert buffers and gather back by slot index.  Dropped slots
+  aim one row past ``E·C`` and are discarded.
+- ``"grouped"``: dropless.  Tokens are laid out by expert into a
+  group-aligned row layout (every ``bm``-row tile belongs to one expert),
+  run through the grouped-matmul kernels (``ops/grouped_matmul.py``: fused
+  gate/up/SwiGLU, then the down-projection) and gathered back, weighted by
+  the router probabilities.
+
+The grouped layout is built exactly as the reference builds it, sort-free:
+each slot's rank inside its expert is an exclusive cumsum over the one-hot
 assignment, expert regions start at ``bm``-aligned padded offsets, tile
 owners come from ``searchsorted(..., side="right")`` clamped to E - 1, and
 pad rows read a sentinel zero row.  All of it stays on the device: no host
-sync per layer.
+sync per layer.  The two row gathers (dispatch and combine) are bijections
+plus the sentinel, so their backward is a gather through the inverse maps
+(``_DispatchRows``/``_CombineRows``), never a scatter-add.
 
-Differences from the reference (ROADMAP.md, faults queue):
+Grouped dispatch on a device other than the CPU obeys the CUDA kernels'
+rule (:func:`grouped_kernel_rule`: bf16 activations, D and F multiples of
+8); where it fails, the call falls back to ``"einsum"`` with one warning in
+the reference's words, which ``--strict-moe-dispatch`` (a warnings filter
+on "moe dispatch") turns into an error.  On the CPU the plain versions take
+every shape.
 
-- the reference falls back to ``"einsum"`` below the TPU tiling grain (D or
-  F not multiples of 128, B*T*k not a multiple of the dtype's sublane
-  tile); those are Mosaic rules, and the port runs the grouped path at any
-  shape;
-- ``"einsum"``, ``"scatter"``, the ep-sharded path and the custom VJPs are
-  not ported yet and raise ``NotImplementedError``.
+Differences from the reference (ROADMAP.md, faults queue): the reference's
+fallback rule is the TPU tiling grain (D or F not multiples of 128, B·T·k
+not a multiple of the dtype's sublane tile), a Mosaic rule the port does
+not carry; the ep-sharded grouped path (``_grouped_ffn_sharded``) needs a
+mesh and is not ported (M4).
 """
 
 from __future__ import annotations
 
+import math
+import warnings
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.nn import functional as F
 
 from ..ops.grouped_matmul import gmm, gmm_swiglu
 
-_NOT_PORTED = ("moe dispatch={!r} is not ported yet (ROADMAP.md, module "
-               "queue: 'MoE training'); the serving slice runs "
-               "dispatch='grouped'")
+DISPATCHES = ("einsum", "scatter", "grouped")
 
 
 def router_topk(logits: torch.Tensor,
@@ -59,11 +77,42 @@ def _route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
     return logits, probs, idx
 
 
-def _check_dispatch(dispatch: str) -> None:
-    if dispatch in ("einsum", "scatter"):
-        raise NotImplementedError(_NOT_PORTED.format(dispatch))
-    if dispatch != "grouped":
+def grouped_kernel_rule(x: torch.Tensor, w_gate: torch.Tensor
+                        ) -> Optional[str]:
+    """Why the grouped-matmul CUDA kernels cannot take this MoE call, or
+    None when they can: bf16 activations (the weights are cast to them),
+    D and F in whole 16-byte chunks."""
+    d, f = x.shape[-1], w_gate.shape[-1]
+    if x.dtype != torch.bfloat16:
+        return f"the CUDA kernels' rule (bf16 operands, got {x.dtype})"
+    if d % 8 or f % 8:
+        return (f"the CUDA kernels' rule (D and F multiples of 8, got D={d}, "
+                f"F={f})")
+    return None
+
+
+_GROUPED_FALLBACK_WARNED: set = set()
+
+
+def _resolve_dispatch(dispatch: str, x: torch.Tensor,
+                      w_gate: torch.Tensor) -> str:
+    """The dispatch that runs: ``dispatch``, except that ``"grouped"`` off
+    the CPU becomes ``"einsum"`` where :func:`grouped_kernel_rule` refuses,
+    with one warning per reason (the reference's text and fallback)."""
+    if dispatch not in DISPATCHES:
         raise ValueError(f"unknown dispatch {dispatch!r}")
+    if dispatch != "grouped" or x.device.type == "cpu":
+        return dispatch
+    why = grouped_kernel_rule(x, w_gate)
+    if why is None:
+        return dispatch
+    if why not in _GROUPED_FALLBACK_WARNED:
+        # Recorded only once the warning returns: under an "error" filter
+        # (--strict-moe-dispatch) every such call raises.
+        warnings.warn(f"moe dispatch='grouped' cannot run under {why}; "
+                      "falling back to 'einsum'", stacklevel=3)
+        _GROUPED_FALLBACK_WARNED.add(why)
+    return "einsum"
 
 
 def _pow2_floor(block_m: int) -> int:
@@ -74,46 +123,121 @@ def _pow2_floor(block_m: int) -> int:
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, *, top_k: int = 2,
-            dispatch: str = "grouped", block_m: int = 256) -> torch.Tensor:
+            capacity_factor: float = 1.25, capacity: int = 0,
+            dispatch: str = "einsum", block_m: int = 256) -> torch.Tensor:
     """Like :func:`moe_ffn_stats` but returns only the output (and skips
     the router statistics — eager PyTorch would otherwise compute what
     XLA dead-code-eliminates on the reference's serving path)."""
-    _check_dispatch(dispatch)
-    dtype = x.dtype
+    dispatch = _resolve_dispatch(dispatch, x, w_gate)
     _, probs, idx = _route(x, router_w, top_k)
-    return _grouped_ffn(x, probs, idx, w_gate.to(dtype), w_up.to(dtype),
-                        w_down.to(dtype), block_m=_pow2_floor(block_m))
+    y, _ = _dispatch_ffn(x, probs, idx, w_gate, w_up, w_down, dispatch,
+                         capacity_factor, capacity, block_m)
+    return y
 
 
 def moe_ffn_stats(x: torch.Tensor, router_w: torch.Tensor,
                   w_gate: torch.Tensor, w_up: torch.Tensor,
                   w_down: torch.Tensor, *, top_k: int = 2,
                   capacity_factor: float = 1.25, capacity: int = 0,
-                  dispatch: str = "grouped", block_m: int = 256):
+                  dispatch: str = "einsum", block_m: int = 256):
     """x [B, T, D]; router_w [D, E]; w_gate/w_up [E, D, F]; w_down [E, F, D].
 
     Returns ``(y [B, T, D], stats)`` with the reference's router stats:
     ``aux_loss`` (Switch load balancing, E * sum_e f_e * P_e), ``z_loss``
-    (mean logsumexp(logits)^2) and ``overflow_frac`` (0: grouped dispatch
-    is dropless, so ``capacity_factor``/``capacity`` do not apply).
-
-    ``dispatch`` defaults to ``"grouped"``, the one the port has; the
-    reference defaults to ``"einsum"``."""
-    _check_dispatch(dispatch)
-    dtype = x.dtype
+    (mean logsumexp(logits)^2) and ``overflow_frac`` (the fraction of
+    routing slots the capacity dropped, not differentiable; 0 for the
+    dropless grouped dispatch)."""
+    dispatch = _resolve_dispatch(dispatch, x, w_gate)
     n_experts = router_w.shape[-1]
     logits, probs, idx = _route(x, router_w, top_k)
-    y = _grouped_ffn(x, probs, idx, w_gate.to(dtype), w_up.to(dtype),
-                     w_down.to(dtype), block_m=_pow2_floor(block_m))
+    y, keep = _dispatch_ffn(x, probs, idx, w_gate, w_up, w_down, dispatch,
+                            capacity_factor, capacity, block_m)
     assign = F.one_hot(idx, n_experts).float()                  # [B,T,k,E]
     f = assign.mean(dim=(0, 1, 2))
     p = torch.softmax(logits, dim=-1).mean(dim=(0, 1))
+    if keep is None:
+        overflow = torch.zeros((), device=x.device)
+    else:
+        overflow = (1.0 - keep.sum() / assign.sum().clamp_min(1.0)).detach()
     stats: Dict[str, torch.Tensor] = {
         "aux_loss": n_experts * torch.sum(f * p),
         "z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
-        "overflow_frac": torch.zeros((), device=x.device),
+        "overflow_frac": overflow,
     }
     return y, stats
+
+
+def _dispatch_ffn(x, probs, idx, w_gate, w_up, w_down, dispatch: str,
+                  capacity_factor: float, capacity: int, block_m: int):
+    """The expert FFN through ``dispatch``: ``(y, keep)``, where ``keep``
+    [B, T, k, E] marks the kept (token, slot) assignments of the capacity
+    dispatches (None for grouped, which keeps every one)."""
+    dtype = x.dtype
+    wg, wu, wd = w_gate.to(dtype), w_up.to(dtype), w_down.to(dtype)
+    if dispatch == "grouped":
+        return _grouped_ffn(x, probs, idx, wg, wu, wd,
+                            block_m=_pow2_floor(block_m)), None
+    b, t, k = idx.shape
+    n_experts = wg.shape[0]
+    # Slots per expert per sequence.
+    capacity = capacity or max(1, math.ceil(t * k / n_experts
+                                            * capacity_factor))
+    # Each (token, slot)'s position in its expert's buffer, counted in
+    # routing order over the flattened (T, k) axis.
+    assign = F.one_hot(idx, n_experts).float()                  # [B,T,k,E]
+    flat = assign.reshape(b, t * k, n_experts)
+    pos_flat = flat.cumsum(dim=1) - flat                        # exclusive
+    pos = pos_flat.reshape(b, t, k, n_experts)
+    keep = (pos < capacity) * assign                            # drop overflow
+    if dispatch == "scatter":
+        y = _scatter_ffn(x, probs, idx, pos_flat, capacity, wg, wu, wd)
+    else:
+        y = _einsum_ffn(x, probs, pos, keep, capacity, wg, wu, wd)
+    return y, keep
+
+
+def _expert_ffn(xe, w_gate, w_up, w_down) -> torch.Tensor:
+    """xe [B, E, C, D] -> [B, E, C, D], each expert's SwiGLU."""
+    gate = torch.einsum("becd,edf->becf", xe, w_gate)
+    up = torch.einsum("becd,edf->becf", xe, w_up)
+    return torch.einsum("becf,efd->becd", F.silu(gate) * up, w_down)
+
+
+def _einsum_ffn(x, probs, pos, keep, capacity, w_gate, w_up, w_down):
+    """One-hot dispatch and combine over [B, T, E, C]."""
+    dtype = x.dtype
+    keep_e = keep.sum(dim=2)                                    # [B,T,E] 0/1
+    pos_e = (keep * pos).sum(dim=2).long()                      # [B,T,E]
+    prob_e = torch.einsum("btk,btke->bte", probs, keep)
+    pos_oh = F.one_hot(pos_e, capacity).float()                 # [B,T,E,C]
+    disp = keep_e[..., None] * pos_oh
+    combine = prob_e[..., None] * pos_oh
+    xe = torch.einsum("btec,btd->becd", disp.to(dtype), x)
+    ye = _expert_ffn(xe, w_gate, w_up, w_down)
+    return torch.einsum("btec,becd->btd", combine.to(dtype), ye)
+
+
+def _scatter_ffn(x, probs, idx, pos_flat, capacity, w_gate, w_up, w_down):
+    """Tokens scatter into the flat expert buffers, results gather back."""
+    b, t, d = x.shape
+    k = idx.shape[-1]
+    n_experts = w_gate.shape[0]
+    slots = n_experts * capacity
+    slot_e = idx.reshape(b, t * k)
+    slot_pos = pos_flat.gather(-1, slot_e[..., None])[..., 0].long()
+    slot_keep = slot_pos < capacity
+    # Flat buffer row e * C + pos; dropped slots aim at the extra row
+    # ``slots``, which is cut off.
+    target = torch.where(slot_keep, slot_e * capacity + slot_pos, slots)
+    rows = target[..., None].expand(b, t * k, d)
+    xe = x.new_zeros((b, slots + 1, d)).scatter_add(
+        1, rows, x.repeat_interleave(k, dim=1))[:, :slots]
+    ye = _expert_ffn(xe.reshape(b, n_experts, capacity, d), w_gate, w_up,
+                     w_down).reshape(b, slots, d)
+    y_slot = ye.gather(1, rows.clamp(max=slots - 1))
+    y_slot = torch.where(slot_keep[..., None], y_slot, 0)
+    return torch.einsum("btk,btkd->btd", probs.to(x.dtype),
+                        y_slot.reshape(b, t, k, d))
 
 
 @dataclass
@@ -124,13 +248,15 @@ class GroupedLayout:
     upper bound); ``dest[s]`` the layout row of routing slot s;
     ``tile_experts[i]`` the expert owning tile i (int32, clamped to E - 1
     past the last group); ``inv_src[r]`` the token feeding layout row r
-    (``n_tok``, the sentinel zero row, for pad rows)."""
+    (``n_tok``, the sentinel zero row, for pad rows); ``inv_pos[r]`` the
+    slot read back from row r (``n_slots``, the sentinel, for pad rows)."""
 
     bm: int
     m: int
     dest: torch.Tensor
     tile_experts: torch.Tensor
     inv_src: torch.Tensor
+    inv_pos: torch.Tensor
 
 
 def grouped_layout(idx: torch.Tensor, n_experts: int,
@@ -157,20 +283,61 @@ def grouped_layout(idx: torch.Tensor, n_experts: int,
     tile_starts = torch.arange(m // bm, device=dev) * bm
     tile_experts = torch.searchsorted(ends, tile_starts, right=True)
     tile_experts = tile_experts.clamp_(max=n_experts - 1).to(torch.int32)
+    slot_ids = torch.arange(n_slots, device=dev)
     inv_src = torch.full((m,), n_tok, dtype=torch.long, device=dev)
-    inv_src[dest] = torch.arange(n_slots, device=dev) // k
-    return GroupedLayout(bm, m, dest, tile_experts, inv_src)
+    inv_src[dest] = slot_ids // k
+    inv_pos = torch.full((m,), n_slots, dtype=torch.long, device=dev)
+    inv_pos[dest] = slot_ids
+    return GroupedLayout(bm, m, dest, tile_experts, inv_src, inv_pos)
 
 
-def _dispatch_rows(h: torch.Tensor, inv_src: torch.Tensor) -> torch.Tensor:
-    """[n_tok, D] -> [M, D]: row p = h[inv_src[p]] (sentinel -> zero row)."""
-    h_pad = torch.cat([h, h.new_zeros((1, h.shape[1]))], dim=0)
-    return h_pad.index_select(0, inv_src)
+def _with_zero_row(h: torch.Tensor) -> torch.Tensor:
+    return torch.cat([h, h.new_zeros((1, h.shape[1]))], dim=0)
 
 
-def _combine_rows(y_pad: torch.Tensor, dest: torch.Tensor) -> torch.Tensor:
-    """[M, D] -> [N, D]: slot s reads y_pad[dest[s]]."""
-    return y_pad.index_select(0, dest)
+class _DispatchRows(torch.autograd.Function):
+    """[n_tok, D] -> [M, D]: row p = h[inv_src[p]] (sentinel -> zero row).
+    Backward: dh[t] = sum over t's k slots of dy[slot_dest2d[t, :]], gathers
+    through the inverse map (the reference's ``_dispatch_rows`` VJP)."""
+
+    @staticmethod
+    def forward(ctx, h, inv_src, slot_dest2d):
+        ctx.save_for_backward(slot_dest2d)
+        return _with_zero_row(h).index_select(0, inv_src)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (slot_dest2d,) = ctx.saved_tensors
+        dh = dy.index_select(0, slot_dest2d[:, 0])
+        for j in range(1, slot_dest2d.shape[1]):
+            dh = dh + dy.index_select(0, slot_dest2d[:, j])
+        return dh, None, None
+
+
+class _CombineRows(torch.autograd.Function):
+    """[M, D] -> [N, D]: slot s reads y_pad[slot_dest[s]].  Backward:
+    dy_pad[p] = d[inv_pos[p]] (sentinel -> zero), a gather, since the map is
+    a bijection on real rows (the reference's ``_combine_rows`` VJP)."""
+
+    @staticmethod
+    def forward(ctx, y_pad, slot_dest, inv_pos):
+        ctx.save_for_backward(inv_pos)
+        return y_pad.index_select(0, slot_dest)
+
+    @staticmethod
+    def backward(ctx, d):
+        (inv_pos,) = ctx.saved_tensors
+        return _with_zero_row(d).index_select(0, inv_pos), None, None
+
+
+def _dispatch_rows(h: torch.Tensor, inv_src: torch.Tensor,
+                   slot_dest2d: torch.Tensor) -> torch.Tensor:
+    return _DispatchRows.apply(h, inv_src, slot_dest2d)
+
+
+def _combine_rows(y_pad: torch.Tensor, slot_dest: torch.Tensor,
+                  inv_pos: torch.Tensor) -> torch.Tensor:
+    return _CombineRows.apply(y_pad, slot_dest, inv_pos)
 
 
 def _grouped_ffn(x, probs, idx, w_gate, w_up, w_down,
@@ -179,10 +346,11 @@ def _grouped_ffn(x, probs, idx, w_gate, w_up, w_down,
     b, t, d = x.shape
     k = idx.shape[-1]
     lay = grouped_layout(idx, w_gate.shape[0], block_m)
-    x_pad = _dispatch_rows(x.reshape(b * t, d), lay.inv_src)
+    x_pad = _dispatch_rows(x.reshape(b * t, d), lay.inv_src,
+                           lay.dest.reshape(b * t, k))
     hh = gmm_swiglu(x_pad, w_gate, w_up, lay.tile_experts, lay.bm)
     y_pad = gmm(hh, w_down, lay.tile_experts, lay.bm)
-    y_slot = _combine_rows(y_pad, lay.dest)                     # [N, D]
+    y_slot = _combine_rows(y_pad, lay.dest, lay.inv_pos)        # [N, D]
     return torch.einsum("btk,btkd->btd", probs.to(x.dtype),
                         y_slot.reshape(b, t, k, d))
 

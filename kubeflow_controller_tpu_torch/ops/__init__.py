@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version.
 
-- ``grouped_matmul`` — ``gmm`` and ``gmm_swiglu`` (CUDA C++,
-  ``csrc/grouped_matmul.cu``), the MoE expert FFN.
+- ``grouped_matmul`` — ``gmm``, ``gmm_swiglu`` and the weight-gradient
+  ``tgmm`` (CUDA C++, ``csrc/grouped_matmul.cu``), the MoE expert FFN,
+  ``gmm`` and ``gmm_swiglu`` differentiable.
 - ``attention`` — ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` (CUDA C++,
   ``csrc/flash_attention.cu``) behind the differentiable
   ``flash_attention``.

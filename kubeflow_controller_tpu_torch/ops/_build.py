@@ -41,8 +41,15 @@ _F = ctypes.c_float
 # sizes and flags as int, scales as float; the return value is a
 # cudaError_t code).
 _SIGNATURES = {
-    "kctpu_gmm": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "kctpu_gmm_swiglu": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    # lhs, rhs, tile_experts, valid_tiles (or NULL), out, M, K, N, bm,
+    # transpose_rhs, stream
+    "kctpu_gmm": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    # lhs, rhs_g, rhs_u, tile_experts, h, gate (or NULL), up (or NULL), M, K,
+    # N, bm, stream
+    "kctpu_gmm_swiglu": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    # lhs, dout, tile_experts, valid_tiles (or NULL), out, M, K, N, bm,
+    # n_experts, stream
+    "kctpu_tgmm": ([_P] * 5 + [_I] * 5 + [_P], _I),
     # q, k, v, o, lse, B, H, T, D, scale, causal, stream
     "kctpu_flash_fwd": ([_P] * 5 + [_I] * 4 + [_F, _I, _P], _I),
     # q, k, v, do, lse, delta, dq, B, H, T, D, scale, causal, stream

@@ -12,6 +12,14 @@ bigram tokens (``data.synthetic_tokens``, seed 1: the reference's
 ``PRNGKey(1)``).  The loop itself is :func:`train`, which takes a
 ``LlamaConfig``, so a caller can drive it at a cut depth.
 
+MoE: ``--experts E`` (with ``--top-k`` and ``--moe-dispatch``
+einsum|scatter|grouped) trains a mixture-of-experts model; "grouped" runs
+the dropless grouped-matmul CUDA kernels forward and backward, and falls
+back to "einsum" with a warning where they cannot take the operands (the
+tiny preset is f32); ``--strict-moe-dispatch`` makes that fallback an
+error.  On the CPU every dispatch runs as asked, through the kernels' plain
+versions.
+
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md): any mesh
 axis other than 1 (``--fsdp -1`` is 1 on one device) and ``--pp > 1``
 (multi-device pretrain), a multi-process gang, and checkpointing
@@ -132,14 +140,18 @@ def main(argv=None) -> int:
     p.add_argument("--ep", type=int, default=1,
                    help="expert-parallel mesh extent")
     p.add_argument("--experts", type=int, default=0,
-                   help="MoE expert count (0 = dense FFN; MoE training is "
-                        "not ported yet)")
+                   help="MoE expert count (0 = dense FFN)")
     p.add_argument("--top-k", type=int, default=2, help="MoE router top-k")
     p.add_argument("--moe-dispatch", choices=["einsum", "scatter", "grouped"],
-                   default="einsum", help="MoE routing implementation")
+                   default="einsum",
+                   help="MoE routing implementation; 'grouped' = dropless "
+                        "grouped-matmul CUDA kernels (falls back to einsum, "
+                        "with a warning, for operands they do not take: not "
+                        "bf16, or dims not multiples of 8)")
     p.add_argument("--strict-moe-dispatch", action="store_true",
                    help="fail instead of falling back when --moe-dispatch "
-                        "cannot run (installed as a warnings filter)")
+                        "cannot run (installed as a warnings filter on "
+                        "'moe dispatch')")
     p.add_argument("--dim", type=int, default=0,
                    help="model dim override for the tiny preset (0 = preset "
                         "default)")

@@ -49,7 +49,8 @@ def module_name(path: Path) -> str:
 
 
 def port_sources():
-    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + sorted((REPO / "tools").glob("*.py")))
 
 
 def test_forbidden_matches_exact_names_only():

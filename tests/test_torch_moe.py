@@ -1,16 +1,19 @@
-"""Port parity: ``kubeflow_controller_tpu_torch.models.moe`` (grouped
-dispatch) against the JAX package's ``moe_ffn_stats(dispatch="grouped")``
-and ``moe_ffn_reference``.
+"""Port parity: ``kubeflow_controller_tpu_torch.models.moe`` against the
+JAX package's ``moe_ffn_stats`` (dispatches "einsum", "scatter" and
+"grouped"; values, router stats and gradients) and ``moe_ffn_reference``.
 
 The JAX side runs its Pallas kernels under ``interpret=True`` (D and F
 multiples of 128, B*T*k a multiple of the f32 sublane tile, so it takes
-the grouped path, not its einsum fallback).  The layout check captures
+the grouped path, not its einsum fallback; the gradient cases turn that
+fallback's warning into an error to prove it).  The layout check captures
 what JAX's ``_grouped_ffn`` hands its kernels (``tile_experts``) and its
 combine (the destination rows) by wrapping those two callees.
 
-Tolerance: f32; max |port - jax| <= 1e-5 * max |jax|.  Layout indices
-must be equal exactly.
+Tolerance: f32; max |port - jax| <= 1e-5 * max |jax|, for values and
+gradients.  Layout indices must be equal exactly.
 """
+
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -137,7 +140,8 @@ def test_moe_ffn_equals_stats_output():
     w = [torch.from_numpy(a) for a in weights(6)]
     x = torch.from_numpy(activations(7))
     y, _ = moe.moe_ffn_stats(x, *w, top_k=2, dispatch="grouped")
-    torch.testing.assert_close(moe.moe_ffn(x, *w, top_k=2), y, rtol=0, atol=0)
+    torch.testing.assert_close(moe.moe_ffn(x, *w, top_k=2, dispatch="grouped"),
+                               y, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("k", [1, 2, 3])
@@ -168,20 +172,124 @@ def test_below_tpu_grain_port_stays_grouped_and_dropless():
     assert_close_rel(y.numpy(), ref_jax)
 
 
-@pytest.mark.parametrize("dispatch", ["einsum", "scatter"])
-def test_unported_dispatches_raise_not_implemented(dispatch):
-    w = [torch.from_numpy(a) for a in weights(0)]
-    x = torch.from_numpy(activations(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.moe_ffn_stats(x, *w, dispatch=dispatch)
-    with pytest.raises(NotImplementedError):
-        moe.moe_ffn(x, *w, dispatch=dispatch)
+AUX_COEF, Z_COEF = 1e-2, 1e-3
+
+
+def jax_value_and_grad(x, w, **kw):
+    """(y, stats, grads of x and the four weights) of the reference, the
+    scalar being sum(y * g) plus the router losses; the grouped dispatch's
+    einsum fallback is an error here."""
+    g = np.random.default_rng(99).standard_normal(x.shape).astype(np.float32)
+
+    def loss(xx, *ws):
+        y, st = jax_moe.moe_ffn_stats(xx, *ws, top_k=2, **kw)
+        total = (jnp.sum(y * g) + AUX_COEF * st["aux_loss"]
+                 + Z_COEF * st["z_loss"])
+        return total, (y, st)
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="moe dispatch")
+        (_, (y, st)), grads = jax.value_and_grad(
+            loss, argnums=(0, 1, 2, 3, 4), has_aux=True)(
+                jnp.asarray(x), *map(jnp.asarray, w))
+    return np.asarray(y), {k: float(v) for k, v in st.items()}, grads, g
+
+
+# (dispatch, capacity): capacity 0 is the default rule (C = 10 here);
+# capacity 3 of the ~8 slots each expert is sent makes the capacity
+# dispatches drop more (overflow_frac > 0 is compared either way).
+GRAD_CASES = [("einsum", 0), ("einsum", 3), ("scatter", 0), ("scatter", 3),
+              ("grouped", 0)]
+
+
+@pytest.mark.parametrize("dispatch,capacity", GRAD_CASES,
+                         ids=[f"{d}-c{c}" for d, c in GRAD_CASES])
+def test_moe_ffn_stats_values_and_gradients_match_jax(dispatch, capacity):
+    w = weights(20)
+    x = activations(21)
+    y_ref, st_ref, grads_ref, g = jax_value_and_grad(
+        x, w, dispatch=dispatch, capacity=capacity)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, *w)]
+    y, st = moe.moe_ffn_stats(*ts, top_k=2, dispatch=dispatch,
+                              capacity=capacity)
+    (torch.sum(y * torch.from_numpy(g)) + AUX_COEF * st["aux_loss"]
+     + Z_COEF * st["z_loss"]).backward()
+    assert_close_rel(y.detach().numpy(), y_ref)
+    for key in ("aux_loss", "z_loss", "overflow_frac"):
+        np.testing.assert_allclose(float(st[key].detach()), st_ref[key],
+                                   rtol=1e-5, atol=1e-7, err_msg=key)
+    if capacity:
+        assert st_ref["overflow_frac"] > 0
+    for name, t, ref in zip(("x", "router", "w_gate", "w_up", "w_down"), ts,
+                            grads_ref):
+        assert_close_rel(t.grad.numpy(), np.asarray(ref))
+
+
+def test_default_dispatch_is_einsum_like_the_reference():
+    w = [torch.from_numpy(a) for a in weights(22)]
+    x = torch.from_numpy(activations(23))
+    y, st = moe.moe_ffn_stats(x, *w, capacity=3)
+    y_e, _ = moe.moe_ffn_stats(x, *w, capacity=3, dispatch="einsum")
+    torch.testing.assert_close(y, y_e, rtol=0, atol=0)
+    assert float(st["overflow_frac"]) > 0
+    torch.testing.assert_close(moe.moe_ffn(x, *w, capacity=3), y, rtol=0,
+                               atol=0)
+
+
+def test_grouped_request_the_kernels_cannot_take_falls_back_to_einsum():
+    """Off the CPU, grouped dispatch obeys the CUDA kernels' rule (bf16, D
+    and F multiples of 8): otherwise it warns once, in the reference's
+    words, and runs "einsum"; under the strict filter it raises every time.
+    The meta device stands in for CUDA."""
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, device="meta", dtype=dtype)
+
+    moe._GROUPED_FALLBACK_WARNED.clear()
+    x32, wg = meta(1, 8, 16), meta(4, 16, 32)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="moe dispatch")
+        for _ in range(2):
+            with pytest.raises(UserWarning, match="moe dispatch='grouped'"):
+                moe._resolve_dispatch("grouped", x32, wg)
+    with pytest.warns(UserWarning, match=r"cannot run under .*bf16.*falling "
+                      r"back to 'einsum'"):
+        assert moe._resolve_dispatch("grouped", x32, wg) == "einsum"
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert moe._resolve_dispatch("grouped", x32, wg) == "einsum"
+        xb = meta(1, 8, 16, dtype=torch.bfloat16)
+        assert moe._resolve_dispatch("grouped", xb, wg) == "grouped"
+        assert moe._resolve_dispatch("einsum", x32, wg) == "einsum"
+        cpu = torch.zeros((1, 8, 16))
+        assert moe._resolve_dispatch("grouped", cpu, wg) == "grouped"
+    with pytest.warns(UserWarning, match="multiples of 8"):
+        assert moe._resolve_dispatch(
+            "grouped", meta(1, 8, 12, dtype=torch.bfloat16),
+            meta(4, 12, 32)) == "einsum"
 
 
 def test_unknown_dispatch_raises_value_error():
     w = [torch.from_numpy(a) for a in weights(0)]
     with pytest.raises(ValueError):
         moe.moe_ffn(torch.from_numpy(activations(1)), *w, dispatch="sort")
+    with pytest.raises(ValueError):
+        moe.moe_ffn_stats(torch.from_numpy(activations(1)), *w,
+                          dispatch="sort")
+
+
+def test_layout_inverse_maps_undo_dest():
+    """``inv_src``/``inv_pos`` invert ``dest`` on real rows and point pad
+    rows at the sentinels, so the dispatch and combine backward are
+    gathers."""
+    idx = torch.from_numpy(np.random.default_rng(3).integers(0, 4, (2, 8, 2)))
+    lay = moe.grouped_layout(idx, 4, 8)
+    n_slots = idx.numel()
+    assert torch.equal(lay.inv_pos[lay.dest], torch.arange(n_slots))
+    assert torch.equal(lay.inv_src[lay.dest], torch.arange(n_slots) // 2)
+    pad = torch.ones(lay.m, dtype=torch.bool)
+    pad[lay.dest] = False
+    assert (lay.inv_pos[pad] == n_slots).all()
+    assert (lay.inv_src[pad] == n_slots // 2).all()
 
 
 def test_block_m_rounds_down_to_power_of_two():

@@ -7,16 +7,20 @@ package, from JAX parameters bridged into the port.
   ``jax.value_and_grad(llama_loss)`` on ``LlamaConfig.tiny`` (f32), dense
   and GQA, across attention "flash" (JAX: the Pallas kernels under
   ``interpret=True``; port: the flash op's plain versions) and "xla", remat
-  on and off, dense and chunked (``loss_chunks=4``) loss.  Tolerance: loss
-  within 1e-5 relative, each gradient within 1e-4 of its max |grad|.
+  on and off, dense and chunked (``loss_chunks=4``) loss; and MoE (4
+  experts, router included) under the grouped dispatch (dim 128,
+  intermediate 256, so JAX takes its grouped Pallas path: its einsum
+  fallback is an error here) and einsum, remat off and "full".
+  Tolerance: loss within 1e-5 relative, each gradient within 1e-4 of its
+  max |grad|.
 - one ``default_optimizer`` step against optax on the same gradients,
   clipping on and off: parameters within 1e-6.
 - ``synthetic_tokens`` byte-equal across the packages.
-- three steps of the pretrain loop from one bridged init: each step's loss
-  within 1e-4 of the JAX loop's.
-- the CLI on the CPU, and what it refuses (a mesh, checkpointing, a gang).
-- what is not ported yet raises: gradients through the grouped matmuls,
-  MoE training, named remat policies, a mesh.
+- three steps of the pretrain loop from one bridged init, dense and MoE
+  (grouped): each step's loss within 1e-4 of the JAX loop's.
+- the CLI on the CPU (dense, and MoE under the strict grouped dispatch),
+  and what it refuses (a mesh, checkpointing, a gang).
+- what is not ported yet raises: named remat policies, a mesh.
 """
 
 import dataclasses
@@ -37,7 +41,6 @@ from kubeflow_controller_tpu.workloads.runtime import JobRuntime as JaxJobRuntim
 from kubeflow_controller_tpu.workloads.trainer import default_optimizer as jax_default_optimizer
 from kubeflow_controller_tpu_torch import bridge
 from kubeflow_controller_tpu_torch.models import llama as tllama
-from kubeflow_controller_tpu_torch.ops import grouped_matmul as tgm
 from kubeflow_controller_tpu_torch.workloads import data as tdata
 from kubeflow_controller_tpu_torch.workloads import llama_pretrain as tpre
 from kubeflow_controller_tpu_torch.workloads import runtime as truntime
@@ -59,12 +62,18 @@ def flat_grads(model, jax_grads):
     out = [("embed", model.embed.grad, jax_grads["embed"]),
            ("final_norm", model.final_norm.grad, jax_grads["final_norm"]),
            ("lm_head", model.lm_head.grad, jax_grads["lm_head"])]
-    for key in bridge.LAYER_KEYS:
+    keys = bridge.LAYER_KEYS + (bridge.MOE_KEYS if model.cfg.n_experts
+                                else ())
+    for key in keys:
         for i, lp in enumerate(model.layers):
             out.append((f"layers/{key}[{i}]", getattr(lp, key).grad,
                         jax_grads["layers"][key][i]))
     return out
 
+
+# Widths at which the JAX grouped path runs its kernels (D and F multiples
+# of 128), not its einsum fallback.
+MOE_WIDTHS = dict(dim=128, intermediate=256)
 
 # (id, config overrides) — dense is n_kv_heads = n_heads; GQA is tiny's 2.
 CASES = [
@@ -75,6 +84,12 @@ CASES = [
     ("gqa-xla-remat-chunks", dict(attention="xla", remat=True,
                                   loss_chunks=4)),
     ("gqa-flash-remat", dict(attention="flash", remat=True)),
+    ("moe-grouped", dict(n_experts=4, moe_dispatch="grouped", **MOE_WIDTHS)),
+    ("moe-grouped-remat", dict(n_experts=4, moe_dispatch="grouped",
+                               remat=True, **MOE_WIDTHS)),
+    ("moe-einsum", dict(n_experts=4, moe_dispatch="einsum")),
+    ("moe-einsum-remat", dict(n_experts=4, moe_dispatch="einsum",
+                              remat=True)),
 ]
 
 
@@ -85,8 +100,10 @@ def test_loss_and_every_gradient_match_jax(overrides):
     cfg = tllama.LlamaConfig.tiny(**overrides)
     params = jax_llama_init(jax.random.PRNGKey(0), jcfg)
     tokens = jax_data.synthetic_tokens(3, 2, SEQ, jcfg.vocab_size)
-    ref_loss, ref_grads = jax.value_and_grad(jax_llama_loss)(
-        params, tokens, jcfg)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="moe dispatch")
+        ref_loss, ref_grads = jax.value_and_grad(jax_llama_loss)(
+            params, tokens, jcfg)
     ref_grads = numpy_tree(ref_grads)
 
     model = bridge.llama_from_jax(numpy_tree(params), cfg, device="cpu",
@@ -167,8 +184,19 @@ def test_pretrain_loop_losses_match_the_jax_loop():
     value_and_grad -> default_optimizer -> apply_updates, tokens from
     ``synthetic_tokens(PRNGKey(1), ...)``) and of the port's ``train`` from
     the same bridged init."""
+    check_pretrain_loop({})
+
+
+def test_moe_pretrain_loop_losses_match_the_jax_loop():
+    """The same three steps for a 4-expert model under the grouped
+    dispatch (JAX: its grouped Pallas path, the fallback an error)."""
+    check_pretrain_loop(dict(n_experts=4, moe_dispatch="grouped",
+                             **MOE_WIDTHS))
+
+
+def check_pretrain_loop(overrides):
     steps, bs, lr = 3, 4, 3e-4
-    jcfg = JaxLlamaConfig.tiny(max_seq_len=SEQ)
+    jcfg = JaxLlamaConfig.tiny(max_seq_len=SEQ, **overrides)
     params = jax_llama_init(jax.random.PRNGKey(0), jcfg)
     opt = jax_default_optimizer(lr, weight_decay=0.1)
     state = opt.init(params)
@@ -179,22 +207,23 @@ def test_pretrain_loop_losses_match_the_jax_loop():
         updates, s = opt.update(grads, s, p)
         return optax.apply_updates(p, updates), s, loss
 
-    model = bridge.llama_from_jax(numpy_tree(params),
-                                  tllama.LlamaConfig.tiny(max_seq_len=SEQ),
-                                  device="cpu", requires_grad=True)
+    cfg = tllama.LlamaConfig.tiny(max_seq_len=SEQ, **overrides)
+    model = bridge.llama_from_jax(numpy_tree(params), cfg, device="cpu",
+                                  requires_grad=True)
     tokens_all = jax_data.synthetic_tokens(jax.random.PRNGKey(1),
                                            max(64, 2 * bs), SEQ,
                                            jcfg.vocab_size)
     want = []
     p = params
-    for i in range(steps):
-        lo = (i * bs) % max(1, tokens_all.shape[0] - bs + 1)
-        p, state, loss = step_fn(p, state, tokens_all[lo:lo + bs])
-        want.append(float(loss))
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="moe dispatch")
+        for i in range(steps):
+            lo = (i * bs) % max(1, tokens_all.shape[0] - bs + 1)
+            p, state, loss = step_fn(p, state, tokens_all[lo:lo + bs])
+            want.append(float(loss))
 
-    res = tpre.train(tllama.LlamaConfig.tiny(max_seq_len=SEQ), steps=steps,
-                     batch_size=bs, seq_len=SEQ, lr=lr, device="cpu",
-                     model=model)
+    res = tpre.train(cfg, steps=steps, batch_size=bs, seq_len=SEQ, lr=lr,
+                     device="cpu", model=model)
     assert len(res.losses) == steps
     assert np.max(np.abs(np.array(res.losses) - want)) <= 1e-4, (
         res.losses, want)
@@ -222,6 +251,23 @@ def test_main_runs_on_the_cpu(capsys, tmp_path, monkeypatch):
     assert "Training elapsed time:" in out
     assert "Final loss:" in out and "tokens/s" in out
     assert (tmp_path / "trace" / "trace.json").is_file()
+
+
+def test_main_trains_moe_on_the_cpu(capsys, monkeypatch):
+    """``--experts`` with the strict grouped dispatch: on the CPU it runs
+    grouped (the plain versions), and the strict filter finds no
+    fallback to refuse."""
+    monkeypatch.delenv("MODEL_DIR", raising=False)
+    monkeypatch.delenv("KCTPU_MESH", raising=False)
+    with warnings.catch_warnings():
+        assert tpre.main(["--device", "cpu", "--experts", "4",
+                          "--moe-dispatch", "grouped",
+                          "--strict-moe-dispatch", "--dim", "128",
+                          "--intermediate", "256", "--steps", "2",
+                          "--batch-size", "2", "--seq-len", "32"]) == 0
+    out = capsys.readouterr().out
+    loss = float(out.split("Final loss: ")[1].split(";")[0])
+    assert np.isfinite(loss)
 
 
 @pytest.mark.parametrize("argv,env", [
@@ -262,23 +308,6 @@ def test_runtime_from_env_matches_jax():
         truntime.JobRuntime.from_env(env).initialize()
 
 
-def test_grouped_matmuls_refuse_gradients():
-    """No backward yet on any device: the CPU's plain versions would
-    differentiate what the card's kernels cannot."""
-    lhs = torch.randn(32, 16)
-    rhs = torch.randn(2, 16, 24)
-    te = torch.zeros(4, dtype=torch.int32)
-    for args in ((lhs.clone().requires_grad_(), rhs),
-                 (lhs, rhs.clone().requires_grad_())):
-        with pytest.raises(NotImplementedError, match="M1"):
-            tgm.gmm(*args, te, 8)
-        with pytest.raises(NotImplementedError, match="M1"):
-            tgm.gmm_swiglu(args[0], args[1], rhs, te, 8)
-    with torch.no_grad():
-        tgm.gmm(lhs.requires_grad_(), rhs, te, 8)
-    tgm.gmm_swiglu(lhs.detach(), rhs, rhs, te, 8)
-
-
 def test_not_ported_paths_raise():
     cfg = tllama.LlamaConfig.tiny()
     model = tllama.Llama(cfg, device="cpu", requires_grad=True)
@@ -292,10 +321,6 @@ def test_not_ported_paths_raise():
     with pytest.raises(ValueError, match="unknown remat_policy"):
         tllama.llama_loss(model, tokens, dataclasses.replace(
             cfg, remat=True, remat_policy="nope"))
-    moe_cfg = tllama.LlamaConfig.tiny(n_experts=4, moe_dispatch="grouped")
-    moe = tllama.Llama(moe_cfg, device="cpu", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="M1"):
-        tllama.llama_loss(moe, tokens, moe_cfg)
 
 
 def test_flash_request_the_kernels_cannot_take_warns_once():
