@@ -12,19 +12,29 @@ Phases, in order (any failure raises and exits non-zero):
 
 1. build: ``nvcc`` compiles ``kubeflow_controller_tpu_torch/csrc/*.cu`` for
    sm_90a, one process per source, all at once; prints the build seconds
-   and ptxas' register/spill lines.
+   and ptxas' register/spill/warning lines.  Then ``cuobjdump -sass`` of
+   the library: the HGMMA (wgmma) instructions of each grouped-matmul
+   kernel instantiation, nonzero in every ``gmm_wgmma_kernel`` and
+   ``tgmm_wgmma_kernel`` (the bm >= 64 design), zero in every WMMA
+   ``gmm_kernel`` and ``tgmm_kernel``.
 2. gmm kernels: ``gmm_swiglu`` and ``gmm`` at the decode layout (8 slots x
-   top-2 = 16 routed rows, M = 144, bm = 16) and the prefill layout (a
-   128-token bucket: 256 rows, M = 2304, bm = 256), bf16, against the plain
-   versions computed in f32 on the same inputs.  Only the rows the combine
-   reads are compared (tiles past the last group hold garbage in the
-   reference too).  Tolerance: max |kernel - plain| <= 2e-2 * max |plain|
-   (bf16 output, one rounding).  Prints each kernel's ms, the plain
-   version's ms, a per-expert ``torch.matmul`` loop's ms (``library_ms``, a
-   yardstick the port never calls) and the bound (bytes or FLOPs).
+   top-2 = 16 routed rows, M = 144, bm = 16: WMMA) and the prefill layout (a
+   128-token bucket: 256 rows, M = 2304, bm = 256: ``gmm`` on wgmma), bf16,
+   against the plain versions computed in f32 on the same inputs.  Only
+   the rows the combine reads are compared (tiles past the last group hold
+   garbage in the reference too).  Tolerance: max |kernel - plain| <= 2e-2
+   * max |plain| (bf16 output, one rounding).  Prints each kernel's ms, the
+   plain version's ms, a per-expert ``torch.matmul`` loop's ms
+   (``library_ms``, a yardstick the port never calls) and the bound (bytes
+   or FLOPs).  Then ragged shapes (K 200, N 328: multiples of 8, not of
+   the wgmma tiles) at bm 64 and 128 (wgmma) and 16 (WMMA): ``gmm`` with
+   rhs [E, K, N] and [E, N, K], with and without ``valid_tiles``, every row
+   within 2e-2 of max, skipped rows exactly 0; ``tgmm`` per expert as in
+   phase 3, its tile-short control, the unrouted expert exactly 0.
 3. MoE training kernels at the layout of B 2 x T 4096 (16384 routed rows,
-   M 18432, bm 256), every operand row nonzero (pad rows and the clamped
-   tail included): ``gmm_swiglu`` writing h, gate and up; the down ``gmm``
+   M 18432, bm 256: ``gmm`` and ``tgmm`` on wgmma), every operand row
+   nonzero (pad rows and the clamped tail included): ``gmm_swiglu``
+   writing h, gate and up; the down ``gmm``
    and both transposed-rhs dlhs ``gmm`` shapes (2e-2 of max |plain|, every
    row); ``tgmm`` at the gate/up ([M, 4096] x [M, 14336] -> [8, 4096,
    14336]) and down shapes against ``tgmm_plain`` in f32, each expert's
@@ -57,10 +67,18 @@ Phases, in order (any failure raises and exits non-zero):
 5. serve: ``LlamaBackend`` under a ``ServeEngine`` (8 slots, max_len 256,
    buckets 16/32/64/128) answers 8 requests of 12-120 prompt tokens and 16
    new tokens each.  The gmm launch counters are zeroed just before and
-   read just after; both kernels must have launched.  Then one prefill's
-   logits, kernel path against plain path on the card: max |diff| <= 5e-2 *
-   max |plain| (bf16 activations through 8 layers; each layer rounds twice
-   in the expert FFN alone).
+   read just after; both kernels must have launched.  Then one prefill
+   of the first request, layer by layer: the plain path's input to each of
+   the 8 layers' expert FFN (``moe.moe_ffn``, the grouped path) goes
+   through the kernels and through the plain versions, and each layer
+   must agree within max |kernel - plain| <= 2e-2 * max |plain| (the
+   per-call limit; plain vs plain, differing only in f32 summation order,
+   reads its floor: ``tools/prefill_logits_drift.py``, PERF.md).  A
+   negative control, layer 0 through the kernels with the rows of one
+   expert zeroed in the down gmm's output, must fail it.  The 8-layer
+   logits difference and argmax agreement are printed, without a limit
+   (rounding differences grow through 8 random-init bf16 layers past
+   any useful limit).
 6. profile: ``torch.profiler`` over decode steps and a 128-token prefill
    of the same backend: wall ms, device-busy ms, idle share and kernel
    time by group (PERF.md section 5).
@@ -111,11 +129,13 @@ import sys
 import time
 from contextlib import contextmanager
 from dataclasses import replace
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
 import torch
 
+from kubeflow_controller_tpu_torch.models import llama as llama_mod
 from kubeflow_controller_tpu_torch.models import moe
 from kubeflow_controller_tpu_torch.models.generate import init_paged_cache, paged_prefill
 from kubeflow_controller_tpu_torch.models.llama import LlamaConfig, llama_init, llama_loss
@@ -137,7 +157,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 KERNEL_REL_TOL = 2e-2
-LOGITS_REL_TOL = 5e-2
+LAYER_REL_TOL = KERNEL_REL_TOL     # per layer: each layer's expert FFN
 SOURCE = "kubeflow_controller_tpu_torch/csrc/grouped_matmul.cu"
 REF_FILE = "kubeflow_controller_tpu/ops/grouped_matmul.py"
 FLASH_SOURCE = "kubeflow_controller_tpu_torch/csrc/flash_attention.cu"
@@ -221,12 +241,48 @@ def bound(nbytes: float, flops: float):
 # Phase 1: build
 # ---------------------------------------------------------------------------
 
+# The grouped-matmul kernels' names: the wgmma design must issue HGMMA
+# (wgmma) instructions, the WMMA one must not.
+WGMMA_KERNELS = ("gmm_wgmma_kernel", "tgmm_wgmma_kernel")
+WMMA_KERNELS = ("gmm_kernel", "tgmm_kernel")
+
+
+def hgmma_counts(sass: str) -> dict:
+    """HGMMA instructions per grouped-matmul kernel in ``cuobjdump -sass``
+    output: {kernel name: [count per instantiation]}."""
+    counts: dict = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            # Mangled: <length><identifier>I<template args>...
+            m = re.search(r"\d(t?gmm_(?:wgmma_)?kernel)[IE]", line)
+            name = m.group(1) if m else None
+            if name is not None:
+                counts.setdefault(name, []).append(0)
+        elif name is not None and "HGMMA" in line:
+            counts[name][-1] += 1
+    return counts
+
+
 def build_phase():
     lib = _build.library()
     print(f"build: {lib.build_seconds:.3f} s -> {lib.path.name}", flush=True)
     for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line.lower() for w in ("registers", "spill", "warning")):
             print(f"  ptxas: {line.strip()}")
+    cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(lib.path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts = hgmma_counts(sass)
+    print("build: HGMMA instructions per kernel instantiation: "
+          + json.dumps(counts), flush=True)
+    for name in WGMMA_KERNELS:
+        assert counts.get(name) and all(counts[name]), (
+            f"{name}: no HGMMA instruction")
+    for name in WMMA_KERNELS:
+        assert counts.get(name) and not any(counts[name]), (
+            f"{name}: HGMMA in the WMMA design")
     return lib
 
 
@@ -360,6 +416,61 @@ def kernel_phase(cfg: LlamaConfig, dev, seed: int):
     del wg, wu, wd
     torch.cuda.empty_cache()
     return results
+
+
+# Small ragged shapes: K and N multiples of 8 but not of the wgmma tiles
+# (64 deep; 256 columns; 128 K rows for tgmm), so TMA's edge zero-fill and
+# the masked stores run, at bm 64 and 128 (wgmma) and 16 (WMMA).
+RAGGED_K, RAGGED_N = 200, 328
+RAGGED_TILES = (0, 0, 2, 2, 2, 2)   # expert 1 owns no tile
+RAGGED_VALID = 3                    # valid_tiles: tiles 3-5 skipped
+RAGGED_BMS = (64, 128, 16)
+
+
+def ragged_phase(dev, seed: int):
+    """gmm (rhs [E, K, N] and [E, N, K], with and without valid_tiles,
+    every row within KERNEL_REL_TOL of max, skipped rows exactly 0) and
+    tgmm (per expert within TGMM_REL_TOL, the tile-short control, the
+    unrouted expert exactly 0) at RAGGED_K x RAGGED_N for each bm in
+    RAGGED_BMS."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    k, n, e = RAGGED_K, RAGGED_N, max(RAGGED_TILES) + 1
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(torch.bfloat16)
+
+    te = torch.tensor(RAGGED_TILES, dtype=torch.int32, device=dev)
+    vt = torch.tensor([RAGGED_VALID], dtype=torch.int32, device=dev)
+    res = {"gmm": {}, "tgmm": {}}
+    for bm in RAGGED_BMS:
+        m = len(RAGGED_TILES) * bm
+        rows = torch.arange(m, device=dev)
+        lhs, dout = rnd(m, k), rnd(m, n)
+        weights = {False: rnd(e, k, n, scale=0.1),
+                   True: rnd(e, n, k, scale=0.1)}
+        variant = gm.kernel_variant(bm)
+        for trans, valid in ((False, None), (True, None), (False, vt),
+                             (True, vt)):
+            name = (f"gmm[ragged {variant} bm{bm}"
+                    + (" rhs^T" if trans else "")
+                    + (" valid_tiles" if valid is not None else "") + "]")
+            w = weights[trans]
+            got = gm._gmm(lhs, w, te, bm, valid, transpose_rhs=trans)
+            torch.cuda.synchronize()
+            ref = gm.gmm_plain(lhs.float(), w.float(), te, bm, valid,
+                               transpose_rhs=trans)
+            res["gmm"][name] = check_rel(name, got, ref, rows, KERNEL_REL_TOL)
+            if valid is not None:
+                assert not got[RAGGED_VALID * bm:].any(), (
+                    f"{name}: nonzero rows past valid_tiles")
+        for valid in (None, vt):
+            name = (f"tgmm[ragged {variant} bm{bm}"
+                    + (" valid_tiles" if valid is not None else "") + "]")
+            _, chk = tgmm_check(name, lhs, dout, te, e, bm, valid, empty=(1,),
+                                control=valid is None)
+            res["tgmm"][name] = chk["max_expert_rel"]
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -854,6 +965,60 @@ def prefill_logits(model, cfg: LlamaConfig, prompt, dev,
     return paged_prefill(model, toks, cache, rows, plen, cfg)[0]
 
 
+def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def ffn_layer_inputs(model, cfg: LlamaConfig, prompt, dev):
+    """The plain path's prefill (``prefill_logits`` with the grouped
+    kernels swapped for their plain versions): the expert FFN's arguments
+    in each layer, and the logits."""
+    calls = []
+    real = llama_mod.moe_ffn
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    with plain_grouped_kernels(), mock.patch.object(llama_mod, "moe_ffn",
+                                                    record):
+        logits = prefill_logits(model, cfg, prompt, dev)
+    return calls, logits
+
+
+@torch.no_grad()
+def layer_rel_errs(calls, form_a, form_b):
+    """Per recorded layer: max |ffn_a - ffn_b| / max |ffn_b| of the expert
+    FFN (``moe.moe_ffn``, the grouped path) on that layer's input, each side
+    run under its context manager factory ``form_*``."""
+    errs = []
+    for args, kwargs in calls:
+        with form_a():
+            ya = moe.moe_ffn(*args, **kwargs)
+        with form_b():
+            yb = moe.moe_ffn(*args, **kwargs)
+        assert torch.isfinite(ya).all(), "non-finite expert FFN output"
+        errs.append(rel_max(ya, yb))
+    return errs
+
+
+@contextmanager
+def expert_rows_zeroed():
+    """The negative control of the per-layer check: the kernels, with the
+    rows of the expert owning tile 0 zeroed in the down gmm's output."""
+    real = gm._gmm
+
+    def zeroed(lhs, rhs, te, bm, valid_tiles=None, transpose_rhs=False):
+        out = real(lhs, rhs, te, bm, valid_tiles, transpose_rhs)
+        rows = (te == te[0]).repeat_interleave(bm)
+        return out.masked_fill(rows[:, None], 0)
+
+    with mock.patch.object(gm, "_gmm", zeroed):
+        yield
+
+
 def serve_phase(cfg: LlamaConfig, dev, seed: int):
     scfg = SERVE_CONFIG
     backend = LlamaBackend(cfg, seed=seed, device=dev)
@@ -896,18 +1061,26 @@ def serve_phase(cfg: LlamaConfig, dev, seed: int):
     }
     print("serve: " + json.dumps(out), flush=True)
 
-    # One prefill's logits, kernel path against plain path, on the card.
+    # One prefill, layer by layer: each layer's expert FFN through the
+    # kernels and through the plain versions, on the plain path's input.
+    calls, lp = ffn_layer_inputs(backend.model, cfg, reqs[0].tokens, dev)
+    assert len(calls) == cfg.n_layers, len(calls)
+    per_layer = layer_rel_errs(calls, contextlib.nullcontext,
+                               plain_grouped_kernels)
+    control = layer_rel_errs(calls[:1], expert_rows_zeroed,
+                             plain_grouped_kernels)[0]
     lk = prefill_logits(backend.model, cfg, reqs[0].tokens, dev)
-    with plain_grouped_kernels():
-        lp = prefill_logits(backend.model, cfg, reqs[0].tokens, dev)
     assert lk.shape == (cfg.vocab_size,) and torch.isfinite(lk).all()
-    err = (lk - lp).abs().max().item()
-    scale = lp.abs().max().item()
-    out_l = {"logits_max_abs_err": err, "logits_max_abs": scale,
-             "argmax_equal": bool(lk.argmax() == lp.argmax()),
-             "tol": LOGITS_REL_TOL}
-    print("prefill logits kernel vs plain: " + json.dumps(out_l), flush=True)
-    assert err <= LOGITS_REL_TOL * scale, "prefill logits disagree"
+    out_l = {"per_layer_rel": per_layer, "tol": LAYER_REL_TOL,
+             "control_rel": control,
+             "logits_rel_8_layers": rel_max(lk, lp),
+             "argmax_equal": bool(lk.argmax() == lp.argmax())}
+    print("prefill expert FFN kernel vs plain, per layer: "
+          + json.dumps(out_l), flush=True)
+    assert max(per_layer) <= LAYER_REL_TOL, "a layer's expert FFN disagrees"
+    assert control > LAYER_REL_TOL, (
+        "the per-layer check passed an FFN output with an expert's rows "
+        "zeroed")
     return launches, backend, scfg
 
 
@@ -919,11 +1092,13 @@ KERNEL_GROUPS = (
     ("flash_fwd", lambda n: "flash_fwd_kernel" in n),
     ("flash_dq", lambda n: "flash_dq_kernel" in n),
     ("flash_dkv", lambda n: "flash_dkv_kernel" in n),
-    ("tgmm", lambda n: "tgmm_kernel" in n),
-    # gmm_kernel<BM, BN, WARPS_M, WARPS_N, SWIGLU, TRANS>
-    ("gmm_swiglu", lambda n: re.search(r"gmm_kernel<\d+, \d+, \d+, \d+, "
+    # tgmm_kernel (WMMA) and tgmm_wgmma_kernel; gmm_kernel<BM, BN, WARPS_M,
+    # WARPS_N, SWIGLU, TRANS> (WMMA, gmm_swiglu when SWIGLU) and
+    # gmm_wgmma_kernel<NC, TRANS>.
+    ("tgmm", lambda n: re.search(r"\btgmm_(wgmma_)?kernel", n) is not None),
+    ("gmm_swiglu", lambda n: re.search(r"\bgmm_kernel<\d+, \d+, \d+, \d+, "
                                        r"true", n) is not None),
-    ("gmm", lambda n: "gmm_kernel" in n),
+    ("gmm", lambda n: re.search(r"\bgmm_(wgmma_)?kernel", n) is not None),
     ("library gemm", lambda n: any(w in n for w in (
         "gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_"))),
     ("gather/scatter", lambda n: any(w in n for w in ("index", "gather",
@@ -1185,12 +1360,16 @@ def kernels_line(results, flash, paths):
     for name, main_shape in (("gmm_swiglu", "train"), ("gmm", "train"),
                              ("tgmm", "gate_up")):
         shapes = results[name]
+        for rec in shapes.values():
+            if "bm" in rec:     # the design each timed shape launched
+                rec["variant"] = ("wmma" if name == "gmm_swiglu"
+                                  else gm.kernel_variant(rec["bm"]))
         entries.append({
             **common(name, SOURCE),
             **{k: shapes[main_shape][k] for k in keys},
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()
                                if "max_abs_err" in r),
-            "shape": main_shape,
+            "shape": main_shape, "variant": shapes[main_shape]["variant"],
             **{shape: rec for shape, rec in shapes.items()
                if shape != main_shape},
         })
@@ -1213,6 +1392,8 @@ def main(argv=None) -> int:
     cfg = mixtral_8x7b()
     build_phase()
     results = kernel_phase(cfg, dev, args.seed)
+    for name, recs in ragged_phase(dev, args.seed).items():
+        results.setdefault(name, {})["ragged"] = recs
     for name, recs in moe_kernel_phase(cfg, dev, args.seed,
                                        MOE_TRAIN["batch"],
                                        MOE_TRAIN["seq_len"]).items():

@@ -8,8 +8,8 @@
 //                 out[r] = lhs[r] @ rhs[e(r)]; they differ only in how the
 //                 TPU's VMEM was budgeted and in the skip, so one kernel with
 //                 a K loop and an optional valid_tiles pointer ports all
-//                 three.  A template flag reads rhs as [E, N, K] (rhs^T per
-//                 expert), the operand of the backward's dlhs = dout @ rhs^T.
+//                 three.  rhs is [E, K, N], or [E, N, K] read as rhs^T per
+//                 expert (the backward's dlhs = dout @ rhs^T).
 //   gmm_swiglu <- _gmm2_kernel (l.227), the fused gate/up/SwiGLU forward;
 //                 gate and up are written too when the caller passes their
 //                 pointers (the backward needs them).
@@ -19,35 +19,57 @@
 //
 // Contract (models/moe.py builds the layout): lhs [M, K] bf16 row-major,
 // rhs [E, K, N] bf16 (or [E, N, K] transposed), tile_experts [M / bm]
-// int32, non-decreasing, out [M, N] bf16, with e(r) = tile_experts[r / bm].
-// Every bm-row tile belongs to one expert; bm is a power of two.
-// Accumulation is f32; each output is rounded to bf16 once.
+// int32, non-decreasing (each expert's tiles consecutive), out [M, N] bf16,
+// with e(r) = tile_experts[r / bm].  Every bm-row tile belongs to one
+// expert; bm is a power of two; K and N are multiples of 8.  Accumulation
+// is f32; each output is rounded to bf16 once.
 //
 // What bounds it on this card.  At decode (8 slots, top-2: M = 144, bm = 16)
-// the forward is bytes: the gate and up weights of every touched expert,
-// 2 x 8 x 4096 x 14336 x 2 B = 1.9 GB per layer at Mixtral-8x7B widths, are
-// read once for 16 real rows (~0.56 ms at 3.35 TB/s).  In training (B 2 x
-// T 4096: 16384 routed rows, M = 18432 layout rows, bm = 256) each expert's
-// weights serve ~2048 rows: every product is operations, ~1.9 TFLOP for the
-// gate/up-sized ones (~1.95 ms at 989 TFLOP/s) against ~1.5 GB of bytes.
+// the forward is bytes: the weights of every touched expert, 8 x 4096 x
+// 14336 x 2 B = 0.94 GB per product at Mixtral-8x7B widths, are read for 16
+// real rows.  At prefill (M 2304, bm 256) still bytes (~0.28 ms for the
+// down gmm at 3.35 TB/s).  In training (B 2 x T 4096: 16384 routed rows, M
+// 18432, bm 256) each expert's weights serve ~2048 rows: every product is
+// operations, ~1.9 TFLOP for a gate/up-sized one (~1.95 ms at 989 TFLOP/s).
 //
-// What the design does about it.  gmm: each block owns a row tile of BM
-// rows (never more than bm, so it never straddles two experts) and a
-// BN-wide column slice; it reads its expert id itself (no scalar prefetch)
-// and streams K in BK-deep steps through a two-stage cp.async ring in shared
-// memory, so the next step's loads are in flight while the tensor cores
-// (WMMA m16n16k16, bf16 in, f32 accumulate) work on the current one.
-// blockIdx.x walks the row tiles, so the row tiles of one expert at one
-// column slice are scheduled together and re-read that weight slice from
-// L2.  gmm_swiglu reads each lhs tile once for both products and applies
-// silu(gate) * up to the f32 accumulators before the single bf16 rounding
-// of h.  tgmm: one block per (expert, K tile, N tile) of the output; it
-// finds its expert's tile range in tile_experts itself and runs the
-// contraction over those rows through the same ring, the sum in registers,
-// so no atomics and one write.  The contraction runs over rows, so the lhs
-// tile is read as a column-major A operand straight from its row-major
-// shared-memory copy: no transpose in device memory.  wgmma, TMA and a
-// persistent schedule are later work.
+// Two designs, chosen by bm alone (the wrapper's ops/grouped_matmul.py:
+// kernel_variant; the C entry points refuse a bm their design cannot take):
+//
+// bm >= 64: gmm_wgmma_kernel and tgmm_wgmma_kernel, for the training and
+//   prefill layouts.  Warp-specialised: warpgroup 0 is the producer (one
+//   thread issuing TMA loads, registers given back with setmaxnreg), one or
+//   two consumer warpgroups each hold a 64 x 256 f32 tile in registers and
+//   run wgmma.m64n256k16 on shared-memory operands (csrc/hopper.cuh).  A
+//   4-stage ring of 48 KB stages (64 deep) with a full/empty mbarrier pair
+//   per stage overlaps TMA with the tensor cores; TMA's out-of-bounds zero
+//   fill covers ragged K and N, so no load is masked.
+//   gmm: a block owns BM = min(128, bm) rows (one expert, never two) and 256
+//     columns.  lhs is K-major; rhs is read through a 3-D tensor map with
+//     the expert as a coordinate, MN-major for [E, K, N] and K-major for
+//     [E, N, K], so rhs^T exists nowhere.  Blocks run in groups of 16 row
+//     tiles across the columns, so an expert's weight slice and the group's
+//     rows stay in L2.  Under valid_tiles a block of a skipped tile writes
+//     zeros without loading anything.
+//   tgmm: a block owns out[e][128 K rows x 256 N columns].  Its expert's
+//     tiles are consecutive, so the contraction is one whole-tile row range
+//     [first * bm, (last + 1) * bm), found once per block by a scan of
+//     tile_experts into shared memory; 64 divides every range, so no row is
+//     masked.  Both operands are MN-major in shared memory (lhs^T's M is
+//     lhs's K, contiguous; dout's N, contiguous): wgmma takes both
+//     transposed, so nothing is transposed in device memory.  Blocks of one
+//     expert run in groups of 16 K tiles across N (each wave re-reads about
+//     as many lhs bytes as dout bytes).  One write per output, no atomics;
+//     an expert with no counted tile writes zeros.
+//   The epilogue rounds the accumulators to bf16 once, stages them in the
+//   (then idle) ring and writes each row out in 16-byte stores.
+//
+// bm < 64: gmm_kernel and tgmm_kernel (WMMA m16n16k16 from mma.sync, a
+//   two-stage cp.async ring, 48 KB of static shared memory), and
+//   gmm_swiglu at every bm.  At bm 16 (decode) gmm is bytes-bound and the
+//   step is host-bound, and a 64-row wgmma tile would compute 4x the rows;
+//   a swap-AB wgmma is later work.  gmm_swiglu moves to the wgmma mainloop
+//   next (two accumulators of 64 x 256 do not fit one warpgroup's registers
+//   at this tile, so it needs its own tiling).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,6 +77,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -478,19 +502,328 @@ bool bad_args(int M, int K, int N, int bm) {
          M % bm != 0 || K % 8 != 0 || N % 8 != 0;
 }
 
-template <bool SWIGLU, bool TRANS>
-int dispatch(const void* lhs, const void* rhs0, const void* rhs1,
-             const void* tile_experts, const void* valid_tiles, void* out,
-             void* gate_out, void* up_out, int M, int K, int N, int bm,
-             void* stream) {
-  if (bad_args(M, K, N, bm)) return static_cast<int>(cudaErrorInvalidValue);
-  if (bm >= 64)
-    return launch<64, 128, 2, 4, SWIGLU, TRANS>(
-        lhs, rhs0, rhs1, tile_experts, valid_tiles, out, gate_out, up_out, M,
-        K, N, bm, stream);
-  return launch<16, 128, 1, 4, SWIGLU, TRANS>(
-      lhs, rhs0, rhs1, tile_experts, valid_tiles, out, gate_out, up_out, M, K,
-      N, bm, stream);
+// The smallest bm of the wgmma design (ops/grouped_matmul.py:WGMMA_MIN_BM):
+// a 64-row tile never straddles two experts, and 64 divides every
+// expert's row range.
+constexpr int WGMMA_MIN_BM = 64;
+
+// ---------------------------------------------------------------------------
+// bm >= 64: warp-specialised TMA + wgmma kernels
+// ---------------------------------------------------------------------------
+
+constexpr int HG_BK = 64;        // depth of one stage: K (gmm) or rows (tgmm)
+constexpr int HG_BN = 256;       // output columns per block
+constexpr int HG_STAGES = 4;
+constexpr int HG_BOX = 64 * 128;  // bytes of one [64][64] bf16 TMA box
+constexpr int HG_GROUP = 16;      // raster group: row (gmm) or K (tgmm) tiles
+constexpr int HG_LDS = HG_BN + 8;  // bf16 row stride of the epilogue staging
+
+// NC consumer warpgroups: an output tile of 64 * NC rows.
+template <int NC>
+struct HgShape {
+  static constexpr int BM = 64 * NC;
+  static constexpr int THREADS = (NC + 1) * 128;
+  static constexpr int A_BYTES = BM * 128;     // [BM][64] gmm, [64][BM] tgmm
+  static constexpr int B_BYTES = HG_BN * 128;   // 4 x [64][64] or [256][64]
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int RING = HG_STAGES * STAGE;
+  // + 1 KB to align the ring to the swizzle atom, + the mbarriers.
+  static constexpr int SMEM = 1024 + RING + 2 * HG_STAGES * 8;
+  static_assert(NC * 64 * HG_LDS * 2 <= RING, "epilogue staging fits");
+  static_assert(SMEM <= 227 * 1024, "dynamic shared memory limit");
+};
+
+// Block `pid` of an n_major x n_minor grid of tiles, in groups of HG_GROUP
+// major tiles: within a group the major index runs fastest.
+__device__ __forceinline__ void raster(int pid, int n_major, int n_minor,
+                                       int& major, int& minor) {
+  const int per_group = HG_GROUP * n_minor;
+  const int group = pid / per_group;
+  const int first = group * HG_GROUP;
+  const int size = min(n_major - first, HG_GROUP);
+  const int in_group = pid - group * per_group;
+  major = first + in_group % size;
+  minor = in_group / size;
+}
+
+__device__ __forceinline__ uint8_t* align_ring(uint8_t* p) {
+  const uint32_t a = hopper::smem_u32(p);
+  return p + ((hopper::SWIZZLE_ATOM - a % hopper::SWIZZLE_ATOM) %
+              hopper::SWIZZLE_ATOM);
+}
+
+// A consumer warpgroup's 64 x 256 f32 accumulators (layout in hopper.cuh),
+// rounded to bf16 once, through `stage` (64 x HG_LDS bf16, conflict-free
+// 4-byte writes) to dst in 16-byte row-contiguous stores: rows < rows_ok,
+// columns < cols_ok.  t is the thread's index in its warpgroup.
+__device__ __forceinline__ void store_acc(const float (&d)[128],
+                                          __nv_bfloat16* stage,
+                                          __nv_bfloat16* dst, size_t ld,
+                                          int rows_ok, int cols_ok, int t,
+                                          int barrier_id) {
+  const int w = t / 32, l = t % 32;
+#pragma unroll
+  for (int j = 0; j < HG_BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * w + l / 4 + 8 * h;
+      const int c = 8 * j + 2 * (l % 4);
+      *reinterpret_cast<__nv_bfloat162*>(stage + r * HG_LDS + c) =
+          __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+    }
+  hopper::named_barrier(barrier_id, 128);
+  for (int i = t; i < 64 * (HG_BN / 8); i += 128) {
+    const int r = i / (HG_BN / 8);
+    const int c = (i % (HG_BN / 8)) * 8;
+    if (r < rows_ok && c < cols_ok)
+      *reinterpret_cast<uint4*>(dst + r * ld + c) =
+          *reinterpret_cast<const uint4*>(stage + r * HG_LDS + c);
+  }
+}
+
+// The consumer side of both kernels: `steps` stages through the ring, each
+// four m64n256k16 products of this warpgroup's A slice (a_off bytes into
+// the stage's A region) and the stage's B; then the epilogue.
+template <int NC, int TA, int TB>
+__device__ __forceinline__ void consume(uint8_t* ring, uint64_t* full,
+                                        uint64_t* empty, int steps, int a_off,
+                                        uint32_t a_lbo, uint32_t b_lbo,
+                                        __nv_bfloat16* dst, size_t ld,
+                                        int rows_ok, int cols_ok, int c,
+                                        int t) {
+  using S = HgShape<NC>;
+  constexpr uint64_t A_STEP =
+      TA ? hopper::K_STEP_MNMAJOR : hopper::K_STEP_KMAJOR;
+  constexpr uint64_t B_STEP =
+      TB ? hopper::K_STEP_MNMAJOR : hopper::K_STEP_KMAJOR;
+  float d[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+  for (int st = 0; st < steps; ++st) {
+    const int s = st % HG_STAGES;
+    hopper::mbar_wait(&full[s], (st / HG_STAGES) & 1);
+    const uint8_t* a = ring + s * S::STAGE + a_off;
+    const uint8_t* b = ring + s * S::STAGE + S::A_BYTES;
+    const uint64_t da = hopper::desc_b128(a, a_lbo, hopper::SWIZZLE_ATOM);
+    const uint64_t db = hopper::desc_b128(b, b_lbo, hopper::SWIZZLE_ATOM);
+    hopper::fence_regs(d);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HG_BK / 16; ++kk)
+      hopper::wgmma_m64n256k16<TA, TB>(d, da + kk * A_STEP, db + kk * B_STEP);
+    hopper::wgmma_commit();
+    // The previous stage's products are done: hand its buffer back.
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(d);
+    if (st > 0 && t == 0) hopper::mbar_arrive(&empty[(st - 1) % HG_STAGES]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(d);
+  // Every consumer's last products are done and every load has landed, so
+  // the ring is free for the epilogue staging.
+  hopper::named_barrier(1, NC * 128);
+  store_acc(d, reinterpret_cast<__nv_bfloat16*>(ring) + c * 64 * HG_LDS, dst,
+            ld, rows_ok, cols_ok, t, 2 + c);
+}
+
+// gmm, bm >= 64: out[row0 : +BM, col0 : +256] of the tile's expert.
+// map_lhs: [M, K] box {64, BM}; map_rhs: [E, K, N] box {64, 64, 1}, or
+// (TRANS) [E, N, K] box {64, 256, 1}.
+template <int NC, bool TRANS>
+__global__ void __launch_bounds__(HgShape<NC>::THREADS, 1)
+    gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_lhs,
+                     const __grid_constant__ CUtensorMap map_rhs,
+                     const int32_t* __restrict__ tile_experts,
+                     const int32_t* __restrict__ valid_tiles,
+                     __nv_bfloat16* __restrict__ out, int K, int N, int bm,
+                     int n_row_tiles, int n_col_tiles) {
+  using S = HgShape<NC>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align_ring(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S::RING);
+  uint64_t* empty = full + HG_STAGES;
+
+  int rt, ct;
+  raster(blockIdx.x, n_row_tiles, n_col_tiles, rt, ct);
+  const int row0 = rt * S::BM;
+  const int col0 = ct * HG_BN;
+  const int tile = row0 / bm;
+  const int tid = threadIdx.x;
+  __nv_bfloat16* dst = out + static_cast<size_t>(row0) * N + col0;
+
+  // The compute skip: a tile at or past valid_tiles[0] writes zeros.
+  if (valid_tiles != nullptr && tile >= valid_tiles[0]) {
+    zero_bf16_tile<S::BM, HG_BN, S::THREADS>(dst, N, S::BM, N - col0, tid);
+    return;
+  }
+  const int expert = tile_experts[tile];
+  const int nk = (K + HG_BK - 1) / HG_BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < HG_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], NC);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == 0) {
+    if constexpr (NC == 2) hopper::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % HG_STAGES;
+        if (kt >= HG_STAGES)
+          hopper::mbar_wait(&empty[s], ((kt / HG_STAGES) + 1) & 1);
+        uint8_t* a = ring + s * S::STAGE;
+        uint8_t* b = a + S::A_BYTES;
+        hopper::mbar_arrive_expect_tx(&full[s], S::STAGE);
+        hopper::tma_load_2d(a, &map_lhs, &full[s], kt * HG_BK, row0);
+        if constexpr (TRANS) {
+          hopper::tma_load_3d(b, &map_rhs, &full[s], kt * HG_BK, col0, expert);
+        } else {
+#pragma unroll
+          for (int j = 0; j < HG_BN / 64; ++j)
+            hopper::tma_load_3d(b + j * HG_BOX, &map_rhs, &full[s],
+                                col0 + 64 * j, kt * HG_BK, expert);
+        }
+      }
+    }
+  } else {
+    if constexpr (NC == 2) hopper::setmaxnreg_inc<232>();
+    const int c = wg - 1;  // this warpgroup's rows: [64c, 64c + 64)
+    // A: K-major rows of lhs.  B: K-major rows of rhs^T ([E, N, K]), or
+    // MN-major [64 K][64 N] boxes 8 KB apart ([E, K, N]).
+    consume<NC, 0, TRANS ? 0 : 1>(
+        ring, full, empty, nk, c * 64 * 128, 16, TRANS ? 16 : HG_BOX,
+        dst + static_cast<size_t>(c) * 64 * N, N, 64, N - col0, c,
+        tid % 128);
+  }
+}
+
+// tgmm, bm >= 64: out[e][k0 : +128, col0 : +256] = sum over the rows r of
+// e's counted tiles of lhs[r, k0 : +128]^T dout[r, col0 : +256].
+// map_lhs: [M, K] box {64, 64}; map_dout: [M, N] box {64, 64}.
+__global__ void __launch_bounds__(HgShape<2>::THREADS, 1)
+    tgmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_lhs,
+                      const __grid_constant__ CUtensorMap map_dout,
+                      const int32_t* __restrict__ tile_experts,
+                      const int32_t* __restrict__ valid_tiles,
+                      __nv_bfloat16* __restrict__ out, int n_tiles, int K,
+                      int N, int bm, int n_k_tiles, int n_n_tiles) {
+  using S = HgShape<2>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int s_first, s_last;
+  uint8_t* ring = align_ring(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S::RING);
+  uint64_t* empty = full + HG_STAGES;
+
+  int kt, nt;
+  raster(blockIdx.x, n_k_tiles, n_n_tiles, kt, nt);
+  const int k0 = kt * S::BM;
+  const int col0 = nt * HG_BN;
+  const int expert = blockIdx.y;
+  const int tid = threadIdx.x;
+  __nv_bfloat16* dst =
+      out + (static_cast<size_t>(expert) * K + k0) * N + col0;
+
+  // The expert's first and last counted tile.  Tiles past the last group
+  // carry E - 1 in the layout and add into E - 1, as in the reference.
+  int limit = n_tiles;
+  if (valid_tiles != nullptr && valid_tiles[0] < limit) limit = valid_tiles[0];
+  if (tid == 0) {
+    s_first = n_tiles;
+    s_last = -1;
+    for (int s = 0; s < HG_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  for (int i = tid; i < limit; i += S::THREADS)
+    if (tile_experts[i] == expert) {
+      atomicMin(&s_first, i);
+      atomicMax(&s_last, i);
+    }
+  __syncthreads();
+  if (s_last < 0) {  // no counted tile: the expert's gradient is exactly zero
+    zero_bf16_tile<S::BM, HG_BN, S::THREADS>(dst, N, K - k0, N - col0, tid);
+    return;
+  }
+  const int r_begin = s_first * bm;
+  const int steps = (s_last + 1 - s_first) * bm / HG_BK;
+
+  const int wg = tid / 128;
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      for (int st = 0; st < steps; ++st) {
+        const int s = st % HG_STAGES;
+        if (st >= HG_STAGES)
+          hopper::mbar_wait(&empty[s], ((st / HG_STAGES) + 1) & 1);
+        uint8_t* a = ring + s * S::STAGE;
+        uint8_t* b = a + S::A_BYTES;
+        const int r = r_begin + st * HG_BK;
+        hopper::mbar_arrive_expect_tx(&full[s], S::STAGE);
+#pragma unroll
+        for (int j = 0; j < S::BM / 64; ++j)
+          hopper::tma_load_2d(a + j * HG_BOX, &map_lhs, &full[s], k0 + 64 * j,
+                              r);
+#pragma unroll
+        for (int j = 0; j < HG_BN / 64; ++j)
+          hopper::tma_load_2d(b + j * HG_BOX, &map_dout, &full[s],
+                              col0 + 64 * j, r);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<232>();
+    const int c = wg - 1;  // this warpgroup's K rows: [k0 + 64c, +64)
+    // A = lhs^T: the c-th [64 rows][64 K] box, MN-major (one 64-wide block).
+    // B = dout: four [64 rows][64 N] boxes 8 KB apart, MN-major.
+    consume<2, 1, 1>(ring, full, empty, steps, c * HG_BOX, HG_BOX, HG_BOX,
+                     dst + static_cast<size_t>(c) * 64 * N, N,
+                     K - k0 - 64 * c, N - col0, c, tid % 128);
+  }
+}
+
+// Host side: the kernels take more than 48 KB of dynamic shared memory.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int NC, bool TRANS>
+int launch_gmm_wgmma(const CUtensorMap& map_lhs, const CUtensorMap& map_rhs,
+                     const void* tile_experts, const void* valid_tiles,
+                     void* out, int M, int K, int N, int bm, void* stream) {
+  using S = HgShape<NC>;
+  const auto kernel = gmm_wgmma_kernel<NC, TRANS>;
+  cudaError_t err = allow_smem(kernel, S::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_row = M / S::BM;
+  const int n_col = (N + HG_BN - 1) / HG_BN;
+  kernel<<<n_row * n_col, S::THREADS, S::SMEM,
+           static_cast<cudaStream_t>(stream)>>>(
+      map_lhs, map_rhs, static_cast<const int32_t*>(tile_experts),
+      static_cast<const int32_t*>(valid_tiles),
+      static_cast<__nv_bfloat16*>(out), K, N, bm, n_row, n_col);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A [rows, cols] row-major bf16 matrix (or `depth` of them back to back) as
+// a TMA map with a box of {64, box_rows} (x 1).
+bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols,
+              int box_rows, int depth = 0) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(depth)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(cols) * rows * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  return hopper::make_map(map, base, depth > 0 ? 3 : 2, dims, strides, box);
 }
 
 }  // namespace
@@ -498,37 +831,81 @@ int dispatch(const void* lhs, const void* rhs0, const void* rhs1,
 extern "C" {
 
 // out[r] = lhs[r] @ rhs[e] (rhs [E, K, N]) or lhs[r] @ rhs[e]^T (rhs
-// [E, N, K], transpose_rhs != 0), e = tile_experts[r / bm]; tiles at or past
-// valid_tiles[0] write zeros when valid_tiles is not null.  Returns a
+// [E, N, K], transpose_rhs != 0), e = tile_experts[r / bm]; tiles at or
+// past valid_tiles[0] write zeros when valid_tiles is not null.  The WMMA
+// design, bm < 64 (kctpu_gmm_wgmma takes every other bm).  Returns a
 // cudaError_t code.
 int kctpu_gmm(const void* lhs, const void* rhs, const void* tile_experts,
               const void* valid_tiles, void* out, int M, int K, int N, int bm,
               int transpose_rhs, void* stream) {
+  if (bad_args(M, K, N, bm) || bm >= WGMMA_MIN_BM)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (transpose_rhs)
-    return dispatch<false, true>(lhs, rhs, rhs, tile_experts, valid_tiles, out,
-                                 nullptr, nullptr, M, K, N, bm, stream);
-  return dispatch<false, false>(lhs, rhs, rhs, tile_experts, valid_tiles, out,
-                                nullptr, nullptr, M, K, N, bm, stream);
+    return launch<16, 128, 1, 4, false, true>(lhs, rhs, rhs, tile_experts,
+                                              valid_tiles, out, nullptr,
+                                              nullptr, M, K, N, bm, stream);
+  return launch<16, 128, 1, 4, false, false>(lhs, rhs, rhs, tile_experts,
+                                             valid_tiles, out, nullptr,
+                                             nullptr, M, K, N, bm, stream);
+}
+
+// The same product, wgmma design, bm >= 64; n_experts = rhs.shape[0].
+int kctpu_gmm_wgmma(const void* lhs, const void* rhs, const void* tile_experts,
+                    const void* valid_tiles, void* out, int M, int K, int N,
+                    int bm, int n_experts, int transpose_rhs, void* stream) {
+  if (bad_args(M, K, N, bm) || bm < WGMMA_MIN_BM || n_experts <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hopper::encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorNotSupported);
+  const bool wide = bm >= 128;  // two consumer warpgroups, 128-row tiles
+  CUtensorMap map_lhs, map_rhs;
+  const bool ok =
+      bf16_map(&map_lhs, lhs, M, K, wide ? 128 : 64) &&
+      (transpose_rhs ? bf16_map(&map_rhs, rhs, N, K, HG_BN, n_experts)
+                     : bf16_map(&map_rhs, rhs, K, N, 64, n_experts));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (wide)
+    return transpose_rhs
+               ? launch_gmm_wgmma<2, true>(map_lhs, map_rhs, tile_experts,
+                                           valid_tiles, out, M, K, N, bm,
+                                           stream)
+               : launch_gmm_wgmma<2, false>(map_lhs, map_rhs, tile_experts,
+                                            valid_tiles, out, M, K, N, bm,
+                                            stream);
+  return transpose_rhs
+             ? launch_gmm_wgmma<1, true>(map_lhs, map_rhs, tile_experts,
+                                         valid_tiles, out, M, K, N, bm, stream)
+             : launch_gmm_wgmma<1, false>(map_lhs, map_rhs, tile_experts,
+                                          valid_tiles, out, M, K, N, bm,
+                                          stream);
 }
 
 // h[r] = silu(lhs[r] @ rhs_g[e]) * (lhs[r] @ rhs_u[e]), e = tile_experts[r / bm];
 // gate and up (the two products, rounded once) too where their pointers are
-// not null.
+// not null.  WMMA design at every bm.
 int kctpu_gmm_swiglu(const void* lhs, const void* rhs_g, const void* rhs_u,
                      const void* tile_experts, void* h, void* gate, void* up,
                      int M, int K, int N, int bm, void* stream) {
-  return dispatch<true, false>(lhs, rhs_g, rhs_u, tile_experts, nullptr, h,
-                               gate, up, M, K, N, bm, stream);
+  if (bad_args(M, K, N, bm)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bm >= 64)  // 64-row tiles, never more than one expert's
+    return launch<64, 128, 2, 4, true, false>(lhs, rhs_g, rhs_u, tile_experts,
+                                              nullptr, h, gate, up, M, K, N,
+                                              bm, stream);
+  return launch<16, 128, 1, 4, true, false>(lhs, rhs_g, rhs_u, tile_experts,
+                                            nullptr, h, gate, up, M, K, N, bm,
+                                            stream);
 }
 
 // out[e] = sum over the tiles i of expert e (i < valid_tiles[0] when
 // valid_tiles is not null) of lhs_i^T @ dout_i: lhs [M, K], dout [M, N],
-// out [E, K, N]; an expert with no counted tile gets zeros.
+// out [E, K, N]; an expert with no counted tile gets zeros.  The WMMA
+// design, bm < 64 (kctpu_tgmm_wgmma takes every other bm).
 int kctpu_tgmm(const void* lhs, const void* dout, const void* tile_experts,
                const void* valid_tiles, void* out, int M, int K, int N, int bm,
                int n_experts, void* stream) {
   constexpr int BKO = 64, BN = 128, WARPS_M = 2, WARPS_N = 4;
-  if (bad_args(M, K, N, bm) || n_experts <= 0 || n_experts > 65535)
+  if (bad_args(M, K, N, bm) || bm >= WGMMA_MIN_BM || n_experts <= 0 ||
+      n_experts > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((K + BKO - 1) / BKO, (N + BN - 1) / BN, n_experts);
   dim3 block(WARPS_M * WARPS_N * 32);
@@ -539,6 +916,33 @@ int kctpu_tgmm(const void* lhs, const void* dout, const void* tile_experts,
           static_cast<const int32_t*>(tile_experts),
           static_cast<const int32_t*>(valid_tiles),
           static_cast<__nv_bfloat16*>(out), M / bm, K, N, bm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same weight gradient, wgmma design, bm >= 64.
+int kctpu_tgmm_wgmma(const void* lhs, const void* dout,
+                     const void* tile_experts, const void* valid_tiles,
+                     void* out, int M, int K, int N, int bm, int n_experts,
+                     void* stream) {
+  using S = HgShape<2>;
+  if (bad_args(M, K, N, bm) || bm < WGMMA_MIN_BM || n_experts <= 0 ||
+      n_experts > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hopper::encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map_lhs, map_dout;
+  if (!bf16_map(&map_lhs, lhs, M, K, 64) ||
+      !bf16_map(&map_dout, dout, M, N, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(tgmm_wgmma_kernel, S::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_k = (K + S::BM - 1) / S::BM;
+  const int n_n = (N + HG_BN - 1) / HG_BN;
+  tgmm_wgmma_kernel<<<dim3(n_k * n_n, n_experts), S::THREADS, S::SMEM,
+                      static_cast<cudaStream_t>(stream)>>>(
+      map_lhs, map_dout, static_cast<const int32_t*>(tile_experts),
+      static_cast<const int32_t*>(valid_tiles),
+      static_cast<__nv_bfloat16*>(out), M / bm, K, N, bm, n_k, n_n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,8 @@ At first use, every ``csrc/*.cu`` is compiled for ``sm_90a`` — one
 ``nvcc`` process per source, all started together — and linked into one
 shared library with a plain C interface.  The library lands in
 ``build/`` inside this package (listed in ``.gitignore``) under a name
-keyed by the sources' content hash, so an edited source never loads a
+keyed by the content hash of every file under ``csrc/`` (headers such as
+``hopper.cuh`` included), so an edited source or header never loads a
 stale build and a rebuilt checkout reuses nothing it should not.
 
 A build failure raises with the compiler's output.  Nothing here runs at
@@ -44,12 +45,17 @@ _SIGNATURES = {
     # lhs, rhs, tile_experts, valid_tiles (or NULL), out, M, K, N, bm,
     # transpose_rhs, stream
     "kctpu_gmm": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    # lhs, rhs, tile_experts, valid_tiles (or NULL), out, M, K, N, bm,
+    # n_experts, transpose_rhs, stream
+    "kctpu_gmm_wgmma": ([_P] * 5 + [_I] * 6 + [_P], _I),
     # lhs, rhs_g, rhs_u, tile_experts, h, gate (or NULL), up (or NULL), M, K,
     # N, bm, stream
     "kctpu_gmm_swiglu": ([_P] * 7 + [_I] * 4 + [_P], _I),
     # lhs, dout, tile_experts, valid_tiles (or NULL), out, M, K, N, bm,
     # n_experts, stream
     "kctpu_tgmm": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    # the same arguments as kctpu_tgmm
+    "kctpu_tgmm_wgmma": ([_P] * 5 + [_I] * 5 + [_P], _I),
     # q, k, v, o, lse, B, H, T, D, scale, causal, stream
     "kctpu_flash_fwd": ([_P] * 5 + [_I] * 4 + [_F, _I, _P], _I),
     # q, k, v, do, lse, delta, dq, B, H, T, D, scale, causal, stream
@@ -83,7 +89,13 @@ _LIBRARY: Optional[KernelLibrary] = None
 
 
 def sources() -> List[Path]:
+    """The translation units: one object each."""
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def key_files() -> List[Path]:
+    """Every file the build reads: the sources and what they include."""
+    return sorted(p for p in CSRC_DIR.iterdir() if p.is_file())
 
 
 def _nvcc() -> str:
@@ -98,9 +110,9 @@ def _nvcc() -> str:
     return found
 
 
-def _content_key(srcs: List[Path]) -> str:
+def _content_key(files: List[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in files:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -125,7 +137,7 @@ def build() -> KernelLibrary:
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    lib_path = BUILD_DIR / f"libkctpu_kernels_{_content_key(srcs)}.so"
+    lib_path = BUILD_DIR / f"libkctpu_kernels_{_content_key(key_files())}.so"
     t0 = time.perf_counter()
     log = ""
     if not lib_path.exists():

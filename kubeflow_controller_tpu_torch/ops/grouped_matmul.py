@@ -23,7 +23,11 @@ The port of ``kubeflow_controller_tpu/ops/grouped_matmul.py``:
 
 Each kernel launches from its hand-written CUDA source
 (``csrc/grouped_matmul.cu``) for CUDA tensors, or raises: the CUDA kernels
-take contiguous bf16 operands and int32 tile ids on one device.  Only a
+take contiguous, 16-byte-aligned bf16 operands (TMA's base and row-stride
+rule) and int32 tile ids on one device.  ``gmm`` and ``tgmm`` have two
+designs, picked by :func:`kernel_variant` on ``bm`` alone: ``"wgmma"``
+(TMA + ``wgmma``, bm >= 64: training and prefill) and ``"wmma"`` (bm < 64:
+decode); ``gmm_swiglu`` is WMMA at every bm.  Only a
 tensor that lies on the CPU takes the plain PyTorch version
 (``gmm_plain``/``gmm_swiglu_plain``/``tgmm_plain``): f32 products over each
 expert's run of tiles, one rounding to the operand dtype, as the reference's
@@ -118,6 +122,16 @@ def tgmm_plain(lhs: torch.Tensor, dout: torch.Tensor,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+WGMMA_MIN_BM = 64
+
+
+def kernel_variant(bm: int) -> str:
+    """The CUDA design ``gmm`` and ``tgmm`` launch for row tiles of ``bm``:
+    ``"wgmma"`` for bm >= 64 (a 64-row wgmma tile never straddles two
+    experts, and 64 divides every expert's row range), else ``"wmma"``."""
+    return "wgmma" if bm >= WGMMA_MIN_BM else "wmma"
+
+
 def _check_bf16(dev, named) -> None:
     for name, t in named:
         if t.device != dev:
@@ -183,11 +197,15 @@ def _gmm(lhs: torch.Tensor, rhs: torch.Tensor, tile_experts: torch.Tensor,
     n = rhs.shape[1] if transpose_rhs else rhs.shape[2]
     out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
     lib = _build.library()
-    code = lib.lib.kctpu_gmm(lhs.data_ptr(), rhs.data_ptr(),
-                             tile_experts.data_ptr(), _ptr(valid_tiles),
-                             out.data_ptr(), m, k, n, bm, int(transpose_rhs),
-                             _build.stream(lhs))
-    lib.check(code, "gmm")
+    args = (lhs.data_ptr(), rhs.data_ptr(), tile_experts.data_ptr(),
+            _ptr(valid_tiles), out.data_ptr(), m, k, n, bm)
+    if kernel_variant(bm) == "wgmma":
+        code = lib.lib.kctpu_gmm_wgmma(*args, rhs.shape[0],
+                                       int(transpose_rhs), _build.stream(lhs))
+    else:
+        code = lib.lib.kctpu_gmm(*args, int(transpose_rhs),
+                                 _build.stream(lhs))
+    lib.check(code, f"gmm ({kernel_variant(bm)})")
     gmm.launches += 1
     return out
 
@@ -235,11 +253,12 @@ def tgmm(lhs: torch.Tensor, dout: torch.Tensor, tile_experts: torch.Tensor,
     _check_bf16(lhs.device, (("lhs", lhs), ("dout", dout)))
     out = torch.empty((n_experts, k, n), dtype=lhs.dtype, device=lhs.device)
     lib = _build.library()
-    code = lib.lib.kctpu_tgmm(lhs.data_ptr(), dout.data_ptr(),
-                              tile_experts.data_ptr(), _ptr(valid_tiles),
-                              out.data_ptr(), m, k, n, bm, n_experts,
-                              _build.stream(lhs))
-    lib.check(code, "tgmm")
+    fn = (lib.lib.kctpu_tgmm_wgmma if kernel_variant(bm) == "wgmma"
+          else lib.lib.kctpu_tgmm)
+    code = fn(lhs.data_ptr(), dout.data_ptr(), tile_experts.data_ptr(),
+              _ptr(valid_tiles), out.data_ptr(), m, k, n, bm, n_experts,
+              _build.stream(lhs))
+    lib.check(code, f"tgmm ({kernel_variant(bm)})")
     tgmm.launches += 1
     return out
 

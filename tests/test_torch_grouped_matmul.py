@@ -173,6 +173,10 @@ def test_plain_swiglu_rounds_once_after_f32_silu():
     ("valid_tiles int64", lambda a: a.update(vt=a["vt"].long()), TypeError),
     ("valid_tiles two values", lambda a: a.update(
         vt=torch.zeros((2,), dtype=torch.int32)), ValueError),
+    # TMA reads from 16-byte-aligned base addresses only.
+    ("lhs not 16-byte aligned", lambda a: a.update(
+        lhs=torch.zeros(32 * 16 + 8, dtype=torch.bfloat16)[1:513].view(32, 16)),
+     ValueError),
 ])
 def test_kernel_argument_checks(what, mutate, exc):
     """What the CUDA wrappers check before a pointer crosses into C (run
