@@ -12,14 +12,16 @@ Phases, in order (any failure raises and exits non-zero):
 
 1. build: ``nvcc`` compiles ``kubeflow_controller_tpu_torch/csrc/*.cu`` for
    sm_90a, one process per source, all at once; prints the build seconds
-   and ptxas' register/spill/warning lines.  Then ``cuobjdump -sass`` of
-   the library: the HGMMA (wgmma) instructions of each grouped-matmul
-   kernel instantiation, nonzero in every ``gmm_wgmma_kernel`` and
-   ``tgmm_wgmma_kernel`` (the bm >= 64 design), zero in every WMMA
-   ``gmm_kernel`` and ``tgmm_kernel``.
+   and ptxas' register/spill/warning lines and its "performance loss"
+   notes (wgmma serialized).  Then ``cuobjdump -sass`` of the library:
+   the HGMMA (wgmma) instructions of each kernel instantiation, nonzero
+   in every ``gmm_wgmma_kernel``, ``gmm_swiglu_wgmma_kernel`` and
+   ``tgmm_wgmma_kernel`` (the bm >= 64 design) and
+   ``flash_fwd_wgmma_kernel``, zero in every WMMA ``gmm_kernel`` and
+   ``tgmm_kernel`` (bm < 64).
 2. gmm kernels: ``gmm_swiglu`` and ``gmm`` at the decode layout (8 slots x
    top-2 = 16 routed rows, M = 144, bm = 16: WMMA) and the prefill layout (a
-   128-token bucket: 256 rows, M = 2304, bm = 256: ``gmm`` on wgmma), bf16,
+   128-token bucket: 256 rows, M = 2304, bm = 256: wgmma), bf16,
    against the plain versions computed in f32 on the same inputs.  Only
    the rows the combine reads are compared (tiles past the last group hold
    garbage in the reference too).  Tolerance: max |kernel - plain| <= 2e-2
@@ -27,12 +29,13 @@ Phases, in order (any failure raises and exits non-zero):
    plain version's ms, a per-expert ``torch.matmul`` loop's ms
    (``library_ms``, a yardstick the port never calls) and the bound (bytes
    or FLOPs).  Then ragged shapes (K 200, N 328: multiples of 8, not of
-   the wgmma tiles) at bm 64 and 128 (wgmma) and 16 (WMMA): ``gmm`` with
-   rhs [E, K, N] and [E, N, K], with and without ``valid_tiles``, every row
-   within 2e-2 of max, skipped rows exactly 0; ``tgmm`` per expert as in
-   phase 3, its tile-short control, the unrouted expert exactly 0.
+   the wgmma tiles) at bm 64 and 128 (wgmma) and 16 (WMMA):
+   ``gmm_swiglu`` writing h, gate and up; ``gmm`` with rhs [E, K, N] and
+   [E, N, K], with and without ``valid_tiles``; every row within 2e-2 of
+   max, skipped rows exactly 0; ``tgmm`` per expert as in phase 3, its
+   tile-short control, the unrouted expert exactly 0.
 3. MoE training kernels at the layout of B 2 x T 4096 (16384 routed rows,
-   M 18432, bm 256: ``gmm`` and ``tgmm`` on wgmma), every operand row
+   M 18432, bm 256: every grouped kernel on wgmma), every operand row
    nonzero (pad rows and the clamped tail included): ``gmm_swiglu``
    writing h, gate and up; the down ``gmm``
    and both transposed-rhs dlhs ``gmm`` shapes (2e-2 of max |plain|, every
@@ -57,7 +60,9 @@ Phases, in order (any failure raises and exits non-zero):
    zero up to rounding); lse within 1e-3 absolute.  Negative controls:
    the same check must reject the kernels' own dk/dv with every key row
    from 1500 on zeroed, and their o with every query row from 1024 on
-   scaled by 0.7.  Also non-causal and head_dim 64 at a small shape.
+   scaled by 0.7.  Also non-causal and head_dim 64 at small shapes, and T
+   320 and 192 (T = 64 mod 128: the last 128-row q block and 128-key K/V
+   stage of ``flash_fwd`` run past T).
    Prints each kernel's ms, its plain version's ms on the same inputs (16
    calls of 8 heads: its f32 scores are 512 MB a call), the bound at H100
    SXM peaks, and ``torch.nn.functional.scaled_dot_product_attention``'s
@@ -241,21 +246,25 @@ def bound(nbytes: float, flops: float):
 # Phase 1: build
 # ---------------------------------------------------------------------------
 
-# The grouped-matmul kernels' names: the wgmma design must issue HGMMA
-# (wgmma) instructions, the WMMA one must not.
-WGMMA_KERNELS = ("gmm_wgmma_kernel", "tgmm_wgmma_kernel")
+# The kernels' names: the wgmma designs must issue HGMMA (wgmma)
+# instructions, the WMMA ones (the grouped matmuls at bm < 64) must not.
+WGMMA_KERNELS = ("gmm_wgmma_kernel", "gmm_swiglu_wgmma_kernel",
+                 "tgmm_wgmma_kernel", "flash_fwd_wgmma_kernel")
 WMMA_KERNELS = ("gmm_kernel", "tgmm_kernel")
 
 
 def hgmma_counts(sass: str) -> dict:
-    """HGMMA instructions per grouped-matmul kernel in ``cuobjdump -sass``
-    output: {kernel name: [count per instantiation]}."""
+    """HGMMA instructions per kernel of ``WGMMA_KERNELS`` and
+    ``WMMA_KERNELS`` in ``cuobjdump -sass`` output: {kernel name: [count
+    per instantiation]}."""
     counts: dict = {}
     name = None
     for line in sass.splitlines():
         if "Function :" in line:
-            # Mangled: <length><identifier>I<template args>...
-            m = re.search(r"\d(t?gmm_(?:wgmma_)?kernel)[IE]", line)
+            # Mangled: <length><identifier>I<template args>... (or E and
+            # the parameters, for a kernel that is not a template)
+            m = re.search(r"\d((?:t?gmm|gmm_swiglu|flash_fwd)_(?:wgmma_)?"
+                          r"kernel)[IE]", line)
             name = m.group(1) if m else None
             if name is not None:
                 counts.setdefault(name, []).append(0)
@@ -268,7 +277,8 @@ def build_phase():
     lib = _build.library()
     print(f"build: {lib.build_seconds:.3f} s -> {lib.path.name}", flush=True)
     for line in lib.log.splitlines():
-        if any(w in line.lower() for w in ("registers", "spill", "warning")):
+        if any(w in line.lower() for w in ("registers", "spill", "warning",
+                                           "performance loss")):
             print(f"  ptxas: {line.strip()}")
     cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass", str(lib.path)],
@@ -419,8 +429,9 @@ def kernel_phase(cfg: LlamaConfig, dev, seed: int):
 
 
 # Small ragged shapes: K and N multiples of 8 but not of the wgmma tiles
-# (64 deep; 256 columns; 128 K rows for tgmm), so TMA's edge zero-fill and
-# the masked stores run, at bm 64 and 128 (wgmma) and 16 (WMMA).
+# (64 deep; 256 columns, 128 for gmm_swiglu; 128 K rows for tgmm), so TMA's
+# edge zero-fill and the masked stores run, at bm 64 and 128 (wgmma) and 16
+# (WMMA).
 RAGGED_K, RAGGED_N = 200, 328
 RAGGED_TILES = (0, 0, 2, 2, 2, 2)   # expert 1 owns no tile
 RAGGED_VALID = 3                    # valid_tiles: tiles 3-5 skipped
@@ -428,7 +439,8 @@ RAGGED_BMS = (64, 128, 16)
 
 
 def ragged_phase(dev, seed: int):
-    """gmm (rhs [E, K, N] and [E, N, K], with and without valid_tiles,
+    """gmm_swiglu (h, gate and up, every row within KERNEL_REL_TOL of max),
+    gmm (rhs [E, K, N] and [E, N, K], with and without valid_tiles,
     every row within KERNEL_REL_TOL of max, skipped rows exactly 0) and
     tgmm (per expert within TGMM_REL_TOL, the tile-short control, the
     unrouted expert exactly 0) at RAGGED_K x RAGGED_N for each bm in
@@ -442,7 +454,7 @@ def ragged_phase(dev, seed: int):
 
     te = torch.tensor(RAGGED_TILES, dtype=torch.int32, device=dev)
     vt = torch.tensor([RAGGED_VALID], dtype=torch.int32, device=dev)
-    res = {"gmm": {}, "tgmm": {}}
+    res = {"gmm": {}, "gmm_swiglu": {}, "tgmm": {}}
     for bm in RAGGED_BMS:
         m = len(RAGGED_TILES) * bm
         rows = torch.arange(m, device=dev)
@@ -450,6 +462,15 @@ def ragged_phase(dev, seed: int):
         weights = {False: rnd(e, k, n, scale=0.1),
                    True: rnd(e, n, k, scale=0.1)}
         variant = gm.kernel_variant(bm)
+        name = f"gmm_swiglu[ragged {variant} bm{bm}]"
+        w_up = rnd(e, k, n, scale=0.1)
+        got = gm._gmm_swiglu(lhs, weights[False], w_up, te, bm, gate_up=True)
+        torch.cuda.synchronize()
+        ref = gm.gmm_swiglu_plain(lhs.float(), weights[False].float(),
+                                  w_up.float(), te, bm, gate_up=True)
+        res["gmm_swiglu"][name] = max(
+            check_rel(f"{name}.{key}", g, r, rows, KERNEL_REL_TOL)
+            for key, g, r in zip(("h", "gate", "up"), got, ref))
         for trans, valid in ((False, None), (True, None), (False, vt),
                              (True, vt)):
             name = (f"gmm[ragged {variant} bm{bm}"
@@ -782,7 +803,7 @@ def flash_check(name, q, k, v, do, causal=True, chunk=8, controls=False):
     for bi in range(b):
         for h0 in range(0, h, chunk):
             sl = (slice(bi, bi + 1), slice(None), slice(h0, h0 + chunk))
-            rows = slice(bi * h + h0, bi * h + h0 + chunk)
+            rows = slice(bi * h + h0, bi * h + min(h0 + chunk, h))
             qs, ks, vs, dos = (x[sl] for x in (q, k, v, do))
             lse, delta = out["lse"][rows], out["delta"][rows]
             o_p, lse_p = at.flash_fwd_plain(qs, ks, vs, causal)
@@ -840,8 +861,14 @@ def flash_phase(dev, seed: int):
     print(f"flash: B={b} T={t} H={h} D={d} causal bf16", flush=True)
     err, rel = flash_check("flash[pretrain]", q, k, v, do, chunk=PLAIN_HEADS,
                            controls=True)
+    # Small shapes: non-causal, head_dim 64, and T = 64 (mod 128), where the
+    # last 128-row q block and 128-key K/V stage run past T.
     for name, shape, causal in (("flash[full,d128]", (1, 512, 2, 128), False),
-                                ("flash[causal,d64]", (1, 512, 4, 64), True)):
+                                ("flash[causal,d64]", (1, 512, 4, 64), True),
+                                ("flash[causal,d128,T320]", (2, 320, 2, 128),
+                                 True),
+                                ("flash[full,d64,T192]", (1, 192, 3, 64),
+                                 False)):
         flash_check(name, *(rnd(*shape) for _ in range(4)), causal=causal)
 
     out = flash_run(q, k, v, do)
@@ -898,6 +925,7 @@ def flash_phase(dev, seed: int):
             "ms": ms[name], "plain_ms": plain_ms[name],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": sdpa_fwd if name == "flash_fwd" else None,
+            "variant": "wgmma" if name == "flash_fwd" else "mma.sync",
             "max_abs_err": max(err[key] for key in keys),
             "max_row_rel_err": max(rel[key] for key in keys),
             "shape": f"B{b} T{t} H{h} D{d} causal",
@@ -1089,15 +1117,18 @@ def serve_phase(cfg: LlamaConfig, dev, seed: int):
 # ---------------------------------------------------------------------------
 
 KERNEL_GROUPS = (
-    ("flash_fwd", lambda n: "flash_fwd_kernel" in n),
+    # flash_fwd_wgmma_kernel<D>; flash_dq_kernel<D>, flash_dkv_kernel<D>.
+    ("flash_fwd", lambda n: re.search(r"\bflash_fwd_(wgmma_)?kernel", n)
+     is not None),
     ("flash_dq", lambda n: "flash_dq_kernel" in n),
     ("flash_dkv", lambda n: "flash_dkv_kernel" in n),
     # tgmm_kernel (WMMA) and tgmm_wgmma_kernel; gmm_kernel<BM, BN, WARPS_M,
-    # WARPS_N, SWIGLU, TRANS> (WMMA, gmm_swiglu when SWIGLU) and
-    # gmm_wgmma_kernel<NC, TRANS>.
+    # WARPS_N, SWIGLU, TRANS> (WMMA, gmm_swiglu when SWIGLU),
+    # gmm_swiglu_wgmma_kernel<NC> and gmm_wgmma_kernel<NC, TRANS>.
     ("tgmm", lambda n: re.search(r"\btgmm_(wgmma_)?kernel", n) is not None),
-    ("gmm_swiglu", lambda n: re.search(r"\bgmm_kernel<\d+, \d+, \d+, \d+, "
-                                       r"true", n) is not None),
+    ("gmm_swiglu", lambda n: re.search(
+        r"\bgmm_kernel<\d+, \d+, \d+, \d+, true|\bgmm_swiglu_wgmma_kernel",
+        n) is not None),
     ("gmm", lambda n: re.search(r"\bgmm_(wgmma_)?kernel", n) is not None),
     ("library gemm", lambda n: any(w in n for w in (
         "gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_"))),
@@ -1362,8 +1393,7 @@ def kernels_line(results, flash, paths):
         shapes = results[name]
         for rec in shapes.values():
             if "bm" in rec:     # the design each timed shape launched
-                rec["variant"] = ("wmma" if name == "gmm_swiglu"
-                                  else gm.kernel_variant(rec["bm"]))
+                rec["variant"] = gm.kernel_variant(rec["bm"])
         entries.append({
             **common(name, SOURCE),
             **{k: shapes[main_shape][k] for k in keys},

@@ -27,31 +27,53 @@
 // ~0.54 GB of HBM traffic: ~0.56 ms at the bf16 peak, 0.16 ms at the byte
 // rate, so operations bound it, as they do dQ (~825 GFLOP) and dKV (~1100).
 //
-// What the design does about it.  One block of 4 warps owns 64 rows (q rows
-// for fwd/dQ, k rows for dKV); each warp owns 16 of them and runs
-// mma.sync m16n8k16 (bf16 in, f32 accumulate) on operands fed by ldmatrix
-// from padded shared-memory tiles (row stride D + 8: conflict-free
-// ldmatrix phases).  The score tile never leaves registers: its f32
-// accumulator fragment is re-packed in place as the bf16 A operand of the
-// next product (FlashAttention-2's register reuse), and the per-row softmax
-// statistics are reduced across the 4 lanes that share a row by shuffles.
-// Tiles stream through cp.async; the forward overlaps the next K tile's
-// load with the softmax and P V, and the next V tile's with the next S.
-// Causal blocks past the diagonal are never visited, and the heaviest q
-// blocks are scheduled first.  wgmma, TMA and warp specialisation are later
-// work.
+// What the designs do about it.
+//
+// flash_fwd: warp-specialised, on wgmma.  A block owns 128 q rows of one
+//   head.  Warpgroup 0 is the producer: it gives its registers back
+//   (setmaxnreg) and one thread issues TMA loads through tensor maps over
+//   q, k and v as [B][T][H * D] (64-wide 128-byte-swizzled boxes, two per
+//   128-wide head; the batch a coordinate of its own, so a tile that runs
+//   past T reads zeros): Q once, K and V through a two-stage ring of
+//   128-key stages with a full barrier each and a shared empty barrier.
+//   Two consumer warpgroups own 64 q rows each.  S = Q K^T is
+//   wgmma.m64n128k16 with both operands K-major in shared memory; the
+//   online softmax runs on the f32 accumulator in registers, a row's
+//   statistics reduced over the 4 lanes of a quad by shuffles; P, rounded
+//   to bf16, feeds O += P V from registers (the register-A wgmma: the
+//   accumulator's k16 slices are its A fragments), V an MN-major B operand
+//   (csrc/hopper.cuh).  Each warpgroup runs its blocks in turn (S, softmax,
+//   P V); while one runs its softmax, the other's products keep the tensor
+//   cores busy.  (Issuing block j's scores ahead of block j - 1's P V
+//   within a warpgroup needs a second score tile, past the 168 registers a
+//   thread of a 384-thread block may hold: ptxas then spills and serializes
+//   the wgmmas, and the kernel is slower.)  Only the diagonal block (and one
+//   that runs past T) is masked, causal blocks past it are never loaded,
+//   and the heaviest q blocks are scheduled first.
+//
+// flash_dq, flash_dkv: one block of 4 warps owns 64 rows (q rows for dQ,
+//   k rows for dKV); each warp owns 16 of them and runs mma.sync m16n8k16
+//   (bf16 in, f32 accumulate) on operands fed by ldmatrix from padded
+//   shared-memory tiles (row stride D + 8: conflict-free ldmatrix phases).
+//   The score tile never leaves registers: its f32 accumulator fragment is
+//   re-packed in place as the bf16 A operand of the next product
+//   (FlashAttention-2's register reuse), and the per-row statistics are
+//   reduced across the 4 lanes that share a row by shuffles.  Tiles stream
+//   through cp.async; causal blocks past the diagonal are never visited.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int NT = 128;       // threads per block: 4 warps of 16 rows each
-constexpr int BQ = 64;        // q rows per block (fwd, dQ)
-constexpr int BKV = 64;       // k rows per step (fwd, dQ) and per block (dKV)
+constexpr int NT = 128;       // threads per block (dQ, dKV): 4 warps of 16 rows
+constexpr int BQ = 64;        // q rows per block (dQ)
+constexpr int BKV = 64;       // k rows per step (dQ) and per block (dKV)
 constexpr int BQ2 = 32;       // q rows per step of dKV (bounds its registers)
 constexpr int PAD = 8;        // bf16 row padding of every shared tile
 constexpr float NEG_INF = -1e30f;
@@ -193,144 +215,216 @@ __device__ __forceinline__ void zero(float (&c)[N][4]) {
 }
 
 // ---------------------------------------------------------------------------
-// Forward
+// Forward: warp-specialised wgmma
 // ---------------------------------------------------------------------------
 
-template <int D>
-__global__ void __launch_bounds__(NT)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int H, int T, float scale,
-                     int causal) {
-  constexpr int LD = D + PAD;
-  constexpr int KS = D / 16;     // k-steps over the head dim
-  constexpr int NTD = D / 8;     // n-tiles over the head dim
-  constexpr int NTK = BKV / 8;   // n-tiles over one k block
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * LD;
-  bf16* sV = sK + BKV * LD;
+constexpr int FW_BQ = 128;   // q rows per block: two consumer warpgroups
+constexpr int FW_BKV = 128;  // keys per K/V stage
+constexpr int FW_STAGES = 2;
+constexpr int FW_THREADS = 3 * 128;  // producer + two consumers
+constexpr int FW_BOX = 128 * 128;    // bytes of one [128 rows][64] bf16 box
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int qb = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+template <int D>
+struct FwdShape {
+  static constexpr int TILE = (D / 64) * FW_BOX;  // one [128][D] tile
+  static constexpr int KV = TILE;                 // stage s: K, then V
+  static constexpr int BARS = TILE + 2 * FW_STAGES * TILE;
+  // + 1 KB to align to the swizzle atom; q_full, k_full[], v_full[], empty[].
+  static constexpr int SMEM = 1024 + BARS + (1 + 3 * FW_STAGES) * 8;
+  static_assert(SMEM <= 227 * 1024, "dynamic shared memory limit");
+};
+
+// Block (x, y) owns q rows [q0, q0 + 128) of head y (x counted from the
+// last q block, so the longest causal rows go first); consumer warpgroup c
+// owns rows q0 + 64c + [0, 64).  Maps: q, k, v as [B][T][H * D] with a box
+// of {64, 128, 1}, the batch a coordinate of its own, so a tile that runs
+// past T reads zeros, never the next sequence.
+template <int D>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           bf16* __restrict__ o, float* __restrict__ lse,
+                           int H, int T, float scale, int causal) {
+  using S = FwdShape<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((hopper::SWIZZLE_ATOM -
+                   hopper::smem_u32(smem_raw) % hopper::SWIZZLE_ATOM) %
+                  hopper::SWIZZLE_ATOM);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + FW_STAGES;
+  uint64_t* empty = v_full + FW_STAGES;
+
+  const int qb = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
-  const int64_t rs = static_cast<int64_t>(H) * D;
-  const int64_t head0 = (static_cast<int64_t>(b) * T * H + h) * D;
-  const int q0 = qb * BQ;
-  const int n_kb = causal ? qb + 1 : T / BKV;
-  const int r_lo = q0 + warp * 16 + gid;  // this thread's rows: r_lo, r_lo+8
+  const int q0 = qb * FW_BQ;
+  const int n_kb = causal ? qb + 1 : (T + FW_BKV - 1) / FW_BKV;
+  const int tid = threadIdx.x;
 
-  load_rows<D, BQ>(sQ, q + head0 + q0 * rs, rs, tid);
-  load_rows<D, BKV>(sK, k + head0, rs, tid);
-  cp_async_commit();
-  load_rows<D, BKV>(sV, v + head0, rs, tid);
-  cp_async_commit();
-
-  // The warp's Q rows stay in registers as A fragments for every k block.
-  cp_async_wait<1>();
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < FW_STAGES; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], 2);
+    }
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
-  unsigned qf[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ldsm_x4(qf[ks], a_addr(sQ, LD, warp * 16, ks * 16, lane));
 
-  float acc[NTD][4];
-  zero(acc);
-  float m[2] = {NEG_INF, NEG_INF};
-  float l[2] = {0.0f, 0.0f};  // this lane's share of the row sums
-
-  for (int j = 0; j < n_kb; ++j) {
-    const int k0 = j * BKV;
-    cp_async_wait<1>();  // K_j has landed
-    __syncthreads();
-    float s[NTK][4];
-    zero(s);
+  const int wg = tid / 128;
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<24>();
+    if (tid == 0) {
+      const int col = h * D;
+      hopper::mbar_arrive_expect_tx(q_full, S::TILE);
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
+      for (int i = 0; i < D / 64; ++i)
+        hopper::tma_load_3d(smem + i * FW_BOX, &map_q, q_full, col + 64 * i,
+                            q0, b);
+      for (int j = 0; j < n_kb; ++j) {
+        const int s = j % FW_STAGES;
+        if (j >= FW_STAGES)
+          hopper::mbar_wait(&empty[s], ((j / FW_STAGES) + 1) & 1);
+        uint8_t* kt = smem + S::KV + 2 * s * S::TILE;
+        uint8_t* vt = kt + S::TILE;
+        hopper::mbar_arrive_expect_tx(&k_full[s], S::TILE);
 #pragma unroll
-      for (int np = 0; np < NTK / 2; ++np) {
-        unsigned bb[4];
-        ldsm_x4(bb, bnk_addr(sK, LD, np * 16, ks * 16, lane));
-        mma(s[2 * np], qf[ks], bb[0], bb[1]);
-        mma(s[2 * np + 1], qf[ks], bb[2], bb[3]);
+        for (int i = 0; i < D / 64; ++i)
+          hopper::tma_load_3d(kt + i * FW_BOX, &map_k, &k_full[s],
+                              col + 64 * i, j * FW_BKV, b);
+        hopper::mbar_arrive_expect_tx(&v_full[s], S::TILE);
+#pragma unroll
+        for (int i = 0; i < D / 64; ++i)
+          hopper::tma_load_3d(vt + i * FW_BOX, &map_v, &v_full[s],
+                              col + 64 * i, j * FW_BKV, b);
       }
     }
-    __syncthreads();  // every warp is done with K_j
-    if (j + 1 < n_kb)
-      load_rows<D, BKV>(sK, k + head0 + (k0 + BKV) * rs, rs, tid);
-    cp_async_commit();
+    return;
+  }
 
+  hopper::setmaxnreg_inc<240>();
+  const int c = wg - 1;
+  const int t = tid % 128, w = t / 32, l = t % 32;
+  const int row_lo = q0 + 64 * c + 16 * w + l / 4;  // and row_lo + 8
+  // S = Q K^T: Q rows (this warpgroup's 64) and K rows both K-major; a
+  // 16-deep step over D moves 32 B along a row, and every 64 columns to the
+  // next box.  O += P V: V MN-major (D contiguous), its 64-wide D blocks
+  // one box apart (LBO), a 16-key step 16 rows on.
+  auto d_step = [](int kk) -> uint64_t {
+    return ((kk / 4) * FW_BOX + (kk % 4) * 32) >> 4;
+  };
+  const uint64_t dq = hopper::desc_b128(smem + c * 64 * 128, 16,
+                                        hopper::SWIZZLE_ATOM);
+
+  float acc[D / 2];  // O: [64 rows][D], accumulator layout (hopper.cuh)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float lsum[2] = {0.0f, 0.0f};  // this lane's share of the row sums
+
+  hopper::mbar_wait(q_full, 0);
+  for (int j = 0; j < n_kb; ++j) {
+    const int s = j % FW_STAGES;
+    const uint32_t ph = (j / FW_STAGES) & 1;
+    const uint8_t* kt = smem + S::KV + 2 * s * S::TILE;
+    const uint8_t* vt = kt + S::TILE;
+    const int k0 = j * FW_BKV;
+
+    float sc[FW_BKV / 2];  // S: [64 rows][128 keys]
+    hopper::mbar_wait(&k_full[s], ph);
+    const uint64_t dk = hopper::desc_b128(kt, 16, hopper::SWIZZLE_ATOM);
+    hopper::fence_regs(sc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_m64n128k16<0, 0>(sc, dq + d_step(kk), dk + d_step(kk),
+                                     kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+
+    // Scale after the product; mask only a block that reaches past this
+    // warpgroup's first row (the diagonal) or past T.
+    const bool masked =
+        (causal && k0 + FW_BKV - 1 > q0 + 64 * c) || k0 + FW_BKV > T;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int nt = 0; nt < NTK; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * scale;
-        if (causal && k0 + nt * 8 + tig * 2 + (e & 1) > r_lo + (e >> 1) * 8)
-          x = NEG_INF;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    for (int i = 0; i < FW_BKV / 2; ++i) {
+      float x = sc[i] * scale;
+      if (masked) {
+        const int key = k0 + 8 * (i / 4) + 2 * (l % 4) + (i & 1);
+        const int row = row_lo + 8 * ((i / 2) & 1);
+        if ((causal && key > row) || key >= T) x = NEG_INF;
       }
+      sc[i] = x;
+      mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], x);
     }
     float corr[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = row_max(mx[i]);
-      corr[i] = __expf(m[i] - mx[i]);
-      m[i] = mx[i];
-      l[i] *= corr[i];
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = row_max(mx[r]);
+      corr[r] = __expf(m[r] - mx[r]);
+      m[r] = mx[r];
+      lsum[r] *= corr[r];
     }
+    // P, summed in f32 before it is rounded to bf16 as the A fragments of
+    // P V (the k16 slices of the accumulator, hopper.cuh).
+    uint32_t pa[FW_BKV / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < NTK; ++nt) {
+    for (int ks = 0; ks < FW_BKV / 16; ++ks) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[nt][e] - m[e >> 1]);
-        l[e >> 1] += p;  // summed in f32, before p is rounded
-        s[nt][e] = p;
+      for (int q = 0; q < 4; ++q) {
+        const int i = 8 * ks + 2 * q;
+        const int r = q & 1;
+        const float p0 = __expf(sc[i] - m[r]);
+        const float p1 = __expf(sc[i + 1] - m[r]);
+        lsum[r] += p0 + p1;
+        pa[ks][q] = pack_bf16(p0, p1);
       }
     }
 #pragma unroll
-    for (int nt = 0; nt < NTD; ++nt) {
-      acc[nt][0] *= corr[0];
-      acc[nt][1] *= corr[0];
-      acc[nt][2] *= corr[1];
-      acc[nt][3] *= corr[1];
-    }
-    unsigned pf[NTK / 2][4];
-    to_a(s, pf);
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) & 1];
 
-    cp_async_wait<1>();  // V_j has landed
-    __syncthreads();
+    hopper::mbar_wait(&v_full[s], ph);
+    const uint64_t dv = hopper::desc_b128(vt, FW_BOX, hopper::SWIZZLE_ATOM);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < NTK / 2; ++ks) {
-#pragma unroll
-      for (int np = 0; np < NTD / 2; ++np) {
-        unsigned bb[4];
-        ldsm_x4_t(bb, bkn_addr(sV, LD, ks * 16, np * 16, lane));
-        mma(acc[2 * np], pf[ks], bb[0], bb[1]);
-        mma(acc[2 * np + 1], pf[ks], bb[2], bb[3]);
-      }
+    for (int ks = 0; ks < FW_BKV / 16; ++ks) {
+      if constexpr (D == 128)
+        hopper::wgmma_m64n128k16_rs<1>(acc, pa[ks],
+                                       dv + ks * hopper::K_STEP_MNMAJOR, 1);
+      else
+        hopper::wgmma_m64n64k16_rs<1>(acc, pa[ks],
+                                      dv + ks * hopper::K_STEP_MNMAJOR, 1);
     }
-    __syncthreads();  // every warp is done with V_j
-    if (j + 1 < n_kb)
-      load_rows<D, BKV>(sV, v + head0 + (k0 + BKV) * rs, rs, tid);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-  float inv[2];
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] = fmaxf(row_sum(l[i]), 1e-30f);
-    inv[i] = 1.0f / l[i];
+    for (int ks = 0; ks < FW_BKV / 16; ++ks) hopper::fence_regs(pa[ks]);
+    if (t == 0) hopper::mbar_arrive(&empty[s]);
   }
-  store_rows<D>(o + head0, rs, r_lo, tig, acc, inv[0], inv[1]);
-  if (tig == 0) {
-    float* row = lse + static_cast<int64_t>(bh) * T;
-    row[r_lo] = m[0] + logf(l[0]);
-    row[r_lo + 8] = m[1] + logf(l[1]);
+
+  const int64_t rs = static_cast<int64_t>(H) * D;
+  bf16* ob = o + (static_cast<int64_t>(b) * T * H + h) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    const float lr = fmaxf(row_sum(lsum[r]), 1e-30f);
+    const float inv = 1.0f / lr;
+    if (row >= T) continue;  // past T (T % 128 == 64): computed, not kept
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row * rs + 8 * jj +
+                                         2 * (l % 4)) =
+          __floats2bfloat162_rn(acc[4 * jj + 2 * r] * inv,
+                                acc[4 * jj + 2 * r + 1] * inv);
+    if (l % 4 == 0) lse[static_cast<int64_t>(bh) * T + row] = m[r] + logf(lr);
   }
 }
 
@@ -559,7 +653,8 @@ __global__ void __launch_bounds__(NT)
 // ---------------------------------------------------------------------------
 
 bool bad_args(int B, int H, int T, int D) {
-  return B <= 0 || H <= 0 || T <= 0 || T % BKV != 0 || (D != 64 && D != 128);
+  return B <= 0 || H <= 0 || T <= 0 || T % BKV != 0 || (D != 64 && D != 128) ||
+         B * H > 65535;  // the grid's y extent
 }
 
 template <typename Kernel, typename... Args>
@@ -577,11 +672,29 @@ int launch(Kernel kernel, int T, int BH, size_t smem, void* stream,
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, int H, int T, float scale, int causal, void* stream) {
-  const size_t smem = (BQ + 2 * BKV) * (D + PAD) * sizeof(bf16);
-  return launch(flash_fwd_kernel<D>, T, B * H, smem, stream,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<bf16*>(o),
-                static_cast<float*>(lse), H, T, scale, causal);
+  using S = FwdShape<D>;
+  if (hopper::encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorNotSupported);
+  // [B][T][H * D], innermost first; a box of 64 columns x 128 rows.
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(H) * D,
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {dims[0] * 2, dims[0] * dims[1] * 2};
+  const cuuint32_t box[3] = {64, FW_BQ, 1};
+  CUtensorMap map_q, map_k, map_v;
+  if (!hopper::make_map(&map_q, q, 3, dims, strides, box) ||
+      !hopper::make_map(&map_k, k, 3, dims, strides, box) ||
+      !hopper::make_map(&map_v, v, 3, dims, strides, box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = flash_fwd_wgmma_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((T + FW_BQ - 1) / FW_BQ, B * H);
+  kernel<<<grid, FW_THREADS, S::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      map_q, map_k, map_v, static_cast<bf16*>(o), static_cast<float*>(lse),
+      H, T, scale, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>

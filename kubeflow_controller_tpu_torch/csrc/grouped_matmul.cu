@@ -35,14 +35,15 @@
 // Two designs, chosen by bm alone (the wrapper's ops/grouped_matmul.py:
 // kernel_variant; the C entry points refuse a bm their design cannot take):
 //
-// bm >= 64: gmm_wgmma_kernel and tgmm_wgmma_kernel, for the training and
-//   prefill layouts.  Warp-specialised: warpgroup 0 is the producer (one
-//   thread issuing TMA loads, registers given back with setmaxnreg), one or
-//   two consumer warpgroups each hold a 64 x 256 f32 tile in registers and
-//   run wgmma.m64n256k16 on shared-memory operands (csrc/hopper.cuh).  A
-//   4-stage ring of 48 KB stages (64 deep) with a full/empty mbarrier pair
-//   per stage overlaps TMA with the tensor cores; TMA's out-of-bounds zero
-//   fill covers ragged K and N, so no load is masked.
+// bm >= 64: gmm_wgmma_kernel, gmm_swiglu_wgmma_kernel and tgmm_wgmma_kernel,
+//   for the training and prefill layouts.  Warp-specialised: warpgroup 0 is
+//   the producer (one thread issuing TMA loads, registers given back with
+//   setmaxnreg), one or two consumer warpgroups each hold a 64 x 256 f32
+//   tile in registers and run wgmma.m64n256k16 on shared-memory operands
+//   (csrc/hopper.cuh).  A 4-stage ring of 48 KB stages (64 deep) with a
+//   full/empty mbarrier pair per stage overlaps TMA with the tensor cores;
+//   TMA's out-of-bounds zero fill covers ragged K and N, so no load is
+//   masked.
 //   gmm: a block owns BM = min(128, bm) rows (one expert, never two) and 256
 //     columns.  lhs is K-major; rhs is read through a 3-D tensor map with
 //     the expert as a coordinate, MN-major for [E, K, N] and K-major for
@@ -50,6 +51,14 @@
 //     tiles across the columns, so an expert's weight slice and the group's
 //     rows stay in L2.  Under valid_tiles a block of a skipped tile writes
 //     zeros without loading anything.
+//   gmm_swiglu: gmm's mainloop, registers and stage bytes, with 128 output
+//     columns per block.  The stage's B region holds the gate weights'
+//     columns [col0, col0 + 128) in its first two [64 K][64 N] boxes and the
+//     up weights' same columns in the last two (a tensor map each), so one
+//     m64n256k16 accumulates [gate | up] side by side: the thread holding
+//     gate column n of a row holds up column n too, and SwiGLU runs on the
+//     f32 accumulators in registers.  (Two 64 x 256 accumulators, gate and
+//     up at gmm's width, would not fit a warpgroup's registers.)
 //   tgmm: a block owns out[e][128 K rows x 256 N columns].  Its expert's
 //     tiles are consecutive, so the contraction is one whole-tile row range
 //     [first * bm, (last + 1) * bm), found once per block by a scan of
@@ -61,15 +70,14 @@
 //     as many lhs bytes as dout bytes).  One write per output, no atomics;
 //     an expert with no counted tile writes zeros.
 //   The epilogue rounds the accumulators to bf16 once, stages them in the
-//   (then idle) ring and writes each row out in 16-byte stores.
+//   (then idle) ring and writes each row out in 16-byte stores (gmm_swiglu:
+//   h, and gate and up where the caller asks for them).
 //
-// bm < 64: gmm_kernel and tgmm_kernel (WMMA m16n16k16 from mma.sync, a
-//   two-stage cp.async ring, 48 KB of static shared memory), and
-//   gmm_swiglu at every bm.  At bm 16 (decode) gmm is bytes-bound and the
-//   step is host-bound, and a 64-row wgmma tile would compute 4x the rows;
-//   a swap-AB wgmma is later work.  gmm_swiglu moves to the wgmma mainloop
-//   next (two accumulators of 64 x 256 do not fit one warpgroup's registers
-//   at this tile, so it needs its own tiling).
+// bm < 64 (decode): gmm_kernel and tgmm_kernel (WMMA m16n16k16 from
+//   mma.sync, a two-stage cp.async ring, 48 KB of static shared memory);
+//   gmm_swiglu is gmm_kernel's SWIGLU form.  At bm 16 gmm is bytes-bound
+//   and the step is host-bound, and a 64-row wgmma tile would compute 4x
+//   the rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -581,21 +589,21 @@ __device__ __forceinline__ void store_acc(const float (&d)[128],
   }
 }
 
-// The consumer side of both kernels: `steps` stages through the ring, each
+// The consumer side of the kernels: `steps` stages through the ring, each
 // four m64n256k16 products of this warpgroup's A slice (a_off bytes into
-// the stage's A region) and the stage's B; then the epilogue.
-template <int NC, int TA, int TB>
+// the stage's A region) and the stage's B.  Once every consumer's last
+// products are done (so the ring is free for staging), epilogue(d).
+template <int NC, int TA, int TB, typename Epilogue>
 __device__ __forceinline__ void consume(uint8_t* ring, uint64_t* full,
                                         uint64_t* empty, int steps, int a_off,
                                         uint32_t a_lbo, uint32_t b_lbo,
-                                        __nv_bfloat16* dst, size_t ld,
-                                        int rows_ok, int cols_ok, int c,
-                                        int t) {
+                                        Epilogue&& epilogue) {
   using S = HgShape<NC>;
   constexpr uint64_t A_STEP =
       TA ? hopper::K_STEP_MNMAJOR : hopper::K_STEP_KMAJOR;
   constexpr uint64_t B_STEP =
       TB ? hopper::K_STEP_MNMAJOR : hopper::K_STEP_KMAJOR;
+  const int t = threadIdx.x % 128;
   float d[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) d[i] = 0.0f;
@@ -619,11 +627,40 @@ __device__ __forceinline__ void consume(uint8_t* ring, uint64_t* full,
   }
   hopper::wgmma_wait<0>();
   hopper::fence_regs(d);
-  // Every consumer's last products are done and every load has landed, so
-  // the ring is free for the epilogue staging.
   hopper::named_barrier(1, NC * 128);
-  store_acc(d, reinterpret_cast<__nv_bfloat16*>(ring) + c * 64 * HG_LDS, dst,
-            ld, rows_ok, cols_ok, t, 2 + c);
+  epilogue(d);
+}
+
+// Barriers of the ring: full[s] completes when stage s has landed (one
+// arrival with its byte count), empty[s] when all NC consumers are done
+// with it.
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty,
+                                          int nc) {
+  for (int s = 0; s < HG_STAGES; ++s) {
+    hopper::mbar_init(&full[s], 1);
+    hopper::mbar_init(&empty[s], nc);
+  }
+  hopper::fence_barrier_init();
+}
+
+// The producer of gmm and gmm_swiglu (one thread): stage kt % HG_STAGES
+// gets lhs rows [row0, row0 + BM) of K tile kt and, through
+// load_b(b, k0, bar), the stage's B region.
+template <int NC, typename LoadB>
+__device__ __forceinline__ void produce(uint8_t* ring, uint64_t* full,
+                                        uint64_t* empty, int nk,
+                                        const CUtensorMap* map_lhs, int row0,
+                                        LoadB&& load_b) {
+  using S = HgShape<NC>;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % HG_STAGES;
+    if (kt >= HG_STAGES)
+      hopper::mbar_wait(&empty[s], ((kt / HG_STAGES) + 1) & 1);
+    uint8_t* a = ring + s * S::STAGE;
+    hopper::mbar_arrive_expect_tx(&full[s], S::STAGE);
+    hopper::tma_load_2d(a, map_lhs, &full[s], kt * HG_BK, row0);
+    load_b(a + S::A_BYTES, kt * HG_BK, &full[s]);
+  }
 }
 
 // gmm, bm >= 64: out[row0 : +BM, col0 : +256] of the tile's expert.
@@ -659,37 +696,24 @@ __global__ void __launch_bounds__(HgShape<NC>::THREADS, 1)
   const int expert = tile_experts[tile];
   const int nk = (K + HG_BK - 1) / HG_BK;
 
-  if (tid == 0) {
-    for (int s = 0; s < HG_STAGES; ++s) {
-      hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], NC);
-    }
-    hopper::fence_barrier_init();
-  }
+  if (tid == 0) init_ring(full, empty, NC);
   __syncthreads();
 
   const int wg = tid / 128;
   if (wg == 0) {
     if constexpr (NC == 2) hopper::setmaxnreg_dec<40>();
-    if (tid == 0) {
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % HG_STAGES;
-        if (kt >= HG_STAGES)
-          hopper::mbar_wait(&empty[s], ((kt / HG_STAGES) + 1) & 1);
-        uint8_t* a = ring + s * S::STAGE;
-        uint8_t* b = a + S::A_BYTES;
-        hopper::mbar_arrive_expect_tx(&full[s], S::STAGE);
-        hopper::tma_load_2d(a, &map_lhs, &full[s], kt * HG_BK, row0);
-        if constexpr (TRANS) {
-          hopper::tma_load_3d(b, &map_rhs, &full[s], kt * HG_BK, col0, expert);
-        } else {
+    if (tid == 0)
+      produce<NC>(ring, full, empty, nk, &map_lhs, row0,
+                  [&](uint8_t* b, int k0, uint64_t* bar) {
+                    if constexpr (TRANS) {
+                      hopper::tma_load_3d(b, &map_rhs, bar, k0, col0, expert);
+                    } else {
 #pragma unroll
-          for (int j = 0; j < HG_BN / 64; ++j)
-            hopper::tma_load_3d(b + j * HG_BOX, &map_rhs, &full[s],
-                                col0 + 64 * j, kt * HG_BK, expert);
-        }
-      }
-    }
+                      for (int j = 0; j < HG_BN / 64; ++j)
+                        hopper::tma_load_3d(b + j * HG_BOX, &map_rhs, bar,
+                                            col0 + 64 * j, k0, expert);
+                    }
+                  });
   } else {
     if constexpr (NC == 2) hopper::setmaxnreg_inc<232>();
     const int c = wg - 1;  // this warpgroup's rows: [64c, 64c + 64)
@@ -697,8 +721,130 @@ __global__ void __launch_bounds__(HgShape<NC>::THREADS, 1)
     // MN-major [64 K][64 N] boxes 8 KB apart ([E, K, N]).
     consume<NC, 0, TRANS ? 0 : 1>(
         ring, full, empty, nk, c * 64 * 128, 16, TRANS ? 16 : HG_BOX,
-        dst + static_cast<size_t>(c) * 64 * N, N, 64, N - col0, c,
-        tid % 128);
+        [&](const float (&d)[128]) {
+          store_acc(d, reinterpret_cast<__nv_bfloat16*>(ring) + c * 64 * HG_LDS,
+                    dst + static_cast<size_t>(c) * 64 * N, N, 64, N - col0,
+                    tid % 128, 2 + c);
+        });
+  }
+}
+
+// gmm_swiglu's block: 128 output columns (a [gate | up] pair of 128 each in
+// the 256-wide accumulator).
+constexpr int SW_BN = HG_BN / 2;
+constexpr int SW_LDS = SW_BN + 8;  // bf16 row stride of its staging
+constexpr int SW_STAGING = 3 * 64 * SW_LDS;  // h, gate, up: bf16 per consumer
+static_assert(2 * SW_STAGING * 2 <= HgShape<2>::RING, "staging fits (NC 2)");
+static_assert(SW_STAGING * 2 <= HgShape<1>::RING, "staging fits (NC 1)");
+
+// A consumer warpgroup's [gate | up] accumulators: gate column n of a row in
+// d[4j + 2h + c], up column n in d[4(j + 16) + 2h + c] (j < 16; layout in
+// hopper.cuh).  h = silu(gate) * up on the f32 values, then each output
+// rounded to bf16 once, through `stage` (three 64 x SW_LDS tiles,
+// conflict-free 4-byte writes) to h_dst (and gate_dst / up_dst when not
+// null) in 16-byte row-contiguous stores, columns < cols_ok.
+__device__ __forceinline__ void store_swiglu(
+    const float (&d)[128], __nv_bfloat16* stage, __nv_bfloat16* h_dst,
+    __nv_bfloat16* gate_dst, __nv_bfloat16* up_dst, size_t ld, int cols_ok,
+    int t, int barrier_id) {
+  const int w = t / 32, l = t % 32;
+  __nv_bfloat16* s_h = stage;
+  __nv_bfloat16* s_g = stage + 64 * SW_LDS;
+  __nv_bfloat16* s_u = stage + 2 * 64 * SW_LDS;
+#pragma unroll
+  for (int j = 0; j < SW_BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = (16 * w + l / 4 + 8 * h) * SW_LDS + 8 * j + 2 * (l % 4);
+      const float g0 = d[4 * j + 2 * h], g1 = d[4 * j + 2 * h + 1];
+      const float u0 = d[4 * (j + 16) + 2 * h];
+      const float u1 = d[4 * (j + 16) + 2 * h + 1];
+      *reinterpret_cast<__nv_bfloat162*>(s_h + i) = __floats2bfloat162_rn(
+          g0 / (1.0f + __expf(-g0)) * u0, g1 / (1.0f + __expf(-g1)) * u1);
+      *reinterpret_cast<__nv_bfloat162*>(s_g + i) =
+          __floats2bfloat162_rn(g0, g1);
+      *reinterpret_cast<__nv_bfloat162*>(s_u + i) =
+          __floats2bfloat162_rn(u0, u1);
+    }
+  hopper::named_barrier(barrier_id, 128);
+  for (int i = t; i < 64 * (SW_BN / 8); i += 128) {
+    const int r = i / (SW_BN / 8);
+    const int c = (i % (SW_BN / 8)) * 8;
+    if (c >= cols_ok) continue;
+    const int src = r * SW_LDS + c;
+    const size_t dst = r * ld + c;
+    *reinterpret_cast<uint4*>(h_dst + dst) =
+        *reinterpret_cast<const uint4*>(s_h + src);
+    if (gate_dst != nullptr)
+      *reinterpret_cast<uint4*>(gate_dst + dst) =
+          *reinterpret_cast<const uint4*>(s_g + src);
+    if (up_dst != nullptr)
+      *reinterpret_cast<uint4*>(up_dst + dst) =
+          *reinterpret_cast<const uint4*>(s_u + src);
+  }
+}
+
+// gmm_swiglu, bm >= 64: h[row0 : +BM, col0 : +128] = silu(lhs @ rhs_g[e]) *
+// (lhs @ rhs_u[e]) for the tile's expert, and gate / up where their
+// pointers are not null.  map_lhs: [M, K] box {64, BM}; map_g, map_u:
+// [E, K, N] box {64, 64, 1}.
+template <int NC>
+__global__ void __launch_bounds__(HgShape<NC>::THREADS, 1)
+    gmm_swiglu_wgmma_kernel(const __grid_constant__ CUtensorMap map_lhs,
+                            const __grid_constant__ CUtensorMap map_g,
+                            const __grid_constant__ CUtensorMap map_u,
+                            const int32_t* __restrict__ tile_experts,
+                            __nv_bfloat16* __restrict__ h,
+                            __nv_bfloat16* __restrict__ gate,
+                            __nv_bfloat16* __restrict__ up, int K, int N,
+                            int bm, int n_row_tiles, int n_col_tiles) {
+  using S = HgShape<NC>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align_ring(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S::RING);
+  uint64_t* empty = full + HG_STAGES;
+
+  int rt, ct;
+  raster(blockIdx.x, n_row_tiles, n_col_tiles, rt, ct);
+  const int row0 = rt * S::BM;
+  const int col0 = ct * SW_BN;
+  const int expert = tile_experts[row0 / bm];
+  const int nk = (K + HG_BK - 1) / HG_BK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) init_ring(full, empty, NC);
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == 0) {
+    if constexpr (NC == 2) hopper::setmaxnreg_dec<40>();
+    if (tid == 0)
+      produce<NC>(ring, full, empty, nk, &map_lhs, row0,
+                  [&](uint8_t* b, int k0, uint64_t* bar) {
+#pragma unroll
+                    for (int j = 0; j < SW_BN / 64; ++j) {
+                      hopper::tma_load_3d(b + j * HG_BOX, &map_g, bar,
+                                          col0 + 64 * j, k0, expert);
+                      hopper::tma_load_3d(b + (SW_BN / 64 + j) * HG_BOX,
+                                          &map_u, bar, col0 + 64 * j, k0,
+                                          expert);
+                    }
+                  });
+  } else {
+    if constexpr (NC == 2) hopper::setmaxnreg_inc<232>();
+    const int c = wg - 1;  // this warpgroup's rows: [64c, 64c + 64)
+    const size_t ofs = static_cast<size_t>(row0 + 64 * c) * N + col0;
+    // A: K-major rows of lhs.  B: four MN-major [64 K][64 N] boxes 8 KB
+    // apart, gate columns then up columns.
+    consume<NC, 0, 1>(
+        ring, full, empty, nk, c * 64 * 128, 16, HG_BOX,
+        [&](const float (&d)[128]) {
+          store_swiglu(d,
+                       reinterpret_cast<__nv_bfloat16*>(ring) + c * SW_STAGING,
+                       h + ofs, gate == nullptr ? nullptr : gate + ofs,
+                       up == nullptr ? nullptr : up + ofs, N, N - col0,
+                       tid % 128, 2 + c);
+        });
   }
 }
 
@@ -735,11 +881,7 @@ __global__ void __launch_bounds__(HgShape<2>::THREADS, 1)
   if (tid == 0) {
     s_first = n_tiles;
     s_last = -1;
-    for (int s = 0; s < HG_STAGES; ++s) {
-      hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], 2);
-    }
-    hopper::fence_barrier_init();
+    init_ring(full, empty, 2);
   }
   __syncthreads();
   for (int i = tid; i < limit; i += S::THREADS)
@@ -782,9 +924,13 @@ __global__ void __launch_bounds__(HgShape<2>::THREADS, 1)
     const int c = wg - 1;  // this warpgroup's K rows: [k0 + 64c, +64)
     // A = lhs^T: the c-th [64 rows][64 K] box, MN-major (one 64-wide block).
     // B = dout: four [64 rows][64 N] boxes 8 KB apart, MN-major.
-    consume<2, 1, 1>(ring, full, empty, steps, c * HG_BOX, HG_BOX, HG_BOX,
-                     dst + static_cast<size_t>(c) * 64 * N, N,
-                     K - k0 - 64 * c, N - col0, c, tid % 128);
+    consume<2, 1, 1>(
+        ring, full, empty, steps, c * HG_BOX, HG_BOX, HG_BOX,
+        [&](const float (&d)[128]) {
+          store_acc(d, reinterpret_cast<__nv_bfloat16*>(ring) + c * 64 * HG_LDS,
+                    dst + static_cast<size_t>(c) * 64 * N, N, K - k0 - 64 * c,
+                    N - col0, tid % 128, 2 + c);
+        });
   }
 }
 
@@ -810,6 +956,26 @@ int launch_gmm_wgmma(const CUtensorMap& map_lhs, const CUtensorMap& map_rhs,
       map_lhs, map_rhs, static_cast<const int32_t*>(tile_experts),
       static_cast<const int32_t*>(valid_tiles),
       static_cast<__nv_bfloat16*>(out), K, N, bm, n_row, n_col);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NC>
+int launch_gmm_swiglu_wgmma(const CUtensorMap& map_lhs,
+                            const CUtensorMap& map_g, const CUtensorMap& map_u,
+                            const void* tile_experts, void* h, void* gate,
+                            void* up, int M, int K, int N, int bm,
+                            void* stream) {
+  using S = HgShape<NC>;
+  const auto kernel = gmm_swiglu_wgmma_kernel<NC>;
+  cudaError_t err = allow_smem(kernel, S::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_row = M / S::BM;
+  const int n_col = (N + SW_BN - 1) / SW_BN;
+  kernel<<<n_row * n_col, S::THREADS, S::SMEM,
+           static_cast<cudaStream_t>(stream)>>>(
+      map_lhs, map_g, map_u, static_cast<const int32_t*>(tile_experts),
+      static_cast<__nv_bfloat16*>(h), static_cast<__nv_bfloat16*>(gate),
+      static_cast<__nv_bfloat16*>(up), K, N, bm, n_row, n_col);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -882,18 +1048,37 @@ int kctpu_gmm_wgmma(const void* lhs, const void* rhs, const void* tile_experts,
 
 // h[r] = silu(lhs[r] @ rhs_g[e]) * (lhs[r] @ rhs_u[e]), e = tile_experts[r / bm];
 // gate and up (the two products, rounded once) too where their pointers are
-// not null.  WMMA design at every bm.
+// not null.  The WMMA design, bm < 64 (kctpu_gmm_swiglu_wgmma takes every
+// other bm).
 int kctpu_gmm_swiglu(const void* lhs, const void* rhs_g, const void* rhs_u,
                      const void* tile_experts, void* h, void* gate, void* up,
                      int M, int K, int N, int bm, void* stream) {
-  if (bad_args(M, K, N, bm)) return static_cast<int>(cudaErrorInvalidValue);
-  if (bm >= 64)  // 64-row tiles, never more than one expert's
-    return launch<64, 128, 2, 4, true, false>(lhs, rhs_g, rhs_u, tile_experts,
-                                              nullptr, h, gate, up, M, K, N,
-                                              bm, stream);
+  if (bad_args(M, K, N, bm) || bm >= WGMMA_MIN_BM)
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch<16, 128, 1, 4, true, false>(lhs, rhs_g, rhs_u, tile_experts,
                                             nullptr, h, gate, up, M, K, N, bm,
                                             stream);
+}
+
+// The same fused SwiGLU, wgmma design, bm >= 64; n_experts = rhs_g.shape[0].
+int kctpu_gmm_swiglu_wgmma(const void* lhs, const void* rhs_g,
+                           const void* rhs_u, const void* tile_experts,
+                           void* h, void* gate, void* up, int M, int K, int N,
+                           int bm, int n_experts, void* stream) {
+  if (bad_args(M, K, N, bm) || bm < WGMMA_MIN_BM || n_experts <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hopper::encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorNotSupported);
+  const bool wide = bm >= 128;  // two consumer warpgroups, 128-row tiles
+  CUtensorMap map_lhs, map_g, map_u;
+  if (!bf16_map(&map_lhs, lhs, M, K, wide ? 128 : 64) ||
+      !bf16_map(&map_g, rhs_g, K, N, 64, n_experts) ||
+      !bf16_map(&map_u, rhs_u, K, N, 64, n_experts))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return wide ? launch_gmm_swiglu_wgmma<2>(map_lhs, map_g, map_u, tile_experts,
+                                           h, gate, up, M, K, N, bm, stream)
+              : launch_gmm_swiglu_wgmma<1>(map_lhs, map_g, map_u, tile_experts,
+                                           h, gate, up, M, K, N, bm, stream);
 }
 
 // out[e] = sum over the tiles i of expert e (i < valid_tiles[0] when

@@ -51,6 +51,8 @@ _SIGNATURES = {
     # lhs, rhs_g, rhs_u, tile_experts, h, gate (or NULL), up (or NULL), M, K,
     # N, bm, stream
     "kctpu_gmm_swiglu": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    # the same arguments, then n_experts, before the stream
+    "kctpu_gmm_swiglu_wgmma": ([_P] * 7 + [_I] * 5 + [_P], _I),
     # lhs, dout, tile_experts, valid_tiles (or NULL), out, M, K, N, bm,
     # n_experts, stream
     "kctpu_tgmm": ([_P] * 5 + [_I] * 5 + [_P], _I),

@@ -24,14 +24,13 @@ The port of ``kubeflow_controller_tpu/ops/grouped_matmul.py``:
 Each kernel launches from its hand-written CUDA source
 (``csrc/grouped_matmul.cu``) for CUDA tensors, or raises: the CUDA kernels
 take contiguous, 16-byte-aligned bf16 operands (TMA's base and row-stride
-rule) and int32 tile ids on one device.  ``gmm`` and ``tgmm`` have two
-designs, picked by :func:`kernel_variant` on ``bm`` alone: ``"wgmma"``
-(TMA + ``wgmma``, bm >= 64: training and prefill) and ``"wmma"`` (bm < 64:
-decode); ``gmm_swiglu`` is WMMA at every bm.  Only a
-tensor that lies on the CPU takes the plain PyTorch version
-(``gmm_plain``/``gmm_swiglu_plain``/``tgmm_plain``): f32 products over each
-expert's run of tiles, one rounding to the operand dtype, as the reference's
-kernels round.  ``gmm.launches``, ``gmm_swiglu.launches`` and
+rule) and int32 tile ids on one device.  ``gmm``, ``gmm_swiglu`` and
+``tgmm`` each have two designs, picked by :func:`kernel_variant` on ``bm``
+alone: ``"wgmma"`` (TMA + ``wgmma``, bm >= 64: training and prefill) and
+``"wmma"`` (bm < 64: decode).  Only a tensor that lies on the CPU takes
+the plain PyTorch version (``gmm_plain``/``gmm_swiglu_plain``/
+``tgmm_plain``): f32 products over each expert's run of tiles, one
+rounding to the operand dtype, as the reference's kernels round.  ``gmm.launches``, ``gmm_swiglu.launches`` and
 ``tgmm.launches`` count kernel launches, backward ones included.
 """
 
@@ -126,9 +125,10 @@ WGMMA_MIN_BM = 64
 
 
 def kernel_variant(bm: int) -> str:
-    """The CUDA design ``gmm`` and ``tgmm`` launch for row tiles of ``bm``:
-    ``"wgmma"`` for bm >= 64 (a 64-row wgmma tile never straddles two
-    experts, and 64 divides every expert's row range), else ``"wmma"``."""
+    """The CUDA design ``gmm``, ``gmm_swiglu`` and ``tgmm`` launch for row
+    tiles of ``bm``: ``"wgmma"`` for bm >= 64 (a 64-row wgmma tile never
+    straddles two experts, and 64 divides every expert's row range), else
+    ``"wmma"``."""
     return "wgmma" if bm >= WGMMA_MIN_BM else "wmma"
 
 
@@ -223,11 +223,15 @@ def _gmm_swiglu(lhs: torch.Tensor, rhs_g: torch.Tensor, rhs_u: torch.Tensor,
             for _ in range(3 if gate_up else 1)]
     h, gate, up = outs if gate_up else (outs[0], None, None)
     lib = _build.library()
-    code = lib.lib.kctpu_gmm_swiglu(lhs.data_ptr(), rhs_g.data_ptr(),
-                                    rhs_u.data_ptr(), tile_experts.data_ptr(),
-                                    h.data_ptr(), _ptr(gate), _ptr(up), m, k,
-                                    n, bm, _build.stream(lhs))
-    lib.check(code, "gmm_swiglu")
+    args = (lhs.data_ptr(), rhs_g.data_ptr(), rhs_u.data_ptr(),
+            tile_experts.data_ptr(), h.data_ptr(), _ptr(gate), _ptr(up), m, k,
+            n, bm)
+    if kernel_variant(bm) == "wgmma":
+        code = lib.lib.kctpu_gmm_swiglu_wgmma(*args, rhs_g.shape[0],
+                                              _build.stream(lhs))
+    else:
+        code = lib.lib.kctpu_gmm_swiglu(*args, _build.stream(lhs))
+    lib.check(code, f"gmm_swiglu ({kernel_variant(bm)})")
     gmm_swiglu.launches += 1
     return (h, gate, up) if gate_up else h
 

@@ -3,7 +3,10 @@
 versions on the card by ``chip_smoke.py``):
 
 - ``grouped_matmul.kernel_variant``: the one rule on ``bm`` that picks the
-  CUDA design ``gmm`` and ``tgmm`` launch (wgmma for bm >= 64, WMMA below);
+  CUDA design ``gmm``, ``gmm_swiglu`` and ``tgmm`` launch (wgmma for bm >=
+  64, WMMA below), and the C entry point each wrapper calls under it;
+- ``attention.kernel_rule`` and the arguments ``flash_fwd`` hands its C
+  entry point at every shape the rule accepts;
 - ``_build._SIGNATURES`` against the ``extern "C"`` functions of
   ``csrc/*.cu``: the same names with the same number of parameters;
 - ``_build._content_key`` over every file under ``csrc/``, headers
@@ -19,7 +22,10 @@ from pathlib import Path
 
 import pytest
 
+import torch
+
 from kubeflow_controller_tpu_torch.ops import _build
+from kubeflow_controller_tpu_torch.ops import attention as tat
 from kubeflow_controller_tpu_torch.ops import grouped_matmul as tgm
 
 REPO = Path(__file__).resolve().parent.parent
@@ -57,7 +63,8 @@ def test_every_c_entry_point_has_a_signature_of_its_arity_and_back():
     declared = {name: len(argtypes)
                 for name, (argtypes, _) in _build._SIGNATURES.items()}
     assert defined == declared
-    assert {"kctpu_gmm_wgmma", "kctpu_tgmm_wgmma"} <= set(defined)
+    assert {"kctpu_gmm_wgmma", "kctpu_gmm_swiglu_wgmma",
+            "kctpu_tgmm_wgmma"} <= set(defined)
 
 
 @pytest.fixture
@@ -102,6 +109,20 @@ PROFILE_NAMES = {
     "__nv_bfloat16 const*": "gmm_swiglu",
     "void (anonymous namespace)::flash_fwd_kernel<128>(__nv_bfloat16":
     "flash_fwd",
+    "void (anonymous namespace)::gmm_swiglu_wgmma_kernel<2>(CUtensorMap_st, "
+    "CUtensorMap_st, CUtensorMap_st": "gmm_swiglu",
+    "void (anonymous namespace)::gmm_swiglu_wgmma_kernel<1>(CUtensorMap_st":
+    "gmm_swiglu",
+    "void (anonymous namespace)::gmm_kernel<16, 128, 1, 4, true, false>("
+    "__nv_bfloat16 const*": "gmm_swiglu",
+    "void (anonymous namespace)::flash_fwd_wgmma_kernel<128>(CUtensorMap_st, "
+    "CUtensorMap_st": "flash_fwd",
+    "void (anonymous namespace)::flash_fwd_wgmma_kernel<64>(CUtensorMap_st":
+    "flash_fwd",
+    "void (anonymous namespace)::flash_dq_kernel<128>(__nv_bfloat16 const*":
+    "flash_dq",
+    "void (anonymous namespace)::flash_dkv_kernel<64>(__nv_bfloat16 const*":
+    "flash_dkv",
     "nvjet_tst_320x128_64x3_1x2_h_bz_coopB_NNT": "library gemm",
 }
 
@@ -123,9 +144,110 @@ def test_hgmma_count_reads_cuobjdump_sections():
         "\t\tFunction : _ZN12_GLOBAL__N_111tgmm_kernelILi64ELi128ELi2ELi4EEEv",
         "        /*0c10*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
         "\t\tFunction : _ZN12_GLOBAL__N_110gmm_kernelILi16ELi128ELi1ELi4ELb0E",
-        "\t\tFunction : _ZN12_GLOBAL__N_116flash_fwd_kernelILi128EEEvPK",
-        "        /*0d10*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_123gmm_swiglu_wgmma_kernelILi2EEEv14C",
+        "        /*0e10*/  HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24 ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_123gmm_swiglu_wgmma_kernelILi1EEEv14C",
+        "        /*0e20*/  HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24 ;",
+        "        /*0e30*/  HGMMA.64x256x16.F32.BF16 R24, gdesc[UR8], R24 ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILi128EEEv14",
+        "        /*0d10*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ;",
+        "        /*0d20*/  HGMMA.64x128x16.F32.BF16 R88, R152, gdesc[UR8], R88 ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_115flash_dq_kernelILi128EEEvPK",
+        "        /*0f10*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
     ])
     assert chip_smoke.hgmma_counts(sass) == {
         "gmm_wgmma_kernel": [2], "tgmm_wgmma_kernel": [1],
-        "tgmm_kernel": [0], "gmm_kernel": [0]}
+        "tgmm_kernel": [0], "gmm_kernel": [0],
+        "gmm_swiglu_wgmma_kernel": [1, 2], "flash_fwd_wgmma_kernel": [2]}
+    assert set(chip_smoke.hgmma_counts(sass)) == set(
+        chip_smoke.WGMMA_KERNELS + chip_smoke.WMMA_KERNELS)
+
+
+class RecordingLibrary:
+    """Stands in for the kernel library: records each C call (name and
+    arguments) and reports success."""
+
+    def __init__(self):
+        self.calls = []
+        calls = self.calls
+
+        class Lib:
+            def __getattr__(self, name):
+                def entry(*args):
+                    calls.append((name, args))
+                    return 0
+                return entry
+
+        self.lib = Lib()
+
+    def check(self, code, what):
+        assert code == 0, what
+
+
+@pytest.fixture
+def recorder(monkeypatch):
+    rec = RecordingLibrary()
+    monkeypatch.setattr(_build, "library", lambda: rec)
+    monkeypatch.setattr(_build, "stream", lambda t: 7)
+    return rec
+
+
+def meta(*shape, dtype=torch.bfloat16):
+    """A tensor on no real device: it takes the kernel path (only CPU
+    tensors take the plain versions) with no memory behind it."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("bm", [8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("gate_up", [False, True])
+def test_gmm_swiglu_calls_the_wgmma_entry_exactly_from_bm_64(recorder, bm,
+                                                              gate_up):
+    e, k, n, tiles = 3, 40, 24, 4
+    m = tiles * bm
+    te = meta(tiles, dtype=torch.int32)
+    before = tgm.gmm_swiglu.launches
+    out = tgm._gmm_swiglu(meta(m, k), meta(e, k, n), meta(e, k, n), te, bm,
+                          gate_up=gate_up)
+    assert tgm.gmm_swiglu.launches == before + 1
+    outs = out if gate_up else (out,)
+    assert [tuple(t.shape) for t in outs] == [(m, n)] * len(outs)
+    [(name, args)] = recorder.calls
+    if bm >= 64:
+        assert name == "kctpu_gmm_swiglu_wgmma"
+        assert args[7:] == (m, k, n, bm, e, 7)
+    else:
+        assert name == "kctpu_gmm_swiglu"
+        assert args[7:] == (m, k, n, bm, 7)
+    # gate and up pointers are passed (as NULL without gate_up)
+    assert (args[5] is None, args[6] is None) == (not gate_up, not gate_up)
+
+
+FLASH_SHAPES = [(1, 64, 1, 64), (2, 128, 2, 64), (1, 192, 3, 128),
+                (2, 320, 2, 128), (1, 4096, 4, 128)]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_passes_the_same_arguments_at_every_accepted_shape(
+        recorder, shape, causal):
+    b, t, h, d = shape
+    q, k, v = meta(*shape), meta(*shape), meta(*shape)
+    assert tat.kernel_rule(q, k, v) is None
+    before = tat.flash_fwd.launches
+    o, lse = tat.flash_fwd(q, k, v, causal)
+    assert tat.flash_fwd.launches == before + 1
+    assert o.shape == q.shape and o.dtype == torch.bfloat16
+    assert lse.shape == (b * h, t) and lse.dtype == torch.float32
+    [(name, args)] = recorder.calls
+    assert name == "kctpu_flash_fwd"
+    assert len(args) == 12
+    assert args[5:] == (b, h, t, d, d ** -0.5, int(causal), 7)
+
+
+@pytest.mark.parametrize("t", [32, 64, 96, 128, 192, 320, 4096])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
+def test_kernel_rule_takes_head_dim_64_or_128_and_t_a_multiple_of_64(t, d):
+    q = meta(2, t, 3, d)
+    reason = tat.kernel_rule(q, q, q)
+    assert (reason is None) == (d in (64, 128) and t % 64 == 0), reason
+    assert tat.TILE == 64 and tat.HEAD_DIMS == (64, 128)

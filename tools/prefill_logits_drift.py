@@ -21,7 +21,8 @@ forward (``gmm`` and ``gmm_swiglu``):
   kernel_ref      with ``--ref-source``: the CUDA kernels compiled from
                   another ``grouped_matmul.cu`` with the same C interface
                   for ``kctpu_gmm`` and ``kctpu_gmm_swiglu`` (and
-                  ``kctpu_gmm_wgmma`` for bm >= 64, where it has one)
+                  ``kctpu_gmm_wgmma`` / ``kctpu_gmm_swiglu_wgmma`` for
+                  bm >= 64, where it has them)
 
 For each seed it prints one JSON line.  ``per_layer``: for each pair
 (a, b), max |ffn_a - ffn_b| / max |ffn_b| in each layer, on the plain
@@ -98,6 +99,10 @@ def load_ref(source: Path, workdir: Path):
     wgmma = getattr(lib, "kctpu_gmm_wgmma", None)
     if wgmma is not None:
         wgmma.argtypes, wgmma.restype = [p] * 5 + [i] * 6 + [p], i
+    swiglu_wgmma = getattr(lib, "kctpu_gmm_swiglu_wgmma", None)
+    if swiglu_wgmma is not None:
+        swiglu_wgmma.argtypes = [p] * 7 + [i] * 5 + [p]
+        swiglu_wgmma.restype = i
 
     def run(what, code):
         if code:
@@ -125,9 +130,13 @@ def load_ref(source: Path, workdir: Path):
         gm._check(lhs, (rhs_g, rhs_u), te, bm)
         (m, k), n = lhs.shape, rhs_g.shape[2]
         h = out_like(lhs, n)
-        run("gmm_swiglu", lib.kctpu_gmm_swiglu(
-            lhs.data_ptr(), rhs_g.data_ptr(), rhs_u.data_ptr(), te.data_ptr(),
-            h.data_ptr(), None, None, m, k, n, bm, _build.stream(lhs)))
+        args = (lhs.data_ptr(), rhs_g.data_ptr(), rhs_u.data_ptr(),
+                te.data_ptr(), h.data_ptr(), None, None, m, k, n, bm)
+        if swiglu_wgmma is not None and gm.kernel_variant(bm) == "wgmma":
+            run("gmm_swiglu", swiglu_wgmma(*args, rhs_g.shape[0],
+                                           _build.stream(lhs)))
+        else:
+            run("gmm_swiglu", lib.kctpu_gmm_swiglu(*args, _build.stream(lhs)))
         return h
 
     return gmm_ref, gmm_swiglu_ref
