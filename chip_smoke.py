@@ -11,14 +11,15 @@ what comes out.
 Phases, in order (any failure raises and exits non-zero):
 
 1. build: ``nvcc`` compiles ``kubeflow_controller_tpu_torch/csrc/*.cu`` for
-   sm_90a, one process per source, all at once; prints the build seconds
-   and ptxas' register/spill/warning lines and its "performance loss"
-   notes (wgmma serialized).  Then ``cuobjdump -sass`` of the library:
-   the HGMMA (wgmma) instructions of each kernel instantiation, nonzero
-   in every ``gmm_wgmma_kernel``, ``gmm_swiglu_wgmma_kernel`` and
-   ``tgmm_wgmma_kernel`` (the bm >= 64 design) and
-   ``flash_fwd_wgmma_kernel``, zero in every WMMA ``gmm_kernel`` and
-   ``tgmm_kernel`` (bm < 64).
+   sm_90a, one process per source, all at once; prints the build seconds,
+   ptxas' warnings and "performance loss" notes (wgmma serialized), and
+   each kernel's registers and spill bytes (no kernel may spill).  Then
+   ``cuobjdump -sass`` of the library: the HGMMA (wgmma) instructions of
+   each kernel instantiation, nonzero in every ``gmm_wgmma_kernel``,
+   ``gmm_swiglu_wgmma_kernel`` and ``tgmm_wgmma_kernel`` (the bm >= 64
+   design) and in the three flash kernels (``flash_fwd_wgmma_kernel``,
+   ``flash_dq_wgmma_kernel``, ``flash_dkv_wgmma_kernel``), zero in every
+   WMMA ``gmm_kernel`` and ``tgmm_kernel`` (bm < 64).
 2. gmm kernels: ``gmm_swiglu`` and ``gmm`` at the decode layout (8 slots x
    top-2 = 16 routed rows, M = 144, bm = 16: WMMA) and the prefill layout (a
    128-token bucket: 256 rows, M = 2304, bm = 256: wgmma), bf16,
@@ -59,16 +60,20 @@ Phases, in order (any failure raises and exits non-zero):
    the denominator floored at 1e-2 of the RMS row norm (causal dq row 0 is
    zero up to rounding); lse within 1e-3 absolute.  Negative controls:
    the same check must reject the kernels' own dk/dv with every key row
-   from 1500 on zeroed, and their o with every query row from 1024 on
-   scaled by 0.7.  Also non-causal and head_dim 64 at small shapes, and T
-   320 and 192 (T = 64 mod 128: the last 128-row q block and 128-key K/V
-   stage of ``flash_fwd`` run past T).
+   from 1500 on zeroed, their o with every query row from 1024 on scaled
+   by 0.7, and their dq with every query row from 2048 on scaled by 0.97.
+   Also non-causal and head_dim 64 at small shapes, and T 320 and 192
+   (T = 64 mod 128: the last 128-row block of each kernel runs past T).
    Prints each kernel's ms, its plain version's ms on the same inputs (16
    calls of 8 heads: its f32 scores are 512 MB a call), the bound at H100
    SXM peaks, and ``torch.nn.functional.scaled_dot_product_attention``'s
    fwd, bwd alone (dq, dk and dv in one call) and fwd+bwd ms (a yardstick
-   the port never calls); then the kernels' fwd+bwd against the plain
-   attention path at T = 1024/2048/4096 (B 1, H 32).
+   the port never calls) beside ``flash_dq`` + ``flash_dkv`` and the
+   backward wrapper's ``delta`` einsum.  Then B * H past 65535 (B 1024 x
+   H 66, T 64, D 64): batches run alone must give bit-identical outputs
+   to the full grid, and agree with the plain versions.  Last, the
+   kernels' fwd+bwd against the plain attention path at T =
+   1024/2048/4096 (B 1, H 32).
 5. serve: ``LlamaBackend`` under a ``ServeEngine`` (8 slots, max_len 256,
    buckets 16/32/64/128) answers 8 requests of 12-120 prompt tokens and 16
    new tokens each.  The gmm launch counters are zeroed just before and
@@ -175,6 +180,8 @@ TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GRAD_RTOL = 5e-2
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 FLASH_SHAPE = (4, 4096, 32, 128)    # the pretrain shape: B, T, H, D
+MANY_HEADS = (1024, 64, 66, 64)     # B * H = 67584, past the old 65535
+MANY_HEADS_SLICES = (0, 993, 1023)  # from batch 993 on, every head >= 65536
 PLAIN_HEADS = 8                     # heads per plain-version call
 SWEEP_T = (1024, 2048, 4096)
 CHECK_SEQ = 1024                    # the card-side training check's T
@@ -249,8 +256,13 @@ def bound(nbytes: float, flops: float):
 # The kernels' names: the wgmma designs must issue HGMMA (wgmma)
 # instructions, the WMMA ones (the grouped matmuls at bm < 64) must not.
 WGMMA_KERNELS = ("gmm_wgmma_kernel", "gmm_swiglu_wgmma_kernel",
-                 "tgmm_wgmma_kernel", "flash_fwd_wgmma_kernel")
+                 "tgmm_wgmma_kernel", "flash_fwd_wgmma_kernel",
+                 "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel")
 WMMA_KERNELS = ("gmm_kernel", "tgmm_kernel")
+# Mangled: <length><identifier>I<template args>... (or E and the
+# parameters, for a kernel that is not a template).
+KERNEL_NAME = re.compile(r"\d((?:t?gmm|gmm_swiglu|flash_fwd|flash_dq|"
+                         r"flash_dkv)_(?:wgmma_)?kernel)([IE])")
 
 
 def hgmma_counts(sass: str) -> dict:
@@ -261,10 +273,7 @@ def hgmma_counts(sass: str) -> dict:
     name = None
     for line in sass.splitlines():
         if "Function :" in line:
-            # Mangled: <length><identifier>I<template args>... (or E and
-            # the parameters, for a kernel that is not a template)
-            m = re.search(r"\d((?:t?gmm|gmm_swiglu|flash_fwd)_(?:wgmma_)?"
-                          r"kernel)[IE]", line)
+            m = KERNEL_NAME.search(line)
             name = m.group(1) if m else None
             if name is not None:
                 counts.setdefault(name, []).append(0)
@@ -273,13 +282,43 @@ def hgmma_counts(sass: str) -> dict:
     return counts
 
 
+def ptxas_report(log: str) -> dict:
+    """{kernel<template args>: [registers, spill store bytes, spill load
+    bytes]} of every kernel named by ``KERNEL_NAME`` in ptxas -v output."""
+    report: dict = {}
+    name = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = KERNEL_NAME.search(line)
+            name = None
+            if m:
+                args = re.findall(r"L[ib](\d+)E",
+                                  line[m.end():].split("EE")[0] + "E") \
+                    if m.group(2) == "I" else []
+                name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+                report[name] = [None, None, None]
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                report[name][1:] = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report[name][0] = int(m.group(1))
+    return report
+
+
 def build_phase():
     lib = _build.library()
     print(f"build: {lib.build_seconds:.3f} s -> {lib.path.name}", flush=True)
     for line in lib.log.splitlines():
-        if any(w in line.lower() for w in ("registers", "spill", "warning",
-                                           "performance loss")):
+        if any(w in line.lower() for w in ("warning", "performance loss")):
             print(f"  ptxas: {line.strip()}")
+    regs = ptxas_report(lib.log)
+    print("build: ptxas [registers, spill stores, spill loads] per kernel: "
+          + json.dumps(regs), flush=True)
+    assert all(r[1] == 0 and r[2] == 0 for r in regs.values()), (
+        "ptxas spilled registers")
     cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass", str(lib.path)],
                           capture_output=True, text=True, timeout=300,
@@ -770,7 +809,8 @@ def whole_rel_err(got, ref) -> float:
 def negative_controls(got, ref):
     """The check's readings on deliberately wrong outputs made from the
     kernels' own: dk and dv with every key row from 1500 on zeroed, o with
-    every query row from 1024 on scaled by 0.7.  Each must fail."""
+    every query row from 1024 on scaled by 0.7, dq with every query row from
+    2048 on scaled by 0.97.  Each must fail."""
     faults = {}
     for key in ("dk", "dv"):
         bad = got[key].clone()
@@ -779,6 +819,9 @@ def negative_controls(got, ref):
     bad = got["o"].clone()
     bad[:, 1024:] *= 0.7
     faults["o rows >= 1024 x 0.7"] = (bad, ref["o"])
+    bad = got["dq"].clone()
+    bad[:, 2048:] *= 0.97
+    faults["dq rows >= 2048 x 0.97"] = (bad, ref["dq"])
     readings = {name: {"max_row_rel": row_rel_err(g, r).max().item(),
                        "whole_tensor_rel": whole_rel_err(g, r)}
                 for name, (g, r) in faults.items()}
@@ -837,6 +880,40 @@ def flash_check(name, q, k, v, do, causal=True, chunk=8, controls=False):
         assert rel[key] <= FLASH_ROW_TOL, f"{name}: {key} disagrees"
     assert err["lse"] <= LSE_ATOL, f"{name}: lse disagrees"
     return err, rel
+
+
+def many_heads_check(rnd):
+    """The three kernels at B * H past 65535 (``MANY_HEADS``): batches
+    ``MANY_HEADS_SLICES`` run alone through the kernels (dq and dkv with the
+    full run's lse and delta) must give bit-identical o, lse, dq, dk and dv
+    (a head's work does not depend on the grid), and the last two agree
+    with the plain versions within ``FLASH_ROW_TOL`` (:func:`flash_check`)."""
+    b, t, h, d = MANY_HEADS
+    q, k, v, do = (rnd(b, t, h, d) for _ in range(4))
+    full = flash_run(q, k, v, do)
+    identical = {}
+    for bi in MANY_HEADS_SLICES:
+        sl, rows = slice(bi, bi + 1), slice(bi * h, (bi + 1) * h)
+        qs, ks, vs, dos = (x[sl] for x in (q, k, v, do))
+        lse, delta = full["lse"][rows], full["delta"][rows]
+        alone = dict(zip(("o", "lse"), at.flash_fwd(qs, ks, vs)))
+        alone["dq"] = at.flash_dq(qs, ks, vs, dos, lse, delta)
+        alone["dk"], alone["dv"] = at.flash_dkv(qs, ks, vs, dos, lse, delta)
+        torch.cuda.synchronize()
+        identical[bi] = {
+            key: torch.equal(val, full[key][rows if key == "lse" else sl])
+            for key, val in alone.items()}
+    rel = {bi: flash_check(f"flash[B{b} H{h}, batch {bi} alone]",
+                           *(x[bi:bi + 1] for x in (q, k, v, do)))[1]
+           for bi in MANY_HEADS_SLICES[1:]}
+    out = {"shape": f"B{b} T{t} H{h} D{d} causal", "heads": b * h,
+           "bit_identical_alone": identical, "max_row_rel": rel}
+    print("  flash[B*H past 65535]: " + json.dumps(out), flush=True)
+    assert all(all(x.values()) for x in identical.values()), (
+        "a batch run alone differs from the same batch in the full grid")
+    del q, k, v, do, full
+    torch.cuda.empty_cache()
+    return out
 
 
 def fwd_bwd(attn, q, k, v, do):
@@ -914,6 +991,16 @@ def flash_phase(dev, seed: int):
     del o_sdpa, qg, kg, vg
     sdpa_fwd_bwd = time_ms(fwd_bwd(sdpa, qt, kt, vt, dot), 5)
     flash_fwd_bwd = time_ms(fwd_bwd(at.flash_attention, q, k, v, do), 5)
+    # The backward wrapper's delta = rowsum(dO * O), a plain f32 einsum
+    # (ops/attention.py), on the same inputs; its bound reads dO and O once
+    # and writes delta once.
+    o = at.flash_fwd(q, k, v)[0]
+    delta_ms = time_ms(lambda: torch.einsum(
+        "bthd,bthd->bht", do.float(), o.float()).reshape(b * h, t)
+        .contiguous(), 10)
+    delta_bound_ms = bound(2 * b * t * h * d * 2 + b * h * t * 4,
+                           2 * b * t * h * d)[0]
+    del o
 
     bounds = flash_bounds(b, h, t, d)
     results = {}
@@ -925,7 +1012,7 @@ def flash_phase(dev, seed: int):
             "ms": ms[name], "plain_ms": plain_ms[name],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": sdpa_fwd if name == "flash_fwd" else None,
-            "variant": "wgmma" if name == "flash_fwd" else "mma.sync",
+            "variant": "wgmma",
             "max_abs_err": max(err[key] for key in keys),
             "max_row_rel_err": max(rel[key] for key in keys),
             "shape": f"B{b} T{t} H{h} D{d} causal",
@@ -938,12 +1025,20 @@ def flash_phase(dev, seed: int):
     for name in ("flash_dq", "flash_dkv"):
         results[name]["sdpa_bwd_dq_dk_dv_ms"] = sdpa_bwd
     sdpa_line = {"sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
+                 "flash_dq_plus_dkv_ms": ms["flash_dq"] + ms["flash_dkv"],
+                 "delta_einsum_ms": delta_ms,
+                 "delta_bound_ms": delta_bound_ms,
                  "sdpa_fwd_bwd_ms": sdpa_fwd_bwd,
                  "flash_fwd_bwd_ms": flash_fwd_bwd}
-    print("  library (SDPA, timed only): " + json.dumps(sdpa_line),
-          flush=True)
+    print("  library (SDPA, timed only) beside the kernels: "
+          + json.dumps(sdpa_line), flush=True)
+    for name in ("flash_dq", "flash_dkv"):
+        results[name]["delta_einsum_ms"] = delta_ms
     del q, k, v, do, qt, kt, vt, dot, parts, lse, delta
     torch.cuda.empty_cache()
+    many = many_heads_check(rnd)
+    for name in FLASH_KERNELS:
+        results[name]["heads_past_65535"] = many
 
     # Kernel fwd+bwd against the plain attention path (attention_reference
     # under autograd, what the model runs below the "auto" gate), in turns.
@@ -1117,11 +1212,14 @@ def serve_phase(cfg: LlamaConfig, dev, seed: int):
 # ---------------------------------------------------------------------------
 
 KERNEL_GROUPS = (
-    # flash_fwd_wgmma_kernel<D>; flash_dq_kernel<D>, flash_dkv_kernel<D>.
+    # flash_fwd_wgmma_kernel<D>, flash_dq_wgmma_kernel<D> and
+    # flash_dkv_wgmma_kernel<D>.
     ("flash_fwd", lambda n: re.search(r"\bflash_fwd_(wgmma_)?kernel", n)
      is not None),
-    ("flash_dq", lambda n: "flash_dq_kernel" in n),
-    ("flash_dkv", lambda n: "flash_dkv_kernel" in n),
+    ("flash_dq", lambda n: re.search(r"\bflash_dq_(wgmma_)?kernel", n)
+     is not None),
+    ("flash_dkv", lambda n: re.search(r"\bflash_dkv_(wgmma_)?kernel", n)
+     is not None),
     # tgmm_kernel (WMMA) and tgmm_wgmma_kernel; gmm_kernel<BM, BN, WARPS_M,
     # WARPS_N, SWIGLU, TRANS> (WMMA, gmm_swiglu when SWIGLU),
     # gmm_swiglu_wgmma_kernel<NC> and gmm_wgmma_kernel<NC, TRANS>.

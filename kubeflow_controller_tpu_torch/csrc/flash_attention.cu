@@ -13,7 +13,9 @@
 // contiguous [B, T, H, D] bf16 (the model's layout, read through strides:
 // no [B*H, T, D] transpose); lse and delta are contiguous [B*H, T] f32 (one
 // value per row: the reference's 128-lane broadcast is a Mosaic tiling rule);
-// D is 64 or 128 and T a multiple of 64.  Offsets are 64-bit.
+// D is 64 or 128 and T a multiple of 64.  Offsets are 64-bit.  B * H is
+// folded into the grid's x extent with the blocks of one head, so any B * H
+// whose grid fits 2^31 - 1 blocks is taken.
 //
 // The arithmetic is the reference's, rounding places included: scores are
 // bf16 x bf16 products accumulated in f32 and then multiplied by scale;
@@ -27,39 +29,57 @@
 // ~0.54 GB of HBM traffic: ~0.56 ms at the bf16 peak, 0.16 ms at the byte
 // rate, so operations bound it, as they do dQ (~825 GFLOP) and dKV (~1100).
 //
-// What the designs do about it.
+// What the designs do about it.  All three are warp-specialised wgmma
+// kernels on the same machinery (csrc/hopper.cuh): one producer issues TMA
+// loads through tensor maps over q, k, v and do as [B][T][H * D] (64-wide
+// 128-byte-swizzled boxes, two per 128-wide head; the batch a coordinate of
+// its own, so a tile that runs past T reads zeros, never the next
+// sequence), into tiles loaded once and a ring of stages with a full
+// barrier each and an empty barrier both consumers arrive on.  Two consumer
+// warpgroups own 64 rows each and run wgmma on what has arrived; f32
+// accumulators are rounded pairwise to bf16 in registers as the A operand
+// of the next product (the register-A wgmma), so no score tile touches
+// shared or global memory.  Only the diagonal stage is masked, causal
+// stages past it are never loaded, and the heaviest blocks of each head are
+// scheduled first.  Each warpgroup runs its stages in turn; while one runs
+// its elementwise work, the other's products keep the tensor cores busy.
 //
-// flash_fwd: warp-specialised, on wgmma.  A block owns 128 q rows of one
-//   head.  Warpgroup 0 is the producer: it gives its registers back
-//   (setmaxnreg) and one thread issues TMA loads through tensor maps over
-//   q, k and v as [B][T][H * D] (64-wide 128-byte-swizzled boxes, two per
-//   128-wide head; the batch a coordinate of its own, so a tile that runs
-//   past T reads zeros): Q once, K and V through a two-stage ring of
-//   128-key stages with a full barrier each and a shared empty barrier.
-//   Two consumer warpgroups own 64 q rows each.  S = Q K^T is
-//   wgmma.m64n128k16 with both operands K-major in shared memory; the
-//   online softmax runs on the f32 accumulator in registers, a row's
-//   statistics reduced over the 4 lanes of a quad by shuffles; P, rounded
-//   to bf16, feeds O += P V from registers (the register-A wgmma: the
-//   accumulator's k16 slices are its A fragments), V an MN-major B operand
-//   (csrc/hopper.cuh).  Each warpgroup runs its blocks in turn (S, softmax,
-//   P V); while one runs its softmax, the other's products keep the tensor
-//   cores busy.  (Issuing block j's scores ahead of block j - 1's P V
-//   within a warpgroup needs a second score tile, past the 168 registers a
-//   thread of a 384-thread block may hold: ptxas then spills and serializes
-//   the wgmmas, and the kernel is slower.)  Only the diagonal block (and one
-//   that runs past T) is masked, causal blocks past it are never loaded,
-//   and the heaviest q blocks are scheduled first.
+// flash_fwd: a block owns 128 q rows of one head; the producer warpgroup
+//   gives its registers back (setmaxnreg) and loads Q once, K and V through
+//   a two-stage ring of 128-key stages (a full barrier for each of K and
+//   V).  S = Q K^T is wgmma.m64n128k16 with both operands K-major; the
+//   online softmax runs on the f32 accumulator, a row's statistics reduced
+//   over the 4 lanes of a quad by shuffles; P feeds O += P V from registers,
+//   V an MN-major B operand.  (Issuing block j's scores ahead of block
+//   j - 1's P V needs a second score tile; it spilled and was slower while
+//   the consumers were held to 168 registers, and is untried at 240.)
 //
-// flash_dq, flash_dkv: one block of 4 warps owns 64 rows (q rows for dQ,
-//   k rows for dKV); each warp owns 16 of them and runs mma.sync m16n8k16
-//   (bf16 in, f32 accumulate) on operands fed by ldmatrix from padded
-//   shared-memory tiles (row stride D + 8: conflict-free ldmatrix phases).
-//   The score tile never leaves registers: its f32 accumulator fragment is
-//   re-packed in place as the bf16 A operand of the next product
-//   (FlashAttention-2's register reuse), and the per-row statistics are
-//   reduced across the 4 lanes that share a row by shuffles.  Tiles stream
-//   through cp.async; causal blocks past the diagonal are never visited.
+// flash_dq: a block owns 128 q rows of one head.  Q and dO load once; K and
+//   V stream through a two-stage ring of 64-key stages.  S = Q K^T and
+//   dP = dO V^T are wgmma.m64n64k16 with both operands K-major; p and ds
+//   are computed on the accumulators with each row's lse and delta held in
+//   registers; dQ += dS K takes dS from registers and reads the same K stage
+//   MN-major.  A consumer holds dQ (D / 2), S and dP (32 each) and the dS
+//   fragments (16): ~150 live values at D 128.
+//
+// flash_dkv: a block owns 128 keys of one head (K and V load once); q rows
+//   stream through a two-stage ring of 64-row stages holding Q, dO and the
+//   rows' lse and delta (a 1-D bulk copy on the same barrier).  S^T = K Q^T
+//   and dP^T = V dO^T are wgmma.m64n64k16 with both operands K-major, so p^T
+//   and ds^T come out in registers as the A operands of dV += p^T dO and
+//   dK += ds^T Q, which read the same dO and Q stages MN-major.  lse and
+//   delta index the accumulator's columns, so each thread reads them from
+//   the stage in shared memory.  A consumer holds dK and dV (D / 2 each)
+//   and S^T and dP^T (32 each): ~200 live values at D 128, over the 168 a
+//   thread of a 384-thread block gets at launch.  The consumers run at the
+//   240 that setmaxnreg grants them (the producer gives its registers
+//   back; tools/setmaxnreg_probe.py) and read lse and delta a column group
+//   at a time.
+//
+// Both backward kernels run each stage in turn within a warpgroup (scores,
+// elementwise, products, one wait each).  Issuing a stage's last products
+// back to back with the next stage's scores measured slower: ptxas
+// serializes the wgmmas across the loop's divergent edge (C7518).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,99 +91,50 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int NT = 128;       // threads per block (dQ, dKV): 4 warps of 16 rows
-constexpr int BQ = 64;        // q rows per block (dQ)
-constexpr int BKV = 64;       // k rows per step (dQ) and per block (dKV)
-constexpr int BQ2 = 32;       // q rows per step of dKV (bounds its registers)
-constexpr int PAD = 8;        // bf16 row padding of every shared tile
+constexpr int T_GRAIN = 64;   // T must be a multiple of it
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
+constexpr int FW_BQ = 128;   // q rows per block: two consumer warpgroups
+constexpr int FW_BKV = 128;  // keys per K/V stage
+constexpr int FW_STAGES = 2;
+constexpr int FW_THREADS = 3 * 128;  // producer + two consumers
+constexpr int FW_BOX = 128 * 128;    // bytes of one [128 rows][64] bf16 box
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
+// The backward kernels: two consumer warpgroups (threads 0-255), then the
+// producer warpgroup; rows per block and per stage.
+constexpr int BW_BLOCK = 128;  // q rows (dQ) or keys (dKV) per block
+constexpr int BW_STEP = 64;    // keys (dQ) or q rows (dKV) per stage
+constexpr int DQ_STAGES = 2;   // K/V stages in dQ's ring
+constexpr int DKV_STAGES = 2;  // Q/dO stages in dKV's ring
+constexpr int BW_CONSUMERS = 256;
+constexpr int BW_THREADS = BW_CONSUMERS + 128;
+constexpr int BOX64 = 64 * 128;  // bytes of one [64 rows][64] bf16 box
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// setmaxnreg split of a block of one producer and two consumer warpgroups:
+// 128 x 24 + 256 x 240 = 64,512 registers, the launch's 384 x 168.
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
 
-// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8, and register i receives matrix i's fragment.
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
+// Block x of a grid of `per_head` blocks for each of B * H heads: its head
+// (b, h, and bh = b * H + h) and its index i among the head's blocks.  Each
+// role decodes it after its setmaxnreg, so nothing derived from it need
+// stay live across the producer's cut to 24 registers.
+struct HeadBlock {
+  int b, h, bh, i;
+};
 
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
-  unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ HeadBlock head_block(int per_head, int H) {
+  HeadBlock hb;
+  hb.bh = blockIdx.x / per_head;
+  hb.i = blockIdx.x - hb.bh * per_head;
+  hb.b = hb.bh / H;
+  hb.h = hb.bh - hb.b * H;
+  return hb;
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
-}
-
-// Addresses of the ldmatrix lanes.  A operand (16 rows from r0, 16 columns
-// from c0): matrices (rows 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15),
-// (8-15, 8-15) = a0..a3.
-__device__ __forceinline__ const bf16* a_addr(const bf16* s, int ld, int r0,
-                                              int c0, int lane) {
-  return s + (r0 + (lane & 15)) * ld + c0 + (lane >> 4) * 8;
-}
-
-// B operand read from a tile stored [n][k] (k contiguous), two n-tiles of
-// 8 from n0 and one k-step of 16 from k0: registers 0,1 are b0,b1 of n-tile
-// n0 and registers 2,3 those of n-tile n0 + 8.  Used with ldsm_x4.
-__device__ __forceinline__ const bf16* bnk_addr(const bf16* s, int ld, int n0,
-                                                int k0, int lane) {
-  return s + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
-         ((lane >> 3) & 1) * 8;
-}
-
-// B operand read from a tile stored [k][n] (n contiguous), through the
-// transposing ldmatrix; same register order.  Used with ldsm_x4_t.
-__device__ __forceinline__ const bf16* bkn_addr(const bf16* s, int ld, int k0,
-                                                int n0, int lane) {
-  return s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 +
-         (lane >> 4) * 8;
-}
-
-// ROWS rows of D bf16 from global (row stride rs elements) to a padded tile.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* s, const bf16* g, int64_t rs,
-                                          int tid) {
-  constexpr int CH = D / 8;
-#pragma unroll
-  for (int c = tid; c < ROWS * CH; c += NT) {
-    const int r = c / CH;
-    const int col = (c % CH) * 8;
-    cp_async16(s + r * (D + PAD) + col, g + r * rs + col);
-  }
 }
 
 // Reduce over the 4 lanes that hold one row of an accumulator fragment.
@@ -177,52 +148,57 @@ __device__ __forceinline__ float row_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Accumulator fragments of n-tiles 2i and 2i+1 -> the bf16 A operand of
-// k-step i (the C and A layouts of m16n8k16 line up this way).
-template <int NTILES>
-__device__ __forceinline__ void to_a(const float (&c)[NTILES][4],
-                                     unsigned (&a)[NTILES / 2][4]) {
-#pragma unroll
-  for (int i = 0; i < NTILES / 2; ++i) {
-    a[i][0] = pack_bf16(c[2 * i][0], c[2 * i][1]);
-    a[i][1] = pack_bf16(c[2 * i][2], c[2 * i][3]);
-    a[i][2] = pack_bf16(c[2 * i + 1][0], c[2 * i + 1][1]);
-    a[i][3] = pack_bf16(c[2 * i + 1][2], c[2 * i + 1][3]);
-  }
+__device__ __forceinline__ uint8_t* align_smem(uint8_t* raw) {
+  return raw + ((hopper::SWIZZLE_ATOM -
+                 hopper::smem_u32(raw) % hopper::SWIZZLE_ATOM) %
+                hopper::SWIZZLE_ATOM);
 }
 
-// Rows r and r + 8 of a [16 x D] f32 fragment set, times mul, to bf16.
+// K-major descriptor steps over D, 16 deep: 32 B along a 128-byte row, and
+// every 64 columns to the next box (of BOX bytes).
+template <int BOX>
+__device__ __forceinline__ uint64_t d_step(int kk) {
+  return ((kk / 4) * BOX + (kk % 4) * 32) >> 4;
+}
+
+// Rows r and r + 8 (r = 16 w + l / 4 from `row_lo`) of a [64][D] f32
+// accumulator, times mul, to bf16 rows of stride rs.
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* g, int64_t rs, int r,
-                                           int tig, const float (&c)[D / 8][4],
-                                           float mul0, float mul1) {
+__device__ __forceinline__ void store_acc(bf16* g, int64_t rs, int row_lo,
+                                          int l, const float (&acc)[D / 2],
+                                          float mul) {
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int col = nt * 8 + tig * 2;
-    *reinterpret_cast<__nv_bfloat162*>(g + r * rs + col) =
-        __floats2bfloat162_rn(c[nt][0] * mul0, c[nt][1] * mul0);
-    *reinterpret_cast<__nv_bfloat162*>(g + (r + 8) * rs + col) =
-        __floats2bfloat162_rn(c[nt][2] * mul1, c[nt][3] * mul1);
+  for (int r = 0; r < 2; ++r) {
+    const int64_t row = row_lo + 8 * r;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(g + row * rs + 8 * jj +
+                                         2 * (l % 4)) =
+          __floats2bfloat162_rn(acc[4 * jj + 2 * r] * mul,
+                                acc[4 * jj + 2 * r + 1] * mul);
   }
 }
 
-template <int N>
-__device__ __forceinline__ void zero(float (&c)[N][4]) {
+// dQ += dS K (or dV += P^T dO, dK += dS^T Q): the A fragments in registers,
+// B a [64][D] stage read MN-major (its 64-wide D blocks one box apart).
+template <int D>
+__device__ __forceinline__ void rs_product(float (&acc)[D / 2],
+                                           const uint32_t (&a)[4][4],
+                                           uint64_t db) {
 #pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[i][e] = 0.0f;
+  for (int ks = 0; ks < 4; ++ks) {
+    if constexpr (D == 128)
+      hopper::wgmma_m64n128k16_rs<1>(acc, a[ks],
+                                     db + ks * hopper::K_STEP_MNMAJOR, 1);
+    else
+      hopper::wgmma_m64n64k16_rs<1>(acc, a[ks],
+                                    db + ks * hopper::K_STEP_MNMAJOR, 1);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // Forward: warp-specialised wgmma
 // ---------------------------------------------------------------------------
-
-constexpr int FW_BQ = 128;   // q rows per block: two consumer warpgroups
-constexpr int FW_BKV = 128;  // keys per K/V stage
-constexpr int FW_STAGES = 2;
-constexpr int FW_THREADS = 3 * 128;  // producer + two consumers
-constexpr int FW_BOX = 128 * 128;    // bytes of one [128 rows][64] bf16 box
 
 template <int D>
 struct FwdShape {
@@ -234,11 +210,10 @@ struct FwdShape {
   static_assert(SMEM <= 227 * 1024, "dynamic shared memory limit");
 };
 
-// Block (x, y) owns q rows [q0, q0 + 128) of head y (x counted from the
-// last q block, so the longest causal rows go first); consumer warpgroup c
-// owns rows q0 + 64c + [0, 64).  Maps: q, k, v as [B][T][H * D] with a box
-// of {64, 128, 1}, the batch a coordinate of its own, so a tile that runs
-// past T reads zeros, never the next sequence.
+// Block x owns q rows [q0, q0 + 128) of head x / n_qb (the q blocks of a
+// head counted from the last, so the longest causal rows go first);
+// consumer warpgroup c owns rows q0 + 64c + [0, 64).  Maps: q, k, v as
+// [B][T][H * D] with a box of {64, 128, 1}.
 template <int D>
 __global__ void __launch_bounds__(FW_THREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -248,22 +223,13 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
                            int H, int T, float scale, int causal) {
   using S = FwdShape<D>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem =
-      smem_raw + ((hopper::SWIZZLE_ATOM -
-                   hopper::smem_u32(smem_raw) % hopper::SWIZZLE_ATOM) %
-                  hopper::SWIZZLE_ATOM);
+  uint8_t* smem = align_smem(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + FW_STAGES;
   uint64_t* empty = v_full + FW_STAGES;
 
-  const int qb = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh - b * H;
-  const int q0 = qb * FW_BQ;
-  const int n_kb = causal ? qb + 1 : (T + FW_BKV - 1) / FW_BKV;
   const int tid = threadIdx.x;
-
   if (tid == 0) {
     hopper::mbar_init(q_full, 1);
     for (int s = 0; s < FW_STAGES; ++s) {
@@ -277,9 +243,13 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
 
   const int wg = tid / 128;
   if (wg == 0) {
-    hopper::setmaxnreg_dec<24>();
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
     if (tid == 0) {
-      const int col = h * D;
+      const int n_qb = (T + FW_BQ - 1) / FW_BQ;
+      const HeadBlock hb = head_block(n_qb, H);
+      const int qb = n_qb - 1 - hb.i;
+      const int q0 = qb * FW_BQ, b = hb.b, col = hb.h * D;
+      const int n_kb = causal ? qb + 1 : (T + FW_BKV - 1) / FW_BKV;
       hopper::mbar_arrive_expect_tx(q_full, S::TILE);
 #pragma unroll
       for (int i = 0; i < D / 64; ++i)
@@ -306,17 +276,18 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
     return;
   }
 
-  hopper::setmaxnreg_inc<240>();
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const int n_qb = (T + FW_BQ - 1) / FW_BQ;
+  const HeadBlock hb = head_block(n_qb, H);
+  const int qb = n_qb - 1 - hb.i;
+  const int q0 = qb * FW_BQ, b = hb.b, h = hb.h, bh = hb.bh;
+  const int n_kb = causal ? qb + 1 : (T + FW_BKV - 1) / FW_BKV;
   const int c = wg - 1;
   const int t = tid % 128, w = t / 32, l = t % 32;
   const int row_lo = q0 + 64 * c + 16 * w + l / 4;  // and row_lo + 8
-  // S = Q K^T: Q rows (this warpgroup's 64) and K rows both K-major; a
-  // 16-deep step over D moves 32 B along a row, and every 64 columns to the
-  // next box.  O += P V: V MN-major (D contiguous), its 64-wide D blocks
-  // one box apart (LBO), a 16-key step 16 rows on.
-  auto d_step = [](int kk) -> uint64_t {
-    return ((kk / 4) * FW_BOX + (kk % 4) * 32) >> 4;
-  };
+  // S = Q K^T: Q rows (this warpgroup's 64) and K rows both K-major.
+  // O += P V: V MN-major (D contiguous), its 64-wide D blocks one box apart
+  // (LBO), a 16-key step 16 rows on.
   const uint64_t dq = hopper::desc_b128(smem + c * 64 * 128, 16,
                                         hopper::SWIZZLE_ATOM);
 
@@ -341,8 +312,8 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      hopper::wgmma_m64n128k16<0, 0>(sc, dq + d_step(kk), dk + d_step(kk),
-                                     kk > 0);
+      hopper::wgmma_m64n128k16<0, 0>(sc, dq + d_step<FW_BOX>(kk),
+                                     dk + d_step<FW_BOX>(kk), kk > 0);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
@@ -429,223 +400,451 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// dQ: the q block stays, k blocks stream
+// dQ: the q block stays, K/V stages stream
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(NT)
-    flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int H, int T, float scale, int causal) {
-  constexpr int LD = D + PAD;
-  constexpr int KS = D / 16;
-  constexpr int NTD = D / 8;
-  constexpr int NTK = BKV / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + BQ * LD;  // dO
-  bf16* sK = sO + BQ * LD;
-  bf16* sV = sK + BKV * LD;
+struct DqShape {
+  static constexpr int QT = (D / 64) * FW_BOX;  // one [128][D] tile: Q, dO
+  static constexpr int KT = (D / 64) * BOX64;   // one [64][D] tile: K or V
+  static constexpr int Q = 0, DO = QT, KV = 2 * QT;  // stage s: K, then V
+  static constexpr int BARS = KV + 2 * DQ_STAGES * KT;
+  // + 1 KB to align to the swizzle atom; qo_full, full[], empty[].
+  static constexpr int SMEM = 1024 + BARS + (1 + 2 * DQ_STAGES) * 8;
+  static_assert(SMEM <= 227 * 1024, "dynamic shared memory limit");
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int qb = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh - b * H;
-  const int64_t rs = static_cast<int64_t>(H) * D;
-  const int64_t head0 = (static_cast<int64_t>(b) * T * H + h) * D;
-  const int q0 = qb * BQ;
-  const int n_kb = causal ? qb + 1 : T / BKV;
-  const int r_lo = q0 + warp * 16 + gid;
+// Block x owns q rows [q0, q0 + 128) of head x / n_qb, the q blocks of a
+// head counted from the last (the longest causal rows first); consumer
+// warpgroup c owns rows q0 + 64c + [0, 64).  Maps: q and do with a box of
+// {64, 128, 1}, k and v with {64, 64, 1}, all [B][T][H * D].
+template <int D>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+    flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int H, int T, float scale,
+                          int causal) {
+  using S = DqShape<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_smem(smem_raw);
+  uint64_t* qo_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* full = qo_full + 1;
+  uint64_t* empty = full + DQ_STAGES;
 
-  load_rows<D, BQ>(sQ, q + head0 + q0 * rs, rs, tid);
-  load_rows<D, BQ>(sO, dout + head0 + q0 * rs, rs, tid);
-  load_rows<D, BKV>(sK, k + head0, rs, tid);
-  load_rows<D, BKV>(sV, v + head0, rs, tid);
-  cp_async_commit();
+  const int tid = threadIdx.x;
 
-  const int64_t stat0 = static_cast<int64_t>(bh) * T;
-  const float lse_r[2] = {lse[stat0 + r_lo], lse[stat0 + r_lo + 8]};
-  const float dl_r[2] = {delta[stat0 + r_lo], delta[stat0 + r_lo + 8]};
-
-  float acc[NTD][4];
-  zero(acc);
-  for (int j = 0; j < n_kb; ++j) {
-    const int k0 = j * BKV;
-    cp_async_wait<0>();
-    __syncthreads();
-    float s[NTK][4], dp[NTK][4];
-    zero(s);
-    zero(dp);
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      unsigned qa[4], oa[4];
-      ldsm_x4(qa, a_addr(sQ, LD, warp * 16, ks * 16, lane));
-      ldsm_x4(oa, a_addr(sO, LD, warp * 16, ks * 16, lane));
-#pragma unroll
-      for (int np = 0; np < NTK / 2; ++np) {
-        unsigned bb[4];
-        ldsm_x4(bb, bnk_addr(sK, LD, np * 16, ks * 16, lane));
-        mma(s[2 * np], qa, bb[0], bb[1]);
-        mma(s[2 * np + 1], qa, bb[2], bb[3]);
-        ldsm_x4(bb, bnk_addr(sV, LD, np * 16, ks * 16, lane));
-        mma(dp[2 * np], oa, bb[0], bb[1]);
-        mma(dp[2 * np + 1], oa, bb[2], bb[3]);
-      }
+  if (tid == 0) {
+    hopper::mbar_init(qo_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);
     }
-#pragma unroll
-    for (int nt = 0; nt < NTK; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * scale;
-        if (causal && k0 + nt * 8 + tig * 2 + (e & 1) > r_lo + (e >> 1) * 8)
-          x = NEG_INF;
-        const float p = __expf(x - lse_r[e >> 1]);
-        s[nt][e] = p * (dp[nt][e] - dl_r[e >> 1]);  // ds
-      }
-    }
-    unsigned dsf[NTK / 2][4];
-    to_a(s, dsf);
-#pragma unroll
-    for (int ks = 0; ks < NTK / 2; ++ks) {
-#pragma unroll
-      for (int np = 0; np < NTD / 2; ++np) {
-        unsigned bb[4];
-        ldsm_x4_t(bb, bkn_addr(sK, LD, ks * 16, np * 16, lane));
-        mma(acc[2 * np], dsf[ks], bb[0], bb[1]);
-        mma(acc[2 * np + 1], dsf[ks], bb[2], bb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with K_j, V_j
-    if (j + 1 < n_kb) {
-      load_rows<D, BKV>(sK, k + head0 + (k0 + BKV) * rs, rs, tid);
-      load_rows<D, BKV>(sV, v + head0 + (k0 + BKV) * rs, rs, tid);
-    }
-    cp_async_commit();
+    hopper::fence_barrier_init();
   }
-  cp_async_wait<0>();
-  store_rows<D>(dq + head0, rs, r_lo, tig, acc, scale, scale);
+  __syncthreads();
+
+  // The block's q rows [q0, q0 + 128) and its K/V stages: every key up to
+  // its last row (causal), else all.
+  auto rows = [&](const HeadBlock& hb, int& q0, int& n_kb) {
+    const int qb = (T + BW_BLOCK - 1) / BW_BLOCK - 1 - hb.i;
+    q0 = qb * BW_BLOCK;
+    n_kb = causal ? min(2 * qb + 2, T / BW_STEP) : T / BW_STEP;
+  };
+  const int n_qb = (T + BW_BLOCK - 1) / BW_BLOCK;
+
+  if (tid >= BW_CONSUMERS) {
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == BW_CONSUMERS) {
+      const HeadBlock hb = head_block(n_qb, H);
+      int q0, n_kb;
+      rows(hb, q0, n_kb);
+      const int b = hb.b, col = hb.h * D;
+      hopper::mbar_arrive_expect_tx(qo_full, 2 * S::QT);
+#pragma unroll
+      for (int i = 0; i < D / 64; ++i) {
+        hopper::tma_load_3d(smem + S::Q + i * FW_BOX, &map_q, qo_full,
+                            col + 64 * i, q0, b);
+        hopper::tma_load_3d(smem + S::DO + i * FW_BOX, &map_do, qo_full,
+                            col + 64 * i, q0, b);
+      }
+      for (int j = 0; j < n_kb; ++j) {
+        const int s = j % DQ_STAGES;
+        if (j >= DQ_STAGES)
+          hopper::mbar_wait(&empty[s], ((j / DQ_STAGES) + 1) & 1);
+        uint8_t* kt = smem + S::KV + 2 * s * S::KT;
+        uint8_t* vt = kt + S::KT;
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * S::KT);
+#pragma unroll
+        for (int i = 0; i < D / 64; ++i) {
+          hopper::tma_load_3d(kt + i * BOX64, &map_k, &full[s], col + 64 * i,
+                              j * BW_STEP, b);
+          hopper::tma_load_3d(vt + i * BOX64, &map_v, &full[s], col + 64 * i,
+                              j * BW_STEP, b);
+        }
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const HeadBlock hb = head_block(n_qb, H);
+    int q0, n_kb;
+    rows(hb, q0, n_kb);
+    const int c = tid / 128;
+    const int t = tid % 128, w = t / 32, l = t % 32;
+    const int r0 = q0 + 64 * c;               // this warpgroup's first row
+    const int row_lo = r0 + 16 * w + l / 4;   // and row_lo + 8
+    // Rows past T (T % 128 == 64, the last block's second half) have no
+    // work; causal stages past the diagonal (keys all after the last row)
+    // have none either.  Both still take part in the ring.
+    const bool active = r0 < T;
+    const int last = causal ? r0 / BW_STEP : n_kb - 1;
+    const uint64_t q_desc = hopper::desc_b128(smem + S::Q + c * 64 * 128, 16,
+                                              hopper::SWIZZLE_ATOM);
+    const uint64_t do_desc = hopper::desc_b128(smem + S::DO + c * 64 * 128,
+                                               16, hopper::SWIZZLE_ATOM);
+    float lse_r[2] = {0.0f, 0.0f}, dl_r[2] = {0.0f, 0.0f};
+    if (active) {
+      const int64_t stat = static_cast<int64_t>(hb.bh) * T + row_lo;
+      lse_r[0] = lse[stat];
+      lse_r[1] = lse[stat + 8];
+      dl_r[0] = delta[stat];
+      dl_r[1] = delta[stat + 8];
+    }
+
+    float acc[D / 2];  // dQ: [64 rows][D]
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    float sc[32], dp[32];  // S, dP of the stage in hand: [64 rows][64 keys]
+    uint32_t da[4][4];     // its dS, rounded: the A operand of dQ += dS K
+
+    auto stage = [&](int j) {
+      return smem + S::KV + 2 * (j % DQ_STAGES) * S::KT;
+    };
+    auto wait_full = [&](int j) {
+      hopper::mbar_wait(&full[j % DQ_STAGES], (j / DQ_STAGES) & 1);
+    };
+    auto release = [&](int j) {
+      if (t == 0) hopper::mbar_arrive(&empty[j % DQ_STAGES]);
+    };
+    // S = Q K^T and dP = dO V^T of stage j, issued and committed.
+    auto issue_scores = [&](int j) {
+      const uint64_t dk = hopper::desc_b128(stage(j), 16, hopper::SWIZZLE_ATOM);
+      const uint64_t dv =
+          hopper::desc_b128(stage(j) + S::KT, 16, hopper::SWIZZLE_ATOM);
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_m64n64k16<0, 0>(sc, q_desc + d_step<FW_BOX>(kk),
+                                      dk + d_step<BOX64>(kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_m64n64k16<0, 0>(dp, do_desc + d_step<FW_BOX>(kk),
+                                      dv + d_step<BOX64>(kk), kk > 0);
+      hopper::wgmma_commit();
+    };
+    // p = exp(s * scale - lse), ds = p (dp - delta) from stage j's retired
+    // S and dP, masked on the diagonal stage only; ds rounded to bf16 as
+    // the A fragments.
+    auto make_ds = [&](int j) {
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      const int k0 = j * BW_STEP;
+      const bool masked = causal && k0 + BW_STEP - 1 > r0;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = q & 1;
+          float ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 8 * ks + 2 * q + e;
+            float x = sc[i] * scale;
+            if (masked && k0 + 8 * (i / 4) + 2 * (l % 4) + e > row_lo + 8 * r)
+              x = NEG_INF;
+            const float p = __expf(x - lse_r[r]);
+            ds[e] = p * (dp[i] - dl_r[r]);
+          }
+          da[ks][q] = pack_bf16(ds[0], ds[1]);
+        }
+      }
+    };
+    // dQ += dS K_j (K read MN-major from the same stage), issued and
+    // committed; acc and da stay untouched until a wait retires it.
+    auto issue_dq = [&](int j) {
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+      rs_product<D>(acc, da,
+                    hopper::desc_b128(stage(j), BOX64, hopper::SWIZZLE_ATOM));
+      hopper::wgmma_commit();
+    };
+    auto retire = [&] {
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) hopper::fence_regs(da[ks]);
+    };
+
+    const int n_work = active ? last + 1 : 0;  // stages 0 .. n_work - 1
+    hopper::mbar_wait(qo_full, 0);
+    for (int j = 0; j < n_work; ++j) {
+      wait_full(j);
+      issue_scores(j);
+      hopper::wgmma_wait<0>();
+      make_ds(j);
+      issue_dq(j);
+      retire();
+      release(j);
+    }
+    for (int j = n_work; j < n_kb; ++j) {
+      wait_full(j);
+      release(j);
+    }
+
+    if (active)
+      store_acc<D>(dq + (static_cast<int64_t>(hb.b) * T * H + hb.h) * D,
+                   static_cast<int64_t>(H) * D, row_lo, l, acc, scale);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// dK, dV: the k block stays, q blocks stream.  Each warp computes the
-// transposed tiles s^T = K Q^T and dp^T = V dO^T for its 16 keys, so p^T
-// and ds^T are already the A operands of dV += p^T dO and dK += ds^T Q.
+// dK, dV: the k block stays, Q/dO stages stream
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(NT)
-    flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int H, int T, float scale,
-                     int causal) {
-  constexpr int LD = D + PAD;
-  constexpr int KS = D / 16;
-  constexpr int NTD = D / 8;
-  constexpr int NTQ = BQ2 / 8;  // n-tiles over one q step
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BKV * LD;
-  bf16* sQ = sV + BKV * LD;
-  bf16* sO = sQ + BQ2 * LD;  // dO
-  float* sL = reinterpret_cast<float*>(sO + BQ2 * LD);
-  float* sD = sL + BQ2;
+struct DkvShape {
+  static constexpr int KT = (D / 64) * FW_BOX;  // one [128][D] tile: K, V
+  static constexpr int QT = (D / 64) * BOX64;   // one [64][D] tile: Q or dO
+  // Stage s: Q, dO, then 64 lse and 64 delta (f32), padded to the atom.
+  static constexpr int STAGE = 2 * QT + 1024;
+  static constexpr int K = 0, V = KT, QS = 2 * KT;
+  static constexpr int BARS = QS + DKV_STAGES * STAGE;
+  // + 1 KB to align to the swizzle atom; kv_full, full[], empty[].
+  static constexpr int SMEM = 1024 + BARS + (1 + 2 * DKV_STAGES) * 8;
+  static_assert(SMEM <= 227 * 1024, "dynamic shared memory limit");
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int kb = blockIdx.x;  // under causal the low k blocks see most q
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh - b * H;
-  const int64_t rs = static_cast<int64_t>(H) * D;
-  const int64_t head0 = (static_cast<int64_t>(b) * T * H + h) * D;
-  const int64_t stat0 = static_cast<int64_t>(bh) * T;
-  const int k0 = kb * BKV;
-  const int first = causal ? k0 / BQ2 : 0;
-  const int n_qb = T / BQ2;
-  const int key_lo = k0 + warp * 16 + gid;  // this thread's keys
+// Block x owns keys [k0, k0 + 128) of head x / n_kb, the k blocks of a head
+// counted from the first (under causal the low keys see the most q rows);
+// consumer warpgroup c owns keys k0 + 64c + [0, 64).  Maps: k and v with a
+// box of {64, 128, 1}, q and do with {64, 64, 1}, all [B][T][H * D].
+template <int D>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+    flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_do,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int H, int T, float scale, int causal) {
+  using S = DkvShape<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_smem(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + DKV_STAGES;
 
-  auto load_q_step = [&](int i) {
-    const int q0 = i * BQ2;
-    load_rows<D, BQ2>(sQ, q + head0 + q0 * rs, rs, tid);
-    load_rows<D, BQ2>(sO, dout + head0 + q0 * rs, rs, tid);
-    if (tid < BQ2 / 4)
-      cp_async16(sL + tid * 4, lse + stat0 + q0 + tid * 4);
-    else if (tid < BQ2 / 2)
-      cp_async16(sD + (tid - BQ2 / 4) * 4,
-                 delta + stat0 + q0 + (tid - BQ2 / 4) * 4);
-  };
+  const int tid = threadIdx.x;
 
-  load_rows<D, BKV>(sK, k + head0 + k0 * rs, rs, tid);
-  load_rows<D, BKV>(sV, v + head0 + k0 * rs, rs, tid);
-  load_q_step(first);
-  cp_async_commit();
-
-  float dka[NTD][4], dva[NTD][4];
-  zero(dka);
-  zero(dva);
-  for (int i = first; i < n_qb; ++i) {
-    const int q0 = i * BQ2;
-    cp_async_wait<0>();
-    __syncthreads();
-    float s[NTQ][4], dp[NTQ][4];
-    zero(s);
-    zero(dp);
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      unsigned ka[4], va[4];
-      ldsm_x4(ka, a_addr(sK, LD, warp * 16, ks * 16, lane));
-      ldsm_x4(va, a_addr(sV, LD, warp * 16, ks * 16, lane));
-#pragma unroll
-      for (int np = 0; np < NTQ / 2; ++np) {
-        unsigned bb[4];
-        ldsm_x4(bb, bnk_addr(sQ, LD, np * 16, ks * 16, lane));
-        mma(s[2 * np], ka, bb[0], bb[1]);
-        mma(s[2 * np + 1], ka, bb[2], bb[3]);
-        ldsm_x4(bb, bnk_addr(sO, LD, np * 16, ks * 16, lane));
-        mma(dp[2 * np], va, bb[0], bb[1]);
-        mma(dp[2 * np + 1], va, bb[2], bb[3]);
-      }
+  if (tid == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);
     }
-#pragma unroll
-    for (int nt = 0; nt < NTQ; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = nt * 8 + tig * 2 + (e & 1);
-        float x = s[nt][e] * scale;
-        if (causal && key_lo + (e >> 1) * 8 > q0 + qi) x = NEG_INF;
-        const float p = __expf(x - sL[qi]);
-        s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - sD[qi]);  // ds^T
-      }
-    }
-    unsigned pf[NTQ / 2][4], dsf[NTQ / 2][4];
-    to_a(s, pf);
-    to_a(dp, dsf);
-#pragma unroll
-    for (int ks = 0; ks < NTQ / 2; ++ks) {
-#pragma unroll
-      for (int np = 0; np < NTD / 2; ++np) {
-        unsigned bb[4];
-        ldsm_x4_t(bb, bkn_addr(sO, LD, ks * 16, np * 16, lane));
-        mma(dva[2 * np], pf[ks], bb[0], bb[1]);
-        mma(dva[2 * np + 1], pf[ks], bb[2], bb[3]);
-        ldsm_x4_t(bb, bkn_addr(sQ, LD, ks * 16, np * 16, lane));
-        mma(dka[2 * np], dsf[ks], bb[0], bb[1]);
-        mma(dka[2 * np + 1], dsf[ks], bb[2], bb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this q step
-    if (i + 1 < n_qb) load_q_step(i + 1);
-    cp_async_commit();
+    hopper::fence_barrier_init();
   }
-  cp_async_wait<0>();
-  store_rows<D>(dk + head0, rs, key_lo, tig, dka, scale, scale);
-  store_rows<D>(dv + head0, rs, key_lo, tig, dva, 1.0f, 1.0f);
+  __syncthreads();
+
+  // The block's keys [k0, k0 + 128) and its first Q/dO stage: every q row
+  // from its first key on (causal), else all.
+  const int n_kb = (T + BW_BLOCK - 1) / BW_BLOCK;
+  const int n_qs = T / BW_STEP;
+
+  if (tid >= BW_CONSUMERS) {
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == BW_CONSUMERS) {
+      const HeadBlock hb = head_block(n_kb, H);
+      const int k0 = hb.i * BW_BLOCK, b = hb.b, col = hb.h * D;
+      const int first = causal ? k0 / BW_STEP : 0;
+      const float* lse_j = lse + static_cast<int64_t>(hb.bh) * T;
+      const float* dl_j = delta + static_cast<int64_t>(hb.bh) * T;
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * S::KT);
+#pragma unroll
+      for (int i = 0; i < D / 64; ++i) {
+        hopper::tma_load_3d(smem + S::K + i * FW_BOX, &map_k, kv_full,
+                            col + 64 * i, k0, b);
+        hopper::tma_load_3d(smem + S::V + i * FW_BOX, &map_v, kv_full,
+                            col + 64 * i, k0, b);
+      }
+      for (int j = first; j < n_qs; ++j) {
+        const int u = j - first;
+        const int s = u % DKV_STAGES;
+        if (u >= DKV_STAGES)
+          hopper::mbar_wait(&empty[s], ((u / DKV_STAGES) + 1) & 1);
+        uint8_t* st = smem + S::QS + s * S::STAGE;
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * S::QT + 2 * 64 * 4);
+#pragma unroll
+        for (int i = 0; i < D / 64; ++i) {
+          hopper::tma_load_3d(st + i * BOX64, &map_q, &full[s], col + 64 * i,
+                              j * BW_STEP, b);
+          hopper::tma_load_3d(st + S::QT + i * BOX64, &map_do, &full[s],
+                              col + 64 * i, j * BW_STEP, b);
+        }
+        hopper::bulk_load(st + 2 * S::QT, lse_j + j * BW_STEP, 64 * 4,
+                          &full[s]);
+        hopper::bulk_load(st + 2 * S::QT + 64 * 4, dl_j + j * BW_STEP, 64 * 4,
+                          &full[s]);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const HeadBlock hb = head_block(n_kb, H);
+    const int k0 = hb.i * BW_BLOCK;
+    const int first = causal ? k0 / BW_STEP : 0;
+    const int c = tid / 128;
+    const int t = tid % 128, w = t / 32, l = t % 32;
+    const int kc = k0 + 64 * c;               // this warpgroup's first key
+    const int key_lo = kc + 16 * w + l / 4;   // and key_lo + 8
+    // Keys past T (T % 128 == 64, the last block's second half) have no
+    // work; causal stages before the diagonal (q rows all before the first
+    // key) have none either.  Both still take part in the ring.
+    const bool active = kc < T;
+    const int first_c = causal ? kc / BW_STEP : 0;
+    const uint64_t k_desc = hopper::desc_b128(smem + S::K + c * 64 * 128, 16,
+                                              hopper::SWIZZLE_ATOM);
+    const uint64_t v_desc = hopper::desc_b128(smem + S::V + c * 64 * 128, 16,
+                                              hopper::SWIZZLE_ATOM);
+
+    float dka[D / 2], dva[D / 2];  // dK, dV: [64 keys][D]
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      dka[i] = 0.0f;
+      dva[i] = 0.0f;
+    }
+    float sct[32], dpt[32];  // S^T, dP^T of the stage in hand: [64 keys][64 q]
+    uint32_t pa[4][4], sa[4][4];  // its p^T and ds^T, rounded: A operands
+
+    // Stage u of the ring holds q rows [64 (first + u), + 64).
+    auto stage = [&](int u) {
+      return smem + S::QS + (u % DKV_STAGES) * S::STAGE;
+    };
+    auto wait_full = [&](int u) {
+      hopper::mbar_wait(&full[u % DKV_STAGES], (u / DKV_STAGES) & 1);
+    };
+    auto release = [&](int u) {
+      if (t == 0) hopper::mbar_arrive(&empty[u % DKV_STAGES]);
+    };
+    // S^T = K Q^T and dP^T = V dO^T of stage u, issued and committed.
+    auto issue_scores = [&](int u) {
+      const uint64_t dqs = hopper::desc_b128(stage(u), 16, hopper::SWIZZLE_ATOM);
+      const uint64_t dos =
+          hopper::desc_b128(stage(u) + S::QT, 16, hopper::SWIZZLE_ATOM);
+      hopper::fence_regs(sct);
+      hopper::fence_regs(dpt);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_m64n64k16<0, 0>(sct, k_desc + d_step<FW_BOX>(kk),
+                                      dqs + d_step<BOX64>(kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_m64n64k16<0, 0>(dpt, v_desc + d_step<FW_BOX>(kk),
+                                      dos + d_step<BOX64>(kk), kk > 0);
+      hopper::wgmma_commit();
+    };
+    // p^T = exp(s^T * scale - lse[q]), ds^T = p^T (dp^T - delta[q]) from
+    // stage u's retired S^T and dP^T, masked on the diagonal stage only;
+    // each rounded to bf16 as the A fragments of its product.  Column group
+    // jc (q columns 8 jc + 2 (l % 4) + {0, 1}) reads its lse and delta
+    // pairs from the stage; the empty asm keeps the next group's reads from
+    // being hoisted, so 4 of them, not 32, are live beside ~200
+    // accumulator values.
+    auto make_p_ds = [&](int u) {
+      hopper::fence_regs(sct);
+      hopper::fence_regs(dpt);
+      const float* s_lse = reinterpret_cast<const float*>(stage(u) + 2 * S::QT);
+      const float* s_dl = s_lse + 64;
+      const int q0 = (first + u) * BW_STEP;
+      const bool masked = causal && q0 < kc + BW_STEP - 1;
+#pragma unroll
+      for (int jc = 0; jc < 8; ++jc) {
+        const int qc = 8 * jc + 2 * (l % 4);
+        const float2 lq = *reinterpret_cast<const float2*>(s_lse + qc);
+        const float2 dl = *reinterpret_cast<const float2*>(s_dl + qc);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * jc + 2 * r;
+          float x0 = sct[i] * scale, x1 = sct[i + 1] * scale;
+          if (masked) {
+            if (key_lo + 8 * r > q0 + qc) x0 = NEG_INF;
+            if (key_lo + 8 * r > q0 + qc + 1) x1 = NEG_INF;
+          }
+          const float p0 = __expf(x0 - lq.x), p1 = __expf(x1 - lq.y);
+          pa[jc / 2][2 * (jc % 2) + r] = pack_bf16(p0, p1);
+          sa[jc / 2][2 * (jc % 2) + r] =
+              pack_bf16(p0 * (dpt[i] - dl.x), p1 * (dpt[i + 1] - dl.y));
+        }
+        asm volatile("" ::: "memory");
+      }
+    };
+    // dV += p^T dO and dK += ds^T Q (dO and Q read MN-major from the same
+    // stage), issued and committed; the accumulators and fragments stay
+    // untouched until a wait retires them.
+    auto issue_dkv = [&](int u) {
+      hopper::fence_regs(dva);
+      hopper::fence_regs(dka);
+      hopper::wgmma_fence();
+      rs_product<D>(dva, pa,
+                    hopper::desc_b128(stage(u) + S::QT, BOX64,
+                                      hopper::SWIZZLE_ATOM));
+      rs_product<D>(dka, sa,
+                    hopper::desc_b128(stage(u), BOX64, hopper::SWIZZLE_ATOM));
+      hopper::wgmma_commit();
+    };
+    auto retire = [&] {
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dva);
+      hopper::fence_regs(dka);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        hopper::fence_regs(pa[ks]);
+        hopper::fence_regs(sa[ks]);
+      }
+    };
+
+    // Ring stages 0 .. u0 - 1 have no work for this warpgroup, u0 .. n - 1
+    // do (none if its keys lie past T).
+    const int n = n_qs - first;
+    const int u0 = active ? first_c - first : n;
+    hopper::mbar_wait(kv_full, 0);
+    for (int u = 0; u < u0; ++u) {
+      wait_full(u);
+      release(u);
+    }
+    for (int u = u0; u < n; ++u) {
+      wait_full(u);
+      issue_scores(u);
+      hopper::wgmma_wait<0>();
+      make_p_ds(u);
+      issue_dkv(u);
+      retire();
+      release(u);
+    }
+
+    if (active) {
+      const int64_t head0 = (static_cast<int64_t>(hb.b) * T * H + hb.h) * D;
+      const int64_t rs = static_cast<int64_t>(H) * D;
+      store_acc<D>(dk + head0, rs, key_lo, l, dka, scale);
+      store_acc<D>(dv + head0, rs, key_lo, l, dva, 1.0f);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -653,75 +852,95 @@ __global__ void __launch_bounds__(NT)
 // ---------------------------------------------------------------------------
 
 bool bad_args(int B, int H, int T, int D) {
-  return B <= 0 || H <= 0 || T <= 0 || T % BKV != 0 || (D != 64 && D != 128) ||
-         B * H > 65535;  // the grid's y extent
+  return B <= 0 || H <= 0 || T <= 0 || T % T_GRAIN != 0 ||
+         (D != 64 && D != 128);
+}
+
+// Blocks of a grid of `per_head` blocks for each of B * H heads, or -1 if
+// that is past the grid's x extent (2^31 - 1).
+int64_t grid_blocks(int B, int H, int per_head) {
+  const int64_t n = static_cast<int64_t>(B) * H * per_head;
+  return n > 0x7fffffff ? -1 : n;
+}
+
+// A map over a [B][T][H * D] bf16 tensor with a box of {64, rows, 1}.
+bool head_map(CUtensorMap* map, const void* base, int B, int H, int T, int D,
+              int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(H) * D,
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {dims[0] * 2, dims[0] * dims[1] * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  return hopper::make_map(map, base, 3, dims, strides, box);
 }
 
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int T, int BH, size_t smem, void* stream,
-           Args... args) {
+int launch_1d(Kernel kernel, int64_t blocks, int threads, int smem,
+              void* stream, Args... args) {
+  if (blocks < 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(T / BKV, BH);
-  kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  kernel<<<static_cast<unsigned>(blocks), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, int H, int T, float scale, int causal, void* stream) {
-  using S = FwdShape<D>;
   if (hopper::encode_tiled() == nullptr)
     return static_cast<int>(cudaErrorNotSupported);
-  // [B][T][H * D], innermost first; a box of 64 columns x 128 rows.
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(H) * D,
-                              static_cast<cuuint64_t>(T),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {dims[0] * 2, dims[0] * dims[1] * 2};
-  const cuuint32_t box[3] = {64, FW_BQ, 1};
   CUtensorMap map_q, map_k, map_v;
-  if (!hopper::make_map(&map_q, q, 3, dims, strides, box) ||
-      !hopper::make_map(&map_k, k, 3, dims, strides, box) ||
-      !hopper::make_map(&map_v, v, 3, dims, strides, box))
+  if (!head_map(&map_q, q, B, H, T, D, FW_BQ) ||
+      !head_map(&map_k, k, B, H, T, D, FW_BKV) ||
+      !head_map(&map_v, v, B, H, T, D, FW_BKV))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = flash_fwd_wgmma_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((T + FW_BQ - 1) / FW_BQ, B * H);
-  kernel<<<grid, FW_THREADS, S::SMEM, static_cast<cudaStream_t>(stream)>>>(
-      map_q, map_k, map_v, static_cast<bf16*>(o), static_cast<float*>(lse),
-      H, T, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  return launch_1d(flash_fwd_wgmma_kernel<D>,
+                   grid_blocks(B, H, (T + FW_BQ - 1) / FW_BQ), FW_THREADS,
+                   FwdShape<D>::SMEM, stream, map_q, map_k, map_v,
+                   static_cast<bf16*>(o), static_cast<float*>(lse), H, T,
+                   scale, causal);
 }
 
 template <int D>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dq_out, int B, int H, int T,
        float scale, int causal, void* stream) {
-  const size_t smem = (2 * BQ + 2 * BKV) * (D + PAD) * sizeof(bf16);
-  return launch(flash_dq_kernel<D>, T, B * H, smem, stream,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<bf16*>(dq_out),
-                H, T, scale, causal);
+  if (hopper::encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map_q, map_k, map_v, map_do;
+  if (!head_map(&map_q, q, B, H, T, D, BW_BLOCK) ||
+      !head_map(&map_k, k, B, H, T, D, BW_STEP) ||
+      !head_map(&map_v, v, B, H, T, D, BW_STEP) ||
+      !head_map(&map_do, dout, B, H, T, D, BW_BLOCK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_1d(flash_dq_wgmma_kernel<D>,
+                   grid_blocks(B, H, (T + BW_BLOCK - 1) / BW_BLOCK),
+                   BW_THREADS, DqShape<D>::SMEM, stream, map_q, map_k, map_v,
+                   map_do, static_cast<const float*>(lse),
+                   static_cast<const float*>(delta),
+                   static_cast<bf16*>(dq_out), H, T, scale, causal);
 }
 
 template <int D>
 int dkv(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dk, void* dv, int B, int H,
         int T, float scale, int causal, void* stream) {
-  const size_t smem = (2 * BKV + 2 * BQ2) * (D + PAD) * sizeof(bf16) +
-                      2 * BQ2 * sizeof(float);
-  return launch(flash_dkv_kernel<D>, T, B * H, smem, stream,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<bf16*>(dk),
-                static_cast<bf16*>(dv), H, T, scale, causal);
+  if (hopper::encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map_q, map_k, map_v, map_do;
+  if (!head_map(&map_q, q, B, H, T, D, BW_STEP) ||
+      !head_map(&map_k, k, B, H, T, D, BW_BLOCK) ||
+      !head_map(&map_v, v, B, H, T, D, BW_BLOCK) ||
+      !head_map(&map_do, dout, B, H, T, D, BW_STEP))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_1d(flash_dkv_wgmma_kernel<D>,
+                   grid_blocks(B, H, (T + BW_BLOCK - 1) / BW_BLOCK),
+                   BW_THREADS, DkvShape<D>::SMEM, stream, map_q, map_k, map_v,
+                   map_do, static_cast<const float*>(lse),
+                   static_cast<const float*>(delta), static_cast<bf16*>(dk),
+                   static_cast<bf16*>(dv), H, T, scale, causal);
 }
 
 }  // namespace

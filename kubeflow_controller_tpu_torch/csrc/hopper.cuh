@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
-// tensor loads, wgmma shared-memory descriptors and the bf16 warpgroup
-// products (m64n256k16 and m64n128k16 with both operands in shared memory;
-// m64n128k16 and m64n64k16 with A from registers), written as raw PTX (no
-// CUTLASS, so a source builds in seconds).
+// tensor loads and 1-D bulk copies, wgmma shared-memory descriptors and the
+// bf16 warpgroup products (m64n256k16, m64n128k16 and m64n64k16 with both
+// operands in shared memory; m64n128k16 and m64n64k16 with A from
+// registers), written as raw PTX (no CUTLASS, so a source builds in
+// seconds).
 //
 // Shared-memory operand layouts.  Every tile lives in 128-byte-swizzled
 // shared memory exactly as a TMA load with CU_TENSOR_MAP_SWIZZLE_128B and a
@@ -69,22 +70,28 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 // Wait until the phase of parity `parity` has completed.  A pipeline fault
 // that would leave the wait spinning forever traps after 2^28 tries
 // (seconds; a real wait is microseconds), so the launch fails with an
-// error instead of hanging the card.
+// error instead of hanging the card.  The loop and its trap are one PTX
+// block: written as a C++ loop ending in __trap(), the same wait left the
+// warp-specialised flash kernels' consumers at the launch's 168 registers
+// whatever setmaxnreg granted (they spilled); as one block they get the
+// grant.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 28)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u32 n;\n"
+      "mov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.ge.u32 p, n, %2;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity), "n"(1u << 28)
+      : "memory");
 }
 
 // bar.sync on a named barrier among `count` threads (a multiple of 32).
@@ -114,6 +121,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A contiguous copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, counted on `bar` as TMA traffic.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -258,6 +276,34 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[64 x 64] = A[64 x 16] . B[16 x 64] (+ d unless scale_d is 0), A and B
+// from shared memory; TA / TB as above; j < 8 in the accumulator layout.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 

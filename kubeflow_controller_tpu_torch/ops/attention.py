@@ -116,7 +116,9 @@ def flash_dkv_plain(q, k, v, do, lse, delta, causal: bool = True,
 def kernel_rule(q, k, v) -> Optional[str]:
     """Why the CUDA kernels cannot take these operands, or None when they
     can: one device, bf16, equal ``[B, T, H, D]`` shapes, ``D`` in
-    ``HEAD_DIMS`` and ``T`` a multiple of ``TILE``."""
+    ``HEAD_DIMS`` and ``T`` a multiple of ``TILE``.  Every shape it accepts
+    is one the C entries take: B·H is folded into the grid's x extent, so
+    there is no limit on it short of tensors too large to allocate."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         return (f"q/k/v must be equal [B, T, H, D] shapes, got "
                 f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

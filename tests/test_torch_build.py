@@ -5,14 +5,16 @@ versions on the card by ``chip_smoke.py``):
 - ``grouped_matmul.kernel_variant``: the one rule on ``bm`` that picks the
   CUDA design ``gmm``, ``gmm_swiglu`` and ``tgmm`` launch (wgmma for bm >=
   64, WMMA below), and the C entry point each wrapper calls under it;
-- ``attention.kernel_rule`` and the arguments ``flash_fwd`` hands its C
-  entry point at every shape the rule accepts;
+- ``attention.kernel_rule`` and the arguments ``flash_fwd``, ``flash_dq``
+  and ``flash_dkv`` hand their C entry points at every shape the rule
+  accepts, B·H past 65535 included;
 - ``_build._SIGNATURES`` against the ``extern "C"`` functions of
   ``csrc/*.cu``: the same names with the same number of parameters;
 - ``_build._content_key`` over every file under ``csrc/``, headers
   included, so an edited header never loads a stale build;
-- ``chip_smoke.py``'s kernel-name rules: the profile's kernel groups and
-  the HGMMA count read from ``cuobjdump -sass``.
+- ``chip_smoke.py``'s kernel-name rules: the profile's kernel groups, the
+  HGMMA count read from ``cuobjdump -sass`` and the registers and spills
+  read from ptxas.
 """
 
 import re
@@ -123,8 +125,42 @@ PROFILE_NAMES = {
     "flash_dq",
     "void (anonymous namespace)::flash_dkv_kernel<64>(__nv_bfloat16 const*":
     "flash_dkv",
+    "void (anonymous namespace)::flash_dq_wgmma_kernel<128>(CUtensorMap_st, "
+    "CUtensorMap_st": "flash_dq",
+    "void (anonymous namespace)::flash_dq_wgmma_kernel<64>(CUtensorMap_st":
+    "flash_dq",
+    "void (anonymous namespace)::flash_dkv_wgmma_kernel<128>(CUtensorMap_st, "
+    "CUtensorMap_st": "flash_dkv",
+    "void (anonymous namespace)::flash_dkv_wgmma_kernel<64>(CUtensorMap_st":
+    "flash_dkv",
     "nvjet_tst_320x128_64x3_1x2_h_bz_coopB_NNT": "library gemm",
 }
+
+
+def test_ptxas_report_names_each_kernel_with_its_template_arguments():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__b6fd4908_"
+        "18_flash_attention_cu_765555e422flash_dkv_wgmma_kernelILi128EEEv14CU"
+        "tensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iifi' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN51_GLOBAL__N__b6fd4908_18"
+        "_flash_attention_cu_765555e422flash_dkv_wgmma_kernelILi128EEEv14CU",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__032e5cd9_"
+        "17_grouped_matmul_cu_79caf09710gmm_kernelILi16ELi128ELi1ELi4ELb0ELb1"
+        "EEEvPK13__nv_bfloat16' for 'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 96 registers, used 1 barriers, 19968 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__032e5cd9_"
+        "17_grouped_matmul_cu_79caf09717tgmm_wgmma_kernelE14CUtensorMap_stS1_"
+        "PKi' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 154 registers, used 16 barriers",
+    ])
+    assert chip_smoke.ptxas_report(log) == {
+        "flash_dkv_wgmma_kernel<128>": [168, 0, 0],
+        "gmm_kernel<16, 128, 1, 4, 0, 1>": [96, 4, 8],
+        "tgmm_wgmma_kernel": [154, 0, 0]}
 
 
 @pytest.mark.parametrize("name", PROFILE_NAMES)
@@ -152,13 +188,24 @@ def test_hgmma_count_reads_cuobjdump_sections():
         "\t\tFunction : _ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILi128EEEv14",
         "        /*0d10*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ;",
         "        /*0d20*/  HGMMA.64x128x16.F32.BF16 R88, R152, gdesc[UR8], R88 ;",
-        "\t\tFunction : _ZN12_GLOBAL__N_115flash_dq_kernelILi128EEEvPK",
-        "        /*0f10*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+        "\t\tFunction : _ZN51_GLOBAL__N__b6fd4908_18_flash_attention_cu_765555e"
+        "421flash_dq_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P1",
+        "        /*0f10*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;",
+        "        /*0f20*/  HGMMA.64x64x16.F32.BF16 R56, gdesc[UR8], R56 ;",
+        "        /*0f30*/  HGMMA.64x128x16.F32.BF16 R88, R152, gdesc[UR12], R88 ;",
+        "\t\tFunction : _ZN51_GLOBAL__N__b6fd4908_18_flash_attention_cu_765555e"
+        "421flash_dq_wgmma_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13",
+        "        /*0f40*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;",
+        "\t\tFunction : _ZN51_GLOBAL__N__b6fd4908_18_flash_attention_cu_765555e"
+        "422flash_dkv_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_PKfS3_",
+        "        /*1010*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;",
+        "        /*1020*/  HGMMA.64x128x16.F32.BF16 R88, R152, gdesc[UR8], R88 ;",
     ])
     assert chip_smoke.hgmma_counts(sass) == {
         "gmm_wgmma_kernel": [2], "tgmm_wgmma_kernel": [1],
         "tgmm_kernel": [0], "gmm_kernel": [0],
-        "gmm_swiglu_wgmma_kernel": [1, 2], "flash_fwd_wgmma_kernel": [2]}
+        "gmm_swiglu_wgmma_kernel": [1, 2], "flash_fwd_wgmma_kernel": [2],
+        "flash_dq_wgmma_kernel": [3, 1], "flash_dkv_wgmma_kernel": [2]}
     assert set(chip_smoke.hgmma_counts(sass)) == set(
         chip_smoke.WGMMA_KERNELS + chip_smoke.WMMA_KERNELS)
 
@@ -242,6 +289,73 @@ def test_flash_fwd_passes_the_same_arguments_at_every_accepted_shape(
     assert name == "kctpu_flash_fwd"
     assert len(args) == 12
     assert args[5:] == (b, h, t, d, d ** -0.5, int(causal), 7)
+
+
+def stats(b, t, h):
+    return meta(b * h, t, dtype=torch.float32), meta(b * h, t,
+                                                      dtype=torch.float32)
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_dq_passes_the_same_arguments_at_every_accepted_shape(
+        recorder, shape, causal):
+    b, t, h, d = shape
+    q, k, v, do = (meta(*shape) for _ in range(4))
+    before = tat.flash_dq.launches
+    dq = tat.flash_dq(q, k, v, do, *stats(b, t, h), causal)
+    assert tat.flash_dq.launches == before + 1
+    assert dq.shape == q.shape and dq.dtype == torch.bfloat16
+    [(name, args)] = recorder.calls
+    assert name == "kctpu_flash_dq"
+    assert len(args) == len(_build._SIGNATURES[name][0]) == 14
+    assert args[7:] == (b, h, t, d, d ** -0.5, int(causal), 7)
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_dkv_passes_the_same_arguments_at_every_accepted_shape(
+        recorder, shape, causal):
+    b, t, h, d = shape
+    q, k, v, do = (meta(*shape) for _ in range(4))
+    before = tat.flash_dkv.launches
+    dk, dv = tat.flash_dkv(q, k, v, do, *stats(b, t, h), causal)
+    assert tat.flash_dkv.launches == before + 1
+    assert dk.shape == dv.shape == q.shape
+    assert dk.dtype == dv.dtype == torch.bfloat16
+    [(name, args)] = recorder.calls
+    assert name == "kctpu_flash_dkv"
+    assert len(args) == len(_build._SIGNATURES[name][0]) == 15
+    assert args[8:] == (b, h, t, d, d ** -0.5, int(causal), 7)
+
+
+# B·H at and past 65536, which the C entries once refused (B·H was the
+# grid's y extent): kernel_rule accepts them and every wrapper hands them
+# to C unchanged.
+MANY_HEADS = [(1024, 64, 64, 64), (1024, 64, 66, 128)]
+
+
+@pytest.mark.parametrize("shape", MANY_HEADS)
+def test_kernel_rule_and_wrappers_take_b_times_h_past_65535(recorder, shape):
+    b, t, h, d = shape
+    assert b * h in (65536, 67584)
+    q, k, v, do = (meta(*shape) for _ in range(4))
+    assert tat.kernel_rule(q, k, v) is None
+    o, lse = tat.flash_fwd(q, k, v)
+    assert lse.shape == (b * h, t)
+    tat.flash_dq(q, k, v, do, *stats(b, t, h))
+    tat.flash_dkv(q, k, v, do, *stats(b, t, h))
+    assert [name for name, _ in recorder.calls] == [
+        "kctpu_flash_fwd", "kctpu_flash_dq", "kctpu_flash_dkv"]
+    fwd, dq, dkv = (args for _, args in recorder.calls)
+    assert fwd[5:9] == dq[7:11] == dkv[8:12] == (b, h, t, d)
+
+
+def test_flash_c_entries_no_longer_refuse_many_heads():
+    src = (_build.CSRC_DIR / "flash_attention.cu").read_text()
+    bad_args = re.search(r"bool bad_args\(.*?\n}\n", src, re.S).group(0)
+    assert "65535" not in bad_args and "B * H" not in bad_args
+    assert "blockIdx.y" not in src and "gridDim.y" not in src
 
 
 @pytest.mark.parametrize("t", [32, 64, 96, 128, 192, 320, 4096])
