@@ -13,28 +13,35 @@ Phases, in order (any failure raises and exits non-zero):
 1. build: ``nvcc`` compiles ``kubeflow_controller_tpu_torch/csrc/*.cu`` for
    sm_90a, one process per source, all at once; prints the build seconds,
    ptxas' warnings and "performance loss" notes (wgmma serialized), and
-   each kernel's registers and spill bytes (no kernel may spill).  Then
-   ``cuobjdump -sass`` of the library: the HGMMA (wgmma) instructions of
-   each kernel instantiation, nonzero in every ``gmm_wgmma_kernel``,
+   each kernel's registers and spill bytes (no kernel may spill; the
+   swap-AB decode kernels' on a line of their own).  Then ``cuobjdump
+   -sass`` of the library: the HGMMA (wgmma) instructions of each kernel
+   instantiation, nonzero in every ``gmm_wgmma_kernel``,
    ``gmm_swiglu_wgmma_kernel`` and ``tgmm_wgmma_kernel`` (the bm >= 64
-   design) and in the three flash kernels (``flash_fwd_wgmma_kernel``,
-   ``flash_dq_wgmma_kernel``, ``flash_dkv_wgmma_kernel``), zero in every
-   WMMA ``gmm_kernel`` and ``tgmm_kernel`` (bm < 64).
+   design), in every ``gmm_swapab_kernel`` (``gmm`` and ``gmm_swiglu`` at
+   bm < 64) and in the three flash kernels (``flash_fwd_wgmma_kernel``,
+   ``flash_dq_wgmma_kernel``, ``flash_dkv_wgmma_kernel``), zero in the
+   WMMA ``tgmm_kernel`` (bm < 64).
 2. gmm kernels: ``gmm_swiglu`` and ``gmm`` at the decode layout (8 slots x
-   top-2 = 16 routed rows, M = 144, bm = 16: WMMA) and the prefill layout (a
-   128-token bucket: 256 rows, M = 2304, bm = 256: wgmma), bf16,
-   against the plain versions computed in f32 on the same inputs.  Only
-   the rows the combine reads are compared (tiles past the last group hold
-   garbage in the reference too).  Tolerance: max |kernel - plain| <= 2e-2
-   * max |plain| (bf16 output, one rounding).  Prints each kernel's ms, the
-   plain version's ms, a per-expert ``torch.matmul`` loop's ms
-   (``library_ms``, a yardstick the port never calls) and the bound (bytes
-   or FLOPs).  Then ragged shapes (K 200, N 328: multiples of 8, not of
-   the wgmma tiles) at bm 64 and 128 (wgmma) and 16 (WMMA):
-   ``gmm_swiglu`` writing h, gate and up; ``gmm`` with rhs [E, K, N] and
-   [E, N, K], with and without ``valid_tiles``; every row within 2e-2 of
-   max, skipped rows exactly 0; ``tgmm`` per expert as in phase 3, its
-   tile-short control, the unrouted expert exactly 0.
+   top-2 = 16 routed rows, M = 144, bm = 16: swap-AB), decode layouts
+   with expert E - 1 routed and unrouted (then its weights are read only
+   for the clamped tail tiles), the 16-token prefill bucket (32 rows, M =
+   288, bm = 32: swap-AB) and the 128-token prefill bucket (256 rows, M =
+   2304, bm = 256: wgmma), bf16, against the plain versions computed in
+   f32 on the same inputs.  Only the rows the combine reads are compared
+   (tiles past the last group hold garbage in the reference too).
+   Tolerance: max |kernel - plain| <= 2e-2 * max |plain| (bf16 output,
+   one rounding).
+   Prints each kernel's ms, the plain version's ms, a per-expert
+   ``torch.matmul`` loop's ms (``library_ms``, a yardstick the port never
+   calls), the bound (bytes over the touched experts, or FLOPs) and the
+   bytes/s it reached over the touched experts.  Then ragged shapes (K
+   200, N 328: multiples of 8, not of the wgmma tiles) at bm 64 and 128
+   (wgmma) and 4, 8, 16 and 32 (swap-AB; ``tgmm`` WMMA): ``gmm_swiglu``
+   writing h, gate and up; ``gmm`` with rhs [E, K, N] and [E, N, K], with
+   and without ``valid_tiles``; every row within 2e-2 of max, skipped rows
+   exactly 0; ``tgmm`` per expert as in phase 3, its tile-short control,
+   the unrouted expert exactly 0.
 3. MoE training kernels at the layout of B 2 x T 4096 (16384 routed rows,
    M 18432, bm 256: every grouped kernel on wgmma), every operand row
    nonzero (pad rows and the clamped tail included): ``gmm_swiglu``
@@ -91,7 +98,9 @@ Phases, in order (any failure raises and exits non-zero):
    any useful limit).
 6. profile: ``torch.profiler`` over decode steps and a 128-token prefill
    of the same backend: wall ms, device-busy ms, idle share and kernel
-   time by group (PERF.md section 5).
+   time by group (PERF.md section 5), beside the experts each layer's
+   routing touches in the same call and the time their weights take to
+   read at 3.35 TB/s (the floor of ``gmm`` + ``gmm_swiglu``).
 7. train check: Llama-2-7B widths at 2 layers, B 1, T 1024, one seed: the
    loss and every parameter gradient of the kernel path against the same
    step with the flash wrappers swapped for their plain versions.  Loss
@@ -253,16 +262,18 @@ def bound(nbytes: float, flops: float):
 # Phase 1: build
 # ---------------------------------------------------------------------------
 
-# The kernels' names: the wgmma designs must issue HGMMA (wgmma)
-# instructions, the WMMA ones (the grouped matmuls at bm < 64) must not.
+# The kernels' names: the wgmma designs (the swap-AB decode kernel among
+# them) must issue HGMMA (wgmma) instructions, the WMMA one (tgmm at bm <
+# 64) must not.
 WGMMA_KERNELS = ("gmm_wgmma_kernel", "gmm_swiglu_wgmma_kernel",
-                 "tgmm_wgmma_kernel", "flash_fwd_wgmma_kernel",
-                 "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel")
-WMMA_KERNELS = ("gmm_kernel", "tgmm_kernel")
+                 "tgmm_wgmma_kernel", "gmm_swapab_kernel",
+                 "flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
+                 "flash_dkv_wgmma_kernel")
+WMMA_KERNELS = ("tgmm_kernel",)
 # Mangled: <length><identifier>I<template args>... (or E and the
 # parameters, for a kernel that is not a template).
 KERNEL_NAME = re.compile(r"\d((?:t?gmm|gmm_swiglu|flash_fwd|flash_dq|"
-                         r"flash_dkv)_(?:wgmma_)?kernel)([IE])")
+                         r"flash_dkv)_(?:wgmma_|swapab_)?kernel)([IE])")
 
 
 def hgmma_counts(sass: str) -> dict:
@@ -317,6 +328,9 @@ def build_phase():
     regs = ptxas_report(lib.log)
     print("build: ptxas [registers, spill stores, spill loads] per kernel: "
           + json.dumps(regs), flush=True)
+    print("build: swap-AB decode kernels (gmm_swapab_kernel<NR, SWIGLU, "
+          "TRANS>) [registers, spill stores, spill loads]: " + json.dumps(
+              {k: v for k, v in regs.items() if "swapab" in k}), flush=True)
     assert all(r[1] == 0 and r[2] == 0 for r in regs.values()), (
         "ptxas spilled registers")
     cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
@@ -340,14 +354,16 @@ def build_phase():
 # ---------------------------------------------------------------------------
 
 def routed_layout(cfg: LlamaConfig, n_tok: int, gen: torch.Generator, dev,
-                  empty=None):
+                  empty=None, picked=None):
     """The grouped layout of ``n_tok`` tokens under a random router that
-    never picks expert ``empty`` (if given), and the per-expert slot
-    counts."""
+    never picks expert ``empty`` and always picks expert ``picked`` for
+    token 0 (each if given), and the per-expert slot counts."""
     logits = torch.randn((1, n_tok, cfg.n_experts), generator=gen,
                          device=dev)
     if empty is not None:
         logits[..., empty] = -1e9
+    if picked is not None:
+        logits[0, 0, picked] = 1e9
     _, idx = moe.router_topk(logits, cfg.moe_top_k)
     lay = moe.grouped_layout(idx, cfg.n_experts, 256)
     counts = np.bincount(idx.reshape(-1).cpu().numpy(),
@@ -355,10 +371,12 @@ def routed_layout(cfg: LlamaConfig, n_tok: int, gen: torch.Generator, dev,
     return lay, counts
 
 
-def layout_case(cfg: LlamaConfig, n_tok: int, gen: torch.Generator, dev):
+def layout_case(cfg: LlamaConfig, n_tok: int, gen: torch.Generator, dev,
+                empty=None, picked=None):
     """The grouped layout of ``n_tok`` random tokens under a random
-    router, the lhs the FFN kernels see, and the host-side group sizes."""
-    lay, counts = routed_layout(cfg, n_tok, gen, dev)
+    router (``routed_layout``'s ``empty`` and ``picked``), the lhs the FFN
+    kernels see, and the host-side group sizes."""
+    lay, counts = routed_layout(cfg, n_tok, gen, dev, empty, picked)
     x = (torch.randn((n_tok, cfg.dim), generator=gen, device=dev)
          ).to(torch.bfloat16)
     x_pad = moe._dispatch_rows(x, lay.inv_src, lay.dest.reshape(n_tok, -1))
@@ -389,12 +407,15 @@ def check_rel(name, got, ref, rows, tol):
 
 def timed(fn, plain, library, nbytes, flops, err, iters=5, plain_iters=1,
           **extra):
-    """Kernel, plain and library ms on the same inputs, and the bound."""
+    """Kernel, plain and library ms on the same inputs, the bound, and the
+    bytes/s the kernel reached over the bytes the bound counts."""
     b_ms, b_by = bound(nbytes, flops)
-    return {"ms": time_ms(fn, iters),
+    ms = time_ms(fn, iters)
+    return {"ms": ms,
             "plain_ms": time_ms(plain, plain_iters, warmup=1),
             "library_ms": time_ms(library, iters), "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": err, **extra}
+            "bound_by": b_by, "max_abs_err": err,
+            "bound_bytes_GBps": nbytes / ms / 1e6, **extra}
 
 
 def print_times(name, shape, rec):
@@ -414,13 +435,25 @@ def kernel_phase(cfg: LlamaConfig, dev, seed: int):
 
     wg, wu, wd = w((e, d, f)), w((e, d, f)), w((e, f, d))
     results = {}
-    for shape, n_tok, iters in (("decode", 8, 20), ("prefill", 128, 10)):
-        lay, x_pad, counts = layout_case(cfg, n_tok, gen, dev)
+    # (name, tokens, expert the router never picks, expert token 0 always
+    # picks, timed calls): decode (bm 16), decode with E - 1 routed and
+    # with E - 1 unrouted (then the clamped tail tiles alone read its
+    # weights), the 16-token prefill bucket (bm 32) and the 128-token one
+    # (bm 256).
+    for shape, n_tok, empty, picked, iters in (
+            ("decode", 8, None, None, 20),
+            ("decode_last_expert_routed", 8, None, e - 1, 20),
+            ("decode_last_expert_unrouted", 8, e - 1, None, 20),
+            ("prefill_16", 16, None, None, 20),
+            ("prefill", 128, None, None, 10)):
+        lay, x_pad, counts = layout_case(cfg, n_tok, gen, dev, empty, picked)
         bm, te, rows = lay.bm, lay.tile_experts, lay.dest
         n_rows, used = int(counts.sum()), int((counts > 0).sum())
         grp = groups(counts, bm)
+        tail = lay.m // bm - sum(-(-int(c) // bm) for c in counts)
         print(f"{shape}: M={lay.m} bm={bm} routed rows={n_rows} "
-              f"experts touched={used}", flush=True)
+              f"experts touched={used} clamped tail tiles={tail} "
+              f"(expert {e - 1} routed: {bool(counts[e - 1])})", flush=True)
 
         h = gm.gmm_swiglu(x_pad, wg, wu, te, bm)
         torch.cuda.synchronize()
@@ -458,7 +491,8 @@ def kernel_phase(cfg: LlamaConfig, dev, seed: int):
         ):
             rec = timed(fn, plain, lib_fn, nbytes, flops, err, iters=iters,
                         plain_iters=3, M=lay.m, bm=bm, routed_rows=n_rows,
-                        experts_touched=used)
+                        experts_touched=used, clamped_tail_tiles=tail,
+                        last_expert_routed=bool(counts[e - 1]))
             results.setdefault(name, {})[shape] = rec
             print_times(name, shape, rec)
         del h, y, x_pad
@@ -468,13 +502,16 @@ def kernel_phase(cfg: LlamaConfig, dev, seed: int):
 
 
 # Small ragged shapes: K and N multiples of 8 but not of the wgmma tiles
-# (64 deep; 256 columns, 128 for gmm_swiglu; 128 K rows for tgmm), so TMA's
-# edge zero-fill and the masked stores run, at bm 64 and 128 (wgmma) and 16
-# (WMMA).
+# (64 deep; 256 columns, 128 for gmm_swiglu and the swap-AB kernels; 128
+# K rows for tgmm), so TMA's edge zero-fill and the masked stores run,
+# at bm 64 and 128 (wgmma) and 4, 8, 16 and 32 (swap-AB; tgmm on WMMA).
+# At bm 4 the swap-AB kernel's 8 rows run into the next tile; at bm 8-32
+# a gmm block takes up to 64 / bm tiles of a run (expert 2's four tiles:
+# one block at bm 8 and 16, two at 32), cut short at valid_tiles.
 RAGGED_K, RAGGED_N = 200, 328
 RAGGED_TILES = (0, 0, 2, 2, 2, 2)   # expert 1 owns no tile
 RAGGED_VALID = 3                    # valid_tiles: tiles 3-5 skipped
-RAGGED_BMS = (64, 128, 16)
+RAGGED_BMS = (64, 128, 4, 8, 16, 32)
 
 
 def ragged_phase(dev, seed: int):
@@ -500,7 +537,7 @@ def ragged_phase(dev, seed: int):
         lhs, dout = rnd(m, k), rnd(m, n)
         weights = {False: rnd(e, k, n, scale=0.1),
                    True: rnd(e, n, k, scale=0.1)}
-        variant = gm.kernel_variant(bm)
+        variant = gm.kernel_variant("gmm", bm)
         name = f"gmm_swiglu[ragged {variant} bm{bm}]"
         w_up = rnd(e, k, n, scale=0.1)
         got = gm._gmm_swiglu(lhs, weights[False], w_up, te, bm, gate_up=True)
@@ -525,7 +562,7 @@ def ragged_phase(dev, seed: int):
                 assert not got[RAGGED_VALID * bm:].any(), (
                     f"{name}: nonzero rows past valid_tiles")
         for valid in (None, vt):
-            name = (f"tgmm[ragged {variant} bm{bm}"
+            name = (f"tgmm[ragged {gm.kernel_variant('tgmm', bm)} bm{bm}"
                     + (" valid_tiles" if valid is not None else "") + "]")
             _, chk = tgmm_check(name, lhs, dout, te, e, bm, valid, empty=(1,),
                                 control=valid is None)
@@ -1149,8 +1186,9 @@ def serve_phase(cfg: LlamaConfig, dev, seed: int):
     lens = [len(r.tokens) for r in reqs]
 
     torch.cuda.reset_peak_memory_stats()
-    gm.gmm.launches = 0
-    gm.gmm_swiglu.launches = 0
+    for fn in (gm.gmm, gm.gmm_swiglu):
+        fn.launches = 0
+        fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
     t0 = time.perf_counter()
     engine = ServeEngine(backend, scfg)
     engine.start()
@@ -1166,12 +1204,18 @@ def serve_phase(cfg: LlamaConfig, dev, seed: int):
     st = engine.stats()
     engine.stop()
     launches = {"gmm": gm.gmm.launches, "gmm_swiglu": gm.gmm_swiglu.launches}
+    by_design = {"gmm": dict(gm.gmm.launches_by_design),
+                 "gmm_swiglu": dict(gm.gmm_swiglu.launches_by_design)}
 
     for r in reqs:
         assert not r.error, (r.id, r.error)
         assert len(r.output) == 16, (r.id, len(r.output))
         assert all(0 <= t < cfg.vocab_size for t in r.output), r.id
     assert launches["gmm"] > 0 and launches["gmm_swiglu"] > 0, launches
+    # Decode and the 16-token bucket (bm 16, 32) run the swap-AB design,
+    # the 32-128-token buckets (bm >= 64) the wgmma one: both must launch.
+    assert all(n > 0 for d in by_design.values() for n in d.values()), (
+        by_design)
     n_out = sum(len(r.output) for r in reqs)
     out = {
         "load_and_warmup_s": t_ready - t0,
@@ -1180,7 +1224,7 @@ def serve_phase(cfg: LlamaConfig, dev, seed: int):
         "tokens_per_s": n_out / (t_done - t_ready),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "decode_steps": st.step, "prefill_buckets_seen": st.prefill_compiles,
-        "prompt_lens": lens,
+        "prompt_lens": lens, "launches_by_design": by_design,
     }
     print("serve: " + json.dumps(out), flush=True)
 
@@ -1204,7 +1248,7 @@ def serve_phase(cfg: LlamaConfig, dev, seed: int):
     assert control > LAYER_REL_TOL, (
         "the per-layer check passed an FFN output with an expert's rows "
         "zeroed")
-    return launches, backend, scfg
+    return launches, by_design, backend, scfg
 
 
 # ---------------------------------------------------------------------------
@@ -1220,14 +1264,15 @@ KERNEL_GROUPS = (
      is not None),
     ("flash_dkv", lambda n: re.search(r"\bflash_dkv_(wgmma_)?kernel", n)
      is not None),
-    # tgmm_kernel (WMMA) and tgmm_wgmma_kernel; gmm_kernel<BM, BN, WARPS_M,
-    # WARPS_N, SWIGLU, TRANS> (WMMA, gmm_swiglu when SWIGLU),
+    # tgmm_kernel (WMMA) and tgmm_wgmma_kernel; gmm_swapab_kernel<NR,
+    # SWIGLU, TRANS> (bm < 64, gmm_swiglu when SWIGLU),
     # gmm_swiglu_wgmma_kernel<NC> and gmm_wgmma_kernel<NC, TRANS>.
     ("tgmm", lambda n: re.search(r"\btgmm_(wgmma_)?kernel", n) is not None),
     ("gmm_swiglu", lambda n: re.search(
-        r"\bgmm_kernel<\d+, \d+, \d+, \d+, true|\bgmm_swiglu_wgmma_kernel",
+        r"\bgmm_swapab_kernel<\d+, true|\bgmm_swiglu_wgmma_kernel",
         n) is not None),
-    ("gmm", lambda n: re.search(r"\bgmm_(wgmma_)?kernel", n) is not None),
+    ("gmm", lambda n: re.search(r"\bgmm_(wgmma_|swapab_)?kernel", n)
+     is not None),
     ("library gemm", lambda n: any(w in n for w in (
         "gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_"))),
     ("gather/scatter", lambda n: any(w in n for w in ("index", "gather",
@@ -1276,10 +1321,28 @@ def profile_calls(name, fn, n):
     }), flush=True)
 
 
+def touched_experts(fn):
+    """The number of experts each layer's routing picks in one call of
+    ``fn`` (the grouped path's ``moe.grouped_layout`` calls, in order)."""
+    seen = []
+    real = moe.grouped_layout
+
+    def spy(idx, n_experts, block_m=256):
+        seen.append(int(torch.unique(idx).numel()))
+        return real(idx, n_experts, block_m)
+
+    with mock.patch.object(moe, "grouped_layout", spy):
+        fn()
+    return seen
+
+
 def profile_phase(backend, scfg, steps: int = 5):
     """Decode steps of the full slot batch (every slot live at position
     100) and prefills of one 128-token prompt, through the backend the
-    engine served with."""
+    engine served with.  Beside each, the experts every layer touches in
+    one unprofiled call on the same inputs, and the time their gate, up
+    and down weights take to read once at ``PEAK_HBM_BYTES``: the floor
+    of the call's ``gmm`` + ``gmm_swiglu`` time."""
     ps, pps = scfg.page_size, scfg.pages_per_slot()
     tables = (1 + np.arange(scfg.slots)[:, None] * pps
               + np.arange(pps)[None, :]).astype(np.int32)
@@ -1288,9 +1351,18 @@ def profile_phase(backend, scfg, steps: int = 5):
     prompt = np.arange(1, 129, dtype=np.int32)[None]
     rows = (tables[0, np.arange(128) // ps] * ps
             + np.arange(128) % ps).astype(np.int32)
-    profile_calls("decode", lambda: backend.decode(tokens, positions, tables),
-                  steps)
-    profile_calls("prefill", lambda: backend.prefill(prompt, rows, 128), 2)
+    cfg = backend.cfg
+    expert_bytes = 3 * cfg.dim * cfg.intermediate * 2
+    for name, fn, n in (
+            ("decode", lambda: backend.decode(tokens, positions, tables),
+             steps),
+            ("prefill", lambda: backend.prefill(prompt, rows, 128), 2)):
+        touched = touched_experts(fn)
+        print(f"profile[{name}] experts touched per layer: " + json.dumps({
+            "touched": touched, "weights_read_floor_ms":
+                sum(touched) * expert_bytes / PEAK_HBM_BYTES * 1e3}),
+              flush=True)
+        profile_calls(name, fn, n)
 
 
 # ---------------------------------------------------------------------------
@@ -1458,11 +1530,12 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def kernels_line(results, flash, paths):
+def kernels_line(results, flash, paths, serve_designs):
     """One entry per kernel; ``launches`` is the MoE train run's (this
     slice's main path, which launches all six) and the grouped kernels'
     top-level times are at its layout; ``launches_by_path`` gives each
-    path's own run."""
+    path's own run, and ``serve_launches_by_design`` the serve run's
+    ``gmm`` and ``gmm_swiglu`` launches by design."""
     replaces = {
         "gmm": (f"{REF_FILE}:132 (_gmm_single_k_kernel, decode); "
                 f"{REF_FILE}:78 (_gmm_kernel, prefill); "
@@ -1491,13 +1564,17 @@ def kernels_line(results, flash, paths):
         shapes = results[name]
         for rec in shapes.values():
             if "bm" in rec:     # the design each timed shape launched
-                rec["variant"] = gm.kernel_variant(rec["bm"])
+                rec["variant"] = gm.kernel_variant(name, rec["bm"])
         entries.append({
             **common(name, SOURCE),
             **{k: shapes[main_shape][k] for k in keys},
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()
                                if "max_abs_err" in r),
             "shape": main_shape, "variant": shapes[main_shape]["variant"],
+            "designs": {"bm < 64": gm.kernel_variant(name, 1),
+                        "bm >= 64": gm.kernel_variant(name, 64)},
+            **({"serve_launches_by_design": serve_designs[name]}
+               if name in serve_designs else {}),
             **{shape: rec for shape, rec in shapes.items()
                if shape != main_shape},
         })
@@ -1528,7 +1605,8 @@ def main(argv=None) -> int:
         results.setdefault(name, {}).update(recs)
     flash = flash_phase(dev, args.seed)
     paths = {}
-    paths["serve"], backend, scfg = serve_phase(cfg, dev, args.seed)
+    paths["serve"], serve_designs, backend, scfg = serve_phase(cfg, dev,
+                                                               args.seed)
     profile_phase(backend, scfg)
     del backend
     gc.collect()
@@ -1541,7 +1619,7 @@ def main(argv=None) -> int:
         mixtral_8x7b_train(MOE_TRAIN["layers"]), dev, args.seed)
     entry_phase()
     print(card_line())
-    print(kernels_line(results, flash, paths))
+    print(kernels_line(results, flash, paths, serve_designs))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,14 +25,16 @@
 // is f32; each output is rounded to bf16 once.
 //
 // What bounds it on this card.  At decode (8 slots, top-2: M = 144, bm = 16)
-// the forward is bytes: the weights of every touched expert, 8 x 4096 x
-// 14336 x 2 B = 0.94 GB per product at Mixtral-8x7B widths, are read for 16
-// real rows.  At prefill (M 2304, bm 256) still bytes (~0.28 ms for the
-// down gmm at 3.35 TB/s).  In training (B 2 x T 4096: 16384 routed rows, M
+// the forward is bytes: the 16 routed rows read the weights of every
+// touched expert (4096 x 14336 x 2 B = 117 MB per expert per weight matrix
+// at Mixtral-8x7B widths), 2-3 rows an expert, so 2-3 FLOP a byte against
+// the card's ~295 break-even: ~0.035 ms an expert and matrix at 3.35
+// TB/s.  At prefill (M 2304, bm 256) still bytes (~0.28 ms for the down
+// gmm at 3.35 TB/s).  In training (B 2 x T 4096: 16384 routed rows, M
 // 18432, bm 256) each expert's weights serve ~2048 rows: every product is
 // operations, ~1.9 TFLOP for a gate/up-sized one (~1.95 ms at 989 TFLOP/s).
 //
-// Two designs, chosen by bm alone (the wrapper's ops/grouped_matmul.py:
+// Three designs, chosen by bm alone (the wrapper's ops/grouped_matmul.py:
 // kernel_variant; the C entry points refuse a bm their design cannot take):
 //
 // bm >= 64: gmm_wgmma_kernel, gmm_swiglu_wgmma_kernel and tgmm_wgmma_kernel,
@@ -73,18 +75,61 @@
 //   (then idle) ring and writes each row out in 16-byte stores (gmm_swiglu:
 //   h, and gate and up where the caller asks for them).
 //
-// bm < 64 (decode): gmm_kernel and tgmm_kernel (WMMA m16n16k16 from
-//   mma.sync, a two-stage cp.async ring, 48 KB of static shared memory);
-//   gmm_swiglu is gmm_kernel's SWIGLU form.  At bm 16 gmm is bytes-bound
-//   and the step is host-bound, and a 64-row wgmma tile would compute 4x
-//   the rows.
+// bm < 64, gmm and gmm_swiglu: gmm_swapab_kernel<NR, SWIGLU, TRANS>, the
+//   swap-AB weight stream (decode: bm 16; the 16-token prefill bucket: bm
+//   32).  It ports _gmm_single_k_kernel, _gmm_single_k_skip_kernel and
+//   _gmm2_kernel at these sizes.  A bm-row tile is too few rows for
+//   wgmma's 64-row M, and the weights are the operand that has to stream,
+//   so the operands are swapped: the block computes out^T = W^T lhs^T, the
+//   weights' output columns as wgmma's M (A, from shared memory: MN-major
+//   for rhs [E, K, N], K-major for [E, N, K]) and the rows as its N (B,
+//   K-major lhs rows): m64nNRk16.  Below bm 8 a tile's 8-row box runs into
+//   the next tile; those rows are computed and never stored.
+//   What it does about the bytes.  A block owns 128 output columns (two
+//   64-wide weight boxes a stage; gmm_swiglu: the same 128 gate and up
+//   columns, four boxes, into four accumulators, so gate and up of one
+//   (column, row) sit in one thread and SwiGLU runs on the f32 values).
+//   The accumulators are 128 x NR f32 (gmm_swiglu: twice that), NR to
+//   2 NR registers a thread, so the block is small (one consumer warpgroup and one producer warp,
+//   160 threads) and its shared memory goes to the ring: 3-4 stages of 64
+//   K (16 KB of weights a stage for gmm, 32 KB for gmm_swiglu, plus the
+//   lhs rows), a full/empty mbarrier pair per stage, one thread issuing
+//   the TMA loads.  Rings of <= 72 KB (gmm) and <= 108 KB (gmm_swiglu)
+//   let 3 and 2 blocks share an SM: ~100-140 KB of loads outstanding per
+//   SM.  The decode down gmm (N 4096, K 14336) has 32 column slices x 9
+//   row tiles = 288 blocks, all resident at once; K is not split (no
+//   second pass).  128-column slices read 256 contiguous bytes of each
+//   weight row and half the lhs re-reads of 64-column ones: 3% (gmm) and
+//   6% (gmm_swiglu) faster at decode (tools/swapab_variants.py, H100
+//   80GB HBM3 at 700 W).
+//   One weight read per run.  Row tiles run fastest within a column slice
+//   (blockIdx.x = slice * tiles + tile), so the tiles of one expert, the
+//   clamped tiles past the last group included (they carry E - 1), are
+//   resident together and later reads of the same weight boxes hit L2.
+//   gmm goes further: at bm >= 8 its wgmma N is 64 and a block takes up
+//   to 64 / bm consecutive tiles of its expert's run (found by a binary
+//   search of the non-decreasing tile_experts), loading one lhs box per
+//   tile it holds; blocks whose tile a run-mate took exit at once.  The
+//   clamped tail then streams its weights once, not once a tile: at
+//   decode, with 4 tail tiles of 9, 7% faster.  gmm_swiglu stays at one
+//   tile a block: a 64-row lhs region would grow its 34 KB stage to 40 KB
+//   and its ring to one block an SM, 12% slower (same tool and card).
+//   Under valid_tiles a skipped tile writes zeros without loading
+//   anything, and no block takes a tile past it.
+//   Epilogue: the accumulator is [columns x rows]; it is rounded to bf16
+//   once (gmm_swiglu: h = silu(gate) * up on the f32 values, and gate and
+//   up where asked), transposed through the idle ring, and written as rows
+//   in 16-byte stores, masked at the ragged N edge and past the rows the
+//   block holds.
+//
+// bm < 64, tgmm: tgmm_kernel (WMMA m16n16k16 from mma.sync, a two-stage
+//   cp.async ring, 48 KB of static shared memory).  No chip path launches
+//   it: the training layouts use bm 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -92,9 +137,9 @@ namespace {
 
 using namespace nvcuda;
 
-constexpr int BK = 32;    // depth of one pipeline stage (K, or rows for tgmm)
+constexpr int BK = 32;    // rows of one tgmm_kernel pipeline stage
 constexpr int APAD = 8;   // bf16 row padding of the A tile (bank spread)
-constexpr int BPAD = 8;   // bf16 row padding of the B tiles
+constexpr int BPAD = 8;   // bf16 row padding of the B tile
 constexpr int CPAD = 4;   // f32 row padding of the epilogue tile
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -149,190 +194,6 @@ __device__ __forceinline__ void zero_bf16_tile(__nv_bfloat16* dst, size_t ld,
     if (r < rows && nc < cols)
       *reinterpret_cast<uint4*>(dst + r * ld + nc) = make_uint4(0, 0, 0, 0);
   }
-}
-
-template <int BM, int BN, int WARPS_M, int WARPS_N, bool SWIGLU, bool TRANS>
-__global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
-    gmm_kernel(const __nv_bfloat16* __restrict__ lhs,
-               const __nv_bfloat16* __restrict__ rhs0,
-               const __nv_bfloat16* __restrict__ rhs1,
-               const int32_t* __restrict__ tile_experts,
-               const int32_t* __restrict__ valid_tiles,
-               __nv_bfloat16* __restrict__ out,
-               __nv_bfloat16* __restrict__ gate_out,
-               __nv_bfloat16* __restrict__ up_out, int K, int N, int bm) {
-  static_assert(!(SWIGLU && TRANS), "the fused SwiGLU reads rhs as [E, K, N]");
-  constexpr int NT = WARPS_M * WARPS_N * 32;
-  constexpr int NB = SWIGLU ? 2 : 1;  // weight operands per stage
-  constexpr int WM = BM / WARPS_M;
-  constexpr int WN = BN / WARPS_N;
-  constexpr int FM = WM / 16;
-  constexpr int FN = WN / 16;
-  constexpr int LDA = BK + APAD;
-  // B tile: [BK][BN] for rhs [E, K, N]; [BN][BK] for rhs [E, N, K].
-  constexpr int LDB = TRANS ? BK + BPAD : BN + BPAD;
-  constexpr int LDC = BN + CPAD;
-  constexpr int A_STAGE = BM * LDA;  // elements
-  constexpr int B_STAGE = TRANS ? BN * LDB : BK * LDB;
-  constexpr int PIPE_BYTES = 2 * (A_STAGE + NB * B_STAGE) * 2;
-  constexpr int C_BYTES = BM * LDC * 4;
-  constexpr int SMEM_BYTES = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
-  static_assert(WM % 16 == 0 && WN % 16 == 0, "warp tile must be 16-aligned");
-  static_assert(SMEM_BYTES <= 48 * 1024, "static shared memory limit");
-  using BLayout =
-      typename std::conditional<TRANS, wmma::col_major, wmma::row_major>::type;
-
-  // The pipeline ring [2][A | NB x B] and, after the K loop, the f32
-  // epilogue tile share one buffer.
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sB = sA + 2 * A_STAGE;
-  float* sC = reinterpret_cast<float*>(smem);
-
-  const int rows = bm < BM ? bm : BM;  // rows this block owns
-  const int row0 = blockIdx.x * rows;
-  const int col0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int tile = row0 / bm;
-  __nv_bfloat16* dst = out + static_cast<size_t>(row0) * N + col0;
-
-  // The compute skip: a tile at or past valid_tiles[0] writes zeros.
-  if (valid_tiles != nullptr && tile >= valid_tiles[0]) {
-    zero_bf16_tile<BM, BN, NT>(dst, N, rows, N - col0, tid);
-    return;
-  }
-
-  const int expert = tile_experts[tile];
-  const size_t wofs = static_cast<size_t>(expert) * K * N;
-  const __nv_bfloat16* W0 = rhs0 + wofs;
-  const __nv_bfloat16* W1 = SWIGLU ? rhs1 + wofs : rhs0;
-
-  const int warp = tid / 32;
-  const int wm = warp / WARPS_N;
-  const int wn = warp % WARPS_N;
-
-  auto load_stage = [&](int stage, int k0) {
-    __nv_bfloat16* a = sA + stage * A_STAGE;
-    for (int c = tid; c < BM * (BK / 8); c += NT) {
-      const int r = c / (BK / 8);
-      const int kc = (c % (BK / 8)) * 8;
-      const bool ok = r < rows && k0 + kc < K;
-      const __nv_bfloat16* src =
-          ok ? lhs + static_cast<size_t>(row0 + r) * K + k0 + kc : lhs;
-      cp_async16(a + r * LDA + kc, src, ok);
-    }
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      const __nv_bfloat16* W = b == 0 ? W0 : W1;
-      __nv_bfloat16* s = sB + (stage * NB + b) * B_STAGE;
-      if constexpr (TRANS) {
-        // rhs[e] is [N, K]: BN rows of BK contiguous values.
-        for (int c = tid; c < BN * (BK / 8); c += NT) {
-          const int nr = c / (BK / 8);
-          const int kc = (c % (BK / 8)) * 8;
-          const bool ok = col0 + nr < N && k0 + kc < K;
-          const __nv_bfloat16* src =
-              ok ? W + static_cast<size_t>(col0 + nr) * K + k0 + kc : W;
-          cp_async16(s + nr * LDB + kc, src, ok);
-        }
-      } else {
-        for (int c = tid; c < BK * (BN / 8); c += NT) {
-          const int kr = c / (BN / 8);
-          const int nc = (c % (BN / 8)) * 8;
-          const bool ok = k0 + kr < K && col0 + nc < N;
-          const __nv_bfloat16* src =
-              ok ? W + static_cast<size_t>(k0 + kr) * N + col0 + nc : W;
-          cp_async16(s + kr * LDB + nc, src, ok);
-        }
-      }
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NB][FM][FN];
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[b][i][j], 0.0f);
-
-  const int nk = (K + BK - 1) / BK;
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    // Refill the other stage (last read in iteration kt - 1, which ended in
-    // a barrier), then wait for this stage's group.  A group is committed
-    // every iteration, empty at the end, so wait_group 1 always means
-    // "stage kt has landed".
-    if (kt + 1 < nk) load_stage((kt + 1) & 1, (kt + 1) * BK);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const __nv_bfloat16* a = sA + (kt & 1) * A_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          fa[FM];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], a + (wm * WM + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const __nv_bfloat16* s = sB + ((kt & 1) * NB + b) * B_STAGE;
-#pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout>
-              fb;
-          const int n = wn * WN + j * 16;
-          wmma::load_matrix_sync(fb, TRANS ? s + n * LDB + kk : s + kk * LDB + n,
-                                 LDB);
-#pragma unroll
-          for (int i = 0; i < FM; ++i)
-            wmma::mma_sync(acc[b][i][j], fa[i], fb, acc[b][i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // Epilogue: f32 accumulators -> f32 tile in shared memory -> one bf16
-  // rounding on the way out.  With SWIGLU, gate and up go out first when
-  // asked for, then h = silu(gate) * up on the f32 accumulators.  Two
-  // accumulator fragments of one type map elements to threads identically,
-  // so the elementwise SwiGLU pairs gate and up of the same (row, col).
-  auto emit = [&](int b, __nv_bfloat16* base) {
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(
-            sC + (wm * WM + i * 16) * LDC + wn * WN + j * 16, acc[b][i][j],
-            LDC, wmma::mem_row_major);
-    __syncthreads();
-    store_bf16_tile<BM, BN, NT, LDC>(
-        sC, base + static_cast<size_t>(row0) * N + col0, N, rows, N - col0,
-        tid);
-    __syncthreads();
-  };
-  if constexpr (SWIGLU) {
-    if (gate_out != nullptr) emit(0, gate_out);
-    if (up_out != nullptr) emit(1, up_out);
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-#pragma unroll
-        for (int t = 0; t < acc[0][i][j].num_elements; ++t) {
-          const float g = acc[0][i][j].x[t];
-          const float u = acc[1][i][j].x[t];
-          acc[0][i][j].x[t] = g / (1.0f + __expf(-g)) * u;
-        }
-  }
-  emit(0, out);
 }
 
 // tgmm: out[e][k, n] = sum over rows r of the tiles i with tile_experts[i]
@@ -481,27 +342,6 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
                               acc[i][j], LDC, wmma::mem_row_major);
   __syncthreads();
   store_bf16_tile<BKO, BN, NT, LDC>(sC, dst, N, K - k0o, N - col0, tid);
-}
-
-template <int BM, int BN, int WARPS_M, int WARPS_N, bool SWIGLU, bool TRANS>
-int launch(const void* lhs, const void* rhs0, const void* rhs1,
-           const void* tile_experts, const void* valid_tiles, void* out,
-           void* gate_out, void* up_out, int M, int K, int N, int bm,
-           void* stream) {
-  const int rows = bm < BM ? bm : BM;
-  dim3 grid(M / rows, (N + BN - 1) / BN);
-  dim3 block(WARPS_M * WARPS_N * 32);
-  gmm_kernel<BM, BN, WARPS_M, WARPS_N, SWIGLU, TRANS>
-      <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(lhs),
-          static_cast<const __nv_bfloat16*>(rhs0),
-          static_cast<const __nv_bfloat16*>(rhs1),
-          static_cast<const int32_t*>(tile_experts),
-          static_cast<const int32_t*>(valid_tiles),
-          static_cast<__nv_bfloat16*>(out),
-          static_cast<__nv_bfloat16*>(gate_out),
-          static_cast<__nv_bfloat16*>(up_out), K, N, bm);
-  return static_cast<int>(cudaGetLastError());
 }
 
 bool bad_args(int M, int K, int N, int bm) {
@@ -934,6 +774,233 @@ __global__ void __launch_bounds__(HgShape<2>::THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bm < 64: the swap-AB weight stream
+// ---------------------------------------------------------------------------
+
+constexpr int SA_NC = 2;           // 64-column weight boxes a matrix a stage
+constexpr int SA_BN = 64 * SA_NC;  // output columns per block
+constexpr int SA_THREADS = 160;    // one consumer warpgroup + one producer warp
+constexpr int SA_LDS = SA_BN + 8;  // bf16 row stride of the epilogue staging
+constexpr int SA_GMM_BUDGET = 72 * 1024;      // ring bytes: 3 blocks an SM
+constexpr int SA_SWIGLU_BUDGET = 102 * 1024;  // 2 blocks an SM
+
+// Rows of one tile's lhs box: max(8, bm); for bm < 8 the box runs into the
+// next tile.
+__host__ __device__ constexpr int sa_box_rows(int bm) {
+  return bm < 8 ? 8 : bm;
+}
+
+// NR rows (wgmma's N) a block; SWIGLU: gate and up boxes per stage.
+template <int NR, bool SWIGLU>
+struct SaShape {
+  static constexpr int NB = (SWIGLU ? 2 : 1) * SA_NC;  // weight boxes a stage
+  static constexpr int W_BYTES = NB * HG_BOX;   // [64 K][64 columns] each
+  static constexpr int B_BYTES = NR * 128;      // [NR rows][64 K] of lhs
+  static constexpr int STAGE = W_BYTES + B_BYTES;  // a multiple of 1 KB
+  static constexpr int BUDGET = SWIGLU ? SA_SWIGLU_BUDGET : SA_GMM_BUDGET;
+  static constexpr int STAGES = BUDGET / STAGE < 3 ? 3 : BUDGET / STAGE;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int SMEM = 1024 + RING + 2 * STAGES * 8;
+  static constexpr int PLANES = SWIGLU ? 3 : 1;  // h, gate, up staging
+  static_assert(STAGE % hopper::SWIZZLE_ATOM == 0, "stages stay aligned");
+  static_assert(PLANES * NR * SA_LDS * 2 <= RING, "epilogue staging fits");
+};
+
+// gmm (SWIGLU false) and gmm_swiglu (SWIGLU true), bm < 64: output columns
+// [col0, col0 + SA_BN) of the rows of tile x % n_tiles (and, where NR
+// holds more than one tile's box, of the next tiles of its expert's run,
+// up to NR rows), as out^T = W^T lhs^T.  Column slice x / n_tiles.  map_lhs: [M, K] box {64, max(8,
+// bm)}; map_w0 (and map_w1, the up weights, with SWIGLU): [E, K, N] box
+// {64, 64, 1}, or (TRANS) [E, N, K] box {64, 64, 1}.  tile_experts is
+// non-decreasing.
+template <int NR, bool SWIGLU, bool TRANS>
+__global__ void __launch_bounds__(SA_THREADS)
+    gmm_swapab_kernel(const __grid_constant__ CUtensorMap map_lhs,
+                      const __grid_constant__ CUtensorMap map_w0,
+                      const __grid_constant__ CUtensorMap map_w1,
+                      const int32_t* __restrict__ tile_experts,
+                      const int32_t* __restrict__ valid_tiles,
+                      __nv_bfloat16* __restrict__ out,
+                      __nv_bfloat16* __restrict__ gate,
+                      __nv_bfloat16* __restrict__ up, int K, int N, int bm,
+                      int n_tiles) {
+  static_assert(!(SWIGLU && TRANS), "the fused SwiGLU reads rhs as [E, K, N]");
+  using S = SaShape<NR, SWIGLU>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align_ring(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S::RING);
+  uint64_t* empty = full + S::STAGES;
+
+  const int tile = blockIdx.x % n_tiles;
+  const int col0 = (blockIdx.x / n_tiles) * SA_BN;
+  const int row0 = tile * bm;
+  const int cols_ok = N - col0;
+  const int tid = threadIdx.x;
+  const size_t ofs = static_cast<size_t>(row0) * N + col0;
+
+  // The compute skip: a tile at or past valid_tiles[0] writes zeros.
+  int limit = n_tiles;
+  if (valid_tiles != nullptr) limit = min(limit, valid_tiles[0]);
+  if (tile >= limit) {
+    zero_bf16_tile<NR, SA_BN, SA_THREADS>(out + ofs, N, bm, cols_ok, tid);
+    return;
+  }
+  const int expert = tile_experts[tile];
+  // The tiles this block computes, [tile, tile + n_in): with more than one
+  // box in NR, the run's tiles go in chunks of `per` from its first tile,
+  // and a block whose tile is not a chunk's first has nothing to do.
+  const int box_rows = sa_box_rows(bm);
+  const int per = NR / box_rows;
+  int n_in = 1;
+  if (per > 1) {
+    int lo = 0, hi = tile;  // the run's first tile
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (tile_experts[mid] < expert)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    if ((tile - lo) % per != 0) return;
+    const int end = min(tile + per, limit);
+    while (tile + n_in < end && tile_experts[tile + n_in] == expert) ++n_in;
+  }
+  const int nk = (K + HG_BK - 1) / HG_BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 1);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // the producer warp: one thread issues every load
+    if (tid == 128) {
+      const uint32_t bytes = S::W_BYTES + n_in * box_rows * 128;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % S::STAGES;
+        if (kt >= S::STAGES)
+          hopper::mbar_wait(&empty[s], ((kt / S::STAGES) + 1) & 1);
+        uint8_t* st = ring + s * S::STAGE;
+        const int k0 = kt * HG_BK;
+        hopper::mbar_arrive_expect_tx(&full[s], bytes);
+#pragma unroll
+        for (int c = 0; c < SA_NC; ++c) {
+          const int n0 = col0 + 64 * c;
+          if constexpr (TRANS) {
+            hopper::tma_load_3d(st + c * HG_BOX, &map_w0, &full[s], k0, n0,
+                                expert);
+          } else {
+            hopper::tma_load_3d(st + c * HG_BOX, &map_w0, &full[s], n0, k0,
+                                expert);
+            if constexpr (SWIGLU)
+              hopper::tma_load_3d(st + (SA_NC + c) * HG_BOX, &map_w1,
+                                  &full[s], n0, k0, expert);
+          }
+        }
+        for (int i = 0; i < n_in; ++i)
+          hopper::tma_load_2d(st + S::W_BYTES + i * box_rows * 128, &map_lhs,
+                              &full[s], k0, row0 + i * bm);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup.  A: each weight box, MN-major for [E, K, N]
+  // (one 64-wide block; a 16-deep K step is 16 rows), K-major for
+  // [E, N, K].  B: NR K-major lhs rows (rows of boxes not loaded are
+  // computed and never stored).
+  constexpr int TA = TRANS ? 0 : 1;
+  constexpr uint64_t A_STEP =
+      TRANS ? hopper::K_STEP_KMAJOR : hopper::K_STEP_MNMAJOR;
+  constexpr uint32_t A_LBO = TRANS ? 16 : HG_BOX;
+  float acc[S::NB][NR / 2];
+#pragma unroll
+  for (int b = 0; b < S::NB; ++b)
+#pragma unroll
+    for (int i = 0; i < NR / 2; ++i) acc[b][i] = 0.0f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % S::STAGES;
+    hopper::mbar_wait(&full[s], (kt / S::STAGES) & 1);
+    const uint8_t* st = ring + s * S::STAGE;
+    const uint64_t db =
+        hopper::desc_b128(st + S::W_BYTES, 16, hopper::SWIZZLE_ATOM);
+#pragma unroll
+    for (int b = 0; b < S::NB; ++b) hopper::fence_regs(acc[b]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int b = 0; b < S::NB; ++b) {
+      const uint64_t da =
+          hopper::desc_b128(st + b * HG_BOX, A_LBO, hopper::SWIZZLE_ATOM);
+#pragma unroll
+      for (int kk = 0; kk < HG_BK / 16; ++kk)
+        hopper::wgmma_m64nNk16<NR, TA, 0>(acc[b], da + kk * A_STEP,
+                                          db + kk * hopper::K_STEP_KMAJOR);
+    }
+    hopper::wgmma_commit();
+    // The previous stage's products are done: hand its buffer back.
+    hopper::wgmma_wait<1>();
+#pragma unroll
+    for (int b = 0; b < S::NB; ++b) hopper::fence_regs(acc[b]);
+    if (kt > 0 && tid == 0) hopper::mbar_arrive(&empty[(kt - 1) % S::STAGES]);
+  }
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int b = 0; b < S::NB; ++b) hopper::fence_regs(acc[b]);
+  // Every load has landed and every product is done: the ring is idle.
+  hopper::named_barrier(1, 128);
+
+  // acc[b][4j + 2h + c] is output column col0 + 64 (b % SA_NC) + 16w + l/4
+  // + 8h of row 8j + 2(l % 4) + c (hopper.cuh's layout, M and N swapped;
+  // boxes b >= SA_NC hold the up weights' columns): staged as [row][column]
+  // bf16 planes (h, then gate and up with SWIGLU).
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(ring);
+  constexpr int PLANE = NR * SA_LDS;
+  const int w = tid / 32, l = tid % 32;
+#pragma unroll
+  for (int b = 0; b < SA_NC; ++b)
+#pragma unroll
+    for (int j = 0; j < NR / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int i = (8 * j + 2 * (l % 4) + c) * SA_LDS + 64 * b +
+                        16 * w + l / 4 + 8 * h;
+          const int e = 4 * j + 2 * h + c;
+          if constexpr (SWIGLU) {
+            const float g = acc[b][e], u = acc[SA_NC + b][e];
+            stage[i] = __float2bfloat16_rn(g / (1.0f + __expf(-g)) * u);
+            stage[PLANE + i] = __float2bfloat16_rn(g);
+            stage[2 * PLANE + i] = __float2bfloat16_rn(u);
+          } else {
+            stage[i] = __float2bfloat16_rn(acc[b][e]);
+          }
+        }
+  hopper::named_barrier(1, 128);
+  const int rows_ok = n_in * bm;
+  for (int i = tid; i < rows_ok * (SA_BN / 8); i += 128) {
+    const int r = i / (SA_BN / 8);
+    const int c = (i % (SA_BN / 8)) * 8;
+    if (c >= cols_ok) continue;
+    const int src = r * SA_LDS + c;
+    const size_t dst = ofs + static_cast<size_t>(r) * N + c;
+    *reinterpret_cast<uint4*>(out + dst) =
+        *reinterpret_cast<const uint4*>(stage + src);
+    if constexpr (SWIGLU) {
+      if (gate != nullptr)
+        *reinterpret_cast<uint4*>(gate + dst) =
+            *reinterpret_cast<const uint4*>(stage + PLANE + src);
+      if (up != nullptr)
+        *reinterpret_cast<uint4*>(up + dst) =
+            *reinterpret_cast<const uint4*>(stage + 2 * PLANE + src);
+    }
+  }
+}
+
 // Host side: the kernels take more than 48 KB of dynamic shared memory.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
@@ -979,6 +1046,67 @@ int launch_gmm_swiglu_wgmma(const CUtensorMap& map_lhs,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NR, bool SWIGLU, bool TRANS>
+int launch_swapab(const CUtensorMap& map_lhs, const CUtensorMap& map_w0,
+                  const CUtensorMap& map_w1, const void* tile_experts,
+                  const void* valid_tiles, void* out, void* gate, void* up,
+                  int M, int K, int N, int bm, void* stream) {
+  using S = SaShape<NR, SWIGLU>;
+  const auto kernel = gmm_swapab_kernel<NR, SWIGLU, TRANS>;
+  cudaError_t err = allow_smem(kernel, S::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_tiles = M / bm;
+  const int n_col = (N + SA_BN - 1) / SA_BN;
+  kernel<<<n_tiles * n_col, SA_THREADS, S::SMEM,
+           static_cast<cudaStream_t>(stream)>>>(
+      map_lhs, map_w0, map_w1, static_cast<const int32_t*>(tile_experts),
+      static_cast<const int32_t*>(valid_tiles),
+      static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(gate),
+      static_cast<__nv_bfloat16*>(up), K, N, bm, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One tile a block: wgmma's N is the tile's box, max(8, bm) rows
+// (gmm_swiglu at every bm < 64: its 32 KB of weights a stage leave no room
+// for 64 lhs rows at 2 blocks an SM).
+template <bool SWIGLU, bool TRANS>
+int launch_swapab_tiles(const CUtensorMap& map_lhs, const CUtensorMap& map_w0,
+                        const CUtensorMap& map_w1, const void* tile_experts,
+                        const void* valid_tiles, void* out, void* gate,
+                        void* up, int M, int K, int N, int bm, void* stream) {
+  switch (sa_box_rows(bm)) {
+    case 8:
+      return launch_swapab<8, SWIGLU, TRANS>(map_lhs, map_w0, map_w1,
+                                             tile_experts, valid_tiles, out,
+                                             gate, up, M, K, N, bm, stream);
+    case 16:
+      return launch_swapab<16, SWIGLU, TRANS>(map_lhs, map_w0, map_w1,
+                                              tile_experts, valid_tiles, out,
+                                              gate, up, M, K, N, bm, stream);
+    default:
+      return launch_swapab<32, SWIGLU, TRANS>(map_lhs, map_w0, map_w1,
+                                              tile_experts, valid_tiles, out,
+                                              gate, up, M, K, N, bm, stream);
+  }
+}
+
+// gmm: one 8-row box a block below bm 8; from bm 8 wgmma's N is 64 and a
+// block takes up to 64 / bm consecutive tiles of one expert's run.
+template <bool TRANS>
+int launch_swapab_gmm(const CUtensorMap& map_lhs, const CUtensorMap& map_rhs,
+                      const void* tile_experts, const void* valid_tiles,
+                      void* out, int M, int K, int N, int bm, void* stream) {
+  if (bm < 8)
+    return launch_swapab<8, false, TRANS>(map_lhs, map_rhs, map_rhs,
+                                          tile_experts, valid_tiles, out,
+                                          nullptr, nullptr, M, K, N, bm,
+                                          stream);
+  return launch_swapab<64, false, TRANS>(map_lhs, map_rhs, map_rhs,
+                                         tile_experts, valid_tiles, out,
+                                         nullptr, nullptr, M, K, N, bm,
+                                         stream);
+}
+
 // A [rows, cols] row-major bf16 matrix (or `depth` of them back to back) as
 // a TMA map with a box of {64, box_rows} (x 1).
 bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols,
@@ -998,21 +1126,28 @@ extern "C" {
 
 // out[r] = lhs[r] @ rhs[e] (rhs [E, K, N]) or lhs[r] @ rhs[e]^T (rhs
 // [E, N, K], transpose_rhs != 0), e = tile_experts[r / bm]; tiles at or
-// past valid_tiles[0] write zeros when valid_tiles is not null.  The WMMA
-// design, bm < 64 (kctpu_gmm_wgmma takes every other bm).  Returns a
-// cudaError_t code.
-int kctpu_gmm(const void* lhs, const void* rhs, const void* tile_experts,
-              const void* valid_tiles, void* out, int M, int K, int N, int bm,
-              int transpose_rhs, void* stream) {
-  if (bad_args(M, K, N, bm) || bm >= WGMMA_MIN_BM)
+// past valid_tiles[0] write zeros when valid_tiles is not null;
+// n_experts = rhs.shape[0].  The swap-AB design, bm < 64
+// (kctpu_gmm_wgmma takes every other bm).  Returns a cudaError_t code.
+int kctpu_gmm_swapab(const void* lhs, const void* rhs,
+                     const void* tile_experts, const void* valid_tiles,
+                     void* out, int M, int K, int N, int bm, int n_experts,
+                     int transpose_rhs, void* stream) {
+  if (bad_args(M, K, N, bm) || bm >= WGMMA_MIN_BM || n_experts <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (transpose_rhs)
-    return launch<16, 128, 1, 4, false, true>(lhs, rhs, rhs, tile_experts,
-                                              valid_tiles, out, nullptr,
-                                              nullptr, M, K, N, bm, stream);
-  return launch<16, 128, 1, 4, false, false>(lhs, rhs, rhs, tile_experts,
-                                             valid_tiles, out, nullptr,
-                                             nullptr, M, K, N, bm, stream);
+  if (hopper::encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map_lhs, map_rhs;
+  const bool ok = bf16_map(&map_lhs, lhs, M, K, sa_box_rows(bm)) &&
+                  (transpose_rhs ? bf16_map(&map_rhs, rhs, N, K, 64, n_experts)
+                                 : bf16_map(&map_rhs, rhs, K, N, 64, n_experts));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return transpose_rhs
+             ? launch_swapab_gmm<true>(map_lhs, map_rhs, tile_experts,
+                                       valid_tiles, out, M, K, N, bm, stream)
+             : launch_swapab_gmm<false>(map_lhs, map_rhs, tile_experts,
+                                        valid_tiles, out, M, K, N, bm,
+                                        stream);
 }
 
 // The same product, wgmma design, bm >= 64; n_experts = rhs.shape[0].
@@ -1048,16 +1183,24 @@ int kctpu_gmm_wgmma(const void* lhs, const void* rhs, const void* tile_experts,
 
 // h[r] = silu(lhs[r] @ rhs_g[e]) * (lhs[r] @ rhs_u[e]), e = tile_experts[r / bm];
 // gate and up (the two products, rounded once) too where their pointers are
-// not null.  The WMMA design, bm < 64 (kctpu_gmm_swiglu_wgmma takes every
-// other bm).
-int kctpu_gmm_swiglu(const void* lhs, const void* rhs_g, const void* rhs_u,
-                     const void* tile_experts, void* h, void* gate, void* up,
-                     int M, int K, int N, int bm, void* stream) {
-  if (bad_args(M, K, N, bm) || bm >= WGMMA_MIN_BM)
+// not null; n_experts = rhs_g.shape[0].  The swap-AB design, bm < 64
+// (kctpu_gmm_swiglu_wgmma takes every other bm).
+int kctpu_gmm_swiglu_swapab(const void* lhs, const void* rhs_g,
+                            const void* rhs_u, const void* tile_experts,
+                            void* h, void* gate, void* up, int M, int K, int N,
+                            int bm, int n_experts, void* stream) {
+  if (bad_args(M, K, N, bm) || bm >= WGMMA_MIN_BM || n_experts <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<16, 128, 1, 4, true, false>(lhs, rhs_g, rhs_u, tile_experts,
-                                            nullptr, h, gate, up, M, K, N, bm,
-                                            stream);
+  if (hopper::encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map_lhs, map_g, map_u;
+  if (!bf16_map(&map_lhs, lhs, M, K, sa_box_rows(bm)) ||
+      !bf16_map(&map_g, rhs_g, K, N, 64, n_experts) ||
+      !bf16_map(&map_u, rhs_u, K, N, 64, n_experts))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_swapab_tiles<true, false>(map_lhs, map_g, map_u, tile_experts,
+                                          nullptr, h, gate, up, M, K, N, bm,
+                                          stream);
 }
 
 // The same fused SwiGLU, wgmma design, bm >= 64; n_experts = rhs_g.shape[0].

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
 // tensor loads and 1-D bulk copies, wgmma shared-memory descriptors and the
-// bf16 warpgroup products (m64n256k16, m64n128k16 and m64n64k16 with both
-// operands in shared memory; m64n128k16 and m64n64k16 with A from
-// registers), written as raw PTX (no CUTLASS, so a source builds in
-// seconds).
+// bf16 warpgroup products (m64n256k16, m64n128k16, m64n64k16 and the narrow
+// m64n32k16, m64n16k16 and m64n8k16 with both operands in shared memory;
+// m64n128k16 and m64n64k16 with A from registers), written as raw PTX (no
+// CUTLASS, so a source builds in seconds).
 //
 // Shared-memory operand layouts.  Every tile lives in 128-byte-swizzled
 // shared memory exactly as a TMA load with CU_TENSOR_MAP_SWIZZLE_128B and a
@@ -12,11 +12,13 @@
 // rows, each box 1024-byte aligned.  wgmma reads such a tile two ways:
 //
 //   K-major   (the contraction index contiguous: lhs [rows, K] for gmm,
-//             rhs [E, N, K] for the dlhs gmm): rows are M (or N), 8-row
+//             rhs [E, N, K] for the dlhs gmm; the swap-AB kernels' B,
+//             lhs rows as N): rows are M (or N), 8-row
 //             groups 1024 B apart (SBO); a 16-deep K step moves the start
 //             address 32 B along the row; LBO is unused (1).
-//   MN-major  (the output index contiguous: rhs [E, K, N], and both tgmm
-//             operands, lhs^T and dout): rows are K, 8-row groups 1024 B
+//   MN-major  (the output index contiguous: rhs [E, K, N], as B or as the
+//             swap-AB kernels' A, and both tgmm operands, lhs^T and
+//             dout): rows are K, 8-row groups 1024 B
 //             apart (SBO); 64-wide output blocks, one TMA box each, sit LBO
 //             bytes apart; a 16-deep K step moves the start 16 rows (2048 B).
 //
@@ -305,6 +307,76 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[64 x N] += A[64 x 16] . B[16 x N] for the narrow N of the swap-AB
+// decode kernels (N = 8, 16 or 32: a row tile's rows as wgmma's N, the
+// weights' columns as its 64-row M), A and B from shared memory; TA / TB
+// as above; accumulator layout as above with j < N / 8: d[4j + 2h + c] is
+// row 16w + l/4 + 8h, column 8j + 2(l % 4) + c.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d[64 x N] += A[64 x 16] . B[16 x N] by N (8, 16, 32 or 64), both from
+// shared memory.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t da,
+                                               uint64_t db) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64,
+                "N is 8, 16, 32 or 64");
+  if constexpr (N == 8) {
+    wgmma_m64n8k16<TA, TB>(d, da, db);
+  } else if constexpr (N == 16) {
+    wgmma_m64n16k16<TA, TB>(d, da, db);
+  } else if constexpr (N == 32) {
+    wgmma_m64n32k16<TA, TB>(d, da, db);
+  } else {
+    wgmma_m64n64k16<TA, TB>(d, da, db, 1);
+  }
 }
 
 // The register-A form: A[64 x 16] from four bf16x2 registers a per thread,

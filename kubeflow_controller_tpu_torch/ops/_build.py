@@ -43,15 +43,14 @@ _F = ctypes.c_float
 # cudaError_t code).
 _SIGNATURES = {
     # lhs, rhs, tile_experts, valid_tiles (or NULL), out, M, K, N, bm,
-    # transpose_rhs, stream
-    "kctpu_gmm": ([_P] * 5 + [_I] * 5 + [_P], _I),
-    # lhs, rhs, tile_experts, valid_tiles (or NULL), out, M, K, N, bm,
     # n_experts, transpose_rhs, stream
+    "kctpu_gmm_swapab": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    # the same arguments as kctpu_gmm_swapab
     "kctpu_gmm_wgmma": ([_P] * 5 + [_I] * 6 + [_P], _I),
     # lhs, rhs_g, rhs_u, tile_experts, h, gate (or NULL), up (or NULL), M, K,
-    # N, bm, stream
-    "kctpu_gmm_swiglu": ([_P] * 7 + [_I] * 4 + [_P], _I),
-    # the same arguments, then n_experts, before the stream
+    # N, bm, n_experts, stream
+    "kctpu_gmm_swiglu_swapab": ([_P] * 7 + [_I] * 5 + [_P], _I),
+    # the same arguments as kctpu_gmm_swiglu_swapab
     "kctpu_gmm_swiglu_wgmma": ([_P] * 7 + [_I] * 5 + [_P], _I),
     # lhs, dout, tile_experts, valid_tiles (or NULL), out, M, K, N, bm,
     # n_experts, stream

@@ -26,12 +26,16 @@ Each kernel launches from its hand-written CUDA source
 take contiguous, 16-byte-aligned bf16 operands (TMA's base and row-stride
 rule) and int32 tile ids on one device.  ``gmm``, ``gmm_swiglu`` and
 ``tgmm`` each have two designs, picked by :func:`kernel_variant` on ``bm``
-alone: ``"wgmma"`` (TMA + ``wgmma``, bm >= 64: training and prefill) and
-``"wmma"`` (bm < 64: decode).  Only a tensor that lies on the CPU takes
+alone: ``"wgmma"`` (TMA + ``wgmma``, bm >= 64: training and prefill) for
+all three, and below 64 (decode, the small prefill buckets) ``"swapab"``
+for ``gmm`` and ``gmm_swiglu`` (TMA + ``wgmma`` with the weights' columns
+as wgmma's 64-row M and the tile's rows as its N) and ``"wmma"`` for
+``tgmm``.  Only a tensor that lies on the CPU takes
 the plain PyTorch version (``gmm_plain``/``gmm_swiglu_plain``/
 ``tgmm_plain``): f32 products over each expert's run of tiles, one
 rounding to the operand dtype, as the reference's kernels round.  ``gmm.launches``, ``gmm_swiglu.launches`` and
-``tgmm.launches`` count kernel launches, backward ones included.
+``tgmm.launches`` count kernel launches, backward ones included, and
+each wrapper's ``launches_by_design`` counts them by design.
 """
 
 from __future__ import annotations
@@ -124,12 +128,20 @@ def tgmm_plain(lhs: torch.Tensor, dout: torch.Tensor,
 WGMMA_MIN_BM = 64
 
 
-def kernel_variant(bm: int) -> str:
-    """The CUDA design ``gmm``, ``gmm_swiglu`` and ``tgmm`` launch for row
+KERNELS = ("gmm", "gmm_swiglu", "tgmm")
+
+
+def kernel_variant(kernel: str, bm: int) -> str:
+    """The CUDA design ``kernel`` (one of :data:`KERNELS`) launches for row
     tiles of ``bm``: ``"wgmma"`` for bm >= 64 (a 64-row wgmma tile never
-    straddles two experts, and 64 divides every expert's row range), else
-    ``"wmma"``."""
-    return "wgmma" if bm >= WGMMA_MIN_BM else "wmma"
+    straddles two experts, and 64 divides every expert's row range); below
+    64, ``"swapab"`` for ``gmm`` and ``gmm_swiglu`` (the tile's rows as
+    wgmma's N) and ``"wmma"`` for ``tgmm``."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
+    if bm >= WGMMA_MIN_BM:
+        return "wgmma"
+    return "wmma" if kernel == "tgmm" else "swapab"
 
 
 def _check_bf16(dev, named) -> None:
@@ -182,6 +194,7 @@ def _check(lhs, weights, tile_experts, bm, valid_tiles=None,
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """The device address handed to C (None, C's NULL, for no tensor)."""
     return None if t is None else t.data_ptr()
 
 
@@ -197,16 +210,15 @@ def _gmm(lhs: torch.Tensor, rhs: torch.Tensor, tile_experts: torch.Tensor,
     n = rhs.shape[1] if transpose_rhs else rhs.shape[2]
     out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
     lib = _build.library()
-    args = (lhs.data_ptr(), rhs.data_ptr(), tile_experts.data_ptr(),
-            _ptr(valid_tiles), out.data_ptr(), m, k, n, bm)
-    if kernel_variant(bm) == "wgmma":
-        code = lib.lib.kctpu_gmm_wgmma(*args, rhs.shape[0],
-                                       int(transpose_rhs), _build.stream(lhs))
-    else:
-        code = lib.lib.kctpu_gmm(*args, int(transpose_rhs),
-                                 _build.stream(lhs))
-    lib.check(code, f"gmm ({kernel_variant(bm)})")
+    variant = kernel_variant("gmm", bm)
+    fn = (lib.lib.kctpu_gmm_wgmma if variant == "wgmma"
+          else lib.lib.kctpu_gmm_swapab)
+    code = fn(_ptr(lhs), _ptr(rhs), _ptr(tile_experts), _ptr(valid_tiles),
+              _ptr(out), m, k, n, bm, rhs.shape[0], int(transpose_rhs),
+              _build.stream(lhs))
+    lib.check(code, f"gmm ({variant})")
     gmm.launches += 1
+    gmm.launches_by_design[variant] += 1
     return out
 
 
@@ -223,16 +235,15 @@ def _gmm_swiglu(lhs: torch.Tensor, rhs_g: torch.Tensor, rhs_u: torch.Tensor,
             for _ in range(3 if gate_up else 1)]
     h, gate, up = outs if gate_up else (outs[0], None, None)
     lib = _build.library()
-    args = (lhs.data_ptr(), rhs_g.data_ptr(), rhs_u.data_ptr(),
-            tile_experts.data_ptr(), h.data_ptr(), _ptr(gate), _ptr(up), m, k,
-            n, bm)
-    if kernel_variant(bm) == "wgmma":
-        code = lib.lib.kctpu_gmm_swiglu_wgmma(*args, rhs_g.shape[0],
-                                              _build.stream(lhs))
-    else:
-        code = lib.lib.kctpu_gmm_swiglu(*args, _build.stream(lhs))
-    lib.check(code, f"gmm_swiglu ({kernel_variant(bm)})")
+    variant = kernel_variant("gmm_swiglu", bm)
+    fn = (lib.lib.kctpu_gmm_swiglu_wgmma if variant == "wgmma"
+          else lib.lib.kctpu_gmm_swiglu_swapab)
+    code = fn(_ptr(lhs), _ptr(rhs_g), _ptr(rhs_u), _ptr(tile_experts),
+              _ptr(h), _ptr(gate), _ptr(up), m, k, n, bm, rhs_g.shape[0],
+              _build.stream(lhs))
+    lib.check(code, f"gmm_swiglu ({variant})")
     gmm_swiglu.launches += 1
+    gmm_swiglu.launches_by_design[variant] += 1
     return (h, gate, up) if gate_up else h
 
 
@@ -257,17 +268,19 @@ def tgmm(lhs: torch.Tensor, dout: torch.Tensor, tile_experts: torch.Tensor,
     _check_bf16(lhs.device, (("lhs", lhs), ("dout", dout)))
     out = torch.empty((n_experts, k, n), dtype=lhs.dtype, device=lhs.device)
     lib = _build.library()
-    fn = (lib.lib.kctpu_tgmm_wgmma if kernel_variant(bm) == "wgmma"
+    variant = kernel_variant("tgmm", bm)
+    fn = (lib.lib.kctpu_tgmm_wgmma if variant == "wgmma"
           else lib.lib.kctpu_tgmm)
-    code = fn(lhs.data_ptr(), dout.data_ptr(), tile_experts.data_ptr(),
-              _ptr(valid_tiles), out.data_ptr(), m, k, n, bm, n_experts,
-              _build.stream(lhs))
-    lib.check(code, f"tgmm ({kernel_variant(bm)})")
+    code = fn(_ptr(lhs), _ptr(dout), _ptr(tile_experts), _ptr(valid_tiles),
+              _ptr(out), m, k, n, bm, n_experts, _build.stream(lhs))
+    lib.check(code, f"tgmm ({variant})")
     tgmm.launches += 1
+    tgmm.launches_by_design[variant] += 1
     return out
 
 
 tgmm.launches = 0
+tgmm.launches_by_design = {"wgmma": 0, "wmma": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -359,6 +372,7 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, tile_experts: torch.Tensor,
 
 
 gmm.launches = 0
+gmm.launches_by_design = {"wgmma": 0, "swapab": 0}
 
 
 def gmm_swiglu(lhs: torch.Tensor, rhs_g: torch.Tensor, rhs_u: torch.Tensor,
@@ -372,3 +386,4 @@ def gmm_swiglu(lhs: torch.Tensor, rhs_g: torch.Tensor, rhs_u: torch.Tensor,
 
 
 gmm_swiglu.launches = 0
+gmm_swiglu.launches_by_design = {"wgmma": 0, "swapab": 0}

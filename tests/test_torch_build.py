@@ -2,9 +2,11 @@
 ``nvcc``, no card; the kernels themselves are held against their plain
 versions on the card by ``chip_smoke.py``):
 
-- ``grouped_matmul.kernel_variant``: the one rule on ``bm`` that picks the
-  CUDA design ``gmm``, ``gmm_swiglu`` and ``tgmm`` launch (wgmma for bm >=
-  64, WMMA below), and the C entry point each wrapper calls under it;
+- ``grouped_matmul.kernel_variant``: the rule on the kernel and ``bm``
+  that picks the CUDA design ``gmm``, ``gmm_swiglu`` and ``tgmm`` launch
+  (wgmma for bm >= 64; below, swap-AB for ``gmm`` and ``gmm_swiglu`` and
+  WMMA for ``tgmm``), and the C entry point each wrapper calls under it,
+  with exactly the pointers, sizes, expert count and flags it should;
 - ``attention.kernel_rule`` and the arguments ``flash_fwd``, ``flash_dq``
   and ``flash_dkv`` hand their C entry points at every shape the rule
   accepts, B·H past 65535 included;
@@ -36,10 +38,27 @@ sys.path.insert(0, str(REPO))
 import chip_smoke  # noqa: E402
 
 
-def test_kernel_variant_over_1_to_512():
-    wgmma = [bm for bm in range(1, 513) if tgm.kernel_variant(bm) == "wgmma"]
+@pytest.mark.parametrize("kernel", tgm.KERNELS)
+def test_kernel_variant_over_1_to_512(kernel):
+    wgmma = [bm for bm in range(1, 513)
+             if tgm.kernel_variant(kernel, bm) == "wgmma"]
     assert wgmma == list(range(64, 513))
-    assert {tgm.kernel_variant(bm) for bm in range(1, 64)} == {"wmma"}
+    below = "wmma" if kernel == "tgmm" else "swapab"
+    assert {tgm.kernel_variant(kernel, bm) for bm in range(1, 64)} == {below}
+
+
+def test_kernel_variant_refuses_an_unknown_kernel():
+    with pytest.raises(ValueError):
+        tgm.kernel_variant("gmm2", 16)
+
+
+def test_the_wmma_gmm_kernel_is_gone():
+    """Only tgmm keeps a WMMA form below bm 64; gmm and gmm_swiglu launch
+    the swap-AB kernel there."""
+    src = (_build.CSRC_DIR / "grouped_matmul.cu").read_text()
+    assert re.search(r"\bgmm_kernel\b", src) is None
+    assert "int launch(" not in src and "type_traits" not in src
+    assert "gmm_swapab_kernel" in src and "tgmm_kernel" in src
 
 
 def extern_c_functions():
@@ -66,7 +85,9 @@ def test_every_c_entry_point_has_a_signature_of_its_arity_and_back():
                 for name, (argtypes, _) in _build._SIGNATURES.items()}
     assert defined == declared
     assert {"kctpu_gmm_wgmma", "kctpu_gmm_swiglu_wgmma",
-            "kctpu_tgmm_wgmma"} <= set(defined)
+            "kctpu_tgmm_wgmma", "kctpu_gmm_swapab",
+            "kctpu_gmm_swiglu_swapab", "kctpu_tgmm"} <= set(defined)
+    assert not {"kctpu_gmm", "kctpu_gmm_swiglu"} & set(defined)
 
 
 @pytest.fixture
@@ -105,18 +126,24 @@ PROFILE_NAMES = {
     "CUtensorMap_st": "gmm",
     "void (anonymous namespace)::gmm_wgmma_kernel<1, true>(CUtensorMap_st":
     "gmm",
-    "void (anonymous namespace)::gmm_kernel<16, 128, 1, 4, false, true>("
-    "__nv_bfloat16 const*": "gmm",
-    "void (anonymous namespace)::gmm_kernel<64, 128, 2, 4, true, false>("
-    "__nv_bfloat16 const*": "gmm_swiglu",
+    "void (anonymous namespace)::gmm_swapab_kernel<64, false, false>("
+    "CUtensorMap_st, CUtensorMap_st": "gmm",
+    "void (anonymous namespace)::gmm_swapab_kernel<8, false, true>("
+    "CUtensorMap_st": "gmm",
+    "void (anonymous namespace)::gmm_swapab_kernel<64, false, true>("
+    "CUtensorMap_st": "gmm",
+    "void (anonymous namespace)::gmm_swapab_kernel<16, true, false>("
+    "CUtensorMap_st, CUtensorMap_st": "gmm_swiglu",
+    "void (anonymous namespace)::gmm_swapab_kernel<8, true, false>("
+    "CUtensorMap_st": "gmm_swiglu",
     "void (anonymous namespace)::flash_fwd_kernel<128>(__nv_bfloat16":
     "flash_fwd",
     "void (anonymous namespace)::gmm_swiglu_wgmma_kernel<2>(CUtensorMap_st, "
     "CUtensorMap_st, CUtensorMap_st": "gmm_swiglu",
     "void (anonymous namespace)::gmm_swiglu_wgmma_kernel<1>(CUtensorMap_st":
     "gmm_swiglu",
-    "void (anonymous namespace)::gmm_kernel<16, 128, 1, 4, true, false>("
-    "__nv_bfloat16 const*": "gmm_swiglu",
+    "void (anonymous namespace)::gmm_swapab_kernel<32, true, false>("
+    "CUtensorMap_st": "gmm_swiglu",
     "void (anonymous namespace)::flash_fwd_wgmma_kernel<128>(CUtensorMap_st, "
     "CUtensorMap_st": "flash_fwd",
     "void (anonymous namespace)::flash_fwd_wgmma_kernel<64>(CUtensorMap_st":
@@ -147,10 +174,10 @@ def test_ptxas_report_names_each_kernel_with_its_template_arguments():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 168 registers, used 1 barriers",
         "ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__032e5cd9_"
-        "17_grouped_matmul_cu_79caf09710gmm_kernelILi16ELi128ELi1ELi4ELb0ELb1"
-        "EEEvPK13__nv_bfloat16' for 'sm_90a'",
+        "17_grouped_matmul_cu_79caf09717gmm_swapab_kernelILi16ELb1ELb0EEEv14C"
+        "UtensorMap_stS1_S1_PKiS3_P13__nv_bfloat16S5_S5_iiii' for 'sm_90a'",
         "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
-        "ptxas info    : Used 96 registers, used 1 barriers, 19968 bytes smem",
+        "ptxas info    : Used 40 registers, used 2 barriers",
         "ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__032e5cd9_"
         "17_grouped_matmul_cu_79caf09717tgmm_wgmma_kernelE14CUtensorMap_stS1_"
         "PKi' for 'sm_90a'",
@@ -159,7 +186,7 @@ def test_ptxas_report_names_each_kernel_with_its_template_arguments():
     ])
     assert chip_smoke.ptxas_report(log) == {
         "flash_dkv_wgmma_kernel<128>": [168, 0, 0],
-        "gmm_kernel<16, 128, 1, 4, 0, 1>": [96, 4, 8],
+        "gmm_swapab_kernel<16, 1, 0>": [40, 4, 8],
         "tgmm_wgmma_kernel": [154, 0, 0]}
 
 
@@ -179,7 +206,11 @@ def test_hgmma_count_reads_cuobjdump_sections():
         "        /*0b10*/  HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24 ;",
         "\t\tFunction : _ZN12_GLOBAL__N_111tgmm_kernelILi64ELi128ELi2ELi4EEEv",
         "        /*0c10*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
-        "\t\tFunction : _ZN12_GLOBAL__N_110gmm_kernelILi16ELi128ELi1ELi4ELb0E",
+        "\t\tFunction : _ZN12_GLOBAL__N_117gmm_swapab_kernelILi64ELb0ELb0EEEv",
+        "        /*0c20*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;",
+        "        /*0c30*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24 ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_117gmm_swapab_kernelILi8ELb1ELb0EEEv1",
+        "        /*0c40*/  HGMMA.64x8x16.F32.BF16 R24, gdesc[UR4], R24 ;",
         "\t\tFunction : _ZN12_GLOBAL__N_123gmm_swiglu_wgmma_kernelILi2EEEv14C",
         "        /*0e10*/  HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24 ;",
         "\t\tFunction : _ZN12_GLOBAL__N_123gmm_swiglu_wgmma_kernelILi1EEEv14C",
@@ -203,7 +234,7 @@ def test_hgmma_count_reads_cuobjdump_sections():
     ])
     assert chip_smoke.hgmma_counts(sass) == {
         "gmm_wgmma_kernel": [2], "tgmm_wgmma_kernel": [1],
-        "tgmm_kernel": [0], "gmm_kernel": [0],
+        "tgmm_kernel": [0], "gmm_swapab_kernel": [2, 1],
         "gmm_swiglu_wgmma_kernel": [1, 2], "flash_fwd_wgmma_kernel": [2],
         "flash_dq_wgmma_kernel": [3, 1], "flash_dkv_wgmma_kernel": [2]}
     assert set(chip_smoke.hgmma_counts(sass)) == set(
@@ -245,28 +276,104 @@ def meta(*shape, dtype=torch.bfloat16):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-@pytest.mark.parametrize("bm", [8, 16, 32, 64, 128, 256])
+@pytest.fixture
+def addresses(monkeypatch):
+    """Gives every tensor the grouped wrappers hand to C a distinct fake
+    address (meta tensors all report 0), so a test can check that each
+    pointer argument is the tensor it should be.  Returns the address of
+    a tensor (None for None)."""
+    seen = {}
+
+    def fake(t):
+        if t is None:
+            return None
+        return 0x10000 * (1 + seen.setdefault(id(t), len(seen)))
+
+    monkeypatch.setattr(tgm, "_ptr", fake)
+    return fake
+
+
+BMS = [1, 2, 4, 8, 16, 32, 64, 128, 256]
+
+
+@pytest.mark.parametrize("bm", BMS)
 @pytest.mark.parametrize("gate_up", [False, True])
-def test_gmm_swiglu_calls_the_wgmma_entry_exactly_from_bm_64(recorder, bm,
-                                                              gate_up):
+def test_gmm_swiglu_calls_the_wgmma_entry_exactly_from_bm_64(
+        recorder, addresses, bm, gate_up):
     e, k, n, tiles = 3, 40, 24, 4
     m = tiles * bm
+    lhs, rhs_g, rhs_u = meta(m, k), meta(e, k, n), meta(e, k, n)
     te = meta(tiles, dtype=torch.int32)
     before = tgm.gmm_swiglu.launches
-    out = tgm._gmm_swiglu(meta(m, k), meta(e, k, n), meta(e, k, n), te, bm,
-                          gate_up=gate_up)
+    designs = dict(tgm.gmm_swiglu.launches_by_design)
+    out = tgm._gmm_swiglu(lhs, rhs_g, rhs_u, te, bm, gate_up=gate_up)
     assert tgm.gmm_swiglu.launches == before + 1
+    designs[tgm.kernel_variant("gmm_swiglu", bm)] += 1
+    assert tgm.gmm_swiglu.launches_by_design == designs
     outs = out if gate_up else (out,)
     assert [tuple(t.shape) for t in outs] == [(m, n)] * len(outs)
+    h, gate, up = outs if gate_up else (out, None, None)
     [(name, args)] = recorder.calls
-    if bm >= 64:
-        assert name == "kctpu_gmm_swiglu_wgmma"
-        assert args[7:] == (m, k, n, bm, e, 7)
-    else:
-        assert name == "kctpu_gmm_swiglu"
-        assert args[7:] == (m, k, n, bm, 7)
+    assert name == ("kctpu_gmm_swiglu_wgmma" if bm >= 64
+                    else "kctpu_gmm_swiglu_swapab")
+    assert len(args) == len(_build._SIGNATURES[name][0]) == 13
     # gate and up pointers are passed (as NULL without gate_up)
+    assert args == (*map(addresses, (lhs, rhs_g, rhs_u, te, h, gate, up)),
+                    m, k, n, bm, e, 7)
     assert (args[5] is None, args[6] is None) == (not gate_up, not gate_up)
+
+
+@pytest.mark.parametrize("bm", BMS)
+@pytest.mark.parametrize("trans", [False, True], ids=["rhs", "rhs^T"])
+@pytest.mark.parametrize("skip", [False, True], ids=["all", "valid_tiles"])
+def test_gmm_calls_the_swapab_entry_below_bm_64_and_wgmma_from_it(
+        recorder, addresses, bm, trans, skip):
+    """Both rhs layouts, with and without valid_tiles: the swap-AB entry
+    below bm 64, the wgmma one from 64, with exactly the operands' and the
+    output's pointers, M, K, N, bm, the expert count and the transpose
+    flag."""
+    e, k, n, tiles = 3, 40, 24, 4
+    m = tiles * bm
+    lhs = meta(m, k)
+    rhs = meta(e, n, k) if trans else meta(e, k, n)
+    te = meta(tiles, dtype=torch.int32)
+    vt = meta(1, dtype=torch.int32) if skip else None
+    before = tgm.gmm.launches
+    designs = dict(tgm.gmm.launches_by_design)
+    out = tgm._gmm(lhs, rhs, te, bm, vt, transpose_rhs=trans)
+    assert tgm.gmm.launches == before + 1
+    designs[tgm.kernel_variant("gmm", bm)] += 1
+    assert tgm.gmm.launches_by_design == designs
+    assert tuple(out.shape) == (m, n)
+    [(name, args)] = recorder.calls
+    assert name == ("kctpu_gmm_wgmma" if bm >= 64 else "kctpu_gmm_swapab")
+    assert len(args) == len(_build._SIGNATURES[name][0]) == 12
+    assert args == (*map(addresses, (lhs, rhs, te, vt, out)), m, k, n, bm, e,
+                    int(trans), 7)
+    assert (args[3] is None) == (not skip)
+
+
+@pytest.mark.parametrize("bm", BMS)
+@pytest.mark.parametrize("skip", [False, True], ids=["all", "valid_tiles"])
+def test_tgmm_keeps_the_wmma_entry_below_bm_64(recorder, addresses, bm,
+                                               skip):
+    e, k, n, tiles = 3, 40, 24, 4
+    m = tiles * bm
+    lhs, dout = meta(m, k), meta(m, n)
+    te = meta(tiles, dtype=torch.int32)
+    vt = meta(1, dtype=torch.int32) if skip else None
+    before = tgm.tgmm.launches
+    designs = dict(tgm.tgmm.launches_by_design)
+    out = tgm.tgmm(lhs, dout, te, e, bm, vt)
+    assert tgm.tgmm.launches == before + 1
+    designs[tgm.kernel_variant("tgmm", bm)] += 1
+    assert tgm.tgmm.launches_by_design == designs
+    assert tuple(out.shape) == (e, k, n)
+    [(name, args)] = recorder.calls
+    assert name == ("kctpu_tgmm_wgmma" if bm >= 64 else "kctpu_tgmm")
+    assert len(args) == len(_build._SIGNATURES[name][0]) == 11
+    assert args == (*map(addresses, (lhs, dout, te, vt, out)), m, k, n, bm, e,
+                    7)
 
 
 FLASH_SHAPES = [(1, 64, 1, 64), (2, 128, 2, 64), (1, 192, 3, 128),

@@ -14,6 +14,12 @@ directly.  On the CPU the port's wrappers take their plain PyTorch versions
 (the CUDA kernels themselves are held against those plain versions on the
 card by ``chip_smoke.py``).
 
+The decode-size cases hold the plain versions, which the swap-AB kernels
+(bm < 64) are held to on the card, against the JAX kernels on the port's
+own grouped layouts of 4-16 tokens at bm 8-32, and against the
+reference's ``gmm_reference`` at bm 4; the clamped tiles past the last
+group read the zero sentinel row and must come out exactly 0.
+
 Tolerance: f32 inputs; max |port - jax| <= 1e-5 * max |jax| (the two sum
 the products in different orders, nothing else differs).
 """
@@ -30,6 +36,7 @@ from kubeflow_controller_tpu.ops.grouped_matmul import (
     _tgmm_impl,
 )
 from kubeflow_controller_tpu.ops.grouped_matmul import gmm as jax_gmm
+from kubeflow_controller_tpu.ops.grouped_matmul import gmm_reference
 from kubeflow_controller_tpu.ops.grouped_matmul import gmm_swiglu as jax_gmm_swiglu
 from kubeflow_controller_tpu_torch.models import moe as tmoe
 from kubeflow_controller_tpu_torch.ops import grouped_matmul as tgm
@@ -351,6 +358,88 @@ def test_valid_tiles_plain_semantics_against_numpy():
                        transpose_rhs=True).numpy()
     assert_close_rel(yt[:24], np.concatenate(
         [dout[i * 8:(i + 1) * 8] @ rhs[x].T for i, x in enumerate(te[:3])]))
+
+
+# ---------------------------------------------------------------------------
+# Decode-size layouts (bm < 64): what the swap-AB kernels are held to
+# ---------------------------------------------------------------------------
+
+# (tokens, bm) of the port's grouped layouts at top-2 (2 x tokens routing
+# slots; bm divides them): decode and the small prefill buckets.
+DECODE_LAYOUTS = [(4, 8), (8, 8), (8, 16), (16, 8), (16, 16), (16, 32)]
+
+
+def decode_case(seed, n_tok, bm, k=128, n=256, n_experts=8):
+    """The layout ``models/moe.py`` builds for ``n_tok`` tokens under a
+    random top-2 router, its dispatched lhs (pad rows and the clamped tail
+    read the zero sentinel row), f32 weights, and the first row past the
+    last group."""
+    rng = np.random.default_rng(seed)
+    idx = np.argsort(-rng.standard_normal((n_tok, n_experts)), axis=1)[:, :2]
+    lay = tmoe.grouped_layout(torch.from_numpy(idx)[None], n_experts, bm)
+    assert lay.bm == bm
+    x = torch.from_numpy(rng.standard_normal((n_tok, k)).astype(np.float32))
+    x_pad = tmoe._dispatch_rows(x, lay.inv_src,
+                                lay.dest.reshape(n_tok, 2)).numpy()
+    w_g, w_u = ((rng.standard_normal((n_experts, k, n)) * 0.1).astype(
+        np.float32) for _ in range(2))
+    counts = np.bincount(idx.reshape(-1), minlength=n_experts)
+    groups_end = int(sum(-(-c // bm) * bm for c in counts))
+    assert groups_end < lay.m, "the layout has a clamped tail"
+    return lay, x_pad, w_g, w_u, groups_end
+
+
+def check_decode_layout(lay, got, ref, groups_end):
+    """Port and reference agree on every row the combine reads, and the
+    clamped tiles past the last group are exactly 0 in both."""
+    rows = lay.dest.numpy()
+    assert_close_rel(got[rows], np.asarray(ref)[rows])
+    assert not got[groups_end:].any()
+    assert not np.asarray(ref)[groups_end:].any()
+
+
+@pytest.mark.parametrize("n_tok,bm", DECODE_LAYOUTS)
+def test_gmm_plain_matches_jax_on_decode_layouts(n_tok, bm):
+    lay, x_pad, w, _, end = decode_case(21, n_tok, bm)
+    te = lay.tile_experts.numpy()
+    ref = jax_gmm(jnp.asarray(x_pad), jnp.asarray(w), jnp.asarray(te), None,
+                  bm)
+    got = tgm.gmm_plain(torch.from_numpy(x_pad), torch.from_numpy(w),
+                        lay.tile_experts, bm).numpy()
+    check_decode_layout(lay, got, ref, end)
+
+
+@pytest.mark.parametrize("n_tok,bm", DECODE_LAYOUTS)
+def test_gmm_swiglu_plain_matches_jax_on_decode_layouts(n_tok, bm):
+    lay, x_pad, w_g, w_u, end = decode_case(22, n_tok, bm)
+    te = lay.tile_experts.numpy()
+    ref = jax_gmm_swiglu(jnp.asarray(x_pad), jnp.asarray(w_g),
+                         jnp.asarray(w_u), jnp.asarray(te), bm)
+    got = tgm.gmm_swiglu_plain(torch.from_numpy(x_pad), torch.from_numpy(w_g),
+                               torch.from_numpy(w_u), lay.tile_experts,
+                               bm).numpy()
+    check_decode_layout(lay, got, ref, end)
+
+
+@pytest.mark.parametrize("n_tok", [4, 8, 16])
+def test_plain_matches_gmm_reference_at_bm_4(n_tok):
+    """bm 4, below a TPU tile's 8 sublanes (and below the swap-AB kernel's
+    8-row wgmma N): the plain versions against the reference's dense
+    oracle ``gmm_reference``, and against the JAX kernels, which interpret
+    mode runs at this bm."""
+    lay, x_pad, w_g, w_u, end = decode_case(23, n_tok, 4)
+    args = [jnp.asarray(a) for a in (x_pad, w_g, w_u,
+                                     lay.tile_experts.numpy())]
+    gate = gmm_reference(args[0], args[1], args[3], 4)
+    up = gmm_reference(args[0], args[2], args[3], 4)
+    ref_h = jax.nn.silu(gate) * up
+    t = [torch.from_numpy(a) for a in (x_pad, w_g, w_u)]
+    got = tgm.gmm_plain(t[0], t[1], lay.tile_experts, 4).numpy()
+    got_h = tgm.gmm_swiglu_plain(*t, lay.tile_experts, 4).numpy()
+    for g, ref in ((got, gate), (got, jax_gmm(args[0], args[1], args[3],
+                                              None, 4)),
+                   (got_h, ref_h), (got_h, jax_gmm_swiglu(*args, 4))):
+        check_decode_layout(lay, g, ref, end)
 
 
 def test_without_a_gradient_the_swiglu_kernel_writes_h_only(monkeypatch):

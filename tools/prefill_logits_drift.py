@@ -19,10 +19,9 @@ forward (``gmm`` and ``gmm_swiglu``):
                   gathered f32 copy of its expert's weights (``torch.bmm``),
                   one rounding to bf16
   kernel_ref      with ``--ref-source``: the CUDA kernels compiled from
-                  another ``grouped_matmul.cu`` with the same C interface
-                  for ``kctpu_gmm`` and ``kctpu_gmm_swiglu`` (and
-                  ``kctpu_gmm_wgmma`` / ``kctpu_gmm_swiglu_wgmma`` for
-                  bm >= 64, where it has them)
+                  another ``grouped_matmul.cu``, through its
+                  ``kctpu_gmm_wgmma`` / ``kctpu_gmm_swiglu_wgmma`` (the
+                  prefill's bm is 256)
 
 For each seed it prints one JSON line.  ``per_layer``: for each pair
 (a, b), max |ffn_a - ffn_b| / max |ffn_b| in each layer, on the plain
@@ -85,24 +84,15 @@ def gmm_swiglu_per_tile(lhs, rhs_g, rhs_u, tile_experts, bm, gate_up=False):
 
 def load_ref(source: Path, workdir: Path):
     """Compile ``source`` alone into a shared library and return gmm /
-    gmm_swiglu wrappers over its C interface (``kctpu_gmm`` with
-    valid_tiles and transpose_rhs, or ``kctpu_gmm_wgmma`` where the source
-    has it and bm takes it; ``kctpu_gmm_swiglu`` with gate/up)."""
+    gmm_swiglu wrappers over its wgmma entries (bm >= 64)."""
     so = workdir / "libkctpu_gmm_ref.so"
     _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
                       str(source), "-o", str(so)]])
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.kctpu_gmm.argtypes = [p] * 5 + [i] * 5 + [p]
-    lib.kctpu_gmm_swiglu.argtypes = [p] * 7 + [i] * 4 + [p]
-    lib.kctpu_gmm.restype = lib.kctpu_gmm_swiglu.restype = i
-    wgmma = getattr(lib, "kctpu_gmm_wgmma", None)
-    if wgmma is not None:
-        wgmma.argtypes, wgmma.restype = [p] * 5 + [i] * 6 + [p], i
-    swiglu_wgmma = getattr(lib, "kctpu_gmm_swiglu_wgmma", None)
-    if swiglu_wgmma is not None:
-        swiglu_wgmma.argtypes = [p] * 7 + [i] * 5 + [p]
-        swiglu_wgmma.restype = i
+    lib.kctpu_gmm_wgmma.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.kctpu_gmm_swiglu_wgmma.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.kctpu_gmm_wgmma.restype = lib.kctpu_gmm_swiglu_wgmma.restype = i
 
     def run(what, code):
         if code:
@@ -114,29 +104,26 @@ def load_ref(source: Path, workdir: Path):
 
     def gmm_ref(lhs, rhs, te, bm, valid_tiles=None, transpose_rhs=False):
         assert valid_tiles is None and not transpose_rhs
+        assert bm >= gm.WGMMA_MIN_BM, bm
         gm._check(lhs, (rhs,), te, bm)
         (m, k), n = lhs.shape, rhs.shape[2]
         out = out_like(lhs, n)
-        args = (lhs.data_ptr(), rhs.data_ptr(), te.data_ptr(), None,
-                out.data_ptr(), m, k, n, bm)
-        if wgmma is not None and gm.kernel_variant(bm) == "wgmma":
-            run("gmm", wgmma(*args, rhs.shape[0], 0, _build.stream(lhs)))
-        else:
-            run("gmm", lib.kctpu_gmm(*args, 0, _build.stream(lhs)))
+        run("gmm", lib.kctpu_gmm_wgmma(
+            lhs.data_ptr(), rhs.data_ptr(), te.data_ptr(), None,
+            out.data_ptr(), m, k, n, bm, rhs.shape[0], 0,
+            _build.stream(lhs)))
         return out
 
     def gmm_swiglu_ref(lhs, rhs_g, rhs_u, te, bm, gate_up=False):
         assert not gate_up
+        assert bm >= gm.WGMMA_MIN_BM, bm
         gm._check(lhs, (rhs_g, rhs_u), te, bm)
         (m, k), n = lhs.shape, rhs_g.shape[2]
         h = out_like(lhs, n)
-        args = (lhs.data_ptr(), rhs_g.data_ptr(), rhs_u.data_ptr(),
-                te.data_ptr(), h.data_ptr(), None, None, m, k, n, bm)
-        if swiglu_wgmma is not None and gm.kernel_variant(bm) == "wgmma":
-            run("gmm_swiglu", swiglu_wgmma(*args, rhs_g.shape[0],
-                                           _build.stream(lhs)))
-        else:
-            run("gmm_swiglu", lib.kctpu_gmm_swiglu(*args, _build.stream(lhs)))
+        run("gmm_swiglu", lib.kctpu_gmm_swiglu_wgmma(
+            lhs.data_ptr(), rhs_g.data_ptr(), rhs_u.data_ptr(), te.data_ptr(),
+            h.data_ptr(), None, None, m, k, n, bm, rhs_g.shape[0],
+            _build.stream(lhs)))
         return h
 
     return gmm_ref, gmm_swiglu_ref
