@@ -129,7 +129,19 @@ Phases, in order (any failure raises and exits non-zero):
 11. entry point: ``llama_pretrain.main`` on the card's default device,
    ``--preset tiny --steps 2``, then with ``--experts 4 --moe-dispatch
    einsum``.
-12. The card's name and power limit, the ``kernels`` JSON line (launches
+12. dist-mnist (the gang slice; it reaches no hand-written kernel, and
+   every launch counter must read 0 across it): ``mnist_local.main([])``
+   and ``mnist_dist.main([])`` with no ``--device``, so on CUDA, at the
+   reference's defaults (200 steps, global batch 100, 8192 train and 2048
+   eval examples); each must exit 0 with a finite final loss, and their
+   sign-off lines are printed.  Then both fits again on CUDA and on the
+   CPU from the same seed, f32 with TF32 off: every per-step loss within
+   ``MNIST_LOSS_ATOL``.  Then a one-rank nccl group through
+   ``JobRuntime.join_group``: one dist step through the flat
+   ``all_reduce`` must leave the parameters bit-identical to the same step
+   with no group (one card, and NCCL refuses two ranks on one device, so
+   a one-rank group is the only form of the collective one card checks).
+13. The card's name and power limit, the ``kernels`` JSON line (launches
    from phase 10, the slice's main path; each path's own counts beside
    them), and the contract line ``{"ok": true, "device": {...}}`` last.
 """
@@ -139,6 +151,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import io
 import json
 import math
 import re
@@ -162,8 +175,10 @@ from kubeflow_controller_tpu_torch.ops import _build
 from kubeflow_controller_tpu_torch.ops import attention as at
 from kubeflow_controller_tpu_torch.ops import grouped_matmul as gm
 from kubeflow_controller_tpu_torch.parallel.ring import attention_reference
-from kubeflow_controller_tpu_torch.workloads import llama_pretrain
+from kubeflow_controller_tpu_torch.models import mnist
+from kubeflow_controller_tpu_torch.workloads import llama_pretrain, mnist_dist, mnist_local
 from kubeflow_controller_tpu_torch.workloads.data import synthetic_tokens
+from kubeflow_controller_tpu_torch.workloads.runtime import JobRuntime
 from kubeflow_controller_tpu_torch.workloads.serve import (
     LlamaBackend,
     Request,
@@ -186,6 +201,11 @@ ROW_FLOOR = 1e-2                   # of the RMS row norm, the denominator's floo
 FLASH_OUTS = ("o", "dq", "dk", "dv")
 LSE_ATOL = 1e-3
 TRAIN_LOSS_RTOL = 1e-2
+# dist-mnist, CUDA vs CPU, f32 with TF32 off: each of the 200 per-step
+# losses.  Only the summation order differs, as between the port and the
+# JAX package on the CPU, which tests/test_torch_mnist.py holds to the
+# same 1e-4 a step.
+MNIST_LOSS_ATOL = 1e-4
 TRAIN_GRAD_RTOL = 5e-2
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 FLASH_SHAPE = (4, 4096, 32, 128)    # the pretrain shape: B, T, H, D
@@ -1522,6 +1542,128 @@ def entry_phase():
               f"{time.perf_counter() - t0:.3f} s", flush=True)
 
 
+def signed_off(out: str):
+    """(final loss, eval accuracy) from a workload's sign-off line."""
+    line = out.split("Final loss: ")[1].splitlines()[0]
+    loss, acc = line.split("; eval accuracy: ")
+    return float(loss), float(acc)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nccl_one_rank_check(dev):
+    """One ``make_dist_step`` step with no group, then the same step (same
+    init, same batch) in a one-rank nccl group formed by ``JobRuntime``:
+    the flat ``all_reduce`` runs once and the parameters, the optimizer's
+    moments and the loss come out bit-identical."""
+    import torch.distributed as dist
+
+    from kubeflow_controller_tpu_torch.workloads.data import synthetic_mnist
+    from kubeflow_controller_tpu_torch.workloads.trainer import (
+        default_optimizer,
+        make_dist_step,
+    )
+
+    x, y = synthetic_mnist(1, 100, dev)
+
+    def one_step():
+        model = mnist.MnistMLP(mnist.mlp_init(0), dev)
+        opt = default_optimizer(model.parameters(), 5e-3)
+        step = make_dist_step(lambda a, b: mnist.mlp_loss(model, a, b), opt)
+        loss = step(x[None], y[None], 0)
+        return model, opt, loss
+
+    assert not dist.is_initialized()
+    plain_model, plain_opt, plain_loss = one_step()
+    rt = JobRuntime(coordinator=f"127.0.0.1:{free_port()}", num_processes=1,
+                    process_id=0)
+    backend = rt.join_group(dev, timeout_s=120)
+    calls = []
+    real = dist.all_reduce
+
+    def counted(tensor, *args, **kwargs):
+        calls.append(tensor.numel())
+        return real(tensor, *args, **kwargs)
+
+    try:
+        with mock.patch.object(dist, "all_reduce", counted):
+            model, opt, loss = one_step()
+        torch.cuda.synchronize()
+        world = dist.get_world_size()
+    finally:
+        rt.shutdown()
+    n_params = sum(p.numel() for p in model.parameters())
+    same = all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                  plain_model.parameters()))
+    same_state = all(
+        torch.equal(sa[k], sb[k])
+        for sa, sb in zip(opt.adamw.state.values(),
+                          plain_opt.adamw.state.values()) for k in sa)
+    print(f"dist-mnist nccl: backend {backend}, world {world}, all_reduce "
+          f"calls {calls} (grads + loss = {n_params + 1}), params "
+          f"bit-identical to no group: {same}, adam state: {same_state}, "
+          f"loss {float(loss)!r} vs {float(plain_loss)!r}", flush=True)
+    assert backend == "nccl" and world == 1, (backend, world)
+    assert calls == [n_params + 1], calls
+    assert same and same_state and torch.equal(loss, plain_loss)
+    assert not dist.is_initialized()
+
+
+def mnist_phase(dev):
+    """The dist-mnist slice on the card (see phase 12 in the docstring).
+    Returns the launch counters across the two entry points (all 0)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {name: getattr(at, name) for name in FLASH_KERNELS}
+    counters.update({name: getattr(gm, name) for name in GROUPED_KERNELS})
+    for c in counters.values():
+        c.launches = 0
+    for name, entry in (("mnist_local", mnist_local.main),
+                        ("mnist_dist", mnist_dist.main)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = entry([])
+        wall = time.perf_counter() - t0
+        out = buf.getvalue()
+        for line in out.splitlines():
+            print(f"{name}: {line}", flush=True)
+        print(f"{name}: main([]) rc {rc}, {wall:.3f} s wall", flush=True)
+        loss, acc = signed_off(out)
+        assert rc == 0 and math.isfinite(loss), (rc, loss)
+    launches = {name: c.launches for name, c in counters.items()}
+    assert not any(launches.values()), launches
+
+    cpu = torch.device("cpu")
+    for name, fit in (
+            ("mnist_local", lambda d: mnist_local.train(device=d)),
+            ("mnist_dist", lambda d: mnist_dist.run_worker(
+                mnist_dist.parse_args(["--device", str(d)])))):
+        t0 = time.perf_counter()
+        on_card = fit(dev)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = fit(cpu)
+        cpu_s = time.perf_counter() - t0
+        a = on_card.losses.cpu().numpy()
+        b = on_cpu.losses.numpy()
+        err = float(np.max(np.abs(a - b)))
+        print(f"{name}: {len(a)} per-step losses, cuda vs cpu max |diff| "
+              f"{err:.3e} (tol {MNIST_LOSS_ATOL:g}); final {float(a[-1])!r} "
+              f"vs {float(b[-1])!r}; accuracy {on_card.accuracy!r} vs "
+              f"{on_cpu.accuracy!r}; fit {card_s:.3f} s cuda, {cpu_s:.3f} s "
+              f"cpu", flush=True)
+        assert a.shape == b.shape == (200,) and err <= MNIST_LOSS_ATOL, err
+    nccl_one_rank_check(dev)
+    return launches
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1618,6 +1760,7 @@ def main(argv=None) -> int:
     paths["moe_train"] = moe_train_phase(
         mixtral_8x7b_train(MOE_TRAIN["layers"]), dev, args.seed)
     entry_phase()
+    paths["mnist"] = mnist_phase(dev)
     print(card_line())
     print(kernels_line(results, flash, paths, serve_designs))
     print(json.dumps({"ok": True, "device": {

@@ -9,18 +9,20 @@ Both the MoE keys (``router``, ``w_gate``, ``w_up``, ``w_down`` with an
 expert axis) and the dense ones are covered.  The tests use this so that
 both packages compute the same function; ``requires_grad=True`` makes the
 bridged model trainable, so its gradients can be held against
-``jax.grad``.  ``tokens_from_jax`` carries a ``[B, T]`` token array across.
+``jax.grad``.  ``tokens_from_jax`` carries a ``[B, T]`` token array across,
+and ``mnist_params_from_jax`` the MNIST models' flat parameter dicts.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
 from .models.llama import Llama, LlamaConfig
+from .models.mnist import MnistMLP, MnistSoftmax
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
               "w_up", "w_down")
@@ -78,3 +80,14 @@ def tokens_from_jax(tokens: Any, device: DeviceLike = "cuda") -> torch.Tensor:
         raise ValueError(f"tokens must be a [B, T] integer array, got "
                          f"{arr.dtype} {arr.shape}")
     return torch.from_numpy(arr.astype(np.int64)).to(resolve_device(device))
+
+
+def mnist_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The reference's MNIST params (``w1 b1 w2 b2`` for the MLP, ``w b``
+    for softmax regression; numpy or JAX leaves) as the port's module
+    state: CPU tensors under the same names, which ``MnistMLP`` /
+    ``MnistSoftmax`` take as params and ``load_state_dict`` takes too."""
+    keys = set(params)
+    if keys not in (set(MnistMLP.KEYS), set(MnistSoftmax.KEYS)):
+        raise KeyError(f"not MNIST params: {sorted(keys)}")
+    return {k: _to_tensor(v) for k, v in params.items()}

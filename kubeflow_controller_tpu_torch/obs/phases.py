@@ -1,5 +1,5 @@
-"""Beat phases a serving replica reports — the port's copy of the serving
-subset of ``kubeflow_controller_tpu/obs/phases.py``.
+"""Beat phases the port's workloads report — the port's copy of the
+training and serving subsets of ``kubeflow_controller_tpu/obs/phases.py``.
 
 The values must stay equal to the reference's: the controller's stall
 detector and goodput ledger key on these strings (a serving replica holds
@@ -8,6 +8,9 @@ its frozen-step deadline while it beats any of the three).
 
 from __future__ import annotations
 
+PHASE_RENDEZVOUS = "rendezvous"   # process-group join
+PHASE_INIT = "init"               # pre-step setup after rendezvous
+PHASE_FIT = "fit"                 # training step loop — THE goodput phase
 PHASE_LOAD = "load"               # serving model load
 PHASE_SERVING = "serving"         # serving decode loop — serving goodput
 PHASE_DRAIN = "drain"             # serving graceful drain

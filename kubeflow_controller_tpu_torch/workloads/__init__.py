@@ -2,9 +2,15 @@
 
 - ``serve`` — the continuous-batching inference replica
   (``python -m kubeflow_controller_tpu_torch.workloads.serve``).
-- ``progress`` — heartbeat publisher for the serve entry point.
+- ``progress`` — heartbeat publisher for the serve and training entry
+  points.
 - ``llama_pretrain`` — the single-device Llama pretrain
   (``python -m kubeflow_controller_tpu_torch.workloads.llama_pretrain``),
   with ``data`` (synthetic tokens), ``trainer`` (clip + AdamW) and
   ``runtime`` (the controller's env contract).
+- ``mnist_local`` / ``mnist_dist`` — the Local and Worker MNIST workloads
+  (``python -m kubeflow_controller_tpu_torch.workloads.mnist_dist``), with
+  ``data`` (synthetic MNIST), ``trainer`` (the local loop, the one-
+  all-reduce dist step and its per-step loop) and ``runtime`` (the gang
+  join over ``torch.distributed``).
 """

@@ -1,28 +1,89 @@
-"""Deterministic synthetic token streams — the port's copy of
-``synthetic_tokens`` from ``kubeflow_controller_tpu/workloads/data.py``.
+"""Deterministic synthetic datasets — the port's copy of the MNIST
+generators and ``synthetic_tokens`` from
+``kubeflow_controller_tpu/workloads/data.py``.
 
-The generator is host-side numpy in both packages, with the same frozen
-teacher seed and the same draws, so one seed gives byte-identical tokens
-in either; only the container differs (a torch tensor on the caller's
-device here).  Seeds are ints: the reference also accepts a JAX PRNG key,
-which collapses to its counter word (``PRNGKey(1)`` is seed 1).
+The generators are host-side numpy in both packages, with the same frozen
+teacher seed and the same draws, so one seed gives byte-identical data in
+either; only the container differs (torch tensors on the caller's device
+here).  Seeds are ints: the reference also accepts a JAX PRNG key, which
+collapses to its counter word (``PRNGKey(1)`` is seed 1).
+
+Not ported: ``synthetic_mnist_traced``, which draws with threefry inside
+the JAX program.  The port stages data as the reference's ``--step-loop``
+path does, from :func:`synthetic_mnist_np`.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..utils.rand import as_seed
+
+IMAGE_PIXELS = 28 * 28
+NUM_CLASSES = 10
 
 _TEACHER_SEED = 20180214  # the reference's value, fixed forever
 
+# Per-process memo of the teacher templates and the numpy datasets: every
+# entry is read-only, so one object is shared by every fit in a process.
+_MEANS_MEMO: dict = {}
+_DATASET_MEMO: dict = {}
+_DATASET_MEMO_MAX = 16
 
-def _as_seed(seed) -> int:
-    """The int path of the reference's ``utils/rand.py:as_seed``."""
-    if isinstance(seed, (int, np.integer)):
-        return int(seed)
-    raise TypeError(f"seed must be an int, got {type(seed).__name__}")
+
+def _memo_dataset(key, build):
+    got = _DATASET_MEMO.get(key)
+    if got is None:
+        got = _DATASET_MEMO[key] = build()
+        if len(_DATASET_MEMO) > _DATASET_MEMO_MAX:  # FIFO bound
+            _DATASET_MEMO.pop(next(iter(_DATASET_MEMO)))
+    return got
+
+
+def mnist_teacher_means() -> np.ndarray:
+    """The frozen [10, 784] class templates behind every synthetic-MNIST
+    draw: low-frequency patterns (7x7 upsampled 4x).  Read-only."""
+    got = _MEANS_MEMO.get("means")
+    if got is None:
+        mix = np.random.default_rng(_TEACHER_SEED)
+        coarse = mix.standard_normal((NUM_CLASSES, 7, 7), dtype=np.float32) * 0.12
+        got = coarse.repeat(4, axis=1).repeat(4, axis=2).reshape(
+            NUM_CLASSES, IMAGE_PIXELS)
+        got.setflags(write=False)
+        _MEANS_MEMO["means"] = got
+    return got
+
+
+def synthetic_mnist_np(seed: int, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """n examples of (x [n, 784] f32, y [n] int64) as read-only numpy: a
+    frozen 10-component Gaussian mixture, one cluster per digit class.
+    Touches no device, so it can run while a process group forms.
+    Memoized per (seed, n)."""
+    def build():
+        means = mnist_teacher_means()
+        rng = np.random.default_rng(as_seed(seed))
+        y = rng.integers(0, NUM_CLASSES, size=n)
+        x = means[y] + rng.standard_normal((n, IMAGE_PIXELS), dtype=np.float32)
+        x.setflags(write=False)
+        y.setflags(write=False)
+        return x, y
+
+    return _memo_dataset(("mnist_np", as_seed(seed), n), build)
+
+
+def synthetic_mnist(seed: int, n: int, device: DeviceLike = "cuda"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`synthetic_mnist_np` as tensors on ``device``: x [n, 784]
+    f32 and y [n] int64 (the reference's y is int32; torch's losses take
+    int64 class ids)."""
+    dev = resolve_device(device)
+    x, y = synthetic_mnist_np(seed, n)
+    return (torch.from_numpy(np.array(x)).to(dev),
+            torch.from_numpy(np.array(y, dtype=np.int64)).to(dev))
 
 
 def synthetic_tokens(seed: int, n_seqs: int, seq_len: int, vocab: int,
@@ -34,7 +95,7 @@ def synthetic_tokens(seed: int, n_seqs: int, seq_len: int, vocab: int,
     chain = np.random.default_rng(_TEACHER_SEED + 1)
     # Each token strongly prefers a fixed successor.
     succ = chain.integers(0, vocab, size=vocab)
-    rng = np.random.default_rng(_as_seed(seed))
+    rng = np.random.default_rng(as_seed(seed))
     out = np.empty((n_seqs, seq_len), dtype=np.int32)
     out[:, 0] = rng.integers(0, vocab, size=n_seqs)
     flips = rng.random((n_seqs, seq_len)) < 0.1

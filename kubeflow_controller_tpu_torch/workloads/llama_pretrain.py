@@ -22,8 +22,9 @@ versions.
 
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md): any mesh
 axis other than 1 (``--fsdp -1`` is 1 on one device) and ``--pp > 1``
-(multi-device pretrain), a multi-process gang, and checkpointing
-(``MODEL_DIR``, ``--checkpoint-every``; M5).
+(multi-device pretrain), a multi-process gang (M2: the gang would join,
+but each process would train a model of its own), and checkpointing
+(``MODEL_DIR``, ``--checkpoint-every``; M5b).
 """
 
 from __future__ import annotations
@@ -117,8 +118,11 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
 _MESH_NOT_PORTED = ("mesh axes {}: multi-device pretrain is not ported yet "
                     "(ROADMAP.md, module queue: multi-device pretrain); the "
                     "port trains on one device")
+_GANG_NOT_PORTED = ("a {}-process gang: multi-process pretrain is not ported "
+                    "yet, and each process would train its own model "
+                    "(ROADMAP.md, M2)")
 _CKPT_NOT_PORTED = ("checkpointing (MODEL_DIR / --checkpoint-every) is not "
-                    "ported yet (ROADMAP.md, M5)")
+                    "ported yet (ROADMAP.md, M5b)")
 
 
 def main(argv=None) -> int:
@@ -184,7 +188,8 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     rt = JobRuntime.from_env()
-    rt.initialize()
+    if rt.num_processes > 1:
+        raise NotImplementedError(_GANG_NOT_PORTED.format(rt.num_processes))
 
     if args.strict_moe_dispatch:
         warnings.filterwarnings("error", message="moe dispatch")

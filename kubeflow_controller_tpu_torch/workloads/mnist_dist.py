@@ -1,0 +1,221 @@
+"""Distributed MNIST — the port of
+``kubeflow_controller_tpu/workloads/mnist_dist.py``, the Worker replica
+workload of a classic PS/Worker TFJob.
+
+    python -m kubeflow_controller_tpu_torch.workloads.mnist_dist \\
+        [--steps N] [--batch-size B] [--device cuda|cpu] ...
+
+Roles, from the TF-contract args the planner injects:
+
+- ``ps`` parks until SIGTERM or SIGINT and exits 0, the analog of
+  ``server.join()``: its data plane rides the workers' all-reduce.
+- a worker builds its :class:`JobRuntime` from the env (or from
+  ``--worker_hosts``/``--task_index``), starts the gang guard, runs its
+  numpy host setup on a thread overlapped with the rendezvous (serially
+  under ``--no-overlap``), joins the process group (gloo on the CPU, nccl
+  on CUDA), trains one shared model with one flat all-reduce per step
+  (``trainer.make_dist_step``, driven per step with progress beats), and
+  evaluates on the whole eval set.  Each process stages its columns
+  ``[proc·bs/pc, (proc+1)·bs/pc)`` of every global batch; the global batch
+  is rounded down to a multiple of the data-parallel width.
+
+The only fit shape is the reference's ``--step-loop`` one (its default,
+one compiled scan with data drawn by threefry in the program, has no
+eager counterpart), so ``--step-loop`` is accepted and changes nothing;
+``--aot-cache`` is accepted and ignored, as eager PyTorch compiles
+nothing.  ``MODEL_DIR`` and ``--checkpoint-every > 0`` raise
+``NotImplementedError`` (checkpointing is ROADMAP.md M5b).  The phase
+times come from the worker's own clocks (trace spans are M7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import sys
+import time
+from dataclasses import dataclass
+from typing import Any, Dict
+
+CKPT_NOT_PORTED = ("checkpointing (MODEL_DIR / --checkpoint-every) is not "
+                   "ported yet (ROADMAP.md, M5b)")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="distributed MNIST")
+    # TF-contract args injected by the planner (planner/materialize.py
+    # tf_cluster_args).
+    p.add_argument("--job_name", default="")
+    p.add_argument("--task_index", type=int, default=-1)
+    p.add_argument("--worker_hosts", default="")
+    p.add_argument("--ps_hosts", default="")
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--batch-size", type=int, default=100, help="global batch")
+    p.add_argument("--lr", type=float, default=5e-3)
+    p.add_argument("--train-size", type=int, default=8192)
+    p.add_argument("--eval-size", type=int, default=2048)
+    p.add_argument("--target-accuracy", type=float, default=0.0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (raises without CUDA unless 'cpu' is "
+                        "named)")
+    p.add_argument("--aot-cache",
+                   default=os.environ.get("WORKLOAD_AOT_CACHE", ""),
+                   help="accepted and ignored: nothing is compiled")
+    p.add_argument("--step-loop", action="store_true",
+                   default=bool(os.environ.get("WORKLOAD_STEP_LOOP")),
+                   help="accepted: the per-step loop is the only fit shape")
+    p.add_argument("--checkpoint-every", type=int,
+                   default=int(os.environ.get("KCTPU_CHECKPOINT_EVERY", "0")
+                               or "0"),
+                   help="not ported: > 0 raises (ROADMAP.md M5b)")
+    p.add_argument("--step-sleep", type=float,
+                   default=float(os.environ.get("KCTPU_STEP_SLEEP", "0")
+                                 or "0"),
+                   help="host-side sleep per step (seconds): stretches the "
+                        "fit window so fault benches can kill mid-fit")
+    p.add_argument("--no-overlap", action="store_true",
+                   default=bool(os.environ.get("KCTPU_NO_OVERLAP")),
+                   help="serial baseline: run host setup after rendezvous "
+                        "instead of overlapping the two")
+    return p.parse_args(argv)
+
+
+@dataclass
+class DistResult:
+    losses: Any                # torch.Tensor [steps], global means, on device
+    loss: float                # the last step's
+    accuracy: float            # on the whole eval set
+    process: int
+    processes: int
+    dp: int                    # data-parallel width (one device a process)
+    batch_size: int            # global, after rounding to dp
+    times: Dict[str, float]    # rendezvous, init, fit, total (s)
+    device: str
+    model: Any                 # the trained MnistMLP
+
+
+def run_worker(args: argparse.Namespace) -> DistResult:
+    """A worker's whole run: rendezvous, fit, eval, then leave the gang
+    together.  (torch is imported here, so a parked PS never loads it.)"""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ..device import resolve_device
+    from ..models import mnist as m
+    from ..recovery.rendezvous import guard_from_env
+    from . import data as d
+    from .runtime import HostSetup, JobRuntime, process_count, process_index
+    from .trainer import (
+        default_optimizer,
+        make_dist_step,
+        train_step_loop_dist,
+    )
+
+    t_start = time.perf_counter()
+    dev = resolve_device(args.device)
+    rt = JobRuntime.from_env()
+    rt.merge_tf_args(args.job_name, args.task_index, args.worker_hosts)
+    if rt.model_dir or args.checkpoint_every > 0:
+        raise NotImplementedError(CKPT_NOT_PORTED)
+
+    # Recovery plane (opt-in via $KCTPU_GANG_MONITOR): started before the
+    # rendezvous so a peer that dies inside the join is detected too.
+    guard = guard_from_env(rt)
+    if guard is not None:
+        guard.start()
+
+    def host_setup():
+        params = m.mlp_init(0)  # same seed -> same init everywhere
+        return (params, d.synthetic_mnist_np(1, args.train_size),
+                d.synthetic_mnist_np(2, args.eval_size))
+
+    setup = HostSetup(host_setup, overlap=not args.no_overlap)
+
+    t0 = time.perf_counter()
+    rt.initialize(dev)
+    t_rdv = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pc, proc = process_count(), process_index()
+    # One device per process.  Round the global batch down to a multiple
+    # of the data-parallel width (the reference's batch 100 over 8
+    # devices -> 96 per step).
+    dp = pc
+    bs = max(dp, args.batch_size - args.batch_size % dp)
+    spe = max(1, args.train_size // bs)  # steps per epoch
+    t_init = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    params, (x_np, y_np), (ex_np, ey_np) = setup.result()
+    # Stack the epoch's batches [spe, bs] and keep this process's columns
+    # of every batch.
+    idx = (np.arange(spe)[:, None] * bs + np.arange(bs)[None, :]) \
+        % x_np.shape[0]
+    rows = bs // pc
+    idx = idx[:, proc * rows:(proc + 1) * rows]
+    x_all = torch.from_numpy(x_np[idx]).to(dev)
+    y_all = torch.from_numpy(y_np[idx]).to(dev)
+    model = m.MnistMLP(params, dev)
+    opt = default_optimizer(model.parameters(), args.lr)
+    step = make_dist_step(lambda xb, yb: m.mlp_loss(model, xb, yb), opt)
+    if args.step_sleep > 0:
+        def step(x, y, t, _inner=step, _zz=args.step_sleep):
+            time.sleep(_zz)
+            return _inner(x, y, t)
+
+    losses = train_step_loop_dist(step, x_all, y_all, args.steps,
+                                  examples_per_step=bs, compile_source="")
+    ex = torch.from_numpy(np.array(ex_np)).to(dev)
+    ey = torch.from_numpy(np.array(ey_np)).to(dev)
+    acc = float(m.mlp_accuracy(model, ex, ey))
+    t_fit = time.perf_counter() - t0
+    times = {"rendezvous": t_rdv, "init": t_init, "fit": t_fit,
+             "total": time.perf_counter() - t_start}
+
+    if guard is not None:
+        # The done marker BEFORE the exit barrier, so a fast peer's
+        # silence is never mistaken for death.
+        guard.mark_done()
+    if pc > 1:
+        # Leave together: process 0 hosts the store, and an early exit
+        # would fail a peer still finishing its eval.
+        try:
+            dist.barrier()
+        except RuntimeError:
+            pass  # best effort; exit skew is rare
+        rt.shutdown()
+    return DistResult(losses, float(losses[-1]), acc, proc, pc, dp, bs,
+                      times, str(dev), model)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if args.job_name == "ps":
+        # The PS data plane rides the workers' all-reduce; park until the
+        # gang is torn down, like server.join().  sigwait only catches
+        # blocked signals; unblocked, SIGTERM would exit 143 instead of 0.
+        park = {signal.SIGTERM, signal.SIGINT}
+        signal.pthread_sigmask(signal.SIG_BLOCK, park)
+        signal.sigwait(park)
+        return 0
+
+    res = run_worker(args)
+    t = res.times
+    print(f"Worker {res.process}/{res.processes} on {res.device} "
+          f"(dp={res.dp}, global batch {res.batch_size})")
+    print(f"Phase times: rendezvous={t['rendezvous']:.3f}s "
+          f"init={t['init']:.3f}s fit={t['fit']:.3f}s "
+          f"total={t['total']:.3f}s")
+    print(f"Training elapsed time: {t['fit']:f} s")
+    print(f"Final loss: {res.loss:f}; eval accuracy: {res.accuracy:f}")
+    if args.target_accuracy and res.accuracy < args.target_accuracy:
+        print(f"accuracy {res.accuracy} below target {args.target_accuracy}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,6 @@
 """Workload-side heartbeat publisher — the port's copy of the part of
-``kubeflow_controller_tpu/workloads/progress.py`` that the serve entry
-point uses.
+``kubeflow_controller_tpu/workloads/progress.py`` that the serve and
+training entry points use.
 
 Heartbeats ``{step, examplesPerSec, loss, phase, <serving gauges>}`` flow
 over one of two transports, chosen from the environment the node agent
@@ -68,6 +68,7 @@ class ProgressReporter:
              examples_per_sec: Optional[float] = None,
              loss: Optional[float] = None,
              phase: Optional[str] = None,
+             compile_source: Optional[str] = None,
              serving: Optional[Dict] = None) -> None:
         """Publish one heartbeat; None fields carry the previous value.
         ``serving`` carries the serving-plane gauges
@@ -83,6 +84,8 @@ class ProgressReporter:
                 self._last["loss"] = float(loss)
             if phase is not None:
                 self._last["phase"] = phase
+            if compile_source is not None:
+                self._last["compileSource"] = compile_source
             for snake, value in (serving or {}).items():
                 self._last[camel(snake)] = value
             body = dict(self._last)

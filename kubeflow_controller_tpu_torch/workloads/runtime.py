@@ -4,17 +4,32 @@ runtime.py``, with its own copy of the env names (the reference takes them
 from ``planner/materialize.py``; the values are the same, so the unchanged
 controller wires a torch workload exactly as it wires a JAX one).
 
-Only one process is ported: :meth:`JobRuntime.initialize` returns at once
-for a single-process job and raises ``NotImplementedError`` for a gang
-(``torch.distributed`` rendezvous is M5, ROADMAP.md).
+A gang joins through ``torch.distributed`` where the reference joins
+through ``jax.distributed``: :meth:`JobRuntime.initialize` keeps the
+reference's readiness drop (process 0), TCP pre-poll (every other
+process) and beats, then calls ``init_process_group`` with
+``init_method="tcp://<coordinator>"``.  Process 0 hosts the TCP store at
+the coordinator's address, the role JAX's coordination service plays.  The
+backend is ``nccl`` for a CUDA device and ``gloo`` for the CPU, which the
+caller must name.  A single process joins nothing, as in the reference.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import socket
+import threading
+import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from datetime import timedelta
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..obs.phases import PHASE_INIT, PHASE_RENDEZVOUS
+from .progress import reporter
 
 ENV_COORDINATOR = "JAX_COORDINATOR_ADDRESS"
 ENV_NUM_PROCESSES = "JAX_NUM_PROCESSES"
@@ -27,6 +42,15 @@ ENV_SLICE_COORDINATOR = "MEGASCALE_COORDINATOR_ADDRESS"
 ENV_MESH = "KCTPU_MESH"
 ENV_GANG_WIDTH = "KCTPU_GANG_WIDTH"
 ENV_GANG_GENERATION = "KCTPU_GANG_GENERATION"
+# Node-agent-injected shared dir for the coordinator's readiness drop:
+# process 0 drops `<coordinator>.ready` here just before it binds, so the
+# other processes stat-poll a file instead of dialing a port that cannot
+# answer yet.  Absent outside the single-node fake cluster.
+ENV_RENDEZVOUS_DIR = "KCTPU_RENDEZVOUS_DIR"
+
+# How long a gang may take to form, and then how long a collective may
+# wait for a peer (jax.distributed.initialize's default is 300 s too).
+JOIN_TIMEOUT_S = 300.0
 
 
 def _parse_mesh(raw: str) -> Dict[str, int]:
@@ -47,6 +71,72 @@ def _parse_mesh(raw: str) -> Dict[str, int]:
         except (TypeError, ValueError):
             return {}
     return out
+
+
+def _ready_filename(coordinator: str, generation: int = 0) -> str:
+    base = coordinator.replace("/", "_").replace(":", "_")
+    if generation:
+        base += f"_g{generation}"
+    return base + ".ready"
+
+
+def process_count() -> int:
+    """The gang's size once a group is joined, else 1
+    (``jax.process_count``)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    """This process's rank once a group is joined, else 0."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+class HostSetup:
+    """Host-side setup on a background thread, overlapped with the
+    rendezvous window (setup produces values; nothing orders it against
+    the join).
+
+    ``fn`` must stay pure numpy / Python: it runs while the process group
+    is forming.  ``overlap=False`` is the serial baseline — ``fn`` runs
+    inline at :meth:`result`, after the rendezvous.  (The reference also
+    wraps the run in a ``workload/host_setup`` trace span; the port has no
+    trace module yet, ROADMAP.md M7.)
+    """
+
+    def __init__(self, fn: Callable[[], Any], overlap: bool = True):
+        self._fn = fn
+        self._value: Any = None
+        self._exc: Optional[BaseException] = None
+        self._done = False
+        self._thread: Optional[threading.Thread] = None
+        if overlap:
+            self._thread = threading.Thread(
+                target=self._run, name="host-setup", daemon=True)
+            self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            self._value = self._fn()
+        except BaseException as e:  # noqa: BLE001 - re-raised at result()
+            self._exc = e
+        self._done = True
+
+    def result(self, timeout: Optional[float] = None) -> Any:
+        """The setup value; joins the thread (or, serial mode, runs the
+        setup now).  Re-raises whatever the setup raised."""
+        if self._thread is not None:
+            self._thread.join(timeout)
+            if self._thread.is_alive():
+                raise TimeoutError("host setup did not finish")
+        elif not self._done:
+            self._run()
+        if self._exc is not None:
+            raise self._exc
+        return self._value
 
 
 @dataclass
@@ -98,12 +188,132 @@ class JobRuntime:
             export_dir=e.get("EXPORT_DIR", ""),
         )
 
-    def initialize(self) -> None:
-        """Nothing to join for one process; a gang raises until the
-        ``torch.distributed`` rendezvous is ported."""
+    def merge_tf_args(self, job_name: str, task_index: int,
+                      worker_hosts: str) -> None:
+        """Classic TF-contract fallback: when the env contract is absent
+        (direct CLI runs outside the controller), derive the gang from
+        ``--worker_hosts/--task_index``.  Worker 0's host doubles as the
+        coordinator."""
+        if self.num_processes > 1 or job_name == "ps" or task_index < 0:
+            return
+        hosts = [h for h in worker_hosts.split(",") if h]
+        if len(hosts) <= 1:
+            return
+        self.coordinator = self.coordinator or hosts[0]
+        self.num_processes = len(hosts)
+        if self.gang_width <= 1:
+            self.gang_width = len(hosts)  # runtime width; never spec
+        self.process_id = task_index
+
+    def initialize(self, device: DeviceLike = "cuda",
+                   timeout_s: float = JOIN_TIMEOUT_S) -> None:
+        """Join the job's process group when it has more than one process;
+        a single process returns at once and starts no group.
+
+        ``device`` is the device this process trains on (``nccl`` for
+        CUDA, ``gloo`` for the CPU); without CUDA it raises unless the CPU
+        is named.  A gang that does not form within ``timeout_s`` raises:
+        a process other than 0 waits that long for the coordinator to
+        answer, and the join itself waits that long for every process."""
         if self._initialized or self.num_processes <= 1:
             self._initialized = True
             return
-        raise NotImplementedError(
-            f"a {self.num_processes}-process gang needs the torch.distributed "
-            "rendezvous, not ported yet (ROADMAP.md, M5)")
+        dev = resolve_device(device)
+        if self._coordinator_addr() is None:
+            raise ValueError(f"coordinator {self.coordinator!r} is not "
+                             "host:port")
+        # First heartbeat of the pod's life: alive and in rendezvous.
+        reporter().beat(phase=PHASE_RENDEZVOUS)
+        if self.process_id == 0:
+            self._drop_ready_file()
+        elif not self._wait_coordinator(timeout_s):
+            raise TimeoutError(
+                f"process {self.process_id}: coordinator "
+                f"{self.coordinator!r} not reachable within {timeout_s:g} s")
+        self.join_group(dev, timeout_s)
+        self._initialized = True
+        reporter().beat(phase=PHASE_INIT)  # rendezvous done, setup next
+
+    def join_group(self, device: DeviceLike = "cuda",
+                   timeout_s: float = JOIN_TIMEOUT_S) -> str:
+        """``init_process_group`` over this runtime's coordinator, size and
+        rank, whatever the size (a one-rank group too); returns the
+        backend.  Process 0 binds the TCP store at the coordinator's
+        address."""
+        import torch.distributed as dist
+
+        dev = resolve_device(device)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev.index if dev.index is not None
+                                  else torch.cuda.current_device())
+        dist.init_process_group(
+            backend, init_method=f"tcp://{self.coordinator}",
+            world_size=self.num_processes, rank=self.process_id,
+            timeout=timedelta(seconds=timeout_s))
+        return backend
+
+    def shutdown(self) -> None:
+        """Leave the process group (``jax.distributed.shutdown``)."""
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        self._initialized = False
+
+    def _ready_path(self) -> str:
+        d = os.environ.get(ENV_RENDEZVOUS_DIR, "")
+        if not d or not self.coordinator:
+            return ""
+        return os.path.join(
+            d, _ready_filename(self.coordinator, self.gang_generation))
+
+    def _drop_ready_file(self) -> None:
+        path = self._ready_path()
+        if not path:
+            return
+        try:
+            with open(path, "w") as fh:
+                fh.write(str(os.getpid()))
+        except OSError:
+            pass  # readiness is an optimization, never a requirement
+
+    def _coordinator_addr(self) -> Optional[Tuple[str, int]]:
+        host, _, port = self.coordinator.rpartition(":")
+        host = host.strip("[]")  # bracketed IPv6 ("[fd00::1]:8476")
+        if not host or not port.isdigit():
+            return None
+        return host, int(port)
+
+    def _wait_coordinator(self, timeout_s: float = 60.0,
+                          poll_s: float = 0.005) -> bool:
+        """Wait until the coordinator's port answers; True once it does,
+        False on timeout or a malformed address.  Two stages, as in the
+        reference: stat-poll the readiness drop when the node agent
+        provides a shared rendezvous dir (a stat cannot resolve-fail),
+        then TCP-poll the port until the listener is up."""
+        addr = self._coordinator_addr()
+        if addr is None:
+            return False
+        deadline = time.monotonic() + timeout_s
+        ready = self._ready_path()
+        if ready:
+            while time.monotonic() < deadline and not os.path.exists(ready):
+                time.sleep(0.002)
+        resolver_backoff = 0.02
+        while time.monotonic() < deadline:
+            try:
+                with socket.create_connection(addr, timeout=poll_s + 0.1):
+                    return True
+            except socket.gaierror:
+                # Name not resolvable yet (service DNS still propagating):
+                # back off, starting small.
+                time.sleep(resolver_backoff)
+                resolver_backoff = min(resolver_backoff * 2, 0.25)
+            except OSError:
+                time.sleep(poll_s)
+        return False
+
+    @property
+    def is_chief(self) -> bool:
+        return self.process_id == 0

@@ -23,8 +23,15 @@ import torch
 
 import kubeflow_controller_tpu_torch as port
 from kubeflow_controller_tpu_torch import bridge, device
-from kubeflow_controller_tpu_torch.models import generate, llama
-from kubeflow_controller_tpu_torch.workloads import data, llama_pretrain, serve
+from kubeflow_controller_tpu_torch.models import generate, llama, mnist
+from kubeflow_controller_tpu_torch.workloads import (
+    data,
+    llama_pretrain,
+    mnist_dist,
+    mnist_local,
+    runtime,
+    serve,
+)
 
 torch.set_num_threads(1)
 
@@ -36,7 +43,9 @@ FORBIDDEN = ("jax", "jaxlib", "kubeflow_controller_tpu")
 # The modules of each slice, which the checks below must reach.
 SLICE_MODULES = ("workloads.serve", "ops.grouped_matmul", "ops.attention",
                  "parallel.ring", "workloads.data", "workloads.trainer",
-                 "workloads.runtime", "workloads.llama_pretrain")
+                 "workloads.runtime", "workloads.llama_pretrain",
+                 "models.mnist", "recovery.rendezvous", "utils.rand",
+                 "workloads.mnist_local", "workloads.mnist_dist")
 
 
 def forbidden(name: str) -> bool:
@@ -115,9 +124,18 @@ def tiny():
     lambda: data.synthetic_tokens(1, 2, 8, 16),
     lambda: llama_pretrain.train(tiny(), steps=1, batch_size=1, seq_len=8),
     lambda: llama_pretrain.main(["--steps", "1"]),
+    lambda: data.synthetic_mnist(1, 4),
+    lambda: mnist.MnistMLP(mnist.mlp_init(0)),
+    lambda: mnist_local.train(steps=1),
+    lambda: mnist_local.main(["--steps", "1"]),
+    lambda: mnist_dist.main(["--steps", "1"]),
+    lambda: runtime.JobRuntime(coordinator="127.0.0.1:1", num_processes=2,
+                               process_id=1).initialize(),
 ], ids=["resolve_device", "Llama", "llama_init", "init_paged_cache",
         "llama_from_jax", "LlamaBackend", "serve.main", "tokens_from_jax",
-        "synthetic_tokens", "llama_pretrain.train", "llama_pretrain.main"])
+        "synthetic_tokens", "llama_pretrain.train", "llama_pretrain.main",
+        "synthetic_mnist", "MnistMLP", "mnist_local.train",
+        "mnist_local.main", "mnist_dist.main", "JobRuntime.initialize"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()

@@ -19,7 +19,7 @@ package, from JAX parameters bridged into the port.
 - three steps of the pretrain loop from one bridged init, dense and MoE
   (grouped): each step's loss within 1e-4 of the JAX loop's.
 - the CLI on the CPU (dense, and MoE under the strict grouped dispatch),
-  and what it refuses (a mesh, checkpointing, a gang).
+  and what it refuses (a mesh, checkpointing, a gang: M2).
 - what is not ported yet raises: named remat policies, a mesh.
 """
 
@@ -304,8 +304,12 @@ def test_runtime_from_env_matches_jax():
         assert got == want
     one = truntime.JobRuntime.from_env({})
     one.initialize()
-    with pytest.raises(NotImplementedError, match="M5"):
-        truntime.JobRuntime.from_env(env).initialize()
+    # A gang now joins (tests/test_torch_gang.py); one whose coordinator
+    # is not host:port raises before any wait.
+    bad = dataclasses.replace(truntime.JobRuntime.from_env(env),
+                              coordinator="nonsense")
+    with pytest.raises(ValueError, match="host:port"):
+        bad.initialize("cpu")
 
 
 def test_not_ported_paths_raise():
