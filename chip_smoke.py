@@ -3,15 +3,22 @@
 against its plain version at its path's real shapes, serve a few requests
 through the continuous-batching replica at Mixtral-8x7B's published widths
 (8 of its 32 layers), train the dense Llama-2-7B (8 of its 32 layers) and
-the Mixtral-8x7B-width MoE (2 of its 32 layers) for a few steps, and check
-what comes out.
+the Mixtral-8x7B-width MoE (2 of its 32 layers) for a few steps, kill and
+resume a Llama-2-7B-width run from its checkpoint, train the vision TFJobs
+(ResNet-50 at its published widths, the Flax-MNIST CNN), and check what
+comes out.
 
     python3 chip_smoke.py [--seed N]     # one card
 
 Phases, in order (any failure raises and exits non-zero):
 
 1. build: ``nvcc`` compiles ``kubeflow_controller_tpu_torch/csrc/*.cu`` for
-   sm_90a, one process per source, all at once; prints the build seconds,
+   sm_90a, one process per source, all at once, through
+   ``compile_cache.build_kernels`` under a file-drop progress reporter
+   that also records its beats: the window beats ``{"phase": "compile"}``
+   (the dropped file reads it after), and the source returned is
+   "compiled" (the library was absent before) or "cache-hit" (it was
+   there); prints the build seconds,
    ptxas' warnings and "performance loss" notes (wgmma serialized), and
    each kernel's registers and spill bytes (no kernel may spill; the
    swap-AB decode kernels' on a line of their own).  Then ``cuobjdump
@@ -141,7 +148,35 @@ Phases, in order (any failure raises and exits non-zero):
    ``all_reduce`` must leave the parameters bit-identical to the same step
    with no group (one card, and NCCL refuses two ranks on one device, so
    a one-rank group is the only form of the collective one card checks).
-13. The card's name and power limit, the ``kernels`` JSON line (launches
+13. checkpoint/resume, in a child process of this script (``--resume-phase``,
+   with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and
+   ``torch.use_deterministic_algorithms``, and a file-drop progress
+   reporter from ``KCTPU_PROGRESS_DIR``, whose last beat must read
+   ``phase="fit"`` at step 4, ``compileSource`` "cache-hit" and
+   ``resumedFromStep`` 2): ``llama_pretrain.train`` at Llama-2-7B widths cut to 2
+   layers (1 when the disk under ``smoke_ckpt/`` has under 20 GB free),
+   B 1 x T 1024, attention "auto" (the flash kernels): 4 steps
+   uninterrupted; then 2 steps with ``checkpoint_every=2`` into a fresh
+   ``MODEL_DIR`` (an async save of step 2, ~8 GB of f32 parameters and
+   AdamW moments), the model and optimizer dropped, and 2 more steps from
+   the restored step.  The per-step losses and the final parameters must
+   be bit-identical to the uninterrupted run's; the flash launches of the
+   resumed run must be exact (2 x layers x 2 forward, layers x 2 each
+   backward).  Prints the bytes written, the async save's blocking
+   seconds (the host snapshot), the total save and restore seconds and
+   their GB/s, and any op that warned it has no deterministic
+   implementation.  The directory is deleted.
+14. vision (no hand-written kernel; every launch counter must read 0):
+   ``cifar_allreduce`` ResNet-50 at the published widths (``--width 64``:
+   64 -> 2048 channels), batch 128, 20 steps, twice (the first run pays
+   cuDNN's first calls), then ``flax_mnist.main([])`` at its defaults,
+   with steps/s, images/s, peak memory and the TF32 flags (off).  Each
+   against a CPU run of its first 3 steps at batch 32: ResNet-50's
+   per-step losses within ``RESNET_LOSS_RTOL`` relative, the CNN's within
+   ``MNIST_LOSS_ATOL``.  Then one ResNet-50 step (batch 32, cuDNN
+   deterministic) with no group and in a one-rank nccl group: state and
+   loss bit-identical, 2 x 53 + 1 collectives.
+15. The card's name and power limit, the ``kernels`` JSON line (launches
    from phase 10, the slice's main path; each path's own counts beside
    them), and the contract line ``{"ok": true, "device": {...}}`` last.
 """
@@ -154,13 +189,17 @@ import gc
 import io
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from contextlib import contextmanager
-from dataclasses import replace
+from dataclasses import dataclass, field, replace
 from pathlib import Path
 from unittest import mock
 
@@ -176,7 +215,15 @@ from kubeflow_controller_tpu_torch.ops import attention as at
 from kubeflow_controller_tpu_torch.ops import grouped_matmul as gm
 from kubeflow_controller_tpu_torch.parallel.ring import attention_reference
 from kubeflow_controller_tpu_torch.models import mnist
-from kubeflow_controller_tpu_torch.workloads import llama_pretrain, mnist_dist, mnist_local
+from kubeflow_controller_tpu_torch.workloads import (
+    cifar_allreduce,
+    compile_cache,
+    flax_mnist,
+    llama_pretrain,
+    mnist_dist,
+    mnist_local,
+    progress,
+)
 from kubeflow_controller_tpu_torch.workloads.data import synthetic_tokens
 from kubeflow_controller_tpu_torch.workloads.runtime import JobRuntime
 from kubeflow_controller_tpu_torch.workloads.serve import (
@@ -206,6 +253,16 @@ TRAIN_LOSS_RTOL = 1e-2
 # JAX package on the CPU, which tests/test_torch_mnist.py holds to the
 # same 1e-4 a step.
 MNIST_LOSS_ATOL = 1e-4
+# ResNet-50 on the card against the CPU, per-step loss over 3 steps,
+# relative: f32 on both (TF32 off), other convolution algorithms and
+# summation orders.  Two card runs read 7.8e-8 and 0 (PERF.md); the limit
+# leaves two orders of magnitude above the larger for a ReLU input within
+# rounding of 0 that flips on one side only.
+RESNET_LOSS_RTOL = 1e-5
+RESNET50_BN_LAYERS = 53
+# Checkpoints and beat drops of this run live in the checkout, and go.
+SMOKE_DIR = Path(__file__).resolve().parent / "smoke_ckpt"
+RESUME_DISK_BYTES = 20e9        # two 2-layer steps (~8 GB each) and room
 TRAIN_GRAD_RTOL = 5e-2
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 FLASH_SHAPE = (4, 4096, 32, 128)    # the pretrain shape: B, T, H, D
@@ -339,8 +396,48 @@ def ptxas_report(log: str) -> dict:
     return report
 
 
-def build_phase():
+@dataclass
+class RecordingReporter(progress.ProgressReporter):
+    """A file-drop reporter that also keeps the fields of every beat."""
+
+    beats: list = field(default_factory=list)
+
+    def beat(self, **fields):
+        self.beats.append({k: v for k, v in fields.items() if v is not None})
+        super().beat(**fields)
+
+
+def built_library():
+    """The kernel build through ``compile_cache.build_kernels`` under a
+    recording file-drop reporter: the window beats ``phase="compile"``
+    (and the dropped file reads it), and the source returned is
+    "compiled" when the content-keyed library was absent before the call,
+    "cache-hit" otherwise.  Returns the library."""
+    path = (_build.BUILD_DIR
+            / f"libkctpu_kernels_{_build._content_key(_build.key_files())}.so")
+    want = "cache-hit" if path.exists() else "compiled"
+    SMOKE_DIR.mkdir(exist_ok=True)
+    drop = tempfile.mkdtemp(dir=SMOKE_DIR)
+    try:
+        rep = RecordingReporter(name="chip-smoke", drop_dir=drop)
+        source = compile_cache.build_kernels(torch.device("cuda", 0), rep)
+        with open(os.path.join(drop, progress.drop_filename(
+                rep.namespace, rep.name))) as fh:
+            dropped = json.load(fh)
+    finally:
+        shutil.rmtree(drop, ignore_errors=True)
     lib = _build.library()
+    print("build: beats " + json.dumps(rep.beats) + f", source {source!r} "
+          f"(want {want!r}); the drop file reads {json.dumps(dropped)}",
+          flush=True)
+    assert rep.beats == [{"phase": "compile"}], rep.beats
+    assert dropped == {"phase": "compile"}, dropped
+    assert source == want and lib.compile_source == want, (source, want)
+    return lib
+
+
+def build_phase():
+    lib = built_library()
     print(f"build: {lib.build_seconds:.3f} s -> {lib.path.name}", flush=True)
     for line in lib.log.splitlines():
         if any(w in line.lower() for w in ("warning", "performance loss")):
@@ -1603,8 +1700,8 @@ def nccl_one_rank_check(dev):
                                                   plain_model.parameters()))
     same_state = all(
         torch.equal(sa[k], sb[k])
-        for sa, sb in zip(opt.adamw.state.values(),
-                          plain_opt.adamw.state.values()) for k in sa)
+        for sa, sb in zip(opt.inner.state.values(),
+                          plain_opt.inner.state.values()) for k in sa)
     print(f"dist-mnist nccl: backend {backend}, world {world}, all_reduce "
           f"calls {calls} (grads + loss = {n_params + 1}), params "
           f"bit-identical to no group: {same}, adam state: {same_state}, "
@@ -1661,6 +1758,254 @@ def mnist_phase(dev):
               f"cpu", flush=True)
         assert a.shape == b.shape == (200,) and err <= MNIST_LOSS_ATOL, err
     nccl_one_rank_check(dev)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: checkpoint/resume at Llama-2-7B widths (a child process)
+# ---------------------------------------------------------------------------
+
+def resume_phase(dev, seed: int) -> dict:
+    """Run in the child (``--resume-phase``): ``llama_pretrain.train`` at
+    Llama-2-7B widths, 2 layers (1 if the disk under ``SMOKE_DIR`` cannot
+    take two steps), B 1 x T ``CHECK_SEQ`` (so attention "auto" takes the
+    flash kernels), deterministic algorithms on: 4 steps uninterrupted;
+    then 2 steps with ``checkpoint_every=2`` into a fresh ``MODEL_DIR``
+    (an async save of step 2), the model and optimizer dropped, and 2 more
+    steps from the restored step 2.  The per-step losses and the final
+    parameters must be bit-identical to the uninterrupted run's.  Returns
+    the record, with the flash launches of the resumed run."""
+    SMOKE_DIR.mkdir(exist_ok=True)
+    free = shutil.disk_usage(SMOKE_DIR).free
+    layers = 2 if free >= RESUME_DISK_BYTES else 1
+    cfg = llama2_7b(n_layers=layers)
+    kw = dict(batch_size=1, seq_len=CHECK_SEQ, lr=3e-4, device=dev,
+              seed=seed)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        whole = llama_pretrain.train(cfg, steps=4, **kw)
+        want_losses = list(whole.losses)
+        want = [p.detach().clone() for p in whole.model.parameters()]
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        model_dir = tempfile.mkdtemp(dir=SMOKE_DIR, prefix="resume-")
+        try:
+            first = llama_pretrain.train(cfg, steps=2, model_dir=model_dir,
+                                         checkpoint_every=2, **kw)
+            losses = list(first.losses)
+            save = first.checkpoint.events[0]
+            del first
+            gc.collect()
+            torch.cuda.empty_cache()
+            counters = {name: getattr(at, name) for name in FLASH_KERNELS}
+            for c in counters.values():
+                c.launches = 0
+            second = llama_pretrain.train(cfg, steps=2, model_dir=model_dir,
+                                          checkpoint_every=2, **kw)
+            launches = {name: c.launches for name, c in counters.items()}
+            restore = second.checkpoint.events[0]
+            final_save = second.checkpoint.events[-1]
+            losses += second.losses
+            same = [torch.equal(a, b) for a, b in zip(
+                second.model.parameters(), want)]
+            start = second.start_step
+            del second
+        finally:
+            shutil.rmtree(model_dir, ignore_errors=True)
+    nondeterministic = sorted({str(w.message).split(" does not have")[0]
+                               for w in caught
+                               if "deterministic" in str(w.message)})
+    n = save["bytes"]
+    rec = {
+        "layers": layers, "disk_free_gb": free / 1e9, "seq_len": CHECK_SEQ,
+        "params": sum(p.numel() for p in want), "resumed_from": start,
+        "losses_uninterrupted": want_losses, "losses_resumed": losses,
+        "losses_bit_identical": losses == want_losses,
+        "params_bit_identical": all(same), "params_differing": same.count(
+            False),
+        "save_bytes": n, "save_blocking_s": save["blocking_s"],
+        "save_total_s": save["total_s"], "save_gb_per_s": n / save["total_s"]
+        / 1e9, "snapshot_gb_per_s": n / save["blocking_s"] / 1e9,
+        "restore_s": restore["seconds"],
+        "restore_gb_per_s": restore["bytes"] / restore["seconds"] / 1e9,
+        "final_save": final_save, "launches": launches,
+        "nondeterministic_ops": nondeterministic}
+    print("resume: " + json.dumps(rec), flush=True)
+    assert start == 2 and restore["step"] == 2, (start, restore)
+    want_launches = {"flash_fwd": 2 * layers * 2, "flash_dq": layers * 2,
+                     "flash_dkv": layers * 2}
+    assert launches == want_launches, (launches, want_launches)
+    assert rec["losses_bit_identical"], (losses, want_losses)
+    assert rec["params_bit_identical"], rec["params_differing"]
+    return rec
+
+
+def resume_child(seed: int) -> dict:
+    """``resume_phase`` in a child process of this script, with cuBLAS's
+    deterministic workspace (``CUBLAS_WORKSPACE_CONFIG`` must be set before
+    the first cuBLAS call, which the earlier phases have made here), and
+    the node agent's file-drop progress transport (``KCTPU_PROGRESS_DIR``,
+    ``KCTPU_POD_NAME``).  The child's last beat must be the resumed run's
+    last step: ``phase="fit"`` at step 4, ``resumedFromStep`` 2, and
+    ``compileSource`` "cache-hit" (this process built the kernels)."""
+    out = SMOKE_DIR / f"resume-{os.getpid()}.json"
+    SMOKE_DIR.mkdir(exist_ok=True)
+    drop = tempfile.mkdtemp(dir=SMOKE_DIR)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               KCTPU_PROGRESS_DIR=drop, KCTPU_POD_NAMESPACE="default",
+               KCTPU_POD_NAME="chip-smoke-resume")
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable, __file__, "--seed", str(seed),
+                              "--resume-phase", str(out)], env=env,
+                             timeout=900)
+        assert res.returncode == 0, f"resume child exited {res.returncode}"
+        with open(os.path.join(drop, progress.drop_filename(
+                "default", "chip-smoke-resume"))) as fh:
+            last = json.load(fh)
+    finally:
+        shutil.rmtree(drop, ignore_errors=True)
+    rec = json.loads(out.read_text())
+    out.unlink()
+    rec["last_beat"] = last
+    print(f"resume: child process {time.perf_counter() - t0:.3f} s; its "
+          f"last beat {json.dumps(last)}", flush=True)
+    want = {"phase": "fit", "step": 4, "compileSource": "cache-hit",
+            "resumedFromStep": 2}
+    assert {k: last.get(k) for k in want} == want, (last, want)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the vision TFJobs
+# ---------------------------------------------------------------------------
+
+def fit_record(res, wall_s: float) -> dict:
+    steps = len(res.losses)
+    return {"steps": steps, "batch": res.batch_size,
+            "losses_first_last": [float(res.losses[0]),
+                                  float(res.losses[-1])],
+            "accuracy": res.accuracy, "elapsed_s": res.elapsed_s,
+            "steps_per_s": steps / res.elapsed_s,
+            "images_per_s": steps * res.batch_size / res.elapsed_s,
+            "wall_s": wall_s,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                     "cudnn": torch.backends.cudnn.allow_tf32}}
+
+
+def timed_fit(mod, argv):
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = mod.run(mod.parse_args(argv))
+    return res, fit_record(res, time.perf_counter() - t0)
+
+
+RESNET50_ARGV = ["--model", "resnet50", "--width", "64"]
+
+
+def nccl_vision_check(dev):
+    """One ResNet-50 step (width 64, batch 32) with no group and again in
+    a one-rank nccl group, cuDNN deterministic: the parameters, the
+    BatchNorm statistics and the loss come out bit-identical, through one
+    collective per BatchNorm forward and backward and the gradients' one
+    a step."""
+    import torch.distributed as dist
+
+    argv = RESNET50_ARGV + ["--batch-size", "32", "--steps", "1"]
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        plain = cifar_allreduce.run(cifar_allreduce.parse_args(argv))
+        rt = JobRuntime(coordinator=f"127.0.0.1:{free_port()}",
+                        num_processes=1, process_id=0)
+        backend = rt.join_group(dev, timeout_s=120)
+        calls = []
+        real = dist.all_reduce
+
+        def counted(tensor, *args, **kwargs):
+            calls.append(tensor.numel())
+            return real(tensor, *args, **kwargs)
+
+        try:
+            with mock.patch.object(dist, "all_reduce", counted):
+                grouped = cifar_allreduce.run(
+                    cifar_allreduce.parse_args(argv))
+            torch.cuda.synchronize()
+        finally:
+            rt.shutdown()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            det)
+    a, b = plain.model.state_dict(), grouped.model.state_dict()
+    same = all(torch.equal(a[k], b[k]) for k in a)
+    want = 2 * RESNET50_BN_LAYERS + 1
+    print(f"vision nccl: backend {backend}, collectives a step {len(calls)} "
+          f"(2 x {RESNET50_BN_LAYERS} BatchNorm + 1 gradient), state "
+          f"bit-identical to no group: {same}, loss {grouped.loss!r} vs "
+          f"{plain.loss!r}", flush=True)
+    assert backend == "nccl" and len(calls) == want, (backend, len(calls))
+    assert same and grouped.loss == plain.loss
+    assert not dist.is_initialized()
+
+
+def vision_phase(dev):
+    """The vision TFJobs on the card (phase 14 in the docstring).  Returns
+    the launch counters across them (all 0)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {name: getattr(at, name) for name in FLASH_KERNELS}
+    counters.update({name: getattr(gm, name) for name in GROUPED_KERNELS})
+    for c in counters.values():
+        c.launches = 0
+    for run in ("first", "second"):
+        res, rec = timed_fit(cifar_allreduce, RESNET50_ARGV + [
+            "--batch-size", "128", "--steps", "20"])
+        print(f"vision: cifar_allreduce resnet50 width 64, {run} run: "
+              + json.dumps(rec), flush=True)
+        assert res.losses.shape == (20,) and torch.isfinite(
+            res.losses).all(), res.losses
+        del res
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = flax_mnist.main([])
+    wall = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        print(f"flax_mnist: {line}", flush=True)
+    loss, acc = signed_off(buf.getvalue())
+    print(f"flax_mnist: main([]) rc {rc}, {wall:.3f} s wall", flush=True)
+    assert rc == 0 and math.isfinite(loss), (rc, loss)
+    _, rec = timed_fit(flax_mnist, [])
+    print("vision: flax_mnist defaults: " + json.dumps(rec), flush=True)
+    launches = {name: c.launches for name, c in counters.items()}
+    assert not any(launches.values()), launches
+
+    for name, mod, argv, tol, rel in (
+            ("cifar_allreduce resnet50", cifar_allreduce, RESNET50_ARGV,
+             RESNET_LOSS_RTOL, True),
+            ("flax_mnist", flax_mnist, [], MNIST_LOSS_ATOL, False)):
+        argv = argv + ["--batch-size", "32", "--steps", "3"]
+        t0 = time.perf_counter()
+        card = mod.run(mod.parse_args(argv)).losses.cpu().numpy()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = mod.run(mod.parse_args(argv + ["--device", "cpu"])).losses
+        cpu_s = time.perf_counter() - t0
+        cpu = cpu.numpy()
+        diff = np.abs(card - cpu) / (np.abs(cpu) if rel else 1.0)
+        print(f"vision: {name} 3 steps batch 32, cuda vs cpu per-step "
+              f"losses {card.tolist()} vs {cpu.tolist()}, max "
+              f"{'relative' if rel else 'absolute'} diff "
+              f"{float(diff.max()):.3e} (tol {tol:g}); {card_s:.3f} s cuda, "
+              f"{cpu_s:.3f} s cpu", flush=True)
+        assert diff.max() <= tol, (name, diff)
+    nccl_vision_check(dev)
     return launches
 
 
@@ -1728,12 +2073,18 @@ def kernels_line(results, flash, paths, serve_designs):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--resume-phase", default="",
+                    help=argparse.SUPPRESS)  # the child of phase 13
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs the port on a CUDA card", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    if args.resume_phase:
+        rec = resume_phase(dev, args.seed)
+        Path(args.resume_phase).write_text(json.dumps(rec))
+        return 0
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     cfg = mixtral_8x7b()
@@ -1761,6 +2112,9 @@ def main(argv=None) -> int:
         mixtral_8x7b_train(MOE_TRAIN["layers"]), dev, args.seed)
     entry_phase()
     paths["mnist"] = mnist_phase(dev)
+    paths["resume"] = resume_child(args.seed)["launches"]
+    paths["vision"] = vision_phase(dev)
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     print(card_line())
     print(kernels_line(results, flash, paths, serve_designs))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ expert axis) and the dense ones are covered.  The tests use this so that
 both packages compute the same function; ``requires_grad=True`` makes the
 bridged model trainable, so its gradients can be held against
 ``jax.grad``.  ``tokens_from_jax`` carries a ``[B, T]`` token array across,
-and ``mnist_params_from_jax`` the MNIST models' flat parameter dicts.
+``mnist_params_from_jax`` the MNIST models' flat parameter dicts, and
+``vision_params_from_jax`` a flax vision model's variables.
 """
 
 from __future__ import annotations
@@ -91,3 +92,41 @@ def mnist_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if keys not in (set(MnistMLP.KEYS), set(MnistSoftmax.KEYS)):
         raise KeyError(f"not MNIST params: {sorted(keys)}")
     return {k: _to_tensor(v) for k, v in params.items()}
+
+
+# flax leaf name -> the port module's state-dict name, per collection.
+_VISION_LEAVES = {("params", "kernel"): "weight", ("params", "bias"): "bias",
+                  ("params", "scale"): "weight",
+                  ("batch_stats", "mean"): "mean",
+                  ("batch_stats", "var"): "var"}
+
+
+def vision_params_from_jax(variables: Mapping[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """A flax vision model's variables (``{"params": ..., "batch_stats":
+    ...}`` from ``models/vision.py``, numpy or JAX leaves) as the state
+    dict of the port's model of the same shape (``models/vision.py``),
+    which ``load_state_dict`` takes: the flax module path becomes the
+    module path (``ResNetBlock_3/Conv_0`` -> ``ResNetBlock_3.Conv_0``),
+    conv kernels go HWIO -> OIHW, dense kernels ``[in, out]`` -> ``[out,
+    in]``, ``scale`` -> ``weight``, and ``batch_stats``' ``mean``/``var``
+    -> the BatchNorm buffers."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(coll: str, tree: Mapping[str, Any], path: tuple) -> None:
+        for key, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(coll, value, path + (key,))
+                continue
+            name = _VISION_LEAVES.get((coll, key))
+            if name is None:
+                raise KeyError(f"{coll}/{'/'.join(path + (key,))}: not a "
+                               "vision-model leaf")
+            t = _to_tensor(value)
+            if key == "kernel":
+                t = (t.permute(3, 2, 0, 1) if t.ndim == 4 else t.t())
+            out[".".join(path + (name,))] = t.contiguous()
+
+    for coll, tree in variables.items():
+        walk(coll, tree, ())
+    return out

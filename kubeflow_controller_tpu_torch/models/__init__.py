@@ -8,6 +8,9 @@ serving path.
   (capacity-dropping) and ``grouped`` (dropless, the CUDA kernels).
 - ``generate`` — the slot-paged KV cache: prefill, tail extend, decode
   step, row copy.
+- ``mnist`` — the MNIST softmax regression and MLP; ``vision`` — the
+  Flax-MNIST CNN and the CIFAR ResNets (flax's padding, BatchNorm and
+  initialisers).
 """
 
 from .llama import Llama, LlamaConfig, LlamaLayer, llama_init

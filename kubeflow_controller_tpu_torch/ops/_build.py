@@ -8,6 +8,12 @@ keyed by the content hash of every file under ``csrc/`` (headers such as
 ``hopper.cuh`` included), so an edited source or header never loads a
 stale build and a rebuilt checkout reuses nothing it should not.
 
+The library records where it came from (``compile_source``):
+``"compiled"`` when ``nvcc`` ran, ``"cache-hit"`` when the library of the
+same content was already in ``build/``.  The workloads run the build
+inside their progress reporter's compile window
+(``workloads/compile_cache.py``) and beat that source.
+
 A build failure raises with the compiler's output.  Nothing here runs at
 import time: the CPU tests import every module of the port on hosts that
 have no ``nvcc``.
@@ -27,6 +33,9 @@ from pathlib import Path
 from typing import List, Optional
 
 import torch
+
+CACHE_HIT = "cache-hit"   # the build's output was already there
+COMPILED = "compiled"     # nvcc ran
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -71,11 +80,12 @@ class KernelLibrary:
     """The loaded shared library plus what its build printed."""
 
     def __init__(self, lib: ctypes.CDLL, path: Path, build_seconds: float,
-                 log: str):
+                 log: str, compile_source: str):
         self.lib = lib
         self.path = path
         self.build_seconds = build_seconds
         self.log = log
+        self.compile_source = compile_source   # "compiled" | "cache-hit"
 
     def check(self, code: int, what: str) -> None:
         """Raise if a C entry point returned a CUDA error code."""
@@ -141,7 +151,8 @@ def build() -> KernelLibrary:
     lib_path = BUILD_DIR / f"libkctpu_kernels_{_content_key(key_files())}.so"
     t0 = time.perf_counter()
     log = ""
-    if not lib_path.exists():
+    source = CACHE_HIT if lib_path.exists() else COMPILED
+    if source == COMPILED:
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -158,7 +169,7 @@ def build() -> KernelLibrary:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
-    return KernelLibrary(lib, lib_path, build_seconds, log)
+    return KernelLibrary(lib, lib_path, build_seconds, log, source)
 
 
 def stream(t: torch.Tensor) -> int:

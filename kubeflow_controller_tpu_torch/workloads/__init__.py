@@ -13,4 +13,12 @@
   ``data`` (synthetic MNIST), ``trainer`` (the local loop, the one-
   all-reduce dist step and its per-step loop) and ``runtime`` (the gang
   join over ``torch.distributed``).
+- ``flax_mnist`` / ``cifar_allreduce`` — the data-parallel vision TFJobs
+  (``python -m kubeflow_controller_tpu_torch.workloads.cifar_allreduce``):
+  the Flax-MNIST CNN with Adam and the CIFAR ResNets with SGD, BatchNorm
+  over the global batch (``models/vision.py``).
+- ``checkpoint`` — ``MODEL_DIR`` saves and restores on
+  ``torch.distributed.checkpoint``, with which every training main
+  resumes a replacement replica; ``compile_cache`` — the kernel build up
+  front, inside the reporter's compile window.
 """

@@ -1,5 +1,5 @@
-"""Deterministic synthetic datasets — the port's copy of the MNIST
-generators and ``synthetic_tokens`` from
+"""Deterministic synthetic datasets — the port's copy of the MNIST and
+CIFAR generators and ``synthetic_tokens`` from
 ``kubeflow_controller_tpu/workloads/data.py``.
 
 The generators are host-side numpy in both packages, with the same frozen
@@ -103,3 +103,49 @@ def synthetic_tokens(seed: int, n_seqs: int, seq_len: int, vocab: int,
     for t in range(1, seq_len):
         out[:, t] = np.where(flips[:, t], noise[:, t], succ[out[:, t - 1]])
     return torch.from_numpy(out).to(dev)
+
+
+def synthetic_mnist_images_np(seed: int, n: int, scale: float = 0.3
+                              ) -> Tuple[np.ndarray, np.ndarray]:
+    """n examples of (x [n, 28, 28, 1] f32 NHWC, y [n] int64) as numpy:
+    the image variant for conv models (``flax_mnist``), with stronger
+    class templates (scale 0.3) than the flat set."""
+    mix = np.random.default_rng(_TEACHER_SEED + 3)
+    coarse = mix.standard_normal((NUM_CLASSES, 7, 7), dtype=np.float32) * scale
+    means = coarse.repeat(4, axis=1).repeat(4, axis=2)
+    rng = np.random.default_rng(as_seed(seed))
+    y = rng.integers(0, NUM_CLASSES, size=n)
+    x = means[y] + rng.standard_normal((n, 28, 28), dtype=np.float32)
+    return x[..., None], y.astype(np.int64)
+
+
+def synthetic_cifar_np(seed: int, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """n examples of (x [n, 32, 32, 3] f32 NHWC, y [n] int64) as numpy: 10
+    frozen low-frequency class templates (8x8 upsampled 4x) plus unit
+    Gaussian noise."""
+    mix = np.random.default_rng(_TEACHER_SEED + 2)
+    coarse = mix.standard_normal((NUM_CLASSES, 8, 8, 3), dtype=np.float32) * 0.35
+    templates = coarse.repeat(4, axis=1).repeat(4, axis=2)  # [10,32,32,3]
+    rng = np.random.default_rng(as_seed(seed))
+    y = rng.integers(0, NUM_CLASSES, size=n)
+    x = templates[y] + rng.standard_normal((n, 32, 32, 3), dtype=np.float32)
+    return x, y.astype(np.int64)
+
+
+def synthetic_mnist_images(seed: int, n: int, device: DeviceLike = "cuda",
+                           scale: float = 0.3
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`synthetic_mnist_images_np` as tensors on ``device``: x [n,
+    28, 28, 1] f32 NHWC and y [n] int64."""
+    dev = resolve_device(device)
+    x, y = synthetic_mnist_images_np(seed, n, scale)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def synthetic_cifar(seed: int, n: int, device: DeviceLike = "cuda"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`synthetic_cifar_np` as tensors on ``device``: x [n, 32, 32,
+    3] f32 NHWC and y [n] int64."""
+    dev = resolve_device(device)
+    x, y = synthetic_cifar_np(seed, n)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)

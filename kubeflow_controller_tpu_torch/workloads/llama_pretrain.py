@@ -12,6 +12,20 @@ bigram tokens (``data.synthetic_tokens``, seed 1: the reference's
 ``PRNGKey(1)``).  The loop itself is :func:`train`, which takes a
 ``LlamaConfig``, so a caller can drive it at a cut depth.
 
+Checkpoint/resume (``MODEL_DIR``, as in the reference): :func:`train`
+restores the latest readable step of the model and its optimizer and
+prints "Resumed from step S in <dir>", then runs steps ``S .. S + steps -
+1`` (batch ``i`` is still taken by ``i``, so the data does not restart),
+saves asynchronously after every ``--checkpoint-every`` steps, and makes
+the final step durable before it returns.
+
+Progress beats (``KCTPU_PROGRESS_*``, as the trainer's loop beats them):
+``phase="restore"`` while a checkpoint loads; on CUDA ``phase="compile"``
+while the kernels build (``compile_cache.build_kernels``); then
+``phase="fit"`` with the step, loss and sequences/s after the first step,
+at most every ``BEAT_INTERVAL_S`` after that and once at the end, the
+first carrying ``compile_source`` and, on a resume, ``resumed_from_step``.
+
 MoE: ``--experts E`` (with ``--top-k`` and ``--moe-dispatch``
 einsum|scatter|grouped) trains a mixture-of-experts model; "grouped" runs
 the dropless grouped-matmul CUDA kernels forward and backward, and falls
@@ -22,9 +36,8 @@ versions.
 
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md): any mesh
 axis other than 1 (``--fsdp -1`` is 1 on one device) and ``--pp > 1``
-(multi-device pretrain), a multi-process gang (M2: the gang would join,
-but each process would train a model of its own), and checkpointing
-(``MODEL_DIR``, ``--checkpoint-every``; M5b).
+(multi-device pretrain), and a multi-process gang (M2: the gang would
+join, but each process would train a model of its own).
 """
 
 from __future__ import annotations
@@ -43,9 +56,13 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.llama import Llama, LlamaConfig, llama_init, llama_loss
+from ..obs.phases import PHASE_FIT, PHASE_RESTORE
+from .checkpoint import CheckpointManager
+from .compile_cache import build_kernels
 from .data import synthetic_tokens
+from .progress import reporter
 from .runtime import JobRuntime
-from .trainer import default_optimizer
+from .trainer import BEAT_INTERVAL_S, default_optimizer
 
 
 @dataclass
@@ -58,6 +75,11 @@ class TrainResult:
     # Step i of the same loop (same optimizer state, same token rows), for
     # a caller that runs further steps, e.g. under a profiler.
     step: Callable[[int], float]
+    start_step: int = 0        # the checkpoint step resumed from (0: none)
+    # The run's checkpoint manager (timings in .events) and the line that
+    # says where the final step is.
+    checkpoint: Optional[CheckpointManager] = None
+    checkpoint_note: str = ""
 
 
 def _sync(dev: torch.device) -> None:
@@ -68,17 +90,34 @@ def _sync(dev: torch.device) -> None:
 def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
           lr: float = 3e-4, device: DeviceLike = "cuda", seed: int = 0,
           model: Optional[Llama] = None,
-          profile_dir: str = "") -> TrainResult:
+          profile_dir: str = "", model_dir: str = "",
+          checkpoint_every: int = 0) -> TrainResult:
     """``steps`` optimizer steps of ``cfg`` from ``llama_init`` (seeded
     with ``seed``) or from ``model`` (trained in place), the reference's
     loop: ``default_optimizer(lr, weight_decay=0.1)`` (clip 1.0), and batch
     i is rows ``[(i * bs) % (N - bs + 1), ... + bs)`` of ``N = max(64, 2 *
-    bs)`` synthetic sequences of seed 1."""
+    bs)`` synthetic sequences of seed 1.
+
+    With ``model_dir``, the latest readable checkpoint there is restored
+    first (model and optimizer; the loop runs steps ``S .. S + steps -
+    1``), step ``i + 1`` is saved asynchronously after step ``i`` whenever
+    ``checkpoint_every`` divides it, and the final step ``S + steps`` is
+    durable when this returns.  Beats progress as the module docstring
+    says."""
     dev = resolve_device(device)
+    rep = reporter()
     if model is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         model = llama_init(cfg, gen, dev, requires_grad=True)
     opt = default_optimizer(model.parameters(), lr, weight_decay=0.1)
+    start_step, ckpt = 0, None
+    if model_dir:
+        ckpt = CheckpointManager(model_dir)
+        if ckpt.latest_step() is not None:
+            rep.beat(phase=PHASE_RESTORE)
+            _, _, start_step = ckpt.restore(model, opt)
+            print(f"Resumed from step {start_step} in {model_dir}",
+                  flush=True)
     bs = max(1, batch_size)
     tokens_all = synthetic_tokens(1, max(64, 2 * bs), seq_len,
                                   cfg.vocab_size, dev)
@@ -97,22 +136,51 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
 
         prof = profile(activities=[ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
+    # The port's compile, up front: the kernels' build (a cache hit when
+    # this content was built before); no step, no build.
+    compile_source = build_kernels(dev, rep) if steps > 0 else ""
     losses, step_s = [], []
+    next_beat = 0.0
     with prof:
         _sync(dev)
         start = time.perf_counter()
-        for i in range(steps):
+        for i in range(start_step, start_step + steps):
             t0 = time.perf_counter()
             losses.append(step(i))
+            if ckpt and checkpoint_every and (i + 1) % checkpoint_every == 0:
+                ckpt.save(i + 1, model, opt, wait=False)  # overlaps step i+1
             _sync(dev)
-            step_s.append(time.perf_counter() - t0)
+            now = time.perf_counter()
+            step_s.append(now - t0)
+            if now >= next_beat or i + 1 == start_step + steps:
+                next_beat = now + BEAT_INTERVAL_S
+                rep.beat(step=i + 1, loss=losses[-1], phase=PHASE_FIT,
+                         compile_source=compile_source,
+                         resumed_from_step=start_step or None,
+                         examples_per_sec=(i + 1 - start_step) * bs
+                         / (now - start))
         elapsed = time.perf_counter() - start
     if profile_dir:
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
         print(f"Profile trace written to {profile_dir}")
+    note = ""
+    if ckpt:
+        # Durability barrier: the in-loop save of the final step (issued
+        # this run) is waited for; a final step already on disk is left;
+        # anything else is saved now.
+        final = start_step + steps
+        ckpt.wait()
+        if steps > 0 and checkpoint_every and final % checkpoint_every == 0:
+            note = f"Checkpoint saved to {model_dir}"
+        elif ckpt.latest_step() == final:
+            note = f"Checkpoint for step {final} already in {model_dir}"
+        else:
+            ckpt.save(final, model, opt)
+            note = f"Checkpoint saved to {model_dir}"
     return TrainResult(losses, step_s, elapsed,
-                       steps * bs * seq_len / max(elapsed, 1e-9), model, step)
+                       steps * bs * seq_len / max(elapsed, 1e-9), model, step,
+                       start_step, ckpt, note)
 
 
 _MESH_NOT_PORTED = ("mesh axes {}: multi-device pretrain is not ported yet "
@@ -121,8 +189,6 @@ _MESH_NOT_PORTED = ("mesh axes {}: multi-device pretrain is not ported yet "
 _GANG_NOT_PORTED = ("a {}-process gang: multi-process pretrain is not ported "
                     "yet, and each process would train its own model "
                     "(ROADMAP.md, M2)")
-_CKPT_NOT_PORTED = ("checkpointing (MODEL_DIR / --checkpoint-every) is not "
-                    "ported yet (ROADMAP.md, M5b)")
 
 
 def main(argv=None) -> int:
@@ -228,15 +294,14 @@ def main(argv=None) -> int:
                if v != 1 and not (k == "fsdp" and v == -1)}
     if sharded:
         raise NotImplementedError(_MESH_NOT_PORTED.format(sharded))
-    if rt.model_dir or args.checkpoint_every:
-        raise NotImplementedError(_CKPT_NOT_PORTED)
 
     profile_dir = args.profile_dir
     if profile_dir == "auto":
         profile_dir = os.path.join(rt.log_dir, "trace") if rt.log_dir else ""
     res = train(cfg, steps=args.steps, batch_size=args.batch_size,
                 seq_len=args.seq_len, lr=args.lr, device=dev,
-                profile_dir=profile_dir)
+                profile_dir=profile_dir, model_dir=rt.model_dir,
+                checkpoint_every=args.checkpoint_every)
     loss = res.losses[-1] if res.losses else float("nan")
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
@@ -245,6 +310,8 @@ def main(argv=None) -> int:
     print(f"Training elapsed time: {res.elapsed_s:f} s")
     print(f"Final loss: {loss:f}; throughput: {res.tokens_per_s:.0f} "
           f"tokens/s")
+    if res.checkpoint_note:
+        print(res.checkpoint_note)
     return 0
 
 

@@ -19,13 +19,21 @@ Roles, from the TF-contract args the planner injects:
   ``[proc·bs/pc, (proc+1)·bs/pc)`` of every global batch; the global batch
   is rounded down to a multiple of the data-parallel width.
 
+Checkpoint/resume (``MODEL_DIR``), as in the reference's step loop: the
+latest readable step is restored before the first beat, which reads
+``phase="restore"`` — or ``"reshard"`` when the width marker says the
+checkpoints were written by a gang of another width than this one
+(``rt.gang_width``) — and every later beat carries ``resumedFromStep``;
+``--checkpoint-every N`` saves asynchronously every N steps, the saves
+are waited for before the sign-off, and the final step is saved (process
+0 writes, ``checkpoint.CheckpointManager``).
+
 The only fit shape is the reference's ``--step-loop`` one (its default,
 one compiled scan with data drawn by threefry in the program, has no
 eager counterpart), so ``--step-loop`` is accepted and changes nothing;
 ``--aot-cache`` is accepted and ignored, as eager PyTorch compiles
-nothing.  ``MODEL_DIR`` and ``--checkpoint-every > 0`` raise
-``NotImplementedError`` (checkpointing is ROADMAP.md M5b).  The phase
-times come from the worker's own clocks (trace spans are M7).
+nothing.  The phase times come from the worker's own clocks (trace spans
+are M7).
 """
 
 from __future__ import annotations
@@ -37,9 +45,6 @@ import sys
 import time
 from dataclasses import dataclass
 from typing import Any, Dict
-
-CKPT_NOT_PORTED = ("checkpointing (MODEL_DIR / --checkpoint-every) is not "
-                   "ported yet (ROADMAP.md, M5b)")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -68,7 +73,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--checkpoint-every", type=int,
                    default=int(os.environ.get("KCTPU_CHECKPOINT_EVERY", "0")
                                or "0"),
-                   help="not ported: > 0 raises (ROADMAP.md M5b)")
+                   help="async checkpoint every N steps into MODEL_DIR "
+                        "(0 = only the final save)")
     p.add_argument("--step-sleep", type=float,
                    default=float(os.environ.get("KCTPU_STEP_SLEEP", "0")
                                  or "0"),
@@ -93,6 +99,8 @@ class DistResult:
     times: Dict[str, float]    # rendezvous, init, fit, total (s)
     device: str
     model: Any                 # the trained MnistMLP
+    start_step: int = 0        # the checkpoint step resumed from (0: none)
+    saved_to: str = ""         # MODEL_DIR, if this process saved there
 
 
 def run_worker(args: argparse.Namespace) -> DistResult:
@@ -104,8 +112,11 @@ def run_worker(args: argparse.Namespace) -> DistResult:
 
     from ..device import resolve_device
     from ..models import mnist as m
+    from ..obs.phases import PHASE_RESHARD, PHASE_RESTORE
     from ..recovery.rendezvous import guard_from_env
     from . import data as d
+    from .checkpoint import CheckpointManager, is_writer
+    from .progress import reporter
     from .runtime import HostSetup, JobRuntime, process_count, process_index
     from .trainer import (
         default_optimizer,
@@ -117,8 +128,6 @@ def run_worker(args: argparse.Namespace) -> DistResult:
     dev = resolve_device(args.device)
     rt = JobRuntime.from_env()
     rt.merge_tf_args(args.job_name, args.task_index, args.worker_hosts)
-    if rt.model_dir or args.checkpoint_every > 0:
-        raise NotImplementedError(CKPT_NOT_PORTED)
 
     # Recovery plane (opt-in via $KCTPU_GANG_MONITOR): started before the
     # rendezvous so a peer that dies inside the join is detected too.
@@ -165,12 +174,51 @@ def run_worker(args: argparse.Namespace) -> DistResult:
             time.sleep(_zz)
             return _inner(x, y, t)
 
+    # Checkpoint-resume: restore the latest readable step BEFORE the first
+    # beat, so a replacement replica resumes where the gang's checkpoints
+    # left off and the progress plane reads the backward jump as a resume.
+    start_step, mgr, ck_fn = 0, None, None
+    if rt.model_dir:
+        mgr = CheckpointManager(rt.model_dir)
+        # The width that wrote these checkpoints (the marker) against this
+        # generation's (the runtime env): a restore at another width is a
+        # re-shard, and the beats say so.
+        prev_width = mgr.read_width()
+        phase = (PHASE_RESHARD
+                 if prev_width is not None and prev_width != rt.gang_width
+                 else PHASE_RESTORE)
+        if mgr.latest_step() is not None:
+            reporter().beat(phase=phase)
+            _, _, start_step = mgr.restore(model, opt)
+            start_step = min(start_step, args.steps)
+            reporter().beat(step=start_step, phase=phase,
+                            resumed_from_step=start_step)
+        if pc > 1:
+            dist.barrier()  # every process has read the old marker
+        if proc == 0:
+            mgr.write_width(rt.gang_width)
+        if args.checkpoint_every > 0:
+            def ck_fn(done, _mgr=mgr):
+                _mgr.save(done, model, opt, wait=False)
+
     losses = train_step_loop_dist(step, x_all, y_all, args.steps,
-                                  examples_per_step=bs, compile_source="")
+                                  examples_per_step=bs, compile_source="",
+                                  start_step=start_step,
+                                  checkpoint_every=args.checkpoint_every,
+                                  checkpoint_fn=ck_fn)
     ex = torch.from_numpy(np.array(ex_np)).to(dev)
     ey = torch.from_numpy(np.array(ey_np)).to(dev)
     acc = float(m.mlp_accuracy(model, ex, ey))
     t_fit = time.perf_counter() - t0
+    saved_to = ""
+    if mgr is not None:
+        # In-flight async saves first, then the final step (unless a resume
+        # at the finish line already has it), while the group still names
+        # the one writer.
+        mgr.wait()
+        if mgr.latest_step() != args.steps:
+            mgr.save(args.steps, model, opt)
+        saved_to = rt.model_dir if is_writer() else ""
     times = {"rendezvous": t_rdv, "init": t_init, "fit": t_fit,
              "total": time.perf_counter() - t_start}
 
@@ -187,7 +235,7 @@ def run_worker(args: argparse.Namespace) -> DistResult:
             pass  # best effort; exit skew is rare
         rt.shutdown()
     return DistResult(losses, float(losses[-1]), acc, proc, pc, dp, bs,
-                      times, str(dev), model)
+                      times, str(dev), model, start_step, saved_to)
 
 
 def main(argv=None) -> int:
@@ -210,6 +258,8 @@ def main(argv=None) -> int:
           f"total={t['total']:.3f}s")
     print(f"Training elapsed time: {t['fit']:f} s")
     print(f"Final loss: {res.loss:f}; eval accuracy: {res.accuracy:f}")
+    if res.saved_to:
+        print(f"Checkpoint saved to {res.saved_to}")
     if args.target_accuracy and res.accuracy < args.target_accuracy:
         print(f"accuracy {res.accuracy} below target {args.target_accuracy}",
               file=sys.stderr)

@@ -11,8 +11,8 @@ time", "Final loss ...; eval accuracy ...").  The model trains eagerly, one
 step per stacked batch (``trainer.train_scan``), on the synthetic mixture
 (train seed 1, eval seed 2, init seed 0: the reference's ``PRNGKey``
 counters).  ``--target-accuracy`` makes a lower final accuracy exit 1.
-``MODEL_DIR`` raises ``NotImplementedError``: the reference saves a
-checkpoint there, and checkpointing is not ported yet (ROADMAP.md, M5b).
+With ``MODEL_DIR`` set the trained model and optimizer are saved there as
+step ``--steps`` (``checkpoint.CheckpointManager``), as in the reference.
 """
 
 from __future__ import annotations
@@ -26,12 +26,10 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models import mnist as m
+from .checkpoint import CheckpointManager
 from .data import synthetic_mnist
 from .runtime import JobRuntime
-from .trainer import batch_stack, default_optimizer, train_scan
-
-CKPT_NOT_PORTED = ("checkpointing (MODEL_DIR / --checkpoint-every) is not "
-                   "ported yet (ROADMAP.md, M5b)")
+from .trainer import Optimizer, batch_stack, default_optimizer, train_scan
 
 
 @dataclass
@@ -40,6 +38,8 @@ class LocalResult:
     loss: float                # the last step's
     accuracy: float            # on the eval set
     elapsed_s: float           # batch staging + training, ending in a sync
+    model: torch.nn.Module     # the trained model
+    optimizer: Optimizer       # and its optimizer
 
 
 def train(model: str = "mlp", steps: int = 200, batch_size: int = 100,
@@ -62,7 +62,7 @@ def train(model: str = "mlp", steps: int = 200, batch_size: int = 100,
     loss = float(losses[-1])
     elapsed = time.time() - start
     acc = float(m.mlp_accuracy(net, ex, ey))
-    return LocalResult(losses, loss, acc, elapsed)
+    return LocalResult(losses, loss, acc, elapsed, net, opt)
 
 
 def main(argv=None) -> int:
@@ -81,12 +81,15 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     dev = resolve_device(args.device)
-    if JobRuntime.from_env().model_dir:
-        raise NotImplementedError(CKPT_NOT_PORTED)
+    rt = JobRuntime.from_env()
     res = train(args.model, args.steps, args.batch_size, args.lr,
                 args.train_size, args.eval_size, dev)
     print(f"Training elapsed time: {res.elapsed_s:f} s")
     print(f"Final loss: {res.loss:f}; eval accuracy: {res.accuracy:f}")
+    if rt.model_dir:
+        CheckpointManager(rt.model_dir).save(args.steps, res.model,
+                                             res.optimizer)
+        print(f"Checkpoint saved to {rt.model_dir}")
     if args.target_accuracy and res.accuracy < args.target_accuracy:
         print(f"accuracy {res.accuracy} below target {args.target_accuracy}",
               file=sys.stderr)

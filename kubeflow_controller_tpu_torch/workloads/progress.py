@@ -8,9 +8,11 @@ injects: REST (``KCTPU_PROGRESS_URL``: PUT to the pod's ``progress``
 subresource) or a file drop (``KCTPU_PROGRESS_DIR``: one atomic JSON file
 per pod).  Both are best-effort: a lost beat never fails the workload.
 
-Left out against the reference: the ``compiling()`` context and the
-keepalive thread (PyTorch runs eagerly; there is no opaque compile window
-to cover) and the ``workload/first_step`` trace span.
+:meth:`ProgressReporter.compiling` covers the port's one compile, the
+``nvcc`` build of the CUDA kernels (``compile_cache.build_kernels``): it
+beats ``phase="compile"`` and keeps the beat fresh from a keepalive thread
+while the build runs; the caller beats its next phase.  Left out against
+the reference: the ``workload/first_step`` trace span (ROADMAP.md M7).
 """
 
 from __future__ import annotations
@@ -18,8 +20,11 @@ from __future__ import annotations
 import json
 import os
 import threading
+from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
+
+from ..obs.phases import PHASE_COMPILE
 
 ENV_POD_NAMESPACE = "KCTPU_POD_NAMESPACE"
 ENV_POD_NAME = "KCTPU_POD_NAME"
@@ -49,6 +54,8 @@ class ProgressReporter:
     drop_dir: str = ""  # file-drop directory (fallback transport)
     _last: Dict[str, object] = field(default_factory=dict)
     _lock: threading.Lock = field(default_factory=threading.Lock)
+    _keepalive: Optional[threading.Thread] = None
+    _stop: Optional[threading.Event] = None
 
     @staticmethod
     def from_env(env: Optional[Dict[str, str]] = None) -> "ProgressReporter":
@@ -69,8 +76,12 @@ class ProgressReporter:
              loss: Optional[float] = None,
              phase: Optional[str] = None,
              compile_source: Optional[str] = None,
+             resumed_from_step: Optional[int] = None,
              serving: Optional[Dict] = None) -> None:
         """Publish one heartbeat; None fields carry the previous value.
+        ``resumed_from_step`` (``resumedFromStep``) is the checkpoint step a
+        restarted replica resumed from: sticky, like every field, so any
+        later beat lets the recovery plane count the lost steps.
         ``serving`` carries the serving-plane gauges
         (``ServeStats.as_beat``), published under camelCase keys."""
         if not self.enabled:
@@ -86,10 +97,54 @@ class ProgressReporter:
                 self._last["phase"] = phase
             if compile_source is not None:
                 self._last["compileSource"] = compile_source
+            if resumed_from_step is not None:
+                self._last["resumedFromStep"] = int(resumed_from_step)
             for snake, value in (serving or {}).items():
                 self._last[camel(snake)] = value
             body = dict(self._last)
         self._publish(body)
+
+    @contextmanager
+    def compiling(self, interval_s: float = 2.0) -> Iterator[
+            "ProgressReporter"]:
+        """A (possibly long) compile: beats ``phase="compile"`` and keeps
+        the beat fresh with a keepalive for the duration.  The controller's
+        frozen-step deadline holds while a replica reports "compile"; the
+        caller beats the next phase itself once the compile is done."""
+        self.beat(phase=PHASE_COMPILE)
+        nested = self._keepalive is not None
+        if not nested:
+            self.start_keepalive(interval_s)
+        try:
+            yield self
+        finally:
+            if not nested:
+                self.stop_keepalive()
+
+    def start_keepalive(self, interval_s: float = 2.0) -> None:
+        """Re-publish the last beat every ``interval_s`` on a daemon
+        thread."""
+        if not self.enabled or self._keepalive is not None:
+            return
+        stop = self._stop = threading.Event()
+
+        def loop():
+            while not stop.wait(interval_s):
+                with self._lock:
+                    body = dict(self._last)
+                self._publish(body)
+
+        self._keepalive = threading.Thread(
+            target=loop, name="progress-keepalive", daemon=True)
+        self._keepalive.start()
+
+    def stop_keepalive(self) -> None:
+        if self._stop is not None:
+            self._stop.set()
+        if self._keepalive is not None:
+            self._keepalive.join(timeout=5.0)
+        self._keepalive = None
+        self._stop = None
 
     def _publish(self, body: Dict) -> None:
         try:

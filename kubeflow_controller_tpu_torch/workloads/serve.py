@@ -55,6 +55,7 @@ from ..models.generate import (
 )
 from ..models.llama import LlamaConfig, llama_init
 from ..obs.phases import PHASE_DRAIN, PHASE_LOAD, PHASE_SERVING
+from .compile_cache import build_kernels
 from .progress import reporter
 
 # Env contract for the executed entrypoint (planner/materialize.py wires
@@ -956,7 +957,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     backend = (SyntheticBackend() if args.synthetic
                else LlamaBackend(LlamaConfig.tiny(), device=args.device))
     rep = reporter()
-    rep.beat(step=0, phase=PHASE_LOAD)
+    # The kernels' build, up front and inside the compile window (the CPU
+    # and the synthetic backend build nothing); the load beat carries its
+    # source.
+    source = "" if args.synthetic else build_kernels(backend.device, rep)
+    rep.beat(step=0, phase=PHASE_LOAD, compile_source=source or None)
     engine = ServeEngine(backend, cfg)
     engine.start()
 

@@ -14,11 +14,17 @@ versions on the card by ``chip_smoke.py``):
   ``csrc/*.cu``: the same names with the same number of parameters;
 - ``_build._content_key`` over every file under ``csrc/``, headers
   included, so an edited header never loads a stale build;
+- the build's compile beats: ``compile_cache.build_kernels`` beats
+  ``phase="compile"`` and returns "compiled" or "cache-hit", and
+  ``llama_pretrain`` beats ``phase="fit"`` with that source after the
+  build and up to its last step;
 - ``chip_smoke.py``'s kernel-name rules: the profile's kernel groups, the
   HGMMA count read from ``cuobjdump -sass`` and the registers and spills
   read from ptxas.
 """
 
+import json
+import os
 import re
 import shutil
 import sys
@@ -31,6 +37,7 @@ import torch
 from kubeflow_controller_tpu_torch.ops import _build
 from kubeflow_controller_tpu_torch.ops import attention as tat
 from kubeflow_controller_tpu_torch.ops import grouped_matmul as tgm
+from kubeflow_controller_tpu_torch.workloads import compile_cache, progress
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
@@ -472,3 +479,92 @@ def test_kernel_rule_takes_head_dim_64_or_128_and_t_a_multiple_of_64(t, d):
     reason = tat.kernel_rule(q, q, q)
     assert (reason is None) == (d in (64, 128) and t % 64 == 0), reason
     assert tat.TILE == 64 and tat.HEAD_DIMS == (64, 128)
+
+
+# --- the build's compile beats ----------------------------------------------
+
+@pytest.fixture
+def stand_in_nvcc(tmp_path, monkeypatch):
+    """nvcc and the loader stood in for (the CPU host has neither), under a
+    fresh ``build/``; yields the library's path and the nvcc commands."""
+    from unittest import mock
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    commands = []
+
+    def run_all(cmds):
+        commands.extend(cmds)
+        for c in cmds:
+            Path(c[c.index("-o") + 1]).write_bytes(b"")
+        return ""
+
+    monkeypatch.setattr(_build, "_run_all", run_all)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: mock.MagicMock())
+    monkeypatch.setattr(_build, "_LIBRARY", None)
+    yield tmp_path / "build" / f"libkctpu_kernels_{key()}.so", commands
+
+
+@pytest.mark.parametrize("present", [False, True],
+                         ids=["compiled", "cache-hit"])
+def test_build_beats_compile_then_its_source(present, tmp_path,
+                                             stand_in_nvcc):
+    """``build_kernels`` builds inside the reporter's compile window (one
+    beat, ``phase="compile"``, and the keepalive stopped after) and returns
+    the library's source for the caller's next beat: "compiled" when nvcc
+    ran, "cache-hit" when the content-keyed library was already in
+    ``build/``.  The kernel layer beats nothing itself, and a CPU device
+    builds nothing."""
+    lib_path, commands = stand_in_nvcc
+    if present:
+        lib_path.parent.mkdir()
+        lib_path.write_bytes(b"")
+    rep = chip_smoke.RecordingReporter(name="pod", drop_dir=str(tmp_path))
+    assert compile_cache.build_kernels(torch.device("cpu"), rep) == ""
+    assert rep.beats == [] and _build._LIBRARY is None
+    rep.beat(phase="init")
+    want = "cache-hit" if present else "compiled"
+    assert compile_cache.build_kernels(torch.device("cuda"), rep) == want
+    lib = _build.library()                      # built once, beats nothing
+    assert lib.compile_source == want and lib_path.exists()
+    assert bool(commands) != present            # nvcc ran iff absent
+    assert rep.beats == [{"phase": "init"}, {"phase": "compile"}]
+    assert rep._keepalive is None               # the keepalive stopped
+
+
+def test_pretrain_beats_fit_after_the_build(tmp_path, monkeypatch,
+                                            stand_in_nvcc):
+    """The compile window does not outlive the build: ``llama_pretrain``
+    beats ``phase="fit"`` after its first step, with the build's source,
+    and keeps beating to its last step, so the heartbeat the controller
+    reads after the build is fresh and names the training phase.  A resume
+    beats "restore" first and ``resumedFromStep`` with its steps.  The
+    CPU builds nothing, so the build is asked for as on CUDA."""
+    from kubeflow_controller_tpu_torch.workloads import llama_pretrain as tpre
+
+    for name in list(os.environ):
+        if name.startswith("KCTPU_") or name == "MODEL_DIR":
+            monkeypatch.delenv(name)
+    monkeypatch.setattr(tpre, "build_kernels", lambda dev, rep=None:
+                        compile_cache.build_kernels(torch.device("cuda"), rep))
+    drops = tmp_path / "drops"
+    drops.mkdir()
+    rep = chip_smoke.RecordingReporter(name="pod-0", drop_dir=str(drops))
+    monkeypatch.setattr(progress, "_REPORTER", rep)
+    monkeypatch.setenv("MODEL_DIR", str(tmp_path / "ck"))
+    argv = ["--device", "cpu", "--batch-size", "2", "--seq-len", "32",
+            "--dim", "64", "--intermediate", "128", "--steps", "2"]
+    drop = drops / progress.drop_filename(rep.namespace, rep.name)
+    for run, first in ((0, ["compile"]), (1, ["restore", "compile"])):
+        rep.beats.clear()
+        assert tpre.main(argv) == 0
+        phases = [b["phase"] for b in rep.beats]
+        assert phases == [*first, "fit", "fit"], rep.beats
+        assert [b["step"] for b in rep.beats[len(first):]] == [
+            2 * run + 1, 2 * run + 2]
+        assert rep.beats[len(first)]["compile_source"] == "compiled"
+        assert rep._keepalive is None
+        heartbeat = json.loads(drop.read_text())
+        assert heartbeat["phase"] == "fit" and heartbeat["step"] == 2 * run + 2
+        assert heartbeat["compileSource"] == "compiled"
+    assert heartbeat["resumedFromStep"] == 2

@@ -20,7 +20,8 @@
   named.
 - ``mnist_dist``: a PS parks and exits 0 on SIGTERM; one process trains
   with no group and the same losses under ``--no-overlap``; ``MODEL_DIR``
-  and ``--checkpoint-every`` raise (M5b).
+  saves the final step (and every ``--checkpoint-every`` steps) with the
+  width marker.
 """
 
 import dataclasses
@@ -435,16 +436,25 @@ def test_one_process_trains_without_a_group(no_gang_env, capsys):
     assert mnist_dist.main(argv + ["--target-accuracy", "2.0"]) == 1
 
 
-@pytest.mark.parametrize("argv,env", [
-    ([], {"MODEL_DIR": "/nonexistent/model"}),
-    (["--checkpoint-every", "5"], {}),
-], ids=["model-dir", "checkpoint-every"])
-def test_mnist_dist_refuses_checkpointing(no_gang_env, monkeypatch, argv,
-                                          env):
-    for name, value in env.items():
-        monkeypatch.setenv(name, value)
-    with pytest.raises(NotImplementedError, match="M5b"):
-        mnist_dist.main(["--device", "cpu", "--steps", "1", *argv])
+@pytest.mark.parametrize("argv", [[], ["--checkpoint-every", "5"]],
+                         ids=["model-dir", "checkpoint-every"])
+def test_mnist_dist_checkpoints_into_model_dir(no_gang_env, monkeypatch,
+                                               tmp_path, capsys, argv):
+    """``MODEL_DIR`` (with or without ``--checkpoint-every``) saves, and
+    ``--checkpoint-every`` alone, with no ``MODEL_DIR``, saves nothing, as
+    in the reference."""
+    small = ["--device", "cpu", "--steps", "11", "--batch-size", "32",
+             "--train-size", "256", "--eval-size", "64", *argv]
+    assert mnist_dist.main(small) == 0
+    assert "Checkpoint saved" not in capsys.readouterr().out
+    monkeypatch.setenv("MODEL_DIR", str(tmp_path / "model"))
+    assert mnist_dist.main(small) == 0
+    assert (f"Checkpoint saved to {tmp_path / 'model'}"
+            in capsys.readouterr().out)
+    steps = sorted(int(n) for n in os.listdir(tmp_path / "model")
+                   if n.isdigit())
+    assert steps == ([5, 10, 11] if argv else [11])
+    assert (tmp_path / "model" / "gang_width").read_text() == "1"
 
 
 def in_sigwait(pid: int) -> bool:

@@ -1,8 +1,8 @@
 """The port stands alone and never falls back to the CPU.
 
 - Importing every module of ``kubeflow_controller_tpu_torch`` and
-  ``chip_smoke.py`` in a fresh interpreter loads no ``jax`` and no module
-  of the JAX package (whose name is a prefix of the port's: the check is
+  ``chip_smoke.py`` in a fresh interpreter loads no ``jax``, ``flax``,
+  ``optax`` or ``orbax`` and no module of the JAX package (whose name is a prefix of the port's: the check is
   on the exact name and the exact ``kubeflow_controller_tpu.`` prefix).
   No source file of the port imports them lazily either.
 - Without CUDA, every entry point called without ``device="cpu"`` raises,
@@ -23,9 +23,11 @@ import torch
 
 import kubeflow_controller_tpu_torch as port
 from kubeflow_controller_tpu_torch import bridge, device
-from kubeflow_controller_tpu_torch.models import generate, llama, mnist
+from kubeflow_controller_tpu_torch.models import generate, llama, mnist, vision
 from kubeflow_controller_tpu_torch.workloads import (
+    cifar_allreduce,
     data,
+    flax_mnist,
     llama_pretrain,
     mnist_dist,
     mnist_local,
@@ -37,7 +39,8 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = Path(port.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "kubeflow_controller_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+             "kubeflow_controller_tpu")
 
 
 # The modules of each slice, which the checks below must reach.
@@ -45,7 +48,10 @@ SLICE_MODULES = ("workloads.serve", "ops.grouped_matmul", "ops.attention",
                  "parallel.ring", "workloads.data", "workloads.trainer",
                  "workloads.runtime", "workloads.llama_pretrain",
                  "models.mnist", "recovery.rendezvous", "utils.rand",
-                 "workloads.mnist_local", "workloads.mnist_dist")
+                 "workloads.mnist_local", "workloads.mnist_dist",
+                 "workloads.checkpoint", "workloads.compile_cache",
+                 "models.vision", "workloads.flax_mnist",
+                 "workloads.cifar_allreduce")
 
 
 def forbidden(name: str) -> bool:
@@ -64,6 +70,8 @@ def port_sources():
 
 def test_forbidden_matches_exact_names_only():
     assert forbidden("jax") and forbidden("jax.numpy") and forbidden("jaxlib")
+    assert forbidden("flax.linen") and forbidden("optax")
+    assert forbidden("orbax.checkpoint") and not forbidden("flaxen")
     assert forbidden("kubeflow_controller_tpu")
     assert forbidden("kubeflow_controller_tpu.models.llama")
     assert not forbidden("kubeflow_controller_tpu_torch")
@@ -131,11 +139,20 @@ def tiny():
     lambda: mnist_dist.main(["--steps", "1"]),
     lambda: runtime.JobRuntime(coordinator="127.0.0.1:1", num_processes=2,
                                process_id=1).initialize(),
+    lambda: data.synthetic_cifar(1, 4),
+    lambda: data.synthetic_mnist_images(1, 4),
+    lambda: vision.FlaxMNISTCNN(),
+    lambda: vision.resnet18(width=8),
+    lambda: vision.resnet50(width=8),
+    lambda: flax_mnist.main(["--steps", "1"]),
+    lambda: cifar_allreduce.main(["--steps", "1"]),
 ], ids=["resolve_device", "Llama", "llama_init", "init_paged_cache",
         "llama_from_jax", "LlamaBackend", "serve.main", "tokens_from_jax",
         "synthetic_tokens", "llama_pretrain.train", "llama_pretrain.main",
         "synthetic_mnist", "MnistMLP", "mnist_local.train",
-        "mnist_local.main", "mnist_dist.main", "JobRuntime.initialize"])
+        "mnist_local.main", "mnist_dist.main", "JobRuntime.initialize",
+        "synthetic_cifar", "synthetic_mnist_images", "FlaxMNISTCNN",
+        "resnet18", "resnet50", "flax_mnist.main", "cifar_allreduce.main"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()

@@ -15,8 +15,10 @@ against the JAX package.
   parameters within 5e-5 (measured <= 1.7e-6).  Both sides are f32 with
   clip 1.0 + Adam; only the summation order differs.
 - ``mnist_local.main`` on the CPU: the sign-off lines, the accuracy target
-  (exit 1), and the refusal of ``MODEL_DIR`` (M5b).
+  (exit 1), and the final save into ``MODEL_DIR``.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -179,10 +181,14 @@ def test_mnist_local_target_accuracy_fails(capsys, monkeypatch):
     assert rc == 1 and "below target" in out.err
 
 
-def test_mnist_local_refuses_model_dir(monkeypatch):
-    monkeypatch.setenv("MODEL_DIR", "/nonexistent/model")
-    with pytest.raises(NotImplementedError, match="M5b"):
-        mnist_local.main(["--device", "cpu", "--steps", "1"])
+def test_mnist_local_saves_into_model_dir(monkeypatch, tmp_path, capsys):
+    monkeypatch.setenv("MODEL_DIR", str(tmp_path / "model"))
+    assert mnist_local.main(["--device", "cpu", "--steps", "3",
+                             "--train-size", "128", "--eval-size",
+                             "64"]) == 0
+    assert (f"Checkpoint saved to {tmp_path / 'model'}"
+            in capsys.readouterr().out)
+    assert os.listdir(tmp_path / "model") == ["3"]
 
 
 def test_local_result_matches_train_scan():

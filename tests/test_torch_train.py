@@ -19,7 +19,7 @@ package, from JAX parameters bridged into the port.
 - three steps of the pretrain loop from one bridged init, dense and MoE
   (grouped): each step's loss within 1e-4 of the JAX loop's.
 - the CLI on the CPU (dense, and MoE under the strict grouped dispatch),
-  and what it refuses (a mesh, checkpointing, a gang: M2).
+  and what it refuses (a mesh, a gang: M2).
 - what is not ported yet raises: named remat policies, a mesh.
 """
 
@@ -275,11 +275,8 @@ def test_main_trains_moe_on_the_cpu(capsys, monkeypatch):
     (["--fsdp", "2"], {}),
     (["--pp", "2"], {}),
     ([], {"KCTPU_MESH": '{"dp": 2}'}),
-    ([], {"MODEL_DIR": "/nonexistent/model"}),
-    (["--checkpoint-every", "5"], {}),
     ([], {"JAX_NUM_PROCESSES": "2"}),
-], ids=["tp", "fsdp", "pp", "env-mesh", "model-dir", "checkpoint-every",
-        "gang"])
+], ids=["tp", "fsdp", "pp", "env-mesh", "gang"])
 def test_main_refuses_what_is_not_ported(argv, env, monkeypatch):
     for name in ("MODEL_DIR", "KCTPU_MESH", "JAX_NUM_PROCESSES"):
         monkeypatch.delenv(name, raising=False)

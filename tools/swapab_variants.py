@@ -95,7 +95,7 @@ def build(names):
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
-        libs[name] = _build.KernelLibrary(lib, so, 0.0, log)
+        libs[name] = _build.KernelLibrary(lib, so, 0.0, log, _build.COMPILED)
     return libs
 
 
