@@ -133,10 +133,33 @@ Phases, in order (any failure raises and exits non-zero):
    forward and recompute, down dlhs, the two SwiGLU dlhs), ``tgmm`` 3,
    ``flash_fwd`` 2, ``flash_dq`` and ``flash_dkv`` 1.  Peak memory under 80
    GB; the profiled seventh step as in phase 8.
-11. entry point: ``llama_pretrain.main`` on the card's default device,
+11. remat policies at full width: ``llama_pretrain.train`` on the dense
+   model of phase 8 (8 layers, B 4 x T 4096, seed 0: ``llama_pretrain.
+   main``'s init) for 3 steps under each of "full", "dots", "ffn", "gateup"
+   and "gateup_attn", and on ``mixtral_8x7b_train(2)`` (B 2 x T 4096,
+   phase 10's seed) under "moe".  The launch
+   counters are zeroed before each run and read after: per layer per step
+   they must equal what ``tests/test_torch_remat.py`` holds the CPU to
+   against the reference's jaxpr (``REMAT_LAUNCHES_PER_LAYER``: the flash
+   forward re-runs under every policy; under "moe" ``gmm_swiglu`` re-runs
+   and the down ``gmm`` is kept).  The dense first-step losses must be
+   bit-identical across the five policies, and the MoE one to phase 10's
+   under "full"; peak memory under 80 GB.  Prints each policy's step ms
+   p50, peak memory and launches per step.
+12. the mesh path on one card: ``llama_pretrain.main`` (``--preset
+   llama2-7b --n-layers 8 --batch-size 4 --seq-len 4096 --steps 3 --dp 1
+   --fsdp 1 --tp 1``) inside a one-rank nccl group formed by
+   ``JobRuntime.join_group``, so on a real ``DeviceMesh`` with DTensor
+   parameters and activations and the flash kernels per shard through
+   ``local_map``.  It must print the mesh line; the flash launches must be
+   exact (2 x 8 x 3 forward, 8 x 3 each backward); its per-step losses must
+   be within 1e-5 relative of phase 11's "full" run on the same init and
+   tokens (the largest difference is printed); step ms p50 and peak memory
+   are printed beside that run's.
+13. entry point: ``llama_pretrain.main`` on the card's default device,
    ``--preset tiny --steps 2``, then with ``--experts 4 --moe-dispatch
    einsum``.
-12. dist-mnist (the gang slice; it reaches no hand-written kernel, and
+14. dist-mnist (the gang slice; it reaches no hand-written kernel, and
    every launch counter must read 0 across it): ``mnist_local.main([])``
    and ``mnist_dist.main([])`` with no ``--device``, so on CUDA, at the
    reference's defaults (200 steps, global batch 100, 8192 train and 2048
@@ -148,7 +171,7 @@ Phases, in order (any failure raises and exits non-zero):
    ``all_reduce`` must leave the parameters bit-identical to the same step
    with no group (one card, and NCCL refuses two ranks on one device, so
    a one-rank group is the only form of the collective one card checks).
-13. checkpoint/resume, in a child process of this script (``--resume-phase``,
+15. checkpoint/resume, in a child process of this script (``--resume-phase``,
    with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and
    ``torch.use_deterministic_algorithms``, and a file-drop progress
    reporter from ``KCTPU_PROGRESS_DIR``, whose last beat must read
@@ -166,7 +189,7 @@ Phases, in order (any failure raises and exits non-zero):
    seconds (the host snapshot), the total save and restore seconds and
    their GB/s, and any op that warned it has no deterministic
    implementation.  The directory is deleted.
-14. vision (no hand-written kernel; every launch counter must read 0):
+16. vision (no hand-written kernel; every launch counter must read 0):
    ``cifar_allreduce`` ResNet-50 at the published widths (``--width 64``:
    64 -> 2048 channels), batch 128, 20 steps, twice (the first run pays
    cuDNN's first calls), then ``flax_mnist.main([])`` at its defaults,
@@ -176,7 +199,7 @@ Phases, in order (any failure raises and exits non-zero):
    ``MNIST_LOSS_ATOL``.  Then one ResNet-50 step (batch 32, cuDNN
    deterministic) with no group and in a one-rank nccl group: state and
    loss bit-identical, 2 x 53 + 1 collectives.
-15. The card's name and power limit, the ``kernels`` JSON line (launches
+17. The card's name and power limit, the ``kernels`` JSON line (launches
    from phase 10, the slice's main path; each path's own counts beside
    them), and the contract line ``{"ok": true, "device": {...}}`` last.
 """
@@ -1564,6 +1587,12 @@ def moe_train_check_phase(cfg: LlamaConfig, dev, seed: int,
 # Phases 8 and 10: pretrain steps through the loop llama_pretrain.main runs
 # ---------------------------------------------------------------------------
 
+def counter(name: str):
+    """The wrapper whose ``launches`` counts kernel ``name``."""
+    return getattr(at, name) if name.startswith("flash") else getattr(gm,
+                                                                      name)
+
+
 def train_run(label: str, cfg: LlamaConfig, dev, seed: int, steps: int,
               batch: int, seq_len: int, want: dict):
     """``llama_pretrain.train`` of ``cfg`` for ``steps`` AdamW steps (lr
@@ -1571,9 +1600,8 @@ def train_run(label: str, cfg: LlamaConfig, dev, seed: int, steps: int,
     zeroed just before and read just after: each must equal its ``want``.
     Every loss finite, the last below the first.  Then steps ``steps + 1``
     and ``steps + 2`` of the same loop (same optimizer state and tokens),
-    the second under the profiler.  Returns the launches."""
-    counters = {name: (getattr(at, name) if name.startswith("flash")
-                       else getattr(gm, name)) for name in want}
+    the second under the profiler.  Returns the printed record."""
+    counters = {name: counter(name) for name in want}
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1603,7 +1631,7 @@ def train_run(label: str, cfg: LlamaConfig, dev, seed: int, steps: int,
     del res
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return out
 
 
 def train_phase(dev, seed: int, steps: int = 5, batch: int = 4,
@@ -1624,6 +1652,155 @@ def moe_train_phase(cfg: LlamaConfig, dev, seed: int, steps: int = 5,
     want = {name: n * cfg.n_layers * steps
             for name, n in MOE_LAUNCHES_PER_LAYER.items()}
     return train_run("moe train", cfg, dev, seed, steps, batch, seq_len, want)
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the named remat policies at full width
+# ---------------------------------------------------------------------------
+
+REMAT_STEPS = 3
+DENSE_POLICIES = ("full", "dots", "ffn", "gateup", "gateup_attn")
+# Launches per layer per step under each policy: what
+# tests/test_torch_remat.py holds the port to against the pallas_call
+# count of the reference's jax.grad jaxpr.  The flash forward re-runs under
+# every policy (its residuals carry no name); under "moe" the fused
+# gmm_swiglu re-runs (its gate/up residuals carry none either) and the down
+# gmm ("ffn_down") is kept: 1 forward + 3 dlhs.
+REMAT_LAUNCHES_PER_LAYER = {
+    **{p: {"flash_fwd": 2, "flash_dq": 1, "flash_dkv": 1}
+       for p in DENSE_POLICIES},
+    "moe": {"gmm_swiglu": 2, "gmm": 4, "tgmm": 3, "flash_fwd": 2,
+            "flash_dq": 1, "flash_dkv": 1},
+}
+MESH_LAYERS = 8
+MESH_ARGV = ["--preset", "llama2-7b", "--n-layers", str(MESH_LAYERS),
+             "--batch-size", "4", "--seq-len", "4096", "--steps",
+             str(REMAT_STEPS), "--dp", "1", "--fsdp", "1", "--tp", "1"]
+MESH_LOSS_RTOL = 1e-5
+
+
+def policy_run(policy: str, cfg: LlamaConfig, dev, batch: int,
+               seq_len: int, seed: int) -> dict:
+    """``REMAT_STEPS`` steps of ``llama_pretrain.train`` under ``policy``,
+    the launch counters zeroed before and read after; each must be
+    ``REMAT_LAUNCHES_PER_LAYER`` times the layers and steps."""
+    cfg = replace(cfg, remat=True, remat_policy=policy)
+    per_layer = REMAT_LAUNCHES_PER_LAYER[policy]
+    counters = {name: counter(name) for name in per_layer}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    res = llama_pretrain.train(cfg, steps=REMAT_STEPS, batch_size=batch,
+                               seq_len=seq_len, lr=3e-4, device=dev, seed=seed)
+    launches = {name: c.launches for name, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    p50 = statistics.median(res.step_s)
+    rec = {"policy": policy, "layers": cfg.n_layers, "batch": batch,
+           "seq_len": seq_len, "steps": REMAT_STEPS, "losses": res.losses,
+           "step_ms": [x * 1e3 for x in res.step_s],
+           "step_ms_p50": p50 * 1e3, "tokens_per_s_p50": batch * seq_len / p50,
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "launches_per_step": {k: v / REMAT_STEPS
+                                 for k, v in launches.items()}}
+    print(f"remat {policy}: " + json.dumps(rec), flush=True)
+    want = {name: n * cfg.n_layers * REMAT_STEPS
+            for name, n in per_layer.items()}
+    assert launches == want, (policy, launches, want)
+    assert all(np.isfinite(x) for x in res.losses), res.losses
+    assert peak_gb < 80, f"peak {peak_gb} GB"
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def remat_phase(dev, seed: int, moe_full_loss: float) -> dict:
+    """Phase 11 (see the docstring): the dense runs from seed 0 (the init
+    of ``llama_pretrain.main``, which phase 12 compares with), the MoE one
+    from ``seed`` (phase 10's).  Returns each policy's record."""
+    recs = {p: policy_run(p, llama2_7b(n_layers=MESH_LAYERS), dev, 4, 4096,
+                          0) for p in DENSE_POLICIES}
+    recs["moe"] = policy_run("moe", mixtral_8x7b_train(MOE_TRAIN["layers"]),
+                             dev, MOE_TRAIN["batch"], MOE_TRAIN["seq_len"],
+                             seed)
+    first = {p: r["losses"][0] for p, r in recs.items() if p != "moe"}
+    print(f"remat: first-step losses {json.dumps(first)}; moe "
+          f"{recs['moe']['losses'][0]!r} vs full {moe_full_loss!r}",
+          flush=True)
+    assert len(set(first.values())) == 1, first
+    assert recs["moe"]["losses"][0] == moe_full_loss
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the mesh path on one card
+# ---------------------------------------------------------------------------
+
+def mesh_phase(dev, plain: dict) -> dict:
+    """Phase 12 (see the docstring): ``llama_pretrain.main`` in a one-rank
+    nccl group against ``plain``, phase 11's "full" record.  Returns the
+    record with the launches."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    runs = []
+    real_train = llama_pretrain.train
+
+    def recording(*args, **kwargs):
+        runs.append(real_train(*args, **kwargs))
+        return runs[-1]
+
+    counters = {name: counter(name) for name in FLASH_KERNELS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rt = JobRuntime(coordinator=f"127.0.0.1:{free_port()}", num_processes=1,
+                    process_id=0)
+    backend = rt.join_group(dev, timeout_s=120)
+    buf = io.StringIO()
+    try:
+        for c in counters.values():
+            c.launches = 0
+        with mock.patch.object(llama_pretrain, "train", recording), \
+                contextlib.redirect_stdout(buf):
+            rc = llama_pretrain.main(MESH_ARGV)
+        launches = {name: c.launches for name, c in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        world = dist.get_world_size()
+    finally:
+        rt.shutdown()
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"mesh: {line}", flush=True)
+    [res] = runs
+    sharded = all(isinstance(p, DTensor) for p in res.model.parameters())
+    p50 = statistics.median(res.step_s) * 1e3
+    rel = [abs(a - b) / abs(b) for a, b in zip(res.losses, plain["losses"])]
+    rec = {"backend": backend, "world": world, "rc": rc,
+           "params_dtensor": sharded, "losses": res.losses,
+           "losses_no_mesh": plain["losses"], "loss_rel_diff_max": max(rel),
+           "step_ms": [x * 1e3 for x in res.step_s], "step_ms_p50": p50,
+           "step_ms_p50_no_mesh": plain["step_ms_p50"],
+           "peak_mem_gb": peak_gb, "peak_mem_gb_no_mesh": plain["peak_mem_gb"],
+           "launches": launches}
+    print("mesh: " + json.dumps(rec), flush=True)
+    del res, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert rc == 0 and backend == "nccl" and world == 1, (rc, backend)
+    assert ("Mesh: {'pp': 1, 'dp': 1, 'fsdp': 1, 'ep': 1, 'sp': 1, 'tp': 1} "
+            "over 1 devices") in out, out
+    assert sharded
+    want = {"flash_fwd": 2 * MESH_LAYERS * REMAT_STEPS,
+            "flash_dq": MESH_LAYERS * REMAT_STEPS,
+            "flash_dkv": MESH_LAYERS * REMAT_STEPS}
+    assert launches == want, (launches, want)
+    assert len(rel) == REMAT_STEPS and max(rel) <= MESH_LOSS_RTOL, rel
+    assert peak_gb < 80, f"peak {peak_gb} GB"
+    assert not dist.is_initialized()
+    return rec
 
 
 def entry_phase():
@@ -1713,7 +1890,7 @@ def nccl_one_rank_check(dev):
 
 
 def mnist_phase(dev):
-    """The dist-mnist slice on the card (see phase 12 in the docstring).
+    """The dist-mnist slice on the card (see phase 14 in the docstring).
     Returns the launch counters across the two entry points (all 0)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1762,7 +1939,7 @@ def mnist_phase(dev):
 
 
 # ---------------------------------------------------------------------------
-# Phase 13: checkpoint/resume at Llama-2-7B widths (a child process)
+# Phase 15: checkpoint/resume at Llama-2-7B widths (a child process)
 # ---------------------------------------------------------------------------
 
 def resume_phase(dev, seed: int) -> dict:
@@ -1879,7 +2056,7 @@ def resume_child(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 14: the vision TFJobs
+# Phase 16: the vision TFJobs
 # ---------------------------------------------------------------------------
 
 def fit_record(res, wall_s: float) -> dict:
@@ -1955,7 +2132,7 @@ def nccl_vision_check(dev):
 
 
 def vision_phase(dev):
-    """The vision TFJobs on the card (phase 14 in the docstring).  Returns
+    """The vision TFJobs on the card (phase 16 in the docstring).  Returns
     the launch counters across them (all 0)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2074,7 +2251,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--resume-phase", default="",
-                    help=argparse.SUPPRESS)  # the child of phase 13
+                    help=argparse.SUPPRESS)  # the child of phase 15
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2105,11 +2282,16 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_check_phase(dev, args.seed)
-    paths["dense_train"] = train_phase(dev, args.seed)
+    paths["dense_train"] = train_phase(dev, args.seed)["launches"]
     moe_train_check_phase(mixtral_8x7b_train(MOE_CHECK["layers"]), dev,
                           args.seed)
-    paths["moe_train"] = moe_train_phase(
-        mixtral_8x7b_train(MOE_TRAIN["layers"]), dev, args.seed)
+    moe_run = moe_train_phase(mixtral_8x7b_train(MOE_TRAIN["layers"]), dev,
+                              args.seed)
+    paths["moe_train"] = moe_run["launches"]
+    remat = remat_phase(dev, args.seed, moe_run["losses"][0])
+    for policy, rec in remat.items():
+        paths[f"remat_{policy}"] = rec["launches"]
+    paths["mesh"] = mesh_phase(dev, remat["full"])["launches"]
     entry_phase()
     paths["mnist"] = mnist_phase(dev)
     paths["resume"] = resume_child(args.seed)["launches"]

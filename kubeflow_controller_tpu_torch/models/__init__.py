@@ -3,7 +3,9 @@ serving path.
 
 - ``llama`` — ``LlamaConfig``, the parameter module tree, ``llama_init``,
   the building blocks (``rmsnorm``, RoPE, ``ffn_block``) and the training
-  forward and loss (``llama_forward``, ``llama_loss``).
+  forward and loss (``llama_forward``, ``llama_loss``), on one device or
+  sharded on a mesh (``shard_llama``).
+- ``remat`` — the named remat policies as selective checkpointing.
 - ``moe`` — router and the expert dispatches: ``einsum`` and ``scatter``
   (capacity-dropping) and ``grouped`` (dropless, the CUDA kernels).
 - ``generate`` — the slot-paged KV cache: prefill, tail extend, decode

@@ -20,8 +20,11 @@ MoE layers train through the same path: their expert FFN is
 ``models/moe.py`` (``cfg.moe_dispatch``, the grouped kernels' custom
 backward), and ``llama_loss`` adds the router losses.
 
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md): a mesh
-(multi-device pretrain) and the named remat policies other than ``"full"``.
+Remat: every policy of the reference (``"full"``, ``"dots"``, ``"ffn"``,
+``"gateup"``, ``"gateup_attn"``, ``"moe"``) as selective activation
+checkpointing (``models/remat.py``); the ``checkpoint_name`` scopes sit
+where the reference names its values.  The products with no batch dims
+(the projections, the dense FFN, the logits) are 2-D matmuls.
 """
 
 from __future__ import annotations
@@ -36,8 +39,24 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device, torch_dtype
 from ..ops.attention import TILE, flash_attention, kernel_rule
+from ..parallel.mesh import (
+    AXIS_DATA,
+    AXIS_EXPERT,
+    AXIS_FSDP,
+    AXIS_PIPELINE,
+    AXIS_SEQUENCE,
+    AXIS_TENSOR,
+)
 from ..parallel.ring import attention_reference
+from ..parallel.sharding import (
+    DEFAULT_RULES,
+    ShardingRules,
+    placements_for,
+    shard_pytree_specs,
+    with_logical_constraint,
+)
 from .moe import moe_ffn, moe_ffn_stats
+from .remat import checkpoint_name, remat
 
 
 @dataclass(frozen=True)
@@ -175,6 +194,116 @@ def llama_init(cfg: LlamaConfig, generator: torch.Generator,
     return model
 
 
+def llama_param_logical_axes(cfg: LlamaConfig) -> dict:
+    """Logical axis names per parameter, the reference's tree (layer
+    parameters with their leading ``"layers"`` axis)."""
+    if cfg.n_experts:
+        ffn = {
+            "router": ("layers", "embed", None),
+            "w_gate": ("layers", "expert", "embed", "mlp"),
+            "w_up": ("layers", "expert", "embed", "mlp"),
+            "w_down": ("layers", "expert", "mlp", "embed"),
+        }
+    else:
+        ffn = {
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        }
+    return {
+        # Vocab-parallel table: the indexed dim is sharded, so the lookup
+        # is ``F.embedding``'s mask-and-reduce over the vocab shards.
+        "embed": ("vocab", None),
+        "layers": {
+            "attn_norm": ("layers", None),
+            "wq": ("layers", "embed", "heads", "head_dim"),
+            "wk": ("layers", "embed", "kv_heads", "head_dim"),
+            "wv": ("layers", "embed", "kv_heads", "head_dim"),
+            "wo": ("layers", "heads", "head_dim", "embed"),
+            "mlp_norm": ("layers", None),
+            **ffn,
+        },
+        "final_norm": (None,),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
+def llama_param_pspecs(cfg: LlamaConfig, rules: ShardingRules = DEFAULT_RULES):
+    return shard_pytree_specs(llama_param_logical_axes(cfg), rules)
+
+
+# The mesh axes the dense path shards over; the others must be 1.
+MODEL_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR)
+_NOT_PORTED_AXES = (
+    (AXIS_SEQUENCE, "sequence parallelism (ring and Ulysses attention) is "
+                    "not ported yet (ROADMAP.md, M3)"),
+    (AXIS_PIPELINE, "pipeline parallelism is not ported yet (ROADMAP.md, "
+                    "M8)"),
+    (AXIS_EXPERT, "expert parallelism (the ep-sharded grouped path) is not "
+                  "ported yet (ROADMAP.md, M4)"),
+)
+_MOE_MESH_NOT_PORTED = ("MoE under a mesh (einsum/scatter with constraints, "
+                        "and the grouped sharded path) is not ported yet "
+                        "(ROADMAP.md, M4)")
+
+
+def model_mesh(mesh, cfg: Optional[LlamaConfig] = None):
+    """The ``(dp, fsdp, tp)`` part of ``mesh`` (a ``build_mesh`` mesh), over
+    which parameters and activations are DTensors.  Raises
+    ``NotImplementedError`` for an sp, pp or ep axis above 1, and for MoE
+    (``cfg.n_experts``), naming their ROADMAP modules."""
+    names = mesh.mesh_dim_names
+    for axis, why in _NOT_PORTED_AXES:
+        if axis in names and mesh.size(names.index(axis)) > 1:
+            raise NotImplementedError(why)
+    if cfg is not None and cfg.n_experts:
+        raise NotImplementedError(_MOE_MESH_NOT_PORTED)
+    return mesh if tuple(names) == MODEL_AXES else mesh[MODEL_AXES]
+
+
+@torch.no_grad()
+def shard_llama(model: Llama, mesh, rules: ShardingRules = DEFAULT_RULES
+                ) -> Llama:
+    """Make every parameter of ``model`` a DTensor on ``mesh``'s ``(dp,
+    fsdp, tp)`` dims, placed by ``llama_param_logical_axes`` through
+    ``rules`` (the reference's ``out_shardings`` at init): fsdp shards the
+    embed dim, tp the heads, the mlp and the vocab; dp replicates.  Each
+    process keeps its shards only (rank 0's values, if the full tensors
+    differ between processes).  In place; returns ``model``."""
+    sub = model_mesh(mesh, model.cfg)
+    from torch.distributed.tensor import distribute_tensor
+
+    axes = llama_param_logical_axes(model.cfg)
+    owners = [(model, axes)] + [(lp, {k: v[1:] for k, v in
+                                      axes["layers"].items()})
+                                for lp in model.layers]
+    for module, table in owners:
+        for name, logical in table.items():
+            if name == "layers":
+                continue
+            p = getattr(module, name)
+            d = distribute_tensor(p.detach(), sub,
+                                  placements_for(logical, sub, rules))
+            setattr(module, name, nn.Parameter(
+                d, requires_grad=p.requires_grad))
+    return model
+
+
+def _w(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A parameter as the product uses it, cast to ``dtype``.  A DTensor
+    parameter is first gathered over fsdp (and dp): ZeRO-3's all-gather of
+    the weight before use, whose backward reduce-scatters the gradient
+    over fsdp and all-reduces it over dp; its tp shards stay."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(p, DTensor):
+        mesh = p.device_mesh
+        p = p.redistribute(mesh, [
+            Replicate() if name in (AXIS_DATA, AXIS_FSDP) else pl
+            for name, pl in zip(mesh.mesh_dim_names, p.placements)])
+    return p.to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Building blocks
 # ---------------------------------------------------------------------------
@@ -202,19 +331,28 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
                      dim=-1).to(x.dtype)
 
 
-def ffn_block(h: torch.Tensor, lp: LlamaLayer,
-              cfg: LlamaConfig) -> torch.Tensor:
-    """SwiGLU FFN or MoE on [B, T, D] activations."""
+def ffn_block(h: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig,
+              rules: ShardingRules = DEFAULT_RULES) -> torch.Tensor:
+    """SwiGLU FFN or MoE on [B, T, D] activations (DTensors under a
+    mesh: tp shards the mlp dim, the down projection's partial sums meet
+    in one all-reduce)."""
     if cfg.n_experts:
         return moe_ffn(h, lp.router, lp.w_gate, lp.w_up, lp.w_down,
                        top_k=cfg.moe_top_k,
                        capacity_factor=cfg.capacity_factor,
                        dispatch=cfg.moe_dispatch)
     dtype = h.dtype
-    gate = torch.einsum("btd,df->btf", h, lp.w_gate.to(dtype))
-    up = torch.einsum("btd,df->btf", h, lp.w_up.to(dtype))
+    w_gate, w_up = _w(lp.w_gate, dtype), _w(lp.w_up, dtype)
+    w_down = _w(lp.w_down, dtype)
+    with checkpoint_name("ffn_gate"):
+        gate = h @ w_gate
+    with checkpoint_name("ffn_up"):
+        up = h @ w_up
     ff = nn.functional.silu(gate) * up
-    return torch.einsum("btf,fd->btd", ff, lp.w_down.to(dtype))
+    ff = with_logical_constraint(ff, ("batch", "seq", "mlp"), rules)
+    with checkpoint_name("ffn_down"):
+        out = ff @ w_down
+    return with_logical_constraint(out, ("batch", "seq", None), rules)
 
 
 def ffn_block_stats(h: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig):
@@ -233,10 +371,6 @@ def ffn_block_stats(h: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig):
 # reference's gate (TPU and T >= 1024) is a TPU measurement; the value is
 # kept until the H100 numbers in PERF.md say where the kernels win.
 FLASH_AUTO_MIN_T = 1024
-
-_MESH_NOT_PORTED = ("multi-device pretrain (a mesh) is not ported yet "
-                    "(ROADMAP.md, module queue: multi-device pretrain over "
-                    "parallel/mesh.py and sharding.py)")
 
 _FLASH_FALLBACK_WARNED: set = set()
 
@@ -257,10 +391,46 @@ def _warn_flash_fallback(t: int, dtype, head_dim: int) -> None:
         f"attention path", stacklevel=3)
 
 
-def _attention(q, k, v, causal: bool, cfg: Optional[LlamaConfig] = None):
-    """The flash kernels where they apply (``_flash_path``), else the f32
-    reference attention: the reference's single-device branch (its
-    sequence-parallel branches need a mesh, not ported yet)."""
+QKV_AXES = ("batch", "seq", "heads", "head_dim")
+KV_AXES = ("batch", "seq", "kv_heads", "head_dim")
+
+
+def _attention(q, k, v, causal: bool, cfg: Optional[LlamaConfig] = None,
+               mesh=None, rules: ShardingRules = DEFAULT_RULES):
+    """The reference's single-device and flash branches: the flash kernels
+    where they apply (``_flash_path``), else the f32 reference attention.
+    k and v carry the kv heads; GQA repeats them to the query heads.
+
+    Under a mesh (q, k, v DTensors) both run per shard through
+    ``local_map``, the analog of the reference's ``shard_map``: dp and fsdp
+    shard the batch, tp the heads (q's heads and the kv heads alike, so a
+    shard's query heads read its own kv heads: H/tp = repeats * KV/tp).
+    An sp axis above 1 (ring or Ulysses attention) raises: M3."""
+    if mesh is None:
+        return _local_attention(q, k, v, causal=causal, cfg=cfg)
+    names = mesh.mesh_dim_names
+    if AXIS_SEQUENCE in names and mesh.size(names.index(AXIS_SEQUENCE)) > 1:
+        raise NotImplementedError(_NOT_PORTED_AXES[0][1])
+    from functools import partial
+
+    from torch.distributed.tensor.experimental import local_map
+
+    q = with_logical_constraint(q, QKV_AXES, rules)
+    k = with_logical_constraint(k, KV_AXES, rules)
+    v = with_logical_constraint(v, KV_AXES, rules)
+    qp, kp = list(q.placements), list(k.placements)  # a list: one output
+    fn = local_map(partial(_local_attention, causal=causal, cfg=cfg),
+                   out_placements=qp, in_placements=(qp, kp, kp),
+                   device_mesh=q.device_mesh)
+    return fn(q, k, v)
+
+
+def _local_attention(q, k, v, *, causal: bool,
+                     cfg: Optional[LlamaConfig]) -> torch.Tensor:
+    repeats = q.shape[2] // k.shape[2]
+    if repeats > 1:  # GQA: expand kv heads to query heads (jnp.repeat)
+        k = k.repeat_interleave(repeats, dim=2)
+        v = v.repeat_interleave(repeats, dim=2)
     if cfg is not None and cfg.attention in ("auto", "flash"):
         out = _flash_path(q, k, v, causal, cfg)
         if out is not None:
@@ -289,75 +459,139 @@ def _flash_path(q, k, v, causal: bool, cfg: LlamaConfig):
 # Forward and loss
 # ---------------------------------------------------------------------------
 
-def _decoder_layer_fn(cfg: LlamaConfig, angles: torch.Tensor):
+def _decoder_layer_fn(cfg: LlamaConfig, angles: torch.Tensor, mesh=None,
+                      rules: ShardingRules = DEFAULT_RULES):
     """One decoder layer as ``(x, lp) -> (x, aux)`` where ``aux`` is the
-    layer's MoE router stats (zeros for dense layers)."""
+    layer's MoE router stats (zeros for dense layers).  Under a mesh x and
+    the parameters are DTensors, constrained at the reference's points."""
     dtype = torch_dtype(cfg.dtype)
-    repeats = cfg.n_heads // cfg.n_kv_heads
 
-    def layer(x, lp: LlamaLayer):
+    def layer(x, lp):
         h = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
-        q = torch.einsum("btd,dhk->bthk", h, lp.wq.to(dtype))
-        k = torch.einsum("btd,dhk->bthk", h, lp.wk.to(dtype))
-        v = torch.einsum("btd,dhk->bthk", h, lp.wv.to(dtype))
-        q = apply_rope(q, angles)
-        k = apply_rope(k, angles)
-        if repeats > 1:  # GQA: expand kv heads to query heads (jnp.repeat)
-            k = k.repeat_interleave(repeats, dim=2)
-            v = v.repeat_interleave(repeats, dim=2)
-        attn = _attention(q, k, v, causal=True, cfg=cfg)
-        x = x + torch.einsum("bthk,hkd->btd", attn, lp.wo.to(dtype))
+        q = apply_rope(_heads(h, _w(lp.wq, dtype)), angles)
+        k = apply_rope(_heads(h, _w(lp.wk, dtype)), angles)
+        v = _heads(h, _w(lp.wv, dtype))
+        attn = _attention(q, k, v, True, cfg, mesh, rules)
+        wo = _w(lp.wo, dtype)
+        with checkpoint_name("attn_proj"):
+            proj = attn.flatten(2) @ wo.flatten(0, 1)
+        x = x + with_logical_constraint(proj, ("batch", "seq", None), rules)
 
         h = rmsnorm(x, lp.mlp_norm, cfg.norm_eps)
         if cfg.n_experts:
             ff, aux = ffn_block_stats(h, lp, cfg)
         else:
-            ff = ffn_block(h, lp, cfg)
+            ff = ffn_block(h, lp, cfg, rules)
             zero = torch.zeros((), device=x.device)
             aux = {"aux_loss": zero, "z_loss": zero, "overflow_frac": zero}
-        return x + ff, aux
+        x = with_logical_constraint(x + ff, ("batch", "seq", None), rules)
+        return x, aux
 
     return layer
 
 
-_NAMED_POLICIES = ("dots", "ffn", "gateup", "gateup_attn", "moe")
+def _heads(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[B, T, D] @ [D, H, K] -> [B, T, H, K] as one 2-D product (the
+    reference's ``einsum("btd,dhk->bthk")``; a product with no batch dims
+    is an ``aten.mm`` in the port, which the ``"dots"`` policy keeps)."""
+    return (h @ w.flatten(1)).unflatten(-1, w.shape[1:])
 
 
 def _maybe_remat(layer, cfg: LlamaConfig):
-    """``remat=False``: the layer as is.  ``"full"``: the layer under
-    ``torch.utils.checkpoint`` (non-reentrant), saving only its input; the
-    backward recomputes the rest, flash forward included."""
+    """``remat=False``: the layer as is; else the layer under
+    ``cfg.remat_policy`` (``models/remat.py``): ``"full"`` keeps only its
+    input, the named policies keep what the reference's keep."""
     if not cfg.remat:
         return layer
-    if cfg.remat_policy == "full":
-        def remat_layer(x, lp):
-            return checkpoint(layer, x, lp, use_reentrant=False)
-        return remat_layer
-    if cfg.remat_policy in _NAMED_POLICIES:
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP.md, "
-            f"faults queue); the port has remat=False and 'full'")
-    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; expected "
-                     f"one of {sorted(('full',) + _NAMED_POLICIES)}")
+    return remat(layer, cfg.remat_policy)
+
+
+def stage_tokens(tokens: torch.Tensor, mesh,
+                 rules: ShardingRules = DEFAULT_RULES) -> torch.Tensor:
+    """Tokens as the mesh path takes them: a DTensor as it is; a plain
+    tensor is the global batch, of which this process keeps its
+    ``("batch", "seq")`` shard (every process holds the same tokens, as the
+    synthetic data makes them: no collective)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if isinstance(tokens, DTensor):
+        return tokens
+    placements = placements_for(("batch", "seq"), mesh, rules)
+    local = tokens
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            local = local.chunk(mesh.size(i), dim=pl.dim)[
+                mesh.get_local_rank(i)]
+    return DTensor.from_local(local, mesh, placements, run_check=False)
+
+
+def _embed(tokens, table):
+    """The vocab-parallel lookup of DTensor ``tokens`` in a ``table``
+    whose vocab dim tp shards: each tp shard looks up the tokens in its
+    rows, zero elsewhere, and the shards' sum (a ``Partial`` output) is the
+    lookup; the reference's SPMD mask-and-reduce.  (``F.embedding`` on
+    DTensors makes the same sum as a mask-partial placement, whose
+    backward meets the projections' partial gradients unsupported.)"""
+    from functools import partial
+
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    start, rows, out, grad = 0, table.shape[0], [], []
+    for i, (tok, pl) in enumerate(zip(tokens.placements, table.placements)):
+        if isinstance(pl, Shard):     # the vocab dim, chunked in mesh order
+            chunk = -(-rows // mesh.size(i))
+            start += chunk * mesh.get_local_rank(i)
+            rows = chunk
+        out.append(Partial() if isinstance(pl, Shard) else tok)
+        # A shard's table gradient sums its own batch rows only.
+        grad.append(Partial() if isinstance(tok, Shard) else pl)
+    return local_map(partial(_embed_rows, start=start), out_placements=out,
+                     in_placements=(list(tokens.placements),
+                                    list(table.placements)),
+                     in_grad_placements=(list(tokens.placements), grad),
+                     device_mesh=mesh)(tokens, table)
+
+
+def _embed_rows(tokens, rows, *, start: int):
+    idx = tokens.long() - start
+    hit = (idx >= 0) & (idx < rows.shape[0])
+    out = nn.functional.embedding(idx.clamp(0, rows.shape[0] - 1), rows)
+    return out * hit[..., None].to(out.dtype)
 
 
 def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
-                  mesh=None, *, return_aux: bool = False,
-                  return_hidden: bool = False):
+                  mesh=None, rules: ShardingRules = DEFAULT_RULES, *,
+                  return_aux: bool = False, return_hidden: bool = False):
     """tokens [B, T] int -> logits [B, T, vocab] f32.
 
     With ``return_aux=True`` also returns the MoE router stats averaged
     over layers ({aux_loss, z_loss, overflow_frac}, zeros for dense).
     With ``return_hidden=True`` returns the final-norm hidden states
     [B, T, dim] instead of logits (the chunked loss applies lm_head itself,
-    chunk by chunk)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_NOT_PORTED)
+    chunk by chunk).
+
+    With ``mesh`` (a ``build_mesh`` mesh; ``model`` sharded on it by
+    :func:`shard_llama`) the activations are DTensors on its ``(dp, fsdp,
+    tp)`` dims and the outputs come back as DTensors; ``tokens`` go
+    through :func:`stage_tokens`."""
     dtype = torch_dtype(cfg.dtype)
     t = tokens.shape[1]
-    x = model.embed[tokens.long()].to(dtype)
     angles = rope_freqs(cfg, torch.arange(t, device=tokens.device))
-    layer_fn = _maybe_remat(_decoder_layer_fn(cfg, angles), cfg)
+    if mesh is None:
+        x = model.embed[tokens.long()].to(dtype)
+    else:
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = model_mesh(mesh, cfg)
+        tokens = stage_tokens(tokens, mesh, rules)
+        x = _embed(tokens, _w(model.embed, model.embed.dtype))
+        x = with_logical_constraint(x.to(dtype), ("batch", "seq", None),
+                                    rules)
+        angles = DTensor.from_local(angles, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    layer_fn = _maybe_remat(_decoder_layer_fn(cfg, angles, mesh, rules), cfg)
     auxes = []
     for lp in model.layers:
         x, aux = layer_fn(x, lp)
@@ -366,33 +600,46 @@ def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     if return_hidden:
         out = x
     else:
-        out = torch.einsum("btd,dv->btv", x, model.lm_head.to(dtype)).float()
+        out = x @ _w(model.lm_head, dtype)
+        out = with_logical_constraint(out, ("batch", "seq", "vocab"),
+                                      rules).float()
     if return_aux:
         return out, {key: torch.stack([a[key] for a in auxes]).mean()
                      for key in auxes[0]}
     return out
 
 
+def _vocab_whole(logits: torch.Tensor, rules: ShardingRules
+                 ) -> torch.Tensor:
+    """Logits with the vocab dim gathered (a DTensor's tp shards), so the
+    softmax runs over whole rows; the batch stays sharded."""
+    return with_logical_constraint(logits, ("batch", "seq", None), rules)
+
+
 def llama_loss(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
-               mesh=None) -> torch.Tensor:
+               mesh=None, rules: ShardingRules = DEFAULT_RULES
+               ) -> torch.Tensor:
     """Next-token cross-entropy, mean over all positions; for MoE configs
     plus the router losses weighted by ``moe_aux_coef``/``moe_z_coef``.
     With ``cfg.loss_chunks > 0`` the CE is computed chunk by chunk without
-    materialising the full [B, T, vocab] f32 logits."""
+    materialising the full [B, T, vocab] f32 logits.  Under ``mesh`` the
+    loss is a replicated DTensor scalar: the mean over the global batch."""
     aux = None
+    if mesh is not None:
+        tokens = stage_tokens(tokens, model_mesh(mesh, cfg), rules)
     if cfg.loss_chunks:
-        out = llama_forward(model, tokens, cfg, mesh,
+        out = llama_forward(model, tokens, cfg, mesh, rules,
                             return_aux=bool(cfg.n_experts), return_hidden=True)
         h, aux = out if cfg.n_experts else (out, None)
-        ce = _chunked_ce(h, model.lm_head, tokens, cfg)
+        ce = _chunked_ce(h, model.lm_head, tokens, cfg, rules)
     else:
-        out = llama_forward(model, tokens, cfg, mesh,
+        out = llama_forward(model, tokens, cfg, mesh, rules,
                             return_aux=bool(cfg.n_experts))
         logits, aux = out if cfg.n_experts else (out, None)
         targets = tokens[:, 1:].long()
-        logp = torch.log_softmax(logits[:, :-1], dim=-1)
+        logp = torch.log_softmax(_vocab_whole(logits, rules)[:, :-1], dim=-1)
         nll = -logp.gather(-1, targets[..., None])
-        ce = nll.mean()
+        ce = with_logical_constraint(nll.mean(), (), rules)
     if cfg.n_experts:
         return (ce + cfg.moe_aux_coef * aux["aux_loss"]
                 + cfg.moe_z_coef * aux["z_loss"])
@@ -400,7 +647,8 @@ def llama_loss(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
 
 
 def _chunked_ce(h: torch.Tensor, lm_head: torch.Tensor, tokens: torch.Tensor,
-                cfg: LlamaConfig) -> torch.Tensor:
+                cfg: LlamaConfig,
+                rules: ShardingRules = DEFAULT_RULES) -> torch.Tensor:
     """Next-token CE over ``cfg.loss_chunks`` sequence chunks, each under
     ``torch.utils.checkpoint``: the backward recomputes a chunk's logits
     from its saved [B, C, D] hidden slice, so one chunk's logits live at a
@@ -411,20 +659,26 @@ def _chunked_ce(h: torch.Tensor, lm_head: torch.Tensor, tokens: torch.Tensor,
     if t % n:
         raise ValueError(f"seq len {t} not divisible by loss_chunks {n}")
     dtype = h.dtype
+    w = _w(lm_head, dtype)
     tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).long()
-    weight = torch.ones((b, t), dtype=torch.float32, device=h.device)
-    weight[:, -1] = 0.0
+    ones = torch.ones_like(tgt, dtype=torch.float32)
+    weight = torch.cat([ones[:, :-1], torch.zeros_like(ones[:, -1:])], dim=1)
 
     def chunk(xc, w, tc, wc):
-        logits = torch.einsum("bcd,dv->bcv", xc, w.to(dtype)).float()
+        xc = with_logical_constraint(xc, ("batch", None, None), rules)
+        logits = (xc @ w).float()
+        logits = with_logical_constraint(logits, ("batch", None, "vocab"),
+                                         rules)
+        logits = _vocab_whole(logits, rules)
         lse = torch.logsumexp(logits, dim=-1)
         t_logit = logits.gather(-1, tc[..., None])[..., 0]
         return torch.sum((lse - t_logit) * wc)
 
     c = t // n
-    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    total = None
     for i in range(n):
         sl = slice(i * c, (i + 1) * c)
-        total = total + checkpoint(chunk, h[:, sl], lm_head, tgt[:, sl],
-                                   weight[:, sl], use_reentrant=False)
-    return total / torch.sum(weight)
+        part = checkpoint(chunk, h[:, sl], w, tgt[:, sl], weight[:, sl],
+                          use_reentrant=False)
+        total = part if total is None else total + part
+    return with_logical_constraint(total / torch.sum(weight), (), rules)

@@ -53,6 +53,7 @@ import torch
 from torch.nn import functional as F
 
 from ..ops.grouped_matmul import gmm, gmm_swiglu
+from .remat import checkpoint_name
 
 DISPATCHES = ("einsum", "scatter", "grouped")
 
@@ -72,7 +73,7 @@ def router_topk(logits: torch.Tensor,
 def _route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
     """Router logits in the activation dtype, then f32 (as the reference
     rounds them), and the top-k choice."""
-    logits = torch.einsum("btd,de->bte", x, router_w.to(x.dtype)).float()
+    logits = (x @ router_w.to(x.dtype)).float()
     probs, idx = router_topk(logits, top_k)
     return logits, probs, idx
 
@@ -198,9 +199,13 @@ def _dispatch_ffn(x, probs, idx, w_gate, w_up, w_down, dispatch: str,
 
 def _expert_ffn(xe, w_gate, w_up, w_down) -> torch.Tensor:
     """xe [B, E, C, D] -> [B, E, C, D], each expert's SwiGLU."""
-    gate = torch.einsum("becd,edf->becf", xe, w_gate)
-    up = torch.einsum("becd,edf->becf", xe, w_up)
-    return torch.einsum("becf,efd->becd", F.silu(gate) * up, w_down)
+    with checkpoint_name("ffn_gate"):
+        gate = torch.einsum("becd,edf->becf", xe, w_gate)
+    with checkpoint_name("ffn_up"):
+        up = torch.einsum("becd,edf->becf", xe, w_up)
+    h = F.silu(gate) * up
+    with checkpoint_name("ffn_down"):
+        return torch.einsum("becf,efd->becd", h, w_down)
 
 
 def _einsum_ffn(x, probs, pos, keep, capacity, w_gate, w_up, w_down):
@@ -212,9 +217,12 @@ def _einsum_ffn(x, probs, pos, keep, capacity, w_gate, w_up, w_down):
     pos_oh = F.one_hot(pos_e, capacity).float()                 # [B,T,E,C]
     disp = keep_e[..., None] * pos_oh
     combine = prob_e[..., None] * pos_oh
-    xe = torch.einsum("btec,btd->becd", disp.to(dtype), x)
+    disp, combine = disp.to(dtype), combine.to(dtype)
+    with checkpoint_name("moe_x"):
+        xe = torch.einsum("btec,btd->becd", disp, x)
     ye = _expert_ffn(xe, w_gate, w_up, w_down)
-    return torch.einsum("btec,becd->btd", combine.to(dtype), ye)
+    with checkpoint_name("moe_y"):
+        return torch.einsum("btec,becd->btd", combine, ye)
 
 
 def _scatter_ffn(x, probs, idx, pos_flat, capacity, w_gate, w_up, w_down):
@@ -303,7 +311,9 @@ class _DispatchRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, inv_src, slot_dest2d):
         ctx.save_for_backward(slot_dest2d)
-        return _with_zero_row(h).index_select(0, inv_src)
+        h = _with_zero_row(h)
+        with checkpoint_name("moe_x"):
+            return h.index_select(0, inv_src)
 
     @staticmethod
     def backward(ctx, dy):
@@ -348,8 +358,10 @@ def _grouped_ffn(x, probs, idx, w_gate, w_up, w_down,
     lay = grouped_layout(idx, w_gate.shape[0], block_m)
     x_pad = _dispatch_rows(x.reshape(b * t, d), lay.inv_src,
                            lay.dest.reshape(b * t, k))
-    hh = gmm_swiglu(x_pad, w_gate, w_up, lay.tile_experts, lay.bm)
-    y_pad = gmm(hh, w_down, lay.tile_experts, lay.bm)
+    with checkpoint_name("ffn_up"):
+        hh = gmm_swiglu(x_pad, w_gate, w_up, lay.tile_experts, lay.bm)
+    with checkpoint_name("ffn_down"):
+        y_pad = gmm(hh, w_down, lay.tile_experts, lay.bm)
     y_slot = _combine_rows(y_pad, lay.dest, lay.inv_pos)        # [N, D]
     return torch.einsum("btk,btkd->btd", probs.to(x.dtype),
                         y_slot.reshape(b, t, k, d))

@@ -27,7 +27,9 @@ a multiple of ``TILE`` (:func:`kernel_rule`).  Only tensors that lie on the
 CPU take the plain versions (``flash_fwd_plain``, ``flash_dq_plain``,
 ``flash_dkv_plain``): the same functions as straightforward f32 math over
 the whole score matrix.  Each wrapper counts its launches in its
-``launches`` attribute.
+``launches`` attribute.  The forward enters autograd as one dispatcher op,
+``kctpu::flash_fwd`` (:func:`flash_fwd_op`), which a remat policy can keep
+instead of re-running.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch import Tensor
 
 from ..parallel.ring import NEG_INF
 from . import _build
@@ -185,6 +188,29 @@ def flash_fwd(q, k, v, causal: bool = True, scale: Optional[float] = None
 flash_fwd.launches = 0
 
 
+# The forward kernel as one dispatcher op, so that a selective-checkpoint
+# policy (``models/remat.py``) sees it as one op and can keep its outputs
+# instead of re-running it.  CUDA: the launch (through the module-level
+# ``flash_fwd``, so a caller that swaps the wrapper swaps this too); CPU:
+# the plain version; fake: the shapes.
+@torch.library.custom_op("kctpu::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                 scale: float) -> Tuple[Tensor, Tensor]:
+    return flash_fwd(q, k, v, causal, scale)
+
+
+@flash_fwd_op.register_kernel("cpu")
+def _(q, k, v, causal, scale):
+    return flash_fwd_plain(q, k, v, causal, scale)
+
+
+@flash_fwd_op.register_fake
+def _(q, k, v, causal, scale):
+    b, t, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b * h, t), dtype=torch.float32)
+
+
 def flash_dq(q, k, v, do, lse, delta, causal: bool = True,
              scale: Optional[float] = None) -> torch.Tensor:
     """dq of attention, from the forward's lse and ``delta = rowsum(do*o)``."""
@@ -242,7 +268,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
         q, k, v = (x.contiguous() for x in (q, k, v))
-        o, lse = flash_fwd(q, k, v, causal, scale)
+        o, lse = flash_fwd_op(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o

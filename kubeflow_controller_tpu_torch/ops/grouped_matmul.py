@@ -35,7 +35,10 @@ the plain PyTorch version (``gmm_plain``/``gmm_swiglu_plain``/
 ``tgmm_plain``): f32 products over each expert's run of tiles, one
 rounding to the operand dtype, as the reference's kernels round.  ``gmm.launches``, ``gmm_swiglu.launches`` and
 ``tgmm.launches`` count kernel launches, backward ones included, and
-each wrapper's ``launches_by_design`` counts them by design.
+each wrapper's ``launches_by_design`` counts them by design.  The two
+forward kernels enter autograd as dispatcher ops, ``kctpu::gmm`` and
+``kctpu::gmm_swiglu`` (:func:`gmm_op`, :func:`gmm_swiglu_op`), which a remat
+policy can keep instead of re-running.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import torch
+from torch import Tensor
 from torch.nn import functional as F
 
 from . import _build
@@ -283,6 +287,50 @@ tgmm.launches = 0
 tgmm.launches_by_design = {"wgmma": 0, "wmma": 0}
 
 
+# The two forward kernels as dispatcher ops, so that a selective-checkpoint
+# policy (``models/remat.py``) sees each as one op and can keep its outputs
+# instead of re-running it.  CUDA: the launch (through the module-level
+# ``_gmm``/``_gmm_swiglu``, so a caller that swaps those swaps these too);
+# CPU: the plain versions; fake: the shapes.
+
+@torch.library.custom_op("kctpu::gmm", mutates_args=(), device_types="cuda")
+def gmm_op(lhs: Tensor, rhs: Tensor, tile_experts: Tensor, bm: int,
+           valid_tiles: Optional[Tensor]) -> Tensor:
+    return _gmm(lhs, rhs, tile_experts, bm, valid_tiles)
+
+
+@gmm_op.register_kernel("cpu")
+def _(lhs, rhs, tile_experts, bm, valid_tiles):
+    return gmm_plain(lhs, rhs, tile_experts, bm, valid_tiles)
+
+
+@gmm_op.register_fake
+def _(lhs, rhs, tile_experts, bm, valid_tiles):
+    return lhs.new_empty((lhs.shape[0], rhs.shape[2]))
+
+
+@torch.library.custom_op("kctpu::gmm_swiglu", mutates_args=(),
+                         device_types="cuda")
+def gmm_swiglu_op(lhs: Tensor, rhs_g: Tensor, rhs_u: Tensor,
+                  tile_experts: Tensor, bm: int,
+                  gate_up: bool) -> List[Tensor]:
+    """``[h]``, or ``[h, gate, up]`` with ``gate_up``."""
+    out = _gmm_swiglu(lhs, rhs_g, rhs_u, tile_experts, bm, gate_up)
+    return list(out) if gate_up else [out]
+
+
+@gmm_swiglu_op.register_kernel("cpu")
+def _(lhs, rhs_g, rhs_u, tile_experts, bm, gate_up):
+    out = gmm_swiglu_plain(lhs, rhs_g, rhs_u, tile_experts, bm, gate_up)
+    return list(out) if gate_up else [out]
+
+
+@gmm_swiglu_op.register_fake
+def _(lhs, rhs_g, rhs_u, tile_experts, bm, gate_up):
+    return [lhs.new_empty((lhs.shape[0], rhs_g.shape[2]))
+            for _ in range(3 if gate_up else 1)]
+
+
 # ---------------------------------------------------------------------------
 # The differentiable ops
 # ---------------------------------------------------------------------------
@@ -294,7 +342,7 @@ class _Gmm(torch.autograd.Function):
     def forward(ctx, lhs, rhs, tile_experts, bm, valid_tiles):
         ctx.save_for_backward(lhs, rhs, tile_experts, valid_tiles)
         ctx.bm = bm
-        return _gmm(lhs, rhs, tile_experts, bm, valid_tiles)
+        return gmm_op(lhs, rhs, tile_experts, bm, valid_tiles)
 
     @staticmethod
     def backward(ctx, dout):
@@ -318,8 +366,8 @@ class _GmmSwiglu(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, lhs, rhs_g, rhs_u, tile_experts, bm):
-        h, gate, up = _gmm_swiglu(lhs, rhs_g, rhs_u, tile_experts, bm,
-                                  gate_up=True)
+        h, gate, up = gmm_swiglu_op(lhs, rhs_g, rhs_u, tile_experts, bm,
+                                    True)
         ctx.save_for_backward(lhs, rhs_g, rhs_u, tile_experts, gate, up)
         ctx.bm = bm
         return h
@@ -368,7 +416,7 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, tile_experts: torch.Tensor,
     Differentiable in lhs and rhs."""
     if _needs_grad(lhs, rhs):
         return _Gmm.apply(lhs, rhs, tile_experts, bm, valid_tiles)
-    return _gmm(lhs, rhs, tile_experts, bm, valid_tiles)
+    return gmm_op(lhs, rhs, tile_experts, bm, valid_tiles)
 
 
 gmm.launches = 0
@@ -382,7 +430,7 @@ def gmm_swiglu(lhs: torch.Tensor, rhs_g: torch.Tensor, rhs_u: torch.Tensor,
     in lhs, rhs_g and rhs_u; without a gradient to take it writes h only."""
     if _needs_grad(lhs, rhs_g, rhs_u):
         return _GmmSwiglu.apply(lhs, rhs_g, rhs_u, tile_experts, bm)
-    return _gmm_swiglu(lhs, rhs_g, rhs_u, tile_experts, bm)
+    return gmm_swiglu_op(lhs, rhs_g, rhs_u, tile_experts, bm, False)[0]
 
 
 gmm_swiglu.launches = 0

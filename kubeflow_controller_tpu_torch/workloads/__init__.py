@@ -4,7 +4,8 @@
   (``python -m kubeflow_controller_tpu_torch.workloads.serve``).
 - ``progress`` — heartbeat publisher for the serve and training entry
   points.
-- ``llama_pretrain`` — the single-device Llama pretrain
+- ``llama_pretrain`` — the Llama pretrain, on one device or over a gang
+  and a dp x fsdp x tp mesh
   (``python -m kubeflow_controller_tpu_torch.workloads.llama_pretrain``),
   with ``data`` (synthetic tokens), ``trainer`` (clip + AdamW) and
   ``runtime`` (the controller's env contract).

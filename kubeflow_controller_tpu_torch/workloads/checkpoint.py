@@ -15,10 +15,18 @@ a hidden temporary name and renamed into place once complete, so
 ``latest_step()`` and ``restore()`` never see a half-written step.  The
 newest ``keep`` steps are kept.
 
-Every state the port checkpoints is replicated (data parallel, one model
-a process), so only process 0 writes, alone (``no_dist``), and every
-process reads the same files.  The format is DCP's, not Orbax's: neither
-package reads the other's checkpoints (ROADMAP.md §3).
+A replicated state (data parallel, one model a process) is written by
+process 0 alone (``no_dist``) and read by every process.  A sharded state
+(a model whose parameters are DTensors: ``models.llama.shard_llama``) is
+saved collectively: every process writes its own shards into the step's
+temporary directory, process 0 renames it into place, and every process
+waits at a barrier until it is there; a restore loads each process's shards
+back into the sharded model and optimizer.  The collectives of a sharded
+save or restore run over a gloo group of their own, so an async save's
+writer thread never shares a communicator with training.
+``is_writer()`` then decides only who writes the gang-width marker.  The
+format is DCP's, not Orbax's: neither package reads the other's
+checkpoints (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -47,6 +55,19 @@ def is_writer() -> bool:
     import torch.distributed as dist
 
     return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def is_sharded(tree: Any) -> bool:
+    """Whether a state-dict tree holds a DTensor (a sharded model)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, DTensor):
+        return True
+    if isinstance(tree, dict):
+        return any(is_sharded(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(is_sharded(v) for v in tree)
+    return False
 
 
 def _to_cpu(tree: Any) -> Any:
@@ -82,6 +103,7 @@ class CheckpointManager:
         self.keep = keep
         self._pool: Optional[ThreadPoolExecutor] = None
         self._pending: Optional[Future] = None
+        self._group = None        # the sharded saves' gloo group
         self.events: List[Dict[str, Any]] = []
 
     # -- save ---------------------------------------------------------------
@@ -95,21 +117,23 @@ class CheckpointManager:
         place at the next step), and the copy is written on a background
         thread while training goes on; call :meth:`wait` (or make a final
         ``wait=True`` save) before declaring success, or a failed write
-        goes unnoticed.  A save waits for the one before it.  Only process
-        0 of a group writes; the others return at once.  A step that
-        already exists raises ``FileExistsError``."""
+        goes unnoticed.  A save waits for the one before it.  A replicated
+        state is written by process 0 of a group, and the others return at
+        once; a sharded one by every process, each calling ``save``.  A
+        step that already exists raises ``FileExistsError``."""
         self.wait()
-        if not is_writer():
+        t0 = time.perf_counter()
+        state = self._live_state(model, optimizer)
+        group = self._sharded_group(state)
+        if group is None and not is_writer():
             return
         if os.path.exists(self._step_dir(step)):
             raise FileExistsError(f"checkpoint step {step} already exists "
                                   f"under {self.directory}")
-        t0 = time.perf_counter()
         event = {"kind": "save", "step": step, "async": not wait}
         self.events.append(event)
-        state = self._live_state(model, optimizer)
         if wait:
-            self._write(step, state, event, t0)
+            self._write(step, state, event, t0, group)
             event["blocking_s"] = event["total_s"]
             return
         state = _to_cpu(state)
@@ -117,7 +141,8 @@ class CheckpointManager:
         if self._pool is None:
             self._pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="checkpoint")
-        self._pending = self._pool.submit(self._write, step, state, event, t0)
+        self._pending = self._pool.submit(self._write, step, state, event, t0,
+                                          group)
 
     def wait(self) -> None:
         """Block until the in-flight async save is in place; re-raise what
@@ -126,18 +151,42 @@ class CheckpointManager:
         if pending is not None:
             pending.result()
 
+    def _sharded_group(self, state: Dict[str, Any]):
+        """The gloo group of this manager's collective saves and restores
+        for a sharded ``state`` (made at the first, by every process), or
+        None for a replicated one."""
+        import torch.distributed as dist
+
+        if not (dist.is_initialized() and is_sharded(state)):
+            return None
+        if self._group is None:
+            self._group = dist.new_group(backend="gloo")
+        return self._group
+
     def _write(self, step: int, state: Dict[str, Any], event: Dict[str, Any],
-               t0: float) -> None:
+               t0: float, group=None) -> None:
+        import torch.distributed as dist
         import torch.distributed.checkpoint as dcp
 
         final = self._step_dir(step)
-        tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
-        shutil.rmtree(tmp, ignore_errors=True)
-        dcp.save(state, checkpoint_id=tmp, no_dist=True)
-        os.replace(tmp, final)
+        if group is None:
+            tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
+            shutil.rmtree(tmp, ignore_errors=True)
+            dcp.save(state, checkpoint_id=tmp, no_dist=True)
+            os.replace(tmp, final)
+        else:
+            # One temporary directory for every process's shards.
+            tmp = os.path.join(self.directory, f".tmp-{step}")
+            if is_writer():
+                shutil.rmtree(tmp, ignore_errors=True)
+            dist.barrier(group=group)
+            dcp.save(state, checkpoint_id=tmp, process_group=group)
+            if is_writer():
+                os.replace(tmp, final)
+            dist.barrier(group=group)   # in place for every process
         event["total_s"] = time.perf_counter() - t0
         event["bytes"] = dir_bytes(final)
-        if self.keep > 0:
+        if self.keep > 0 and is_writer():
             for old in self.all_steps()[:-self.keep]:
                 self._drop_step(old)
 
@@ -181,9 +230,14 @@ class CheckpointManager:
         for i, step in enumerate(steps):
             t0 = time.perf_counter()
             state = self._live_state(model, optimizer)
+            group = self._sharded_group(state)
             try:
-                dcp.load(state, checkpoint_id=self._step_dir(step),
-                         no_dist=True)
+                if group is None:
+                    dcp.load(state, checkpoint_id=self._step_dir(step),
+                             no_dist=True)
+                else:   # every process its own shards; DCP fails all alike
+                    dcp.load(state, checkpoint_id=self._step_dir(step),
+                             process_group=group)
             except (Exception, dcp.CheckpointException) as e:  # noqa: BLE001
                 # A torn or corrupt step (DCP's own exception is a
                 # BaseException).
@@ -193,7 +247,12 @@ class CheckpointManager:
                     "checkpoint step %d under %s is unreadable (%s); "
                     "deleting it and falling back to step %d",
                     step, self.directory, e, steps[i + 1])
-                self._drop_step(step)
+                if group is not None:
+                    import torch.distributed as dist
+
+                    dist.barrier(group=group)   # every process has read
+                if group is None or is_writer():
+                    self._drop_step(step)
                 continue
             set_state_dict(model, opt, model_state_dict=state["model"],
                            optim_state_dict=state["optim"])

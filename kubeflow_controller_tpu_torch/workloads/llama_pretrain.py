@@ -1,5 +1,5 @@
 """Llama pretrain driver — the port of
-``kubeflow_controller_tpu/workloads/llama_pretrain.py`` on one device.
+``kubeflow_controller_tpu/workloads/llama_pretrain.py``.
 
     python -m kubeflow_controller_tpu_torch.workloads.llama_pretrain \\
         [--preset tiny|llama2-7b] [--steps N] [--device cuda|cpu] ...
@@ -34,10 +34,21 @@ tiny preset is f32); ``--strict-moe-dispatch`` makes that fallback an
 error.  On the CPU every dispatch runs as asked, through the kernels' plain
 versions.
 
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md): any mesh
-axis other than 1 (``--fsdp -1`` is 1 on one device) and ``--pp > 1``
-(multi-device pretrain), and a multi-process gang (M2: the gang would
-join, but each process would train a model of its own).
+A gang and a mesh (as in the reference): ``JobRuntime.initialize`` joins
+the job's gang (``JAX_*`` env from the controller; gloo for ``--device
+cpu``, nccl on CUDA, one device a process), and when a process group
+exists (that gang, or a group the caller formed) the model trains on a
+``DeviceMesh`` of the ``--dp``/``--fsdp``/``--tp`` flags, which the
+controller's ``$KCTPU_MESH`` overrides: parameters are DTensors (fsdp
+shards the embed dim and is gathered before each use, tp shards heads,
+mlp and vocab, dp replicates), the global batch is rounded to the data
+parallel size and each process stages its own ``("batch", "seq")`` shard.
+Each process prints "Mesh: {...} over N devices, process i/n".
+
+Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md): ``--sp >
+1`` (M3), ``--pp > 1`` (M8), ``--ep > 1`` and ``--experts`` under a mesh
+(M4).  Without a group, an axis above 1 asks for more devices than the one
+there is, and raises ``ValueError`` as the reference's mesh does.
 """
 
 from __future__ import annotations
@@ -55,7 +66,16 @@ from typing import Callable, List, Optional
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models.llama import Llama, LlamaConfig, llama_init, llama_loss
+from ..models.llama import (
+    Llama,
+    LlamaConfig,
+    llama_init,
+    llama_loss,
+    model_mesh,
+    shard_llama,
+    stage_tokens,
+)
+from ..parallel.mesh import MeshSpec, build_mesh, data_parallel_size
 from ..obs.phases import PHASE_FIT, PHASE_RESTORE
 from .checkpoint import CheckpointManager
 from .compile_cache import build_kernels
@@ -91,7 +111,7 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
           lr: float = 3e-4, device: DeviceLike = "cuda", seed: int = 0,
           model: Optional[Llama] = None,
           profile_dir: str = "", model_dir: str = "",
-          checkpoint_every: int = 0) -> TrainResult:
+          checkpoint_every: int = 0, mesh=None) -> TrainResult:
     """``steps`` optimizer steps of ``cfg`` from ``llama_init`` (seeded
     with ``seed``) or from ``model`` (trained in place), the reference's
     loop: ``default_optimizer(lr, weight_decay=0.1)`` (clip 1.0), and batch
@@ -103,12 +123,20 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
     1``), step ``i + 1`` is saved asynchronously after step ``i`` whenever
     ``checkpoint_every`` divides it, and the final step ``S + steps`` is
     durable when this returns.  Beats progress as the module docstring
-    says."""
+    says.
+
+    With ``mesh`` (a ``build_mesh`` mesh) the model is sharded on it
+    (``shard_llama``), the batch is rounded down to a multiple of the data
+    parallel size (at least one row a shard), each process stages its own
+    shard of every batch, and the losses are the global batch's."""
     dev = resolve_device(device)
     rep = reporter()
     if model is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         model = llama_init(cfg, gen, dev, requires_grad=True)
+    if mesh is not None:
+        shard_llama(model, mesh)
+        mesh = model_mesh(mesh, cfg)
     opt = default_optimizer(model.parameters(), lr, weight_decay=0.1)
     start_step, ckpt = 0, None
     if model_dir:
@@ -118,16 +146,22 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
             _, _, start_step = ckpt.restore(model, opt)
             print(f"Resumed from step {start_step} in {model_dir}",
                   flush=True)
-    bs = max(1, batch_size)
+    unit = 1 if mesh is None else data_parallel_size(mesh)
+    bs = max(unit, batch_size - batch_size % unit)
     tokens_all = synthetic_tokens(1, max(64, 2 * bs), seq_len,
                                   cfg.vocab_size, dev)
 
     def step(i: int) -> float:
         lo = (i * bs) % max(1, tokens_all.shape[0] - bs + 1)
-        loss = llama_loss(model, tokens_all[lo:lo + bs], cfg)
+        batch = tokens_all[lo:lo + bs]
+        if mesh is not None:
+            batch = stage_tokens(batch, mesh)
+        loss = llama_loss(model, batch, cfg, mesh)
         loss.backward()
         opt.step()
         opt.zero_grad()
+        if mesh is not None:
+            loss = loss.to_local()      # replicated: the global mean
         return float(loss.detach())
 
     prof = contextlib.nullcontext()
@@ -183,16 +217,25 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
                        start_step, ckpt, note)
 
 
-_MESH_NOT_PORTED = ("mesh axes {}: multi-device pretrain is not ported yet "
-                    "(ROADMAP.md, module queue: multi-device pretrain); the "
-                    "port trains on one device")
-_GANG_NOT_PORTED = ("a {}-process gang: multi-process pretrain is not ported "
-                    "yet, and each process would train its own model "
-                    "(ROADMAP.md, M2)")
+_NOT_PORTED = {
+    "sp": "--sp {}: sequence parallelism (ring and Ulysses attention) is "
+          "not ported yet (ROADMAP.md, M3)",
+    "pp": "--pp {}: pipeline parallelism is not ported yet (ROADMAP.md, M8)",
+    "ep": "--ep {}: expert parallelism (the ep-sharded grouped path) is not "
+          "ported yet (ROADMAP.md, M4)",
+}
+_MOE_MESH_NOT_PORTED = ("--experts under a mesh (axes {}, {} processes): MoE "
+                        "under a mesh is not ported yet (ROADMAP.md, M4)")
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="llama pretrain")
+    # The classic TF contract the controller hands Worker replicas; a gang
+    # outside the controller can come from --worker_hosts/--task_index.
+    p.add_argument("--job_name", default="")
+    p.add_argument("--task_index", type=int, default=-1)
+    p.add_argument("--worker_hosts", default="")
+    p.add_argument("--ps_hosts", default="")
     p.add_argument("--preset", choices=["tiny", "llama2-7b"], default="tiny")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--batch-size", type=int, default=8,
@@ -222,6 +265,9 @@ def main(argv=None) -> int:
                    help="fail instead of falling back when --moe-dispatch "
                         "cannot run (installed as a warnings filter on "
                         "'moe dispatch')")
+    p.add_argument("--n-layers", type=int, default=0,
+                   help="cut the preset to this many layers (0 = the "
+                        "preset's): Llama-2-7B widths on one card")
     p.add_argument("--dim", type=int, default=0,
                    help="model dim override for the tiny preset (0 = preset "
                         "default)")
@@ -254,8 +300,33 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     rt = JobRuntime.from_env()
-    if rt.num_processes > 1:
-        raise NotImplementedError(_GANG_NOT_PORTED.format(rt.num_processes))
+    rt.merge_tf_args(args.job_name, args.task_index, args.worker_hosts)
+
+    # Mesh axes: the flags, or the controller's plan ($KCTPU_MESH, for the
+    # gang's current width) where there is one, as in the reference.
+    axes = {"dp": args.dp, "fsdp": args.fsdp, "tp": args.tp,
+            "sp": args.sp, "pp": args.pp, "ep": args.ep}
+    if rt.mesh:
+        axes.update({k: v for k, v in rt.mesh.items() if k in axes})
+    for axis, why in _NOT_PORTED.items():
+        if axes[axis] > 1:
+            raise NotImplementedError(why.format(axes[axis]))
+    if args.experts and (rt.num_processes > 1 or any(
+            v > 1 for v in axes.values())):
+        raise NotImplementedError(_MOE_MESH_NOT_PORTED.format(
+            axes, rt.num_processes))
+    import torch.distributed as dist
+
+    joined = not dist.is_initialized()
+    rt.initialize(dev)
+    joined = joined and dist.is_initialized()
+    spec = MeshSpec(dp=axes["dp"], fsdp=axes["fsdp"], tp=axes["tp"],
+                    sp=axes["sp"], pp=axes["pp"], ep=axes["ep"])
+    if dist.is_initialized():
+        mesh = build_mesh(spec, dev.type)
+    else:
+        spec.resolve(1)     # one device: an axis above 1 raises here
+        mesh = None
 
     if args.strict_moe_dispatch:
         warnings.filterwarnings("error", message="moe dispatch")
@@ -277,6 +348,8 @@ def main(argv=None) -> int:
                          moe_dispatch=args.moe_dispatch)
     if args.remat_policy:
         overrides.update(remat=True, remat_policy=args.remat_policy)
+    if args.n_layers:
+        overrides["n_layers"] = args.n_layers
     if args.loss_chunks:
         overrides["loss_chunks"] = args.loss_chunks
     if args.attention:
@@ -284,27 +357,20 @@ def main(argv=None) -> int:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
 
-    # The controller's mesh plan ($KCTPU_MESH) overrides the axis flags, as
-    # in the reference; on one device every axis must be 1.
-    axes = {"dp": args.dp, "fsdp": args.fsdp, "tp": args.tp,
-            "sp": args.sp, "pp": args.pp, "ep": args.ep}
-    if rt.mesh:
-        axes.update({k: v for k, v in rt.mesh.items() if k in axes})
-    sharded = {k: v for k, v in axes.items()
-               if v != 1 and not (k == "fsdp" and v == -1)}
-    if sharded:
-        raise NotImplementedError(_MESH_NOT_PORTED.format(sharded))
-
     profile_dir = args.profile_dir
     if profile_dir == "auto":
         profile_dir = os.path.join(rt.log_dir, "trace") if rt.log_dir else ""
     res = train(cfg, steps=args.steps, batch_size=args.batch_size,
                 seq_len=args.seq_len, lr=args.lr, device=dev,
                 profile_dir=profile_dir, model_dir=rt.model_dir,
-                checkpoint_every=args.checkpoint_every)
+                checkpoint_every=args.checkpoint_every, mesh=mesh)
     loss = res.losses[-1] if res.losses else float("nan")
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
+    if mesh is not None:
+        shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        print(f"Mesh: {shape} over {dist.get_world_size()} devices, "
+              f"process {rt.process_id}/{rt.num_processes}")
     print(f"Device: {dev} ({name}), process "
           f"{rt.process_id}/{rt.num_processes}")
     print(f"Training elapsed time: {res.elapsed_s:f} s")
@@ -312,6 +378,8 @@ def main(argv=None) -> int:
           f"tokens/s")
     if res.checkpoint_note:
         print(res.checkpoint_note)
+    if joined:
+        rt.shutdown()
     return 0
 
 

@@ -10,7 +10,9 @@ port keeps optax's arithmetic:
 - clipping as ``clip_by_global_norm`` does it: the global norm is the
   square root of the sum of squares over every gradient; when it is at or
   above ``clip`` each gradient becomes ``(g / norm) * clip``, otherwise it
-  is left alone (``clip_grad_norm_`` would add 1e-6 to the norm);
+  is left alone (``clip_grad_norm_`` would add 1e-6 to the norm).  A
+  DTensor gradient (a sharded model) counts whole: its norm is taken over
+  every shard, so each process clips by the same global norm;
 - AdamW with optax's defaults (b1 0.9, b2 0.999, eps 1e-8, ``eps_root``
   0) and decoupled decay on every parameter: ``torch.optim.AdamW`` makes
   the same update, ``p -= lr * (m̂ / (sqrt(v̂) + eps) + wd * p)``;
@@ -63,6 +65,22 @@ class FitResult:
     saved_to: str = ""         # MODEL_DIR, if this process saved there
 
 
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's value over the whole mesh (a norm of a sharded gradient
+    is the norm of the whole gradient); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """This process's shard of a DTensor (in place updates of it update the
+    DTensor); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 class Optimizer:
     """A ``torch.optim`` optimizer (``inner``) over a fixed list of
     parameters, with optax's ``clip_by_global_norm`` in front when
@@ -84,9 +102,10 @@ class Optimizer:
         if self.clip:
             grads = [p.grad for p in self.params if p.grad is not None]
             norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(g.float()) for g in grads]))
+                [_whole(torch.linalg.vector_norm(g.float())) for g in grads]))
             if norm >= self.clip:  # one host sync per step
                 for g in grads:
+                    g = _local(g)
                     g.div_(norm.to(g.dtype)).mul_(self.clip)
         self.inner.step()
         return norm

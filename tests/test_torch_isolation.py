@@ -51,7 +51,9 @@ SLICE_MODULES = ("workloads.serve", "ops.grouped_matmul", "ops.attention",
                  "workloads.mnist_local", "workloads.mnist_dist",
                  "workloads.checkpoint", "workloads.compile_cache",
                  "models.vision", "workloads.flax_mnist",
-                 "workloads.cifar_allreduce")
+                 "workloads.cifar_allreduce", "models.remat",
+                 "parallel.mesh", "parallel.sharding",
+                 "parallel.collectives")
 
 
 def forbidden(name: str) -> bool:

@@ -19,8 +19,10 @@ package, from JAX parameters bridged into the port.
 - three steps of the pretrain loop from one bridged init, dense and MoE
   (grouped): each step's loss within 1e-4 of the JAX loop's.
 - the CLI on the CPU (dense, and MoE under the strict grouped dispatch),
-  and what it refuses (a mesh, a gang: M2).
-- what is not ported yet raises: named remat policies, a mesh.
+  and what it refuses: sp (M3), pp (M8), ep and MoE under a mesh or a
+  gang (M4); without a group, a mesh wider than one device.
+- what is not ported yet raises, naming its module: sp, pp and ep axes,
+  MoE under a mesh.
 """
 
 import dataclasses
@@ -271,18 +273,34 @@ def test_main_trains_moe_on_the_cpu(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,env", [
-    (["--tp", "2"], {}),
-    (["--fsdp", "2"], {}),
+    (["--sp", "2"], {}),
     (["--pp", "2"], {}),
-    ([], {"KCTPU_MESH": '{"dp": 2}'}),
-    ([], {"JAX_NUM_PROCESSES": "2"}),
-], ids=["tp", "fsdp", "pp", "env-mesh", "gang"])
+    (["--ep", "2"], {}),
+    ([], {"KCTPU_MESH": '{"sp": 2}'}),
+    (["--experts", "4", "--fsdp", "2"], {}),
+    (["--experts", "4"], {"JAX_NUM_PROCESSES": "2"}),
+], ids=["sp", "pp", "ep", "env-mesh-sp", "moe-mesh", "moe-gang"])
 def test_main_refuses_what_is_not_ported(argv, env, monkeypatch):
+    """Refused before any join: sp (M3), pp (M8), ep and MoE under a mesh
+    or a gang (M4).  (dp, fsdp, tp and a gang train now:
+    tests/test_torch_mesh_train.py, tests/test_torch_mesh_tfjob.py.)"""
     for name in ("MODEL_DIR", "KCTPU_MESH", "JAX_NUM_PROCESSES"):
         monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
         monkeypatch.setenv(name, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpre.main(["--device", "cpu", "--steps", "1", *argv])
+
+
+@pytest.mark.parametrize("argv", [["--tp", "2"], ["--fsdp", "2"],
+                                  ["--dp", "2", "--fsdp", "1"]],
+                         ids=["tp", "fsdp", "dp"])
+def test_main_without_a_group_has_one_device(argv, monkeypatch):
+    """With no gang and no group there is one device: a mesh axis above 1
+    raises the reference's mesh error."""
+    for name in ("MODEL_DIR", "KCTPU_MESH", "JAX_NUM_PROCESSES"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError, match="devices"):
         tpre.main(["--device", "cpu", "--steps", "1", *argv])
 
 
@@ -309,16 +327,40 @@ def test_runtime_from_env_matches_jax():
         bad.initialize("cpu")
 
 
-def test_not_ported_paths_raise():
+class FakeMesh:
+    """Names and sizes: all the not-ported checks read, before any
+    DTensor is made."""
+
+    mesh_dim_names = ("pp", "dp", "fsdp", "ep", "sp", "tp")
+
+    def __init__(self, **sizes):
+        self.sizes = [sizes.get(a, 1) for a in self.mesh_dim_names]
+
+    def size(self, i):
+        return self.sizes[i]
+
+
+@pytest.mark.parametrize("axis,module", [("sp", "M3"), ("pp", "M8"),
+                                         ("ep", "M4")])
+def test_not_ported_paths_raise(axis, module):
+    """What is still not ported raises, naming its ROADMAP module: an sp,
+    pp or ep axis above 1 (sp also at the attention), and MoE under a
+    mesh; a policy no one defines is a ValueError.  (The named remat
+    policies and dp/fsdp/tp run now: tests/test_torch_remat.py,
+    tests/test_torch_mesh_train.py.)"""
     cfg = tllama.LlamaConfig.tiny()
     model = tllama.Llama(cfg, device="cpu", requires_grad=True)
     tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tllama.llama_forward(model, tokens, cfg, mesh=object())
-    for policy in ("dots", "ffn", "gateup", "gateup_attn", "moe"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tllama.llama_loss(model, tokens, dataclasses.replace(
-                cfg, remat=True, remat_policy=policy))
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {module}"):
+        tllama.llama_forward(model, tokens, cfg, mesh=FakeMesh(**{axis: 2}))
+    if axis == "sp":
+        q = torch.zeros((1, 8, 4, 16))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, M3"):
+            tllama._attention(q, q, q, True, cfg, mesh=FakeMesh(sp=2))
+    moe = tllama.LlamaConfig.tiny(n_experts=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, M4"):
+        tllama.llama_loss(tllama.Llama(moe, device="cpu"), tokens, moe,
+                          mesh=FakeMesh())
     with pytest.raises(ValueError, match="unknown remat_policy"):
         tllama.llama_loss(model, tokens, dataclasses.replace(
             cfg, remat=True, remat_policy="nope"))
