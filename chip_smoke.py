@@ -61,7 +61,11 @@ Phases, in order (any failure raises and exits non-zero):
    contribution) must fail that check; an expert no token picks must come
    out exactly zero.  Then ``gmm`` and ``tgmm`` under ``valid_tiles`` on a
    worst-case per-shard layout (2 local experts plus the sentinel group,
-   about half the tiles real): rows past ``valid_tiles`` exactly 0.  Each
+   about half the tiles real), and on the layouts the mesh MoE step
+   builds from a router's top-2 over B 2 x T 4096 (``grouped_layout``
+   with a local expert range): ep 1 (8 local experts, M 18688, 73 tiles:
+   the one-card mesh of phase 13) and ep 4's first shard (2 local
+   experts, M 17152): rows past ``valid_tiles`` exactly 0.  Each
    with ms, plain ms, ``library_ms`` (per-expert ``torch.matmul`` loops over
    the real rows) and the bound over the routed rows.
 4. flash kernels: ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` at the
@@ -156,10 +160,28 @@ Phases, in order (any failure raises and exits non-zero):
    be within 1e-5 relative of phase 11's "full" run on the same init and
    tokens (the largest difference is printed); step ms p50 and peak memory
    are printed beside that run's.
-13. entry point: ``llama_pretrain.main`` on the card's default device,
+13. MoE under the mesh on one card: ``llama_pretrain.main`` (``--preset
+   mixtral-8x7b --n-layers 2 --experts 8 --top-k 2 --moe-dispatch grouped
+   --ep 1 --fsdp 1 --tp 1 --strict-moe-dispatch --batch-size 2 --seq-len
+   4096 --steps 3``: phase 10's widths, f32 parameters, remat "full") in a
+   one-rank nccl group, with phase 10's init and tokens (its seed), so
+   on the ep-sharded dropless grouped path (``models/moe.py``: the
+   shard's layout with a sentinel group, gate, up and down as separate
+   ``gmm`` calls under ``valid_tiles``).  No fallback warning; launches
+   exact, per layer per step: the skip forms of ``gmm`` 9 (gate, up and
+   down, forward and recompute, and the three dlhs) and ``tgmm`` 3, and
+   no other grouped launch (``gmm_swiglu`` 0), flash as phase 10 (the
+   counts ``tests/test_torch_moe_mesh.py`` holds the CPU to against the
+   reference's jaxpr under its mesh); per-step losses within 1e-3
+   relative of phase 10's first three (the mesh runs gate and up as two
+   products where phase 10 fuses them: the bf16 roundings differ), the
+   largest difference printed; each layer's M, tiles and
+   ``valid_tiles`` on the first step; step ms p50 and peak memory beside
+   phase 10's, the peak under 80 GB.
+14. entry point: ``llama_pretrain.main`` on the card's default device,
    ``--preset tiny --steps 2``, then with ``--experts 4 --moe-dispatch
    einsum``.
-14. dist-mnist (the gang slice; it reaches no hand-written kernel, and
+15. dist-mnist (the gang slice; it reaches no hand-written kernel, and
    every launch counter must read 0 across it): ``mnist_local.main([])``
    and ``mnist_dist.main([])`` with no ``--device``, so on CUDA, at the
    reference's defaults (200 steps, global batch 100, 8192 train and 2048
@@ -171,7 +193,7 @@ Phases, in order (any failure raises and exits non-zero):
    ``all_reduce`` must leave the parameters bit-identical to the same step
    with no group (one card, and NCCL refuses two ranks on one device, so
    a one-rank group is the only form of the collective one card checks).
-15. checkpoint/resume, in a child process of this script (``--resume-phase``,
+16. checkpoint/resume, in a child process of this script (``--resume-phase``,
    with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and
    ``torch.use_deterministic_algorithms``, and a file-drop progress
    reporter from ``KCTPU_PROGRESS_DIR``, whose last beat must read
@@ -189,7 +211,7 @@ Phases, in order (any failure raises and exits non-zero):
    seconds (the host snapshot), the total save and restore seconds and
    their GB/s, and any op that warned it has no deterministic
    implementation.  The directory is deleted.
-16. vision (no hand-written kernel; every launch counter must read 0):
+17. vision (no hand-written kernel; every launch counter must read 0):
    ``cifar_allreduce`` ResNet-50 at the published widths (``--width 64``:
    64 -> 2048 channels), batch 128, 20 steps, twice (the first run pays
    cuDNN's first calls), then ``flax_mnist.main([])`` at its defaults,
@@ -199,9 +221,10 @@ Phases, in order (any failure raises and exits non-zero):
    ``MNIST_LOSS_ATOL``.  Then one ResNet-50 step (batch 32, cuDNN
    deterministic) with no group and in a one-rank nccl group: state and
    loss bit-identical, 2 x 53 + 1 collectives.
-17. The card's name and power limit, the ``kernels`` JSON line (launches
-   from phase 10, the slice's main path; each path's own counts beside
-   them), and the contract line ``{"ok": true, "device": {...}}`` last.
+18. The card's name and power limit, the ``kernels`` JSON line (launches
+   from phase 10; each path's own counts beside them, phase 13's, this
+   slice's path, with the skip launches of ``gmm`` and ``tgmm``), and the
+   contract line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -896,49 +919,76 @@ def moe_kernel_phase(cfg: LlamaConfig, dev, seed: int, batch: int = 2,
 
     # The compute skip on a worst-case per-shard layout: 2 local experts
     # plus the sentinel group, about half the tiles real.
-    te_s, vt, m_s, bm_s, counts_s = shard_layout(n_tok * cfg.moe_top_k, 2,
-                                                 gen, dev)
-    n_real = int(vt.item())
-    rows_l = int(counts_s.sum())
-    skip = {"M": m_s, "bm": bm_s, "tiles": m_s // bm_s, "valid_tiles": n_real,
-            "local_rows": rows_l}
-    print("shard layout: " + json.dumps(skip), flush=True)
-    xs, gs = rnd(m_s, d), rnd(m_s, f)
-    w2 = wg[:2]
-    ys = gm.gmm(xs, w2, te_s, bm_s, vt)
-    torch.cuda.synchronize()
-    skipped_zero = not ys[n_real * bm_s:].any().item()
-    ref = gm.gmm_plain(xs.float(), w2.float(), te_s, bm_s, vt)
-    err = check_rel("gmm[skip]", ys, ref,
-                    torch.arange(n_real * bm_s, device=dev), KERNEL_REL_TOL)
-    print(f"  gmm[skip]: rows past valid_tiles exactly 0: {skipped_zero}",
-          flush=True)
-    assert skipped_zero, "gmm wrote nonzero rows past valid_tiles"
-    del ys, ref
-    grp_s = groups(counts_s, bm_s)
-    res["gmm"]["skip"] = timed(
-        lambda: gm.gmm(xs, w2, te_s, bm_s, vt),
-        lambda: gm.gmm_plain(xs, w2, te_s, bm_s, vt),
-        lambda: [xs[r0:r0 + c] @ w2[ex] for ex, r0, c in grp_s],
-        2 * (rows_l * d + 2 * d * f + rows_l * f), 2 * rows_l * d * f, err,
-        **skip, rows_past_valid_tiles_zero=skipped_zero)
-    out, chk = tgmm_check("tgmm[skip]", xs, gs, te_s, 2, bm_s, vt)
-    del out
-    res["tgmm"]["skip"] = timed(
-        lambda: gm.tgmm(xs, gs, te_s, 2, bm_s, vt),
-        lambda: gm.tgmm_plain(xs, gs, te_s, 2, bm_s, vt),
-        lambda: [torch.matmul(xs[r0:r0 + c].t(), gs[r0:r0 + c])
-                 for _, r0, c in grp_s],
-        2 * (rows_l * d + rows_l * f + 2 * d * f), 2 * rows_l * d * f,
-        chk["max_abs_err"], **skip, max_expert_rel=chk["max_expert_rel"])
+    skip_case(res, "skip", *shard_layout(n_tok * cfg.moe_top_k, 2, gen, dev),
+              wg, gen)
+    # The layouts the mesh MoE step builds (models/moe.py: grouped_layout
+    # with a local expert range), from a router's top-2 over B x T tokens:
+    # ep 1 (8 local experts, the one-card mesh) and ep 4's first shard (2).
+    logits = torch.randn((batch, seq_len, e), generator=gen, device=dev)
+    _, idx = moe.router_topk(logits, cfg.moe_top_k)
+    for ep in (1, 4):
+        lay = moe.grouped_layout(idx, e // ep, 256, first_expert=0)
+        counts = np.bincount(idx.reshape(-1).cpu().numpy(), minlength=e)
+        skip_case(res, f"skip_ep{ep}", lay.tile_experts, lay.valid_tiles,
+                  lay.m, lay.bm, counts[:e // ep], wg, gen)
     for name, recs in res.items():
         for shape, rec in recs.items():
             if "ms" in rec:
                 print_times(name, shape, rec)
-    del x, xs, gs, wg, wu, wd, w2
+    del x, wg, wu, wd
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def skip_case(res, name, te, vt, m, bm, counts, w_all, gen):
+    """``gmm`` (the gate product) and ``tgmm`` (its weight gradient) under
+    ``valid_tiles`` ``vt`` on a per-shard layout of ``m`` rows whose local
+    experts hold ``counts`` rows: rows past ``valid_tiles`` exactly 0, the
+    rest within 2e-2 of the plain version, ``tgmm`` per expert as
+    ``tgmm_check``; timed beside the plain versions, a per-expert
+    ``torch.matmul`` loop over the real rows and the bound over them.
+    Adds ``res["gmm"][name]`` and ``res["tgmm"][name]``."""
+    dev = te.device
+    n_local = len(counts)
+    d, f = w_all.shape[1:]
+    n_real = int(vt.item())
+    rows_l = int(counts.sum())
+    skip = {"M": m, "bm": bm, "tiles": m // bm, "valid_tiles": n_real,
+            "local_experts": n_local, "local_rows": rows_l}
+    print(f"{name} layout: " + json.dumps(skip), flush=True)
+    xs = (torch.randn((m, d), generator=gen, device=dev)).to(torch.bfloat16)
+    gs = (torch.randn((m, f), generator=gen, device=dev)).to(torch.bfloat16)
+    w = w_all[:n_local]
+    ys = gm.gmm(xs, w, te, bm, vt)
+    torch.cuda.synchronize()
+    skipped_zero = not ys[n_real * bm:].any().item()
+    ref = gm.gmm_plain(xs.float(), w.float(), te, bm, vt)
+    err = check_rel(f"gmm[{name}]", ys, ref,
+                    torch.arange(n_real * bm, device=dev), KERNEL_REL_TOL)
+    print(f"  gmm[{name}]: rows past valid_tiles exactly 0: {skipped_zero}",
+          flush=True)
+    assert skipped_zero, "gmm wrote nonzero rows past valid_tiles"
+    del ys, ref
+    grp = groups(counts, bm)
+    res["gmm"][name] = timed(
+        lambda: gm.gmm(xs, w, te, bm, vt),
+        lambda: gm.gmm_plain(xs, w, te, bm, vt),
+        lambda: [xs[r0:r0 + c] @ w[ex] for ex, r0, c in grp],
+        2 * (rows_l * d + n_local * d * f + rows_l * f), 2 * rows_l * d * f,
+        err, **skip, rows_past_valid_tiles_zero=skipped_zero)
+    out, chk = tgmm_check(f"tgmm[{name}]", xs, gs, te, n_local, bm, vt)
+    del out
+    res["tgmm"][name] = timed(
+        lambda: gm.tgmm(xs, gs, te, n_local, bm, vt),
+        lambda: gm.tgmm_plain(xs, gs, te, n_local, bm, vt),
+        lambda: [torch.matmul(xs[r0:r0 + c].t(), gs[r0:r0 + c])
+                 for _, r0, c in grp],
+        2 * (rows_l * d + rows_l * f + n_local * d * f), 2 * rows_l * d * f,
+        chk["max_abs_err"], **skip, max_expert_rel=chk["max_expert_rel"])
+    for kernel in ("gmm", "tgmm"):
+        print_times(kernel, name, res[kernel][name])
+    del xs, gs
 
 
 # ---------------------------------------------------------------------------
@@ -1467,9 +1517,9 @@ def touched_experts(fn):
     seen = []
     real = moe.grouped_layout
 
-    def spy(idx, n_experts, block_m=256):
+    def spy(idx, *args, **kwargs):
         seen.append(int(torch.unique(idx).numel()))
-        return real(idx, n_experts, block_m)
+        return real(idx, *args, **kwargs)
 
     with mock.patch.object(moe, "grouped_layout", spy):
         fn()
@@ -1738,21 +1788,24 @@ def remat_phase(dev, seed: int, moe_full_loss: float) -> dict:
 # Phase 12: the mesh path on one card
 # ---------------------------------------------------------------------------
 
-def mesh_phase(dev, plain: dict) -> dict:
-    """Phase 12 (see the docstring): ``llama_pretrain.main`` in a one-rank
-    nccl group against ``plain``, phase 11's "full" record.  Returns the
-    record with the launches."""
+def main_in_one_rank_group(dev, argv, counters: dict, seed=None):
+    """``llama_pretrain.main(argv)`` inside a one-rank nccl group formed by
+    ``JobRuntime.join_group``, the launch ``counters`` (name -> (wrapper,
+    attribute)) zeroed just before and read just after, ``train`` given
+    ``seed`` when set (the init and tokens of a ``train`` call of that
+    seed).  Returns (rc, train result, stdout, launches, peak GB, world,
+    backend)."""
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor
 
     runs = []
     real_train = llama_pretrain.train
 
     def recording(*args, **kwargs):
+        if seed is not None:
+            kwargs["seed"] = seed
         runs.append(real_train(*args, **kwargs))
         return runs[-1]
 
-    counters = {name: counter(name) for name in FLASH_KERNELS}
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1761,20 +1814,34 @@ def mesh_phase(dev, plain: dict) -> dict:
     backend = rt.join_group(dev, timeout_s=120)
     buf = io.StringIO()
     try:
-        for c in counters.values():
-            c.launches = 0
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
         with mock.patch.object(llama_pretrain, "train", recording), \
                 contextlib.redirect_stdout(buf):
-            rc = llama_pretrain.main(MESH_ARGV)
-        launches = {name: c.launches for name, c in counters.items()}
+            rc = llama_pretrain.main(argv)
+        launches = {name: getattr(obj, attr)
+                    for name, (obj, attr) in counters.items()}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         world = dist.get_world_size()
     finally:
         rt.shutdown()
     out = buf.getvalue()
+    [res] = runs
+    assert not dist.is_initialized()
+    return rc, res, out, launches, peak_gb, world, backend
+
+
+def mesh_phase(dev, plain: dict) -> dict:
+    """Phase 12 (see the docstring): ``llama_pretrain.main`` in a one-rank
+    nccl group against ``plain``, phase 11's "full" record.  Returns the
+    record with the launches."""
+    from torch.distributed.tensor import DTensor
+
+    counters = {name: (counter(name), "launches") for name in FLASH_KERNELS}
+    rc, res, out, launches, peak_gb, world, backend = main_in_one_rank_group(
+        dev, MESH_ARGV, counters)
     for line in out.splitlines():
         print(f"mesh: {line}", flush=True)
-    [res] = runs
     sharded = all(isinstance(p, DTensor) for p in res.model.parameters())
     p50 = statistics.median(res.step_s) * 1e3
     rel = [abs(a - b) / abs(b) for a, b in zip(res.losses, plain["losses"])]
@@ -1786,7 +1853,7 @@ def mesh_phase(dev, plain: dict) -> dict:
            "peak_mem_gb": peak_gb, "peak_mem_gb_no_mesh": plain["peak_mem_gb"],
            "launches": launches}
     print("mesh: " + json.dumps(rec), flush=True)
-    del res, runs
+    del res
     gc.collect()
     torch.cuda.empty_cache()
     assert rc == 0 and backend == "nccl" and world == 1, (rc, backend)
@@ -1799,7 +1866,84 @@ def mesh_phase(dev, plain: dict) -> dict:
     assert launches == want, (launches, want)
     assert len(rel) == REMAT_STEPS and max(rel) <= MESH_LOSS_RTOL, rel
     assert peak_gb < 80, f"peak {peak_gb} GB"
-    assert not dist.is_initialized()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: MoE under the mesh on one card (the ep-sharded grouped path)
+# ---------------------------------------------------------------------------
+
+MESH_MOE_ARGV = ["--preset", "mixtral-8x7b", "--n-layers",
+                 str(MOE_TRAIN["layers"]), "--experts", "8", "--top-k", "2",
+                 "--moe-dispatch", "grouped", "--ep", "1", "--fsdp", "1",
+                 "--tp", "1", "--strict-moe-dispatch", "--batch-size",
+                 str(MOE_TRAIN["batch"]), "--seq-len",
+                 str(MOE_TRAIN["seq_len"]), "--steps", str(REMAT_STEPS)]
+# Launches per layer per step of the mesh MoE step under remat "full":
+# the gate, up and down gmm (forward, recompute) and the three dlhs, and
+# the three tgmm, every one the skip form; what tests/test_torch_moe_mesh.py
+# holds the CPU to against the reference's jaxpr under its mesh.
+MESH_MOE_LAUNCHES_PER_LAYER = {"gmm": 9, "gmm_skip": 9, "tgmm": 3,
+                               "tgmm_skip": 3, "gmm_swiglu": 0,
+                               "flash_fwd": 2, "flash_dq": 1, "flash_dkv": 1}
+MESH_MOE_LOSS_RTOL = 1e-3
+
+
+def mesh_moe_phase(dev, seed: int, plain: dict) -> dict:
+    """Phase 13 (see the docstring): the MoE under a one-rank nccl mesh
+    through ``llama_pretrain.main`` against ``plain``, phase 10's
+    unsharded grouped run from ``seed``.  Returns the record with the
+    launches."""
+    counters = {name: (counter(name.replace("_skip", "")),
+                       "skip_launches" if name.endswith("_skip")
+                       else "launches")
+                for name in MESH_MOE_LAUNCHES_PER_LAYER}
+    valid = []
+    real_layout = moe.grouped_layout
+
+    def layout(*args, **kwargs):
+        lay = real_layout(*args, **kwargs)
+        valid.append((lay.m, lay.bm, lay.valid_tiles))
+        return lay
+
+    with warnings.catch_warnings(record=True) as caught, \
+            mock.patch.object(moe, "grouped_layout", layout):
+        warnings.simplefilter("always")
+        rc, res, out, launches, peak_gb, world, backend = (
+            main_in_one_rank_group(dev, MESH_MOE_ARGV, counters, seed))
+    fell_back = [str(w.message) for w in caught
+                 if "falling back" in str(w.message)]
+    for line in out.splitlines():
+        print(f"mesh moe: {line}", flush=True)
+    p50 = statistics.median(res.step_s) * 1e3
+    rel = [abs(a - b) / abs(b) for a, b in zip(res.losses, plain["losses"])]
+    layers = MOE_TRAIN["layers"]
+    rec = {"backend": backend, "world": world, "rc": rc,
+           "losses": res.losses, "losses_no_mesh": plain["losses"],
+           "loss_rel_diff_max": max(rel), "tol": MESH_MOE_LOSS_RTOL,
+           "step_ms": [x * 1e3 for x in res.step_s], "step_ms_p50": p50,
+           "step_ms_p50_no_mesh": plain["step_ms_p50"],
+           "peak_mem_gb": peak_gb, "peak_mem_gb_no_mesh": plain["peak_mem_gb"],
+           "launches": launches, "fell_back": fell_back,
+           "layout_first_step": [
+               {"M": m, "bm": bm, "tiles": m // bm,
+                "valid_tiles": None if vt is None else int(vt.item())}
+               for m, bm, vt in valid[:layers]]}
+    print("mesh moe: " + json.dumps(rec), flush=True)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert rc == 0 and backend == "nccl" and world == 1, (rc, backend)
+    assert ("Mesh: {'pp': 1, 'dp': 1, 'fsdp': 1, 'ep': 1, 'sp': 1, 'tp': 1} "
+            "over 1 devices") in out, out
+    assert not fell_back, fell_back
+    want = {name: n * layers * REMAT_STEPS
+            for name, n in MESH_MOE_LAUNCHES_PER_LAYER.items()}
+    assert launches == want, (launches, want)
+    assert all(vt is not None for _, _, vt in valid), "an unsharded layout"
+    assert all(np.isfinite(x) for x in rec["losses"]), rec["losses"]
+    assert len(rel) == REMAT_STEPS and max(rel) <= MESH_MOE_LOSS_RTOL, rel
+    assert peak_gb < 80, f"peak {peak_gb} GB"
     return rec
 
 
@@ -1890,7 +2034,7 @@ def nccl_one_rank_check(dev):
 
 
 def mnist_phase(dev):
-    """The dist-mnist slice on the card (see phase 14 in the docstring).
+    """The dist-mnist slice on the card (see phase 15 in the docstring).
     Returns the launch counters across the two entry points (all 0)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1939,7 +2083,7 @@ def mnist_phase(dev):
 
 
 # ---------------------------------------------------------------------------
-# Phase 15: checkpoint/resume at Llama-2-7B widths (a child process)
+# Phase 16: checkpoint/resume at Llama-2-7B widths (a child process)
 # ---------------------------------------------------------------------------
 
 def resume_phase(dev, seed: int) -> dict:
@@ -2056,7 +2200,7 @@ def resume_child(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 16: the vision TFJobs
+# Phase 17: the vision TFJobs
 # ---------------------------------------------------------------------------
 
 def fit_record(res, wall_s: float) -> dict:
@@ -2132,7 +2276,7 @@ def nccl_vision_check(dev):
 
 
 def vision_phase(dev):
-    """The vision TFJobs on the card (phase 16 in the docstring).  Returns
+    """The vision TFJobs on the card (phase 17 in the docstring).  Returns
     the launch counters across them (all 0)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2195,11 +2339,13 @@ def card_line() -> str:
 
 
 def kernels_line(results, flash, paths, serve_designs):
-    """One entry per kernel; ``launches`` is the MoE train run's (this
-    slice's main path, which launches all six) and the grouped kernels'
-    top-level times are at its layout; ``launches_by_path`` gives each
-    path's own run, and ``serve_launches_by_design`` the serve run's
-    ``gmm`` and ``gmm_swiglu`` launches by design."""
+    """One entry per kernel; ``launches`` is the MoE train run's (the
+    path that launches all six) and the grouped kernels' top-level times
+    are at its layout; ``launches_by_path`` gives each path's own run
+    (``mesh_moe``: the mesh MoE step, this slice's path),
+    ``skip_launches_by_path`` the launches of ``gmm`` and ``tgmm`` that
+    carried ``valid_tiles``, and ``serve_launches_by_design`` the serve
+    run's ``gmm`` and ``gmm_swiglu`` launches by design."""
     replaces = {
         "gmm": (f"{REF_FILE}:132 (_gmm_single_k_kernel, decode); "
                 f"{REF_FILE}:78 (_gmm_kernel, prefill); "
@@ -2215,10 +2361,13 @@ def kernels_line(results, flash, paths, serve_designs):
     main_path = paths["moe_train"]
 
     def common(name, source):
+        skip = {p: n[f"{name}_skip"] for p, n in paths.items()
+                if f"{name}_skip" in n}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces[name], "launches": main_path[name],
                 "launches_by_path": {p: n[name] for p, n in paths.items()
-                                     if name in n}}
+                                     if name in n},
+                **({"skip_launches_by_path": skip} if skip else {})}
 
     entries = []
     # The top-level numbers are at the main path's shape; the other shapes
@@ -2251,7 +2400,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--resume-phase", default="",
-                    help=argparse.SUPPRESS)  # the child of phase 15
+                    help=argparse.SUPPRESS)  # the child of phase 16
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2292,6 +2441,7 @@ def main(argv=None) -> int:
     for policy, rec in remat.items():
         paths[f"remat_{policy}"] = rec["launches"]
     paths["mesh"] = mesh_phase(dev, remat["full"])["launches"]
+    paths["mesh_moe"] = mesh_moe_phase(dev, args.seed, moe_run)["launches"]
     entry_phase()
     paths["mnist"] = mnist_phase(dev)
     paths["resume"] = resume_child(args.seed)["launches"]

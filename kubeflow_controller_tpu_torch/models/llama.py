@@ -18,7 +18,8 @@ training asks for gradients (``Llama(..., requires_grad=True)``).
 
 MoE layers train through the same path: their expert FFN is
 ``models/moe.py`` (``cfg.moe_dispatch``, the grouped kernels' custom
-backward), and ``llama_loss`` adds the router losses.
+backward; under a mesh, per shard over ep), and ``llama_loss`` adds the
+router losses.
 
 Remat: every policy of the reference (``"full"``, ``"dots"``, ``"ffn"``,
 ``"gateup"``, ``"gateup_attn"``, ``"moe"``) as selective activation
@@ -51,6 +52,7 @@ from ..parallel.ring import attention_reference
 from ..parallel.sharding import (
     DEFAULT_RULES,
     ShardingRules,
+    grad_placed,
     placements_for,
     shard_pytree_specs,
     with_logical_constraint,
@@ -163,24 +165,57 @@ class Llama(nn.Module):
 
 @torch.no_grad()
 def llama_init(cfg: LlamaConfig, generator: torch.Generator,
-               device: DeviceLike = "cuda",
-               requires_grad: bool = False) -> Llama:
+               device: DeviceLike = "cuda", requires_grad: bool = False,
+               mesh=None, rules: ShardingRules = DEFAULT_RULES) -> Llama:
     """Scaled-normal init (0.02; residual projections scaled by depth),
     the shapes of the reference's ``llama_init``.  ``generator`` must live
     on ``device``.  The draws are not JAX's: tests that compare the two
-    packages bridge the JAX parameters instead (``bridge.py``)."""
-    model = Llama(cfg, device, requires_grad)
-    resid_scale = 0.02 / (2 * cfg.n_layers) ** 0.5
+    packages bridge the JAX parameters instead (``bridge.py``).
 
-    def normal_(p: nn.Parameter, scale: float = 0.02) -> None:
-        # Draw in f32 and round once, as the reference casts its f32 draw.
-        p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
-                            dtype=torch.float32) * scale)
+    With ``mesh``, the model is built already sharded, one parameter at a
+    time (the reference's ``jax.jit(llama_init, out_shardings=...)``): the
+    module is made on the ``meta`` device, and each parameter, in the draw
+    order above, is drawn whole in f32, split into this process's shard
+    with ``shard_llama``'s placements and dropped before the next draw.
+    Every process draws the same values from the same seed, so no
+    collective runs, and the shards equal ``llama_init`` followed by
+    ``shard_llama`` bit for bit, while one full parameter at most is
+    alive at a time."""
+    resid_scale = 0.02 / (2 * cfg.n_layers) ** 0.5
+    if mesh is None:
+        model = Llama(cfg, device, requires_grad)
+
+        def normal_(p: nn.Parameter, scale: float = 0.02) -> None:
+            # Draw in f32 and round once, as the reference casts its f32
+            # draw.
+            p.copy_(torch.randn(p.shape, generator=generator,
+                                device=p.device, dtype=torch.float32) * scale)
+
+        def ones_(p: nn.Parameter) -> None:
+            p.fill_(1.0)
+    else:
+        model = Llama(cfg, "meta", requires_grad)
+        dev = resolve_device(device)
+        placed = _placements(model, model_mesh(mesh), rules)
+
+        def _shard(p: nn.Parameter, full: torch.Tensor) -> None:
+            module, name, sub, placements = placed[id(p)]
+            d = _distribute(full, sub, placements).to(p.dtype)
+            setattr(module, name, nn.Parameter(d,
+                                               requires_grad=requires_grad))
+
+        def normal_(p: nn.Parameter, scale: float = 0.02) -> None:
+            full = torch.randn(p.shape, generator=generator, device=dev,
+                               dtype=torch.float32).mul_(scale)
+            _shard(p, full)
+
+        def ones_(p: nn.Parameter) -> None:
+            _shard(p, torch.ones(p.shape, device=dev, dtype=torch.float32))
 
     normal_(model.embed)
     for lp in model.layers:
-        lp.attn_norm.fill_(1.0)
-        lp.mlp_norm.fill_(1.0)
+        ones_(lp.attn_norm)
+        ones_(lp.mlp_norm)
         for p in (lp.wq, lp.wk, lp.wv):
             normal_(p)
         normal_(lp.wo, resid_scale)
@@ -189,7 +224,7 @@ def llama_init(cfg: LlamaConfig, generator: torch.Generator,
         normal_(lp.w_gate)
         normal_(lp.w_up)
         normal_(lp.w_down, resid_scale)
-    model.final_norm.fill_(1.0)
+    ones_(model.final_norm)
     normal_(model.lm_head)
     return model
 
@@ -232,60 +267,74 @@ def llama_param_pspecs(cfg: LlamaConfig, rules: ShardingRules = DEFAULT_RULES):
     return shard_pytree_specs(llama_param_logical_axes(cfg), rules)
 
 
-# The mesh axes the dense path shards over; the others must be 1.
-MODEL_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR)
+# The mesh axes the model shards over; the others must be 1.
+MODEL_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_TENSOR)
 _NOT_PORTED_AXES = (
     (AXIS_SEQUENCE, "sequence parallelism (ring and Ulysses attention) is "
                     "not ported yet (ROADMAP.md, M3)"),
     (AXIS_PIPELINE, "pipeline parallelism is not ported yet (ROADMAP.md, "
                     "M8)"),
-    (AXIS_EXPERT, "expert parallelism (the ep-sharded grouped path) is not "
-                  "ported yet (ROADMAP.md, M4)"),
 )
-_MOE_MESH_NOT_PORTED = ("MoE under a mesh (einsum/scatter with constraints, "
-                        "and the grouped sharded path) is not ported yet "
-                        "(ROADMAP.md, M4)")
 
 
-def model_mesh(mesh, cfg: Optional[LlamaConfig] = None):
-    """The ``(dp, fsdp, tp)`` part of ``mesh`` (a ``build_mesh`` mesh), over
-    which parameters and activations are DTensors.  Raises
-    ``NotImplementedError`` for an sp, pp or ep axis above 1, and for MoE
-    (``cfg.n_experts``), naming their ROADMAP modules."""
+def model_mesh(mesh):
+    """The ``(dp, fsdp, ep, tp)`` part of ``mesh`` (a ``build_mesh``
+    mesh), over which parameters and activations are DTensors: those of
+    its axes that are above 1, or dp alone on one device.  A size-1 axis
+    shards nothing, and each mesh dim multiplies the strategies DTensor's
+    sharding propagation weighs for every op.  Raises
+    ``NotImplementedError`` for an sp or pp axis above 1, naming its
+    ROADMAP module."""
     names = mesh.mesh_dim_names
     for axis, why in _NOT_PORTED_AXES:
         if axis in names and mesh.size(names.index(axis)) > 1:
             raise NotImplementedError(why)
-    if cfg is not None and cfg.n_experts:
-        raise NotImplementedError(_MOE_MESH_NOT_PORTED)
-    return mesh if tuple(names) == MODEL_AXES else mesh[MODEL_AXES]
+    used = tuple(a for a in MODEL_AXES
+                 if a in names and mesh.size(names.index(a)) > 1)
+    used = used or MODEL_AXES[:1]
+    return mesh if tuple(names) == used else mesh[used]
+
+
+def _placements(model: Llama, sub, rules: ShardingRules) -> dict:
+    """``id(parameter) -> (owner module, attribute, sub, placements)`` for
+    every parameter of ``model``, placed by ``llama_param_logical_axes``
+    through ``rules`` on the model mesh ``sub``."""
+    axes = llama_param_logical_axes(model.cfg)
+    owners = [(model, axes)] + [(lp, {k: v[1:] for k, v in
+                                      axes["layers"].items()})
+                                for lp in model.layers]
+    return {id(getattr(module, name)): (module, name, sub,
+                                        placements_for(logical, sub, rules))
+            for module, table in owners for name, logical in table.items()
+            if name != "layers"}
+
+
+def _distribute(full: torch.Tensor, sub, placements):
+    """``distribute_tensor`` of a tensor every process holds alike: each
+    keeps its own shard, with no collective (``src_data_rank=None``)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(full, sub, placements, src_data_rank=None)
 
 
 @torch.no_grad()
 def shard_llama(model: Llama, mesh, rules: ShardingRules = DEFAULT_RULES
                 ) -> Llama:
     """Make every parameter of ``model`` a DTensor on ``mesh``'s ``(dp,
-    fsdp, tp)`` dims, placed by ``llama_param_logical_axes`` through
+    fsdp, ep, tp)`` dims, placed by ``llama_param_logical_axes`` through
     ``rules`` (the reference's ``out_shardings`` at init): fsdp shards the
-    embed dim, tp the heads, the mlp and the vocab; dp replicates.  Each
-    process keeps its shards only (rank 0's values, if the full tensors
-    differ between processes).  In place; returns ``model``."""
-    sub = model_mesh(mesh, model.cfg)
+    embed dim, tp the heads, the mlp and the vocab, ep the experts; dp
+    replicates.  Each process keeps its shards only (rank 0's values, if
+    the full tensors differ between processes).  In place; returns
+    ``model``.  (``llama_init(mesh=)`` builds the same shards without the
+    whole model.)"""
     from torch.distributed.tensor import distribute_tensor
 
-    axes = llama_param_logical_axes(model.cfg)
-    owners = [(model, axes)] + [(lp, {k: v[1:] for k, v in
-                                      axes["layers"].items()})
-                                for lp in model.layers]
-    for module, table in owners:
-        for name, logical in table.items():
-            if name == "layers":
-                continue
-            p = getattr(module, name)
-            d = distribute_tensor(p.detach(), sub,
-                                  placements_for(logical, sub, rules))
-            setattr(module, name, nn.Parameter(
-                d, requires_grad=p.requires_grad))
+    for module, name, sub, placements in _placements(
+            model, model_mesh(mesh), rules).values():
+        p = getattr(module, name)
+        d = distribute_tensor(p.detach(), sub, placements)
+        setattr(module, name, nn.Parameter(d, requires_grad=p.requires_grad))
     return model
 
 
@@ -293,12 +342,13 @@ def _w(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A parameter as the product uses it, cast to ``dtype``.  A DTensor
     parameter is first gathered over fsdp (and dp): ZeRO-3's all-gather of
     the weight before use, whose backward reduce-scatters the gradient
-    over fsdp and all-reduces it over dp; its tp shards stay."""
+    over fsdp and all-reduces it over dp; its tp and ep shards stay.  Its
+    gradient comes back placed as the parameter is (``grad_placed``)."""
     from torch.distributed.tensor import DTensor, Replicate
 
     if isinstance(p, DTensor):
         mesh = p.device_mesh
-        p = p.redistribute(mesh, [
+        p = grad_placed(p).redistribute(mesh, [
             Replicate() if name in (AXIS_DATA, AXIS_FSDP) else pl
             for name, pl in zip(mesh.mesh_dim_names, p.placements)])
     return p.to(dtype)
@@ -332,16 +382,16 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 
 def ffn_block(h: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig,
-              rules: ShardingRules = DEFAULT_RULES) -> torch.Tensor:
+              rules: ShardingRules = DEFAULT_RULES,
+              mesh=None) -> torch.Tensor:
     """SwiGLU FFN or MoE on [B, T, D] activations (DTensors under a
     mesh: tp shards the mlp dim, the down projection's partial sums meet
-    in one all-reduce)."""
-    if cfg.n_experts:
-        return moe_ffn(h, lp.router, lp.w_gate, lp.w_up, lp.w_down,
-                       top_k=cfg.moe_top_k,
-                       capacity_factor=cfg.capacity_factor,
-                       dispatch=cfg.moe_dispatch)
+    in one all-reduce; MoE runs per shard, ``models/moe.py``)."""
     dtype = h.dtype
+    if cfg.n_experts:
+        return moe_ffn(h, *_moe_weights(lp, dtype), top_k=cfg.moe_top_k,
+                       capacity_factor=cfg.capacity_factor,
+                       dispatch=cfg.moe_dispatch, mesh=mesh)
     w_gate, w_up = _w(lp.w_gate, dtype), _w(lp.w_up, dtype)
     w_down = _w(lp.w_down, dtype)
     with checkpoint_name("ffn_gate"):
@@ -355,12 +405,20 @@ def ffn_block(h: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig,
     return with_logical_constraint(out, ("batch", "seq", None), rules)
 
 
-def ffn_block_stats(h: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig):
+def ffn_block_stats(h: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig,
+                    mesh=None):
     """MoE FFN returning (y, router stats) — see ``moe.moe_ffn_stats``."""
     return moe_ffn_stats(
-        h, lp.router, lp.w_gate, lp.w_up, lp.w_down,
-        top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor,
-        dispatch=cfg.moe_dispatch)
+        h, *_moe_weights(lp, h.dtype), top_k=cfg.moe_top_k,
+        capacity_factor=cfg.capacity_factor, dispatch=cfg.moe_dispatch,
+        mesh=mesh)
+
+
+def _moe_weights(lp: LlamaLayer, dtype: torch.dtype):
+    """The router and expert weights as the MoE FFN uses them (``_w``:
+    gathered over dp and fsdp, still sharded over ep and tp)."""
+    return tuple(_w(p, dtype) for p in (lp.router, lp.w_gate, lp.w_up,
+                                        lp.w_down))
 
 
 # ---------------------------------------------------------------------------
@@ -467,7 +525,7 @@ def _decoder_layer_fn(cfg: LlamaConfig, angles: torch.Tensor, mesh=None,
     dtype = torch_dtype(cfg.dtype)
 
     def layer(x, lp):
-        h = rmsnorm(x, lp.attn_norm, cfg.norm_eps)
+        h = rmsnorm(x, _w(lp.attn_norm, dtype), cfg.norm_eps)
         q = apply_rope(_heads(h, _w(lp.wq, dtype)), angles)
         k = apply_rope(_heads(h, _w(lp.wk, dtype)), angles)
         v = _heads(h, _w(lp.wv, dtype))
@@ -477,9 +535,9 @@ def _decoder_layer_fn(cfg: LlamaConfig, angles: torch.Tensor, mesh=None,
             proj = attn.flatten(2) @ wo.flatten(0, 1)
         x = x + with_logical_constraint(proj, ("batch", "seq", None), rules)
 
-        h = rmsnorm(x, lp.mlp_norm, cfg.norm_eps)
+        h = rmsnorm(x, _w(lp.mlp_norm, dtype), cfg.norm_eps)
         if cfg.n_experts:
-            ff, aux = ffn_block_stats(h, lp, cfg)
+            ff, aux = ffn_block_stats(h, lp, cfg, mesh)
         else:
             ff = ffn_block(h, lp, cfg, rules)
             zero = torch.zeros((), device=x.device)
@@ -573,9 +631,10 @@ def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     chunk by chunk).
 
     With ``mesh`` (a ``build_mesh`` mesh; ``model`` sharded on it by
-    :func:`shard_llama`) the activations are DTensors on its ``(dp, fsdp,
-    tp)`` dims and the outputs come back as DTensors; ``tokens`` go
-    through :func:`stage_tokens`."""
+    :func:`shard_llama` or built on it by ``llama_init(mesh=)``) the
+    activations are DTensors on its model mesh (:func:`model_mesh`) and
+    the outputs come back as DTensors; ``tokens`` go through
+    :func:`stage_tokens`."""
     dtype = torch_dtype(cfg.dtype)
     t = tokens.shape[1]
     angles = rope_freqs(cfg, torch.arange(t, device=tokens.device))
@@ -584,7 +643,7 @@ def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     else:
         from torch.distributed.tensor import DTensor, Replicate
 
-        mesh = model_mesh(mesh, cfg)
+        mesh = model_mesh(mesh)
         tokens = stage_tokens(tokens, mesh, rules)
         x = _embed(tokens, _w(model.embed, model.embed.dtype))
         x = with_logical_constraint(x.to(dtype), ("batch", "seq", None),
@@ -596,7 +655,7 @@ def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     for lp in model.layers:
         x, aux = layer_fn(x, lp)
         auxes.append(aux)
-    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    x = rmsnorm(x, _w(model.final_norm, dtype), cfg.norm_eps)
     if return_hidden:
         out = x
     else:
@@ -626,7 +685,7 @@ def llama_loss(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     loss is a replicated DTensor scalar: the mean over the global batch."""
     aux = None
     if mesh is not None:
-        tokens = stage_tokens(tokens, model_mesh(mesh, cfg), rules)
+        tokens = stage_tokens(tokens, model_mesh(mesh), rules)
     if cfg.loss_chunks:
         out = llama_forward(model, tokens, cfg, mesh, rules,
                             return_aux=bool(cfg.n_experts), return_hidden=True)

@@ -35,11 +35,29 @@ the reference's words, which ``--strict-moe-dispatch`` (a warnings filter
 on "moe dispatch") turns into an error.  On the CPU the plain versions take
 every shape.
 
+Under a mesh (``mesh=``, the model mesh of ``models/llama.py``: dp, fsdp,
+ep, tp) every dispatch runs per shard, through two ``local_map`` regions,
+the analog of the reference's ``shard_map``.  Tokens are sharded over the
+batch by dp x fsdp and replicated over ep and tp; the expert weights come
+in gathered over dp and fsdp, their expert dim sharded over ep and their F
+dim over tp.  The first region routes each shard's tokens and returns the
+router statistics' per-shard sums, which are summed over dp x fsdp before
+``aux_loss`` multiplies its two means (a mean of per-shard products would
+be another loss).  The second runs the shard's own E/ep experts on its F/tp
+slice: the einsum and scatter dispatches slice their capacity buffers to
+those experts; "grouped" is the reference's ``_grouped_ffn_sharded``, the
+dropless decomposition whose per-shard layout (:func:`grouped_layout` with
+a local expert range) sends every other slot to a sentinel group and whose
+gate, up and down ``gmm`` calls skip the tiles past ``valid_tiles``.  Its
+output is a ``Partial`` sum over ep and tp, and one redistribution to
+``Replicate`` (an all-reduce whose backward passes the gradient through)
+closes the layer, where the reference calls ``psum``.
+
 Differences from the reference (ROADMAP.md, faults queue): the reference's
 fallback rule is the TPU tiling grain (D or F not multiples of 128, B·T·k
-not a multiple of the dtype's sublane tile), a Mosaic rule the port does
-not carry; the ep-sharded grouped path (``_grouped_ffn_sharded``) needs a
-mesh and is not ported (M4).
+not a multiple of the dtype's sublane tile), and under a mesh the Mosaic
+working set of its single-k kernel (``_single_k_blocks``), rules the port
+does not carry.
 """
 
 from __future__ import annotations
@@ -47,12 +65,14 @@ from __future__ import annotations
 import math
 import warnings
 from dataclasses import dataclass
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch.nn import functional as F
 
 from ..ops.grouped_matmul import gmm, gmm_swiglu
+from ..parallel.sharding import grad_placed
 from .remat import checkpoint_name
 
 DISPATCHES = ("einsum", "scatter", "grouped")
@@ -125,10 +145,17 @@ def _pow2_floor(block_m: int) -> int:
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, *, top_k: int = 2,
             capacity_factor: float = 1.25, capacity: int = 0,
-            dispatch: str = "einsum", block_m: int = 256) -> torch.Tensor:
-    """Like :func:`moe_ffn_stats` but returns only the output (and skips
-    the router statistics — eager PyTorch would otherwise compute what
-    XLA dead-code-eliminates on the reference's serving path)."""
+            dispatch: str = "einsum", block_m: int = 256,
+            mesh=None) -> torch.Tensor:
+    """Like :func:`moe_ffn_stats` but returns only the output (and, with
+    no mesh, skips the router statistics — eager PyTorch would otherwise
+    compute what XLA dead-code-eliminates on the reference's serving
+    path)."""
+    if mesh is not None:
+        return moe_ffn_stats(x, router_w, w_gate, w_up, w_down, top_k=top_k,
+                             capacity_factor=capacity_factor,
+                             capacity=capacity, dispatch=dispatch,
+                             block_m=block_m, mesh=mesh)[0]
     dispatch = _resolve_dispatch(dispatch, x, w_gate)
     _, probs, idx = _route(x, router_w, top_k)
     y, _ = _dispatch_ffn(x, probs, idx, w_gate, w_up, w_down, dispatch,
@@ -140,14 +167,25 @@ def moe_ffn_stats(x: torch.Tensor, router_w: torch.Tensor,
                   w_gate: torch.Tensor, w_up: torch.Tensor,
                   w_down: torch.Tensor, *, top_k: int = 2,
                   capacity_factor: float = 1.25, capacity: int = 0,
-                  dispatch: str = "einsum", block_m: int = 256):
+                  dispatch: str = "einsum", block_m: int = 256, mesh=None):
     """x [B, T, D]; router_w [D, E]; w_gate/w_up [E, D, F]; w_down [E, F, D].
 
     Returns ``(y [B, T, D], stats)`` with the reference's router stats:
     ``aux_loss`` (Switch load balancing, E * sum_e f_e * P_e), ``z_loss``
     (mean logsumexp(logits)^2) and ``overflow_frac`` (the fraction of
     routing slots the capacity dropped, not differentiable; 0 for the
-    dropless grouped dispatch)."""
+    dropless grouped dispatch).
+
+    With ``mesh``, x and the weights are DTensors on it (the weights
+    gathered over dp and fsdp, as ``models/llama.py:_w`` hands them over)
+    and every dispatch runs per shard (:func:`_moe_ffn_mesh`); y and the
+    stats come back as DTensors, y replicated over ep and tp."""
+    if mesh is not None:
+        with torch.no_grad():
+            local_w = w_gate.to_local()
+        dispatch = _resolve_dispatch(dispatch, x, local_w)
+        return _moe_ffn_mesh(x, router_w, w_gate, w_up, w_down, top_k,
+                             capacity_factor, capacity, dispatch, block_m)
     dispatch = _resolve_dispatch(dispatch, x, w_gate)
     n_experts = router_w.shape[-1]
     logits, probs, idx = _route(x, router_w, top_k)
@@ -178,23 +216,36 @@ def _dispatch_ffn(x, probs, idx, w_gate, w_up, w_down, dispatch: str,
     if dispatch == "grouped":
         return _grouped_ffn(x, probs, idx, wg, wu, wd,
                             block_m=_pow2_floor(block_m)), None
-    b, t, k = idx.shape
     n_experts = wg.shape[0]
-    # Slots per expert per sequence.
-    capacity = capacity or max(1, math.ceil(t * k / n_experts
-                                            * capacity_factor))
-    # Each (token, slot)'s position in its expert's buffer, counted in
-    # routing order over the flattened (T, k) axis.
-    assign = F.one_hot(idx, n_experts).float()                  # [B,T,k,E]
-    flat = assign.reshape(b, t * k, n_experts)
-    pos_flat = flat.cumsum(dim=1) - flat                        # exclusive
-    pos = pos_flat.reshape(b, t, k, n_experts)
-    keep = (pos < capacity) * assign                            # drop overflow
+    capacity = _capacity(idx.shape[1], idx.shape[2], n_experts,
+                         capacity_factor, capacity)
+    pos_flat, pos, keep = _capacity_positions(idx, n_experts, capacity)
     if dispatch == "scatter":
         y = _scatter_ffn(x, probs, idx, pos_flat, capacity, wg, wu, wd)
     else:
         y = _einsum_ffn(x, probs, pos, keep, capacity, wg, wu, wd)
     return y, keep
+
+
+def _capacity(t: int, k: int, n_experts: int, capacity_factor: float,
+              capacity: int) -> int:
+    """Slots per expert per sequence: ``capacity``, or ``max(1,
+    ceil(T·k/E·capacity_factor))``."""
+    return capacity or max(1, math.ceil(t * k / n_experts * capacity_factor))
+
+
+def _capacity_positions(idx: torch.Tensor, n_experts: int, capacity: int):
+    """``(pos_flat [B, T·k, E], pos [B, T, k, E], keep [B, T, k, E])``:
+    each (token, slot)'s position in its expert's buffer, counted in
+    routing order over the flattened (T, k) axis, and the assignments
+    that fit the capacity."""
+    b, t, k = idx.shape
+    assign = F.one_hot(idx, n_experts).float()                  # [B,T,k,E]
+    flat = assign.reshape(b, t * k, n_experts)
+    pos_flat = flat.cumsum(dim=1) - flat                        # exclusive
+    pos = pos_flat.reshape(b, t, k, n_experts)
+    keep = (pos < capacity) * assign                            # drop overflow
+    return pos_flat, pos, keep
 
 
 def _expert_ffn(xe, w_gate, w_up, w_down) -> torch.Tensor:
@@ -225,15 +276,19 @@ def _einsum_ffn(x, probs, pos, keep, capacity, w_gate, w_up, w_down):
         return torch.einsum("btec,becd->btd", combine, ye)
 
 
-def _scatter_ffn(x, probs, idx, pos_flat, capacity, w_gate, w_up, w_down):
-    """Tokens scatter into the flat expert buffers, results gather back."""
+def _scatter_ffn(x, probs, idx, pos_flat, capacity, w_gate, w_up, w_down,
+                 first_expert: int = 0):
+    """Tokens scatter into the flat expert buffers, results gather back.
+    The weights hold experts ``first_expert ..`` (an ep shard's); slots
+    of the other experts are dropped here and read zero."""
     b, t, d = x.shape
     k = idx.shape[-1]
     n_experts = w_gate.shape[0]
     slots = n_experts * capacity
-    slot_e = idx.reshape(b, t * k)
-    slot_pos = pos_flat.gather(-1, slot_e[..., None])[..., 0].long()
-    slot_keep = slot_pos < capacity
+    slot_g = idx.reshape(b, t * k)
+    slot_pos = pos_flat.gather(-1, slot_g[..., None])[..., 0].long()
+    slot_e = slot_g - first_expert
+    slot_keep = (slot_pos < capacity) & (slot_e >= 0) & (slot_e < n_experts)
     # Flat buffer row e * C + pos; dropped slots aim at the extra row
     # ``slots``, which is cut off.
     target = torch.where(slot_keep, slot_e * capacity + slot_pos, slots)
@@ -252,12 +307,14 @@ def _scatter_ffn(x, probs, idx, pos_flat, capacity, w_gate, w_up, w_down):
 class GroupedLayout:
     """The group-aligned row layout of one routing batch.
 
-    ``bm`` rows per tile; ``m`` = n_slots + E * bm rows in all (a static
-    upper bound); ``dest[s]`` the layout row of routing slot s;
+    ``bm`` rows per tile; ``m`` = n_slots + groups * bm rows in all (a
+    static upper bound); ``dest[s]`` the layout row of routing slot s;
     ``tile_experts[i]`` the expert owning tile i (int32, clamped to E - 1
     past the last group); ``inv_src[r]`` the token feeding layout row r
     (``n_tok``, the sentinel zero row, for pad rows); ``inv_pos[r]`` the
-    slot read back from row r (``n_slots``, the sentinel, for pad rows)."""
+    slot read back from row r (``n_slots``, the sentinel, for pad rows);
+    ``valid_tiles`` ([1] int32, a shard's layout only) the count of real
+    tiles, before the sentinel group's."""
 
     bm: int
     m: int
@@ -265,12 +322,20 @@ class GroupedLayout:
     tile_experts: torch.Tensor
     inv_src: torch.Tensor
     inv_pos: torch.Tensor
+    valid_tiles: Optional[torch.Tensor] = None
 
 
-def grouped_layout(idx: torch.Tensor, n_experts: int,
-                   block_m: int = 256) -> GroupedLayout:
+def grouped_layout(idx: torch.Tensor, n_experts: int, block_m: int = 256,
+                   first_expert: Optional[int] = None) -> GroupedLayout:
     """The reference's sort-free layout for routing indices ``idx``
-    [..., k] (``models/moe.py:_grouped_ffn``, steps 1-2)."""
+    [..., k] (``models/moe.py:_grouped_ffn``, steps 1-2).
+
+    With ``first_expert`` it is one ep shard's layout (the body of the
+    reference's ``_grouped_ffn_sharded``): experts ``first_expert ..
+    first_expert + n_experts - 1`` are local, every other slot goes to a
+    sentinel group after theirs, whose rows read the zero row; ``m`` is
+    n_slots + (n_experts + 1) * bm, the worst case; and ``valid_tiles``
+    is the sentinel group's first tile.  All on the device."""
     k = idx.shape[-1]
     n_slots = idx.numel()
     n_tok = n_slots // k
@@ -279,24 +344,36 @@ def grouped_layout(idx: torch.Tensor, n_experts: int,
     while n_slots % bm:
         bm //= 2
     slot_expert = idx.reshape(n_slots)
-    onehot = F.one_hot(slot_expert, n_experts)                  # [N, E]
+    groups, local = n_experts, None
+    if first_expert is not None:
+        local = ((slot_expert >= first_expert)
+                 & (slot_expert < first_expert + n_experts))
+        slot_expert = torch.where(local, slot_expert - first_expert,
+                                  n_experts)
+        groups += 1
+    onehot = F.one_hot(slot_expert, groups)                     # [N, groups]
     pos = onehot.cumsum(dim=0) - onehot                         # exclusive
     rank = pos.gather(1, slot_expert[:, None])[:, 0]
     counts = onehot.sum(dim=0)
     padded = (counts + bm - 1) // bm * bm
     pad_offsets = padded.cumsum(dim=0) - padded
-    m = n_slots + n_experts * bm
+    m = n_slots + groups * bm
     dest = pad_offsets[slot_expert] + rank
     ends = pad_offsets + padded
     tile_starts = torch.arange(m // bm, device=dev) * bm
     tile_experts = torch.searchsorted(ends, tile_starts, right=True)
     tile_experts = tile_experts.clamp_(max=n_experts - 1).to(torch.int32)
     slot_ids = torch.arange(n_slots, device=dev)
+    src, valid_tiles = slot_ids // k, None
+    if local is not None:
+        src = torch.where(local, src, n_tok)
+        valid_tiles = (ends[n_experts - 1:n_experts] // bm).to(torch.int32)
     inv_src = torch.full((m,), n_tok, dtype=torch.long, device=dev)
-    inv_src[dest] = slot_ids // k
+    inv_src[dest] = src
     inv_pos = torch.full((m,), n_slots, dtype=torch.long, device=dev)
     inv_pos[dest] = slot_ids
-    return GroupedLayout(bm, m, dest, tile_experts, inv_src, inv_pos)
+    return GroupedLayout(bm, m, dest, tile_experts, inv_src, inv_pos,
+                         valid_tiles)
 
 
 def _with_zero_row(h: torch.Tensor) -> torch.Tensor:
@@ -350,21 +427,161 @@ def _combine_rows(y_pad: torch.Tensor, slot_dest: torch.Tensor,
     return _CombineRows.apply(y_pad, slot_dest, inv_pos)
 
 
-def _grouped_ffn(x, probs, idx, w_gate, w_up, w_down,
-                 block_m: int = 256) -> torch.Tensor:
-    """Dropless expert FFN through the grouped-matmul kernels."""
+def _grouped_ffn(x, probs, idx, w_gate, w_up, w_down, block_m: int = 256,
+                 first_expert: Optional[int] = None) -> torch.Tensor:
+    """Dropless expert FFN through the grouped-matmul kernels.  With
+    ``first_expert`` the weights are one ep shard's experts and the FFN
+    runs on that shard's layout (:func:`grouped_layout`): gate and up as
+    two ``gmm`` calls, not ``gmm_swiglu``, since only ``gmm`` skips the
+    tiles past ``valid_tiles`` (the reference's ``_grouped_ffn_sharded``),
+    and the output holds the local experts' share only."""
     b, t, d = x.shape
     k = idx.shape[-1]
-    lay = grouped_layout(idx, w_gate.shape[0], block_m)
+    lay = grouped_layout(idx, w_gate.shape[0], block_m, first_expert)
+    te, bm, vt = lay.tile_experts, lay.bm, lay.valid_tiles
     x_pad = _dispatch_rows(x.reshape(b * t, d), lay.inv_src,
                            lay.dest.reshape(b * t, k))
-    with checkpoint_name("ffn_up"):
-        hh = gmm_swiglu(x_pad, w_gate, w_up, lay.tile_experts, lay.bm)
+    if vt is None:
+        with checkpoint_name("ffn_up"):
+            hh = gmm_swiglu(x_pad, w_gate, w_up, te, bm)
+    else:
+        with checkpoint_name("ffn_gate"):
+            gate = gmm(x_pad, w_gate, te, bm, vt)
+        with checkpoint_name("ffn_up"):
+            up = gmm(x_pad, w_up, te, bm, vt)
+        hh = F.silu(gate) * up
     with checkpoint_name("ffn_down"):
-        y_pad = gmm(hh, w_down, lay.tile_experts, lay.bm)
+        y_pad = gmm(hh, w_down, te, bm, vt)
     y_slot = _combine_rows(y_pad, lay.dest, lay.inv_pos)        # [N, D]
     return torch.einsum("btk,btkd->btd", probs.to(x.dtype),
                         y_slot.reshape(b, t, k, d))
+
+
+# ---------------------------------------------------------------------------
+# Under a mesh
+# ---------------------------------------------------------------------------
+
+def _moe_ffn_mesh(x, router_w, w_gate, w_up, w_down, top_k: int,
+                  capacity_factor: float, capacity: int, dispatch: str,
+                  block_m: int):
+    """:func:`moe_ffn_stats` on DTensors: x sharded over the batch by the
+    mesh dims that split the tokens (dp, fsdp) and replicated over the
+    others; the router replicated; the expert weights sharded over the
+    mesh dims that split the experts (ep on E, tp on F) and replicated
+    over the token dims.
+
+    Gradients are placed by what each shard's share is: a shard's x and
+    probs gradients cover its experts only (``Partial`` over ep and tp),
+    its weight gradients its tokens only (``Partial`` over dp and fsdp),
+    and the output is ``Partial`` over ep and tp until the closing
+    redistribution sums it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    b, t, _ = x.shape
+    n_experts = router_w.shape[-1]
+    xp = list(x.placements)
+    weights = (w_gate, w_up, w_down)
+    tok_dims = {i for i, pl in enumerate(xp) if pl != Replicate()}
+    w_dims = {i for w in weights for i, pl in enumerate(w.placements)
+              if pl != Replicate()}
+    if (any(pl not in (Shard(0), Replicate()) for pl in xp)
+            or tok_dims & w_dims
+            or any(pl != Replicate() for pl in router_w.placements)):
+        raise ValueError(
+            f"MoE under a mesh takes tokens sharded on the batch only "
+            f"({xp}), expert weights replicated where the tokens are split "
+            f"({[w.placements for w in weights]}) and a replicated router "
+            f"({router_w.placements})")
+    ep_shards, e_first = 1, 0
+    for i, pl in enumerate(w_gate.placements):  # mesh order, as DTensor splits
+        if pl == Shard(0):
+            ep_shards *= mesh.size(i)
+            e_first = e_first * mesh.size(i) + mesh.get_local_rank(i)
+    if n_experts % ep_shards:
+        raise ValueError(f"E={n_experts} not divisible by the {ep_shards} "
+                         f"expert shards")
+
+    def over(placements, dims):
+        return [Partial() if i in dims else pl
+                for i, pl in enumerate(placements)]
+
+    # x feeds both regions, and the second's x gradient is partial over
+    # ep and tp: sum it here (the reference's psum of a replicated input's
+    # cotangent at its shard_map), so that x's gradient keeps x's
+    # placements.
+    x = grad_placed(x)
+    rep = [Replicate()] * mesh.ndim
+    sums = over(rep, tok_dims)
+    cap = (0 if dispatch == "grouped" else
+           _capacity(t, top_k, n_experts, capacity_factor, capacity))
+    route = local_map(
+        partial(_route_sums, top_k=top_k, capacity=cap),
+        out_placements=(xp, xp, sums, sums, sums, sums),
+        in_placements=(xp, list(router_w.placements)),
+        in_grad_placements=(xp, over(router_w.placements, tok_dims)),
+        device_mesh=mesh)
+    probs, idx, f_sum, p_sum, z_sum, kept = route(x, router_w)
+
+    e_local = n_experts // ep_shards
+    wgp, wdp = list(w_gate.placements), list(w_down.placements)
+    yp = over(xp, w_dims)
+    experts = local_map(
+        partial(_experts_local, dispatch=dispatch, n_experts=n_experts,
+                first_expert=e_first * e_local, capacity=cap,
+                block_m=_pow2_floor(block_m)),
+        out_placements=yp,
+        in_placements=(xp, xp, xp, wgp, wgp, wdp),
+        in_grad_placements=(yp, yp, xp, over(wgp, tok_dims),
+                            over(wgp, tok_dims), over(wdp, tok_dims)),
+        device_mesh=mesh)
+    # The closing sum over ep and tp (the reference's psum).
+    y = experts(x, probs, idx, w_gate, w_up, w_down).redistribute(mesh, xp)
+
+    n_tok = b * t
+    n_slots = n_tok * top_k
+    f = f_sum.redistribute(mesh, rep) / n_slots
+    p = p_sum.redistribute(mesh, rep) / n_tok
+    stats = {
+        "aux_loss": n_experts * torch.sum(f * p),
+        "z_loss": z_sum.redistribute(mesh, rep) / n_tok,
+        "overflow_frac": (1.0 - kept.redistribute(mesh, rep)
+                          / max(n_slots, 1)).detach(),
+    }
+    return y, stats
+
+
+def _route_sums(x, router_w, *, top_k: int, capacity: int):
+    """One shard's routing, and its sums of the router statistics:
+    ``(probs, idx, Σ assign [E], Σ softmax [E], Σ lse², Σ keep)`` (keep:
+    the assignments within ``capacity``; every one when it is 0)."""
+    logits, probs, idx = _route(x, router_w, top_k)
+    n_experts = router_w.shape[-1]
+    assign = F.one_hot(idx, n_experts).float()
+    keep = (_capacity_positions(idx, n_experts, capacity)[2] if capacity
+            else assign)
+    return (probs, idx, assign.sum(dim=(0, 1, 2)),
+            torch.softmax(logits, dim=-1).sum(dim=(0, 1)),
+            (torch.logsumexp(logits, dim=-1) ** 2).sum(), keep.sum())
+
+
+def _experts_local(x, probs, idx, w_gate, w_up, w_down, *, dispatch: str,
+                   n_experts: int, first_expert: int, capacity: int,
+                   block_m: int):
+    """One shard's expert FFN: its experts ``first_expert ..`` on its F
+    slice; the output is its share of y (summed over ep and tp after)."""
+    dtype = x.dtype
+    wg, wu, wd = w_gate.to(dtype), w_up.to(dtype), w_down.to(dtype)
+    if dispatch == "grouped":
+        return _grouped_ffn(x, probs, idx, wg, wu, wd, block_m, first_expert)
+    pos_flat, pos, keep = _capacity_positions(idx, n_experts, capacity)
+    if dispatch == "scatter":
+        return _scatter_ffn(x, probs, idx, pos_flat, capacity, wg, wu, wd,
+                            first_expert)
+    own = slice(first_expert, first_expert + wg.shape[0])
+    return _einsum_ffn(x, probs, pos[..., own], keep[..., own], capacity,
+                       wg, wu, wd)
 
 
 def moe_ffn_reference(x, router_w, w_gate, w_up, w_down, *,

@@ -34,8 +34,11 @@ as wgmma's 64-row M and the tile's rows as its N) and ``"wmma"`` for
 the plain PyTorch version (``gmm_plain``/``gmm_swiglu_plain``/
 ``tgmm_plain``): f32 products over each expert's run of tiles, one
 rounding to the operand dtype, as the reference's kernels round.  ``gmm.launches``, ``gmm_swiglu.launches`` and
-``tgmm.launches`` count kernel launches, backward ones included, and
-each wrapper's ``launches_by_design`` counts them by design.  The two
+``tgmm.launches`` count kernel launches, backward ones included,
+each wrapper's ``launches_by_design`` counts them by design, and
+``gmm.skip_launches`` and ``tgmm.skip_launches`` count the launches that
+carried ``valid_tiles`` (the skip forms, which the ep-sharded MoE path
+runs).  The two
 forward kernels enter autograd as dispatcher ops, ``kctpu::gmm`` and
 ``kctpu::gmm_swiglu`` (:func:`gmm_op`, :func:`gmm_swiglu_op`), which a remat
 policy can keep instead of re-running.
@@ -223,6 +226,7 @@ def _gmm(lhs: torch.Tensor, rhs: torch.Tensor, tile_experts: torch.Tensor,
     lib.check(code, f"gmm ({variant})")
     gmm.launches += 1
     gmm.launches_by_design[variant] += 1
+    gmm.skip_launches += valid_tiles is not None
     return out
 
 
@@ -280,11 +284,13 @@ def tgmm(lhs: torch.Tensor, dout: torch.Tensor, tile_experts: torch.Tensor,
     lib.check(code, f"tgmm ({variant})")
     tgmm.launches += 1
     tgmm.launches_by_design[variant] += 1
+    tgmm.skip_launches += valid_tiles is not None
     return out
 
 
 tgmm.launches = 0
 tgmm.launches_by_design = {"wgmma": 0, "wmma": 0}
+tgmm.skip_launches = 0
 
 
 # The two forward kernels as dispatcher ops, so that a selective-checkpoint
@@ -421,6 +427,7 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, tile_experts: torch.Tensor,
 
 gmm.launches = 0
 gmm.launches_by_design = {"wgmma": 0, "swapab": 0}
+gmm.skip_launches = 0
 
 
 def gmm_swiglu(lhs: torch.Tensor, rhs_g: torch.Tensor, rhs_u: torch.Tensor,

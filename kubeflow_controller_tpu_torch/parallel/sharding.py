@@ -18,6 +18,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple, Union
 
+import torch
+
 from .mesh import AXIS_DATA, AXIS_EXPERT, AXIS_FSDP, AXIS_SEQUENCE, AXIS_TENSOR
 
 # A rule maps one logical axis to a mesh axis, a tuple of mesh axes, or None
@@ -109,3 +111,27 @@ def with_logical_constraint(x, logical_axes,
         return x
     return x.redistribute(x.device_mesh, placements_for(
         logical_axes, x.device_mesh, rules))
+
+
+class _GradPlaced(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        ctx.placements = t.placements
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(grad.device_mesh, ctx.placements)
+
+
+def grad_placed(x):
+    """A DTensor as it is, whose gradient comes back placed as ``x`` is:
+    the identity, whose backward redistributes the gradient to ``x``'s
+    placements (a ``Partial`` gradient is summed there).  A replicated
+    parameter read by batch-sharded activations (a norm's scale) would
+    otherwise keep a per-shard ``Partial`` gradient, and each process's
+    optimizer would step on its own part.  A plain tensor is returned as
+    it is."""
+    from torch.distributed.tensor import DTensor
+
+    return _GradPlaced.apply(x) if isinstance(x, DTensor) else x

@@ -2,7 +2,8 @@
 ``kubeflow_controller_tpu/workloads/llama_pretrain.py``.
 
     python -m kubeflow_controller_tpu_torch.workloads.llama_pretrain \\
-        [--preset tiny|llama2-7b] [--steps N] [--device cuda|cpu] ...
+        [--preset tiny|llama2-7b|mixtral-8x7b] [--steps N]
+        [--device cuda|cpu] ...
 
 Same flags as the reference (``--device``, default ``cuda``, takes the
 place of ``--platform``) and the same closing lines ("Training elapsed
@@ -32,23 +33,28 @@ the dropless grouped-matmul CUDA kernels forward and backward, and falls
 back to "einsum" with a warning where they cannot take the operands (the
 tiny preset is f32); ``--strict-moe-dispatch`` makes that fallback an
 error.  On the CPU every dispatch runs as asked, through the kernels' plain
-versions.
+versions.  ``--preset mixtral-8x7b`` (the port's own, beside the
+reference's two) takes Mixtral-8x7B's published widths with f32
+parameters and bf16 activations; with ``--n-layers`` it fits a card.
 
 A gang and a mesh (as in the reference): ``JobRuntime.initialize`` joins
 the job's gang (``JAX_*`` env from the controller; gloo for ``--device
 cpu``, nccl on CUDA, one device a process), and when a process group
 exists (that gang, or a group the caller formed) the model trains on a
 ``DeviceMesh`` of the ``--dp``/``--fsdp``/``--tp`` flags, which the
-controller's ``$KCTPU_MESH`` overrides: parameters are DTensors (fsdp
-shards the embed dim and is gathered before each use, tp shards heads,
-mlp and vocab, dp replicates), the global batch is rounded to the data
+controller's ``$KCTPU_MESH`` overrides: parameters are DTensors, built
+already sharded one at a time (``llama_init(mesh=)``: fsdp shards the
+embed dim and is gathered before each use, tp shards heads, mlp and vocab,
+ep the experts, dp replicates), the global batch is rounded to the data
 parallel size and each process stages its own ``("batch", "seq")`` shard.
-Each process prints "Mesh: {...} over N devices, process i/n".
+MoE runs per shard under the mesh (``--ep``; "grouped" takes the
+ep-sharded dropless path, ``models/moe.py``).  Each process prints "Mesh:
+{...} over N devices, process i/n".
 
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md): ``--sp >
-1`` (M3), ``--pp > 1`` (M8), ``--ep > 1`` and ``--experts`` under a mesh
-(M4).  Without a group, an axis above 1 asks for more devices than the one
-there is, and raises ``ValueError`` as the reference's mesh does.
+1`` (M3) and ``--pp > 1`` (M8).  Without a group, an axis above 1 asks for
+more devices than the one there is, and raises ``ValueError`` as the
+reference's mesh does.
 """
 
 from __future__ import annotations
@@ -125,18 +131,21 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
     durable when this returns.  Beats progress as the module docstring
     says.
 
-    With ``mesh`` (a ``build_mesh`` mesh) the model is sharded on it
-    (``shard_llama``), the batch is rounded down to a multiple of the data
-    parallel size (at least one row a shard), each process stages its own
-    shard of every batch, and the losses are the global batch's."""
+    With ``mesh`` (a ``build_mesh`` mesh) the model is built sharded on it
+    one parameter at a time (``llama_init(mesh=)``; a given ``model`` is
+    sharded whole by ``shard_llama``), the batch is rounded down to a
+    multiple of the data parallel size (at least one row a shard), each
+    process stages its own shard of every batch, and the losses are the
+    global batch's."""
     dev = resolve_device(device)
     rep = reporter()
     if model is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        model = llama_init(cfg, gen, dev, requires_grad=True)
-    if mesh is not None:
+        model = llama_init(cfg, gen, dev, requires_grad=True, mesh=mesh)
+    elif mesh is not None:
         shard_llama(model, mesh)
-        mesh = model_mesh(mesh, cfg)
+    if mesh is not None:
+        mesh = model_mesh(mesh)
     opt = default_optimizer(model.parameters(), lr, weight_decay=0.1)
     start_step, ckpt = 0, None
     if model_dir:
@@ -221,11 +230,21 @@ _NOT_PORTED = {
     "sp": "--sp {}: sequence parallelism (ring and Ulysses attention) is "
           "not ported yet (ROADMAP.md, M3)",
     "pp": "--pp {}: pipeline parallelism is not ported yet (ROADMAP.md, M8)",
-    "ep": "--ep {}: expert parallelism (the ep-sharded grouped path) is not "
-          "ported yet (ROADMAP.md, M4)",
 }
-_MOE_MESH_NOT_PORTED = ("--experts under a mesh (axes {}, {} processes): MoE "
-                        "under a mesh is not ported yet (ROADMAP.md, M4)")
+
+
+def mixtral_8x7b() -> LlamaConfig:
+    """mistralai/Mixtral-8x7B-v0.1's config.json widths (32 layers, 8
+    experts, top-2), trained as the reference trains: f32 parameters, bf16
+    activations, remat "full", attention "auto"."""
+    return dataclasses.replace(
+        LlamaConfig.llama2_7b(), vocab_size=32000, dim=4096, n_layers=32,
+        n_heads=32, n_kv_heads=8, intermediate=14336, max_seq_len=32768,
+        rope_theta=1e6, norm_eps=1e-5, n_experts=8, moe_top_k=2)
+
+
+PRESETS = {"tiny": None, "llama2-7b": LlamaConfig.llama2_7b,
+           "mixtral-8x7b": mixtral_8x7b}
 
 
 def main(argv=None) -> int:
@@ -236,7 +255,7 @@ def main(argv=None) -> int:
     p.add_argument("--task_index", type=int, default=-1)
     p.add_argument("--worker_hosts", default="")
     p.add_argument("--ps_hosts", default="")
-    p.add_argument("--preset", choices=["tiny", "llama2-7b"], default="tiny")
+    p.add_argument("--preset", choices=list(PRESETS), default="tiny")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--batch-size", type=int, default=8,
                    help="global batch (sequences)")
@@ -311,10 +330,6 @@ def main(argv=None) -> int:
     for axis, why in _NOT_PORTED.items():
         if axes[axis] > 1:
             raise NotImplementedError(why.format(axes[axis]))
-    if args.experts and (rt.num_processes > 1 or any(
-            v > 1 for v in axes.values())):
-        raise NotImplementedError(_MOE_MESH_NOT_PORTED.format(
-            axes, rt.num_processes))
     import torch.distributed as dist
 
     joined = not dist.is_initialized()
@@ -338,7 +353,7 @@ def main(argv=None) -> int:
                               n_kv_heads=max(2, args.dim // 32))
     if args.intermediate:
         tiny_overrides["intermediate"] = args.intermediate
-    cfg = (LlamaConfig.llama2_7b() if args.preset == "llama2-7b"
+    cfg = (PRESETS[args.preset]() if PRESETS[args.preset]
            else LlamaConfig.tiny(**tiny_overrides))
     overrides = {}
     if args.sp_attention != cfg.sp_attention:

@@ -8,6 +8,11 @@
   gang env, shard one model over fsdp 2 and reach ``Succeeded`` within
   120 s; both print the mesh line and the same final loss, which equals a
   one-process run's within 1e-5 relative.
+- The same 2-Worker TFJob training the MoE (``--experts 8 --ep 2
+  --moe-dispatch grouped --strict-moe-dispatch``): each worker holds 4 of
+  the 8 experts and runs the ep-sharded grouped path; both reach
+  ``Succeeded``, print the ep-2 mesh line and the final loss of one
+  process within 1e-5 relative.
 - A sharded kill-and-resume (the pattern of
   ``tests/test_torch_checkpoint.py``): two gloo ranks under fsdp 2 train 2
   steps with ``MODEL_DIR`` (saving step 2 collectively, each rank its own
@@ -39,11 +44,17 @@ DEADLINE_S = 120.0
 ARGS = ("--preset", "tiny", "--fsdp", "2", "--device", "cpu", "--steps", "2")
 
 
-def llama_job(name):
+ONE = ("--preset", "tiny", "--device", "cpu", "--steps", "2")
+MOE_ONE = ONE + ("--experts", "8", "--moe-dispatch", "grouped",
+                 "--strict-moe-dispatch")
+MOE_ARGS = MOE_ONE + ("--ep", "2", "--fsdp", "1")
+
+
+def llama_job(name, args=ARGS):
     container = {"name": "pytorch", "image": "llama", "workingDir": REPO,
                  "command": [sys.executable, "-m",
                              "kubeflow_controller_tpu_torch.workloads."
-                             "llama_pretrain", *ARGS],
+                             "llama_pretrain", *args],
                  "env": [{"name": "OMP_NUM_THREADS", "value": "1"}]}
     return serde.from_dict(TFJob, {
         "apiVersion": "kubeflow.caicloud.io/v1alpha1", "kind": "TFJob",
@@ -81,15 +92,28 @@ def final_loss(out):
 
 
 def test_two_worker_fsdp_pretrain_job_succeeds(rig, capsys, monkeypatch):
+    run_two_worker_job(rig, capsys, monkeypatch, "torch-llama-fsdp", ARGS,
+                       ONE, "'fsdp': 2, 'ep': 1, 'sp': 1, 'tp': 1}")
+
+
+def test_two_worker_ep_moe_pretrain_job_succeeds(rig, capsys, monkeypatch):
+    run_two_worker_job(rig, capsys, monkeypatch, "torch-llama-moe-ep",
+                       MOE_ARGS, MOE_ONE,
+                       "'fsdp': 1, 'ep': 2, 'sp': 1, 'tp': 1}")
+
+
+def run_two_worker_job(rig, capsys, monkeypatch, name, args, one_args,
+                       mesh_line):
+    """The 2-Worker TFJob running ``llama_pretrain`` with ``args`` under
+    the controller, against one process of ``one_args``."""
     cluster, kubelet = rig
-    cluster.tfjobs.create(llama_job("torch-llama-fsdp"))
+    cluster.tfjobs.create(llama_job(name, args))
     # The one-process run the workers' loss is held to, while they train.
-    for name in ("MODEL_DIR", "KCTPU_MESH", "JAX_NUM_PROCESSES"):
-        monkeypatch.delenv(name, raising=False)
-    assert tpre.main(["--preset", "tiny", "--device", "cpu", "--steps",
-                      "2"]) == 0
+    for var in ("MODEL_DIR", "KCTPU_MESH", "JAX_NUM_PROCESSES"):
+        monkeypatch.delenv(var, raising=False)
+    assert tpre.main(list(one_args)) == 0
     one = final_loss(capsys.readouterr().out)
-    job = wait_terminal(cluster, "torch-llama-fsdp", DEADLINE_S)
+    job = wait_terminal(cluster, name, DEADLINE_S)
     pods = sorted((p for p in cluster.pods.list("default")
                    if p.metadata.labels.get("job_type") == "Worker"),
                   key=lambda p: p.metadata.name)
@@ -102,7 +126,7 @@ def test_two_worker_fsdp_pretrain_job_succeeds(rig, capsys, monkeypatch):
         env = {e.name: e.value for e in p.spec.containers[0].env}
         assert env["JAX_NUM_PROCESSES"] == "2"
         out = logs[p.metadata.name]
-        assert (f"'fsdp': 2, 'ep': 1, 'sp': 1, 'tp': 1}} over 2 devices, "
+        assert (f"{mesh_line} over 2 devices, "
                 f"process {env['JAX_PROCESS_ID']}/2") in out, out
     finals = {final_loss(out) for out in logs.values()}
     assert len(finals) == 1, finals

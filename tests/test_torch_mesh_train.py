@@ -12,7 +12,10 @@ remat "dots" and (2, 2, 2) with remat "gateup_attn" (the dp x fsdp x tp of
 ``dryrun_multichip``'s config A, without its sp axis).  The loss within
 1e-5 relative, every gathered full gradient and every parameter after the
 step within 1e-4 of its max of JAX's ``value_and_grad`` + optax step; the
-global gradient norm the clip read within 1e-5 relative of optax's, and
+global gradient norm the clip read within 1e-5 relative of optax's, every
+gradient placed as its parameter (a norm's replicated scale too, whose
+per-shard sum would otherwise stay ``Partial`` and step each process's
+AdamW on its own part), and
 every gradient after the clip (the norm is 1.7) within 1e-4 of JAX's
 divided by it.
 
@@ -99,6 +102,9 @@ def test_mesh_step_matches_the_jax_single_device_step(axes, policy,
     got = torch.load(out, weights_only=False)
 
     assert abs(got["loss"] - loss) <= LOSS_RTOL * abs(loss)
+    # every gradient placed as its parameter (the norms' scales too), so
+    # that every process's AdamW steps on the whole gradient
+    assert not got["grads_misplaced"], got["grads_misplaced"]
     assert abs(got["norm"] - norm) <= LOSS_RTOL * norm
     assert norm > 1.0      # the clip scales every shard by 1 / norm
     clipped = jax.tree.map(lambda g: g / norm, grads)

@@ -275,15 +275,12 @@ def test_main_trains_moe_on_the_cpu(capsys, monkeypatch):
 @pytest.mark.parametrize("argv,env", [
     (["--sp", "2"], {}),
     (["--pp", "2"], {}),
-    (["--ep", "2"], {}),
     ([], {"KCTPU_MESH": '{"sp": 2}'}),
-    (["--experts", "4", "--fsdp", "2"], {}),
-    (["--experts", "4"], {"JAX_NUM_PROCESSES": "2"}),
-], ids=["sp", "pp", "ep", "env-mesh-sp", "moe-mesh", "moe-gang"])
+], ids=["sp", "pp", "env-mesh-sp"])
 def test_main_refuses_what_is_not_ported(argv, env, monkeypatch):
-    """Refused before any join: sp (M3), pp (M8), ep and MoE under a mesh
-    or a gang (M4).  (dp, fsdp, tp and a gang train now:
-    tests/test_torch_mesh_train.py, tests/test_torch_mesh_tfjob.py.)"""
+    """Refused before any join: sp (M3) and pp (M8).  (dp, fsdp, ep, tp,
+    MoE under a mesh and a gang train now: tests/test_torch_mesh_train.py,
+    tests/test_torch_moe_mesh.py, tests/test_torch_mesh_tfjob.py.)"""
     for name in ("MODEL_DIR", "KCTPU_MESH", "JAX_NUM_PROCESSES"):
         monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
@@ -340,14 +337,13 @@ class FakeMesh:
         return self.sizes[i]
 
 
-@pytest.mark.parametrize("axis,module", [("sp", "M3"), ("pp", "M8"),
-                                         ("ep", "M4")])
+@pytest.mark.parametrize("axis,module", [("sp", "M3"), ("pp", "M8")])
 def test_not_ported_paths_raise(axis, module):
-    """What is still not ported raises, naming its ROADMAP module: an sp,
-    pp or ep axis above 1 (sp also at the attention), and MoE under a
-    mesh; a policy no one defines is a ValueError.  (The named remat
-    policies and dp/fsdp/tp run now: tests/test_torch_remat.py,
-    tests/test_torch_mesh_train.py.)"""
+    """What is still not ported raises, naming its ROADMAP module: an sp
+    or pp axis above 1 (sp also at the attention); a policy no one
+    defines is a ValueError.  (The named remat policies, dp/fsdp/ep/tp and
+    MoE under a mesh run now: tests/test_torch_remat.py,
+    tests/test_torch_mesh_train.py, tests/test_torch_moe_mesh.py.)"""
     cfg = tllama.LlamaConfig.tiny()
     model = tllama.Llama(cfg, device="cpu", requires_grad=True)
     tokens = torch.zeros((1, 8), dtype=torch.long)
@@ -357,10 +353,6 @@ def test_not_ported_paths_raise(axis, module):
         q = torch.zeros((1, 8, 4, 16))
         with pytest.raises(NotImplementedError, match="ROADMAP.md, M3"):
             tllama._attention(q, q, q, True, cfg, mesh=FakeMesh(sp=2))
-    moe = tllama.LlamaConfig.tiny(n_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, M4"):
-        tllama.llama_loss(tllama.Llama(moe, device="cpu"), tokens, moe,
-                          mesh=FakeMesh())
     with pytest.raises(ValueError, match="unknown remat_policy"):
         tllama.llama_loss(model, tokens, dataclasses.replace(
             cfg, remat=True, remat_policy="nope"))

@@ -1,27 +1,39 @@
 #!/usr/bin/env python3
-"""The dense pretrain over N cards of one host, under several meshes,
-against one card.
+"""The pretrain over N cards of one host, under several meshes, against
+one card.
 
-Each run is ``llama_pretrain.main`` at Llama-2-7B widths cut to 8 layers
-(``--preset llama2-7b --n-layers 8``), global batch 8 x T 4096, 3 steps,
-one process a card (``--device cuda:<rank>``) joined into one nccl gang
-through the env the controller gives a Worker pod (``JAX_COORDINATOR_
-ADDRESS``, ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) and the mesh flags.
-The one-card run is the same command with no gang.
+Each run is ``llama_pretrain.main``, one process a card (``--device
+cuda:<rank>``) joined into one nccl gang through the env the controller
+gives a Worker pod (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
+``JAX_PROCESS_ID``) and the mesh flags.  The one-card run is the same
+command with no gang.
+
+- dense (default): Llama-2-7B widths cut to 8 layers (``--preset llama2-7b
+  --n-layers 8``), global batch 8 x T 4096, 3 steps; meshes dp,fsdp,tp.
+- ``--experts 8``: the MoE at Mixtral-8x7B widths cut to 2 layers
+  (``--preset mixtral-8x7b --n-layers 2 --experts 8 --top-k 2
+  --moe-dispatch grouped --strict-moe-dispatch``), global batch 2 x T
+  4096, 3 steps; meshes dp,fsdp,ep,tp (default (ep 4) and (fsdp 2, ep
+  2)), so each card runs the ep-sharded grouped path on its experts,
+  while the one card runs the unsharded one.
 
     python3 tools/mesh_cards.py [--cards 4] [--meshes 1,4,1 2,2,1 ...]
+    python3 tools/mesh_cards.py --experts 8 [--meshes 1,1,4,1 1,2,2,1]
 
 Prints the card line, then one JSON line per run: the mesh, every rank's
 exit code, rank 0's per-step losses and their largest relative
 difference from the one-card run's, step ms (rank 0's clock; each step
-ends in a device sync) and their p50, and peak memory per rank.  Exits non-zero if a run fails or a rank's losses differ from
-rank 0's.
+ends in a device sync) and their p50, peak memory per rank and, for the
+MoE, each rank's ``valid_tiles`` per layer on the first step (its real
+tiles of the layout's M / bm).  Exits non-zero if a run fails or a rank's
+losses differ from rank 0's.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import socket
 import statistics
@@ -33,31 +45,50 @@ HERE = Path(__file__).resolve().parent.parent
 ARGV = ["--preset", "llama2-7b", "--n-layers", "8", "--batch-size", "8",
         "--seq-len", "4096", "--steps", "3"]
 MESHES = ("1,4,1", "2,2,1", "1,2,2", "1,1,4")
+MOE_ARGV = ["--preset", "mixtral-8x7b", "--n-layers", "2", "--top-k", "2",
+            "--moe-dispatch", "grouped", "--strict-moe-dispatch",
+            "--batch-size", "2", "--seq-len", "4096", "--steps", "3"]
+MOE_MESHES = ("1,1,4,1", "1,2,2,1")
+AXES = ("dp", "fsdp", "tp")
+MOE_AXES = ("dp", "fsdp", "ep", "tp")
 
 
 def child(argv) -> int:
     """One rank: ``llama_pretrain.main(argv)`` with its ``train`` result
-    kept, printed as a ``RESULT`` JSON line."""
+    kept, printed as a ``RESULT`` JSON line, with the ``valid_tiles`` of
+    the grouped layouts of its first step."""
     from unittest import mock
 
     import torch
 
+    from kubeflow_controller_tpu_torch.models import moe
     from kubeflow_controller_tpu_torch.workloads import llama_pretrain
 
-    runs = []
+    runs, layouts = [], []
     real = llama_pretrain.train
+    real_layout = moe.grouped_layout
 
     def recording(*args, **kwargs):
         runs.append(real(*args, **kwargs))
         return runs[-1]
 
-    with mock.patch.object(llama_pretrain, "train", recording):
+    def layout(*args, **kwargs):
+        lay = real_layout(*args, **kwargs)
+        layouts.append((lay.m, lay.bm, lay.valid_tiles))
+        return lay
+
+    with mock.patch.object(llama_pretrain, "train", recording), \
+            mock.patch.object(moe, "grouped_layout", layout):
         rc = llama_pretrain.main(argv)
     res = runs[0]
+    layers = int(argv[argv.index("--n-layers") + 1])
     print("RESULT " + json.dumps({
         "rc": rc, "losses": res.losses,
         "step_ms": [x * 1e3 for x in res.step_s],
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "layouts": [{"M": m, "tiles": m // bm, "valid_tiles":
+                     None if vt is None else int(vt.item())}
+                    for m, bm, vt in layouts[:layers]]}),
         flush=True)
     return rc
 
@@ -68,7 +99,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run(ranks: int, mesh_args, timeout: float) -> list:
+def run(argv, ranks: int, mesh_args, timeout: float) -> list:
     """``ranks`` processes of this script's child; their RESULT records
     (None for a rank that printed none) and exit codes."""
     port = free_port()
@@ -80,9 +111,9 @@ def run(ranks: int, mesh_args, timeout: float) -> list:
         if ranks > 1:
             env.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                        JAX_NUM_PROCESSES=str(ranks), JAX_PROCESS_ID=str(r))
-        argv = ARGV + mesh_args + ["--device", f"cuda:{r}"]
         procs.append(subprocess.Popen(
-            [sys.executable, __file__, "--child", *argv], cwd=HERE, env=env,
+            [sys.executable, __file__, "--child", *argv, *mesh_args,
+             "--device", f"cuda:{r}"], cwd=HERE, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     out = []
     for p in procs:
@@ -103,8 +134,12 @@ def run(ranks: int, mesh_args, timeout: float) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cards", type=int, default=4)
-    ap.add_argument("--meshes", nargs="*", default=list(MESHES),
-                    help="dp,fsdp,tp per run (their product: --cards)")
+    ap.add_argument("--meshes", nargs="*", default=None,
+                    help="dp,fsdp,tp per run, dp,fsdp,ep,tp with "
+                         "--experts (their product: --cards)")
+    ap.add_argument("--experts", type=int, default=0,
+                    help="train the Mixtral-width MoE with this many "
+                         "experts (0: the dense model)")
     ap.add_argument("--timeout", type=float, default=600)
     ap.add_argument("--child", nargs=argparse.REMAINDER,
                     help=argparse.SUPPRESS)
@@ -116,16 +151,23 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     print(card[0], f"x {len(card)}", flush=True)
-    [(rc, one)] = run(1, [], args.timeout)
+    if args.experts:
+        argv, axes = MOE_ARGV + ["--experts", str(args.experts)], MOE_AXES
+        meshes = args.meshes or list(MOE_MESHES)
+    else:
+        argv, axes, meshes = ARGV, AXES, args.meshes or list(MESHES)
+    [(rc, one)] = run(argv, 1, [], args.timeout)
     failed = rc != 0
     if one is not None:
         print(json.dumps({"mesh": "one card", **one}), flush=True)
-    for spec in args.meshes:
-        dp, fsdp, tp = (int(x) for x in spec.split(","))
-        if dp * fsdp * tp != args.cards:
-            raise SystemExit(f"mesh {spec} is not {args.cards} cards")
-        res = run(args.cards, ["--dp", str(dp), "--fsdp", str(fsdp), "--tp",
-                               str(tp)], args.timeout)
+    for spec in meshes:
+        sizes = dict(zip(axes, (int(x) for x in spec.split(","))))
+        if len(sizes) != len(axes) or math.prod(sizes.values()) != args.cards:
+            raise SystemExit(f"mesh {spec} is not {','.join(axes)} over "
+                             f"{args.cards} cards")
+        res = run(argv, args.cards,
+                  [a for k, v in sizes.items() for a in (f"--{k}", str(v))],
+                  args.timeout)
         rcs = [rc for rc, _ in res]
         recs = [rec for _, rec in res]
         rec0 = recs[0] or {}
@@ -135,12 +177,16 @@ def main(argv=None) -> int:
         agree = all(r is not None and r["losses"] == losses for r in recs)
         steps = rec0.get("step_ms", [])
         print(json.dumps({
-            "mesh": {"dp": dp, "fsdp": fsdp, "tp": tp}, "rcs": rcs,
+            "mesh": sizes, "rcs": rcs,
             "losses": losses, "losses_one_card": one and one["losses"],
             "loss_rel_diff_max": max(rel) if rel else None,
             "ranks_agree": agree, "step_ms": steps,
             "step_ms_p50": statistics.median(steps) if steps else None,
-            "peak_mem_gb": [r and r["peak_mem_gb"] for r in recs]}),
+            "peak_mem_gb": [r and r["peak_mem_gb"] for r in recs],
+            "valid_tiles_by_rank": [r and [x["valid_tiles"]
+                                           for x in r["layouts"]]
+                                    for r in recs],
+            "layout_tiles": (rec0.get("layouts") or [{}])[0].get("tiles")}),
             flush=True)
         failed |= any(rcs) or not agree
     return 1 if failed else 0
