@@ -5,8 +5,8 @@ through the continuous-batching replica at Mixtral-8x7B's published widths
 (8 of its 32 layers), train the dense Llama-2-7B (8 of its 32 layers) and
 the Mixtral-8x7B-width MoE (2 of its 32 layers) for a few steps, kill and
 resume a Llama-2-7B-width run from its checkpoint, train the vision TFJobs
-(ResNet-50 at its published widths, the Flax-MNIST CNN), and check what
-comes out.
+(ResNet-50 at its published widths, the Flax-MNIST CNN), run ring and
+Ulysses attention at T 32768 over virtual ranks, and check what comes out.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -221,10 +221,35 @@ Phases, in order (any failure raises and exits non-zero):
    ``MNIST_LOSS_ATOL``.  Then one ResNet-50 step (batch 32, cuDNN
    deterministic) with no group and in a one-rank nccl group: state and
    loss bit-identical, 2 x 53 + 1 collectives.
-18. The card's name and power limit, the ``kernels`` JSON line (launches
-   from phase 10; each path's own counts beside them, phase 13's, this
-   slice's path, with the skip launches of ``gmm`` and ``tgmm``), and the
-   contract line ``{"ok": true, "device": {...}}`` last.
+18. sequence parallelism on one card (one card cannot hold an NCCL gang:
+   the ring and Ulysses run over virtual ranks in this process, with the
+   per-rank code of the gang's path, ``parallel/ring.py``,
+   ``parallel/ulysses.py``) at Llama-2-7B's attention widths and
+   ``examples/jobs/llama-sp.yaml``'s length: B 1, T 32768, H 32, D 128,
+   bf16, causal.  The causal flash ring (``ring.run_lockstep``) at n = 4
+   (T_local 8192) and n = 2, with the flash plain versions patched to raise:
+   its output and the q/k/v gradients of a fixed random dO against one
+   ``flash_attention`` call over the whole T (the kernels), every query row
+   of o and dq and every key row of dk and dv within ``FLASH_ROW_TOL``;
+   launches counted from 0 just before and read just after, each of
+   ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` exactly n(n+1)/2 (rank idx
+   folds idx + 1 blocks).  A control, each rank's backward reading its own
+   diagonal block's lse in place of the merged one, must fail the same
+   check.  Each ring's time per virtual rank (CUDA events around its
+   kernels; the last rank's is the critical path) beside the one call's.
+   Then the ring's visible-block calls at T_local 8192, non-causal, on 2
+   heads, with rank 3's merged lse and delta: each kernel against its
+   plain version row by row (the plain scores [1, 2, 8192, 8192] f32), with
+   ms, plain ms and the bound.  Then Ulysses at n = 4 in process (the
+   layout moves, ``flash_attention`` on 8 heads over the whole T): output
+   and gradients against the one call, bit identity printed, rows within
+   ``FLASH_ROW_TOL``, launches 4 each.
+19. The card's name and power limit, the ``kernels`` JSON line (launches
+   from phase 10; each path's own counts beside them, phase 13's, and this
+   slice's paths, ``ring_n4``, ``ring_n2`` and ``ulysses_n4``, with the skip
+   launches of ``gmm`` and ``tgmm``; each flash entry's ``sp_block``: the
+   block kernels of phase 18), and the contract line ``{"ok": true,
+   "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -2330,6 +2355,231 @@ def vision_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: sequence parallelism on one card
+# ---------------------------------------------------------------------------
+
+SP_SHAPE = (1, 32768, 32, 128)      # Llama-2-7B's attention at T 32768
+SP_RINGS = (4, 2)                   # virtual ranks: T_local 8192, 16384
+SP_ULYSSES = 4
+SP_BLOCK_HEADS = 2                  # plain scores [1, 2, 8192, 8192] f32
+
+
+def timed_schedule(schedule, segments: list):
+    """``schedule`` resumed as it is, with CUDA events around each
+    resumption: on one stream they bracket that virtual rank's kernels."""
+    value = None
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            out = schedule.send(value)
+        except StopIteration as stop:
+            end.record()
+            segments.append((start, end))
+            return stop.value
+        end.record()
+        segments.append((start, end))
+        value = yield out
+
+
+def shards(x, n):
+    return [c.contiguous() for c in x.chunk(n, dim=1)]
+
+
+def ring_lockstep(parts, n, lse_of=None, timing=None):
+    """The causal flash ring over n virtual ranks (``ring.run_lockstep``):
+    the merged output, lse and the q/k/v gradients, each rank's shard
+    concatenated.  ``lse_of(r, lse)`` replaces the lse rank r's backward
+    reads (the control); ``timing`` collects each rank's forward and
+    backward event pairs."""
+    from kubeflow_controller_tpu_torch.parallel import ring
+
+    scale = SP_SHAPE[3] ** -0.5
+    timing = timing if timing is not None else {}
+    segs = {(r, d): timing.setdefault((r, d), []) for r in range(n)
+            for d in ("fwd", "bwd")}
+    fwd = ring.run_lockstep([timed_schedule(ring.ring_flash_forward(
+        parts["q"][r], parts["k"][r], parts["v"][r], r, n, True, scale),
+        segs[(r, "fwd")]) for r in range(n)])
+    bwd = ring.run_lockstep([timed_schedule(ring.ring_flash_backward(
+        parts["q"][r], parts["k"][r], parts["v"][r], fwd[r][0],
+        lse_of(r, fwd[r][1]) if lse_of else fwd[r][1], parts["do"][r], r, n,
+        True, scale), segs[(r, "bwd")]) for r in range(n)])
+    torch.cuda.synchronize()
+    return {"o": torch.cat([o for o, _ in fwd], dim=1),
+            "lse": [lse for _, lse in fwd],
+            **{key: torch.cat([g[i] for g in bwd], dim=1)
+               for i, key in enumerate(("dq", "dk", "dv"))}}
+
+
+def sp_row_errs(got, ref):
+    """The largest per-row error of o, dq (query rows) and dk, dv (key
+    rows) against the one call's (``row_rel_err``)."""
+    return {key: row_rel_err(got[key], ref[key]).max().item()
+            for key in FLASH_OUTS}
+
+
+@contextmanager
+def plain_versions_raise():
+    """The flash kernels' plain versions raise while this is open."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a flash plain version ran on the sp path")
+    with mock.patch.object(at, "flash_fwd_plain", refuse), \
+            mock.patch.object(at, "flash_dq_plain", refuse), \
+            mock.patch.object(at, "flash_dkv_plain", refuse):
+        yield
+
+
+def sp_block_check(parts, ring_out, n):
+    """The ring's visible-block calls at T_local = T / n, non-causal, on
+    ``SP_BLOCK_HEADS`` heads: rank n - 1 holding rank 0's block, with rank
+    n - 1's merged lse and delta; each kernel against its plain version,
+    row by row, with ms, plain ms, the bound and (forward) SDPA's ms."""
+    h = SP_BLOCK_HEADS
+    r = n - 1
+    q, do = (parts[x][r][:, :, :h].contiguous() for x in ("q", "do"))
+    k, v = (parts[x][0][:, :, :h].contiguous() for x in ("k", "v"))
+    o_r = ring_out["o"].chunk(n, dim=1)[r][:, :, :h].float()
+    lse = ring_out["lse"][r][:h].contiguous()
+    delta = torch.einsum("bthd,bthd->bht", do.float(), o_r).reshape(
+        h, -1).contiguous()
+    got = dict(zip(("o", "lse"), at.flash_fwd(q, k, v, False)))
+    got["dq"] = at.flash_dq(q, k, v, do, lse, delta, False)
+    got["dk"], got["dv"] = at.flash_dkv(q, k, v, do, lse, delta, False)
+    ref = dict(zip(("o", "lse"), at.flash_fwd_plain(q, k, v, False)))
+    ref["dq"] = at.flash_dq_plain(q, k, v, do, lse, delta, False)
+    ref["dk"], ref["dv"] = at.flash_dkv_plain(q, k, v, do, lse, delta,
+                                              False)
+    torch.cuda.synchronize()
+    rel = {key: row_rel_err(got[key], ref[key]).max().item()
+           for key in FLASH_OUTS}
+    err = {key: (got[key].float() - ref[key].float()).abs().max().item()
+           for key in ("lse", *FLASH_OUTS)}
+    b, t = 1, q.shape[1]
+    pairs = b * h * t * t
+    tile, row = b * h * t * SP_SHAPE[3] * 2, b * h * t * 4
+    work = {"flash_fwd": (4 * tile + row, 2 * 2 * SP_SHAPE[3] * pairs),
+            "flash_dq": (5 * tile + 2 * row, 3 * 2 * SP_SHAPE[3] * pairs),
+            "flash_dkv": (6 * tile + 2 * row, 4 * 2 * SP_SHAPE[3] * pairs)}
+    calls = {
+        "flash_fwd": (lambda: at.flash_fwd(q, k, v, False),
+                      lambda: at.flash_fwd_plain(q, k, v, False), ("o",)),
+        "flash_dq": (lambda: at.flash_dq(q, k, v, do, lse, delta, False),
+                     lambda: at.flash_dq_plain(q, k, v, do, lse, delta,
+                                               False), ("dq",)),
+        "flash_dkv": (lambda: at.flash_dkv(q, k, v, do, lse, delta, False),
+                      lambda: at.flash_dkv_plain(q, k, v, do, lse, delta,
+                                                 False), ("dk", "dv")),
+    }
+    # Library yardstick: SDPA's non-causal forward on [B, H, T, D] copies.
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt), 10)
+    recs = {}
+    for name, (kern, plain, keys) in calls.items():
+        b_ms, b_by = bound(*work[name])
+        recs[name] = {
+            "shape": f"B1 T{t} H{h} D{SP_SHAPE[3]} non-causal, merged lse",
+            "ms": time_ms(kern, 10), "plain_ms": time_ms(plain, 3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": sdpa_ms if name == "flash_fwd" else None,
+            "max_abs_err": max(err[key] for key in keys),
+            "max_row_rel_err": max(rel[key] for key in keys)}
+    print("  sp block kernels vs plain: " + json.dumps(
+        {"max_row_rel": rel, "max_abs_err": err, "times": recs}),
+        flush=True)
+    for key in FLASH_OUTS:
+        assert rel[key] <= FLASH_ROW_TOL, f"sp block: {key} disagrees"
+    assert err["lse"] <= LSE_ATOL, "sp block: lse disagrees"
+    return recs
+
+
+def sp_phase(dev, seed: int):
+    """Sequence parallelism on one card (phase 18 in the docstring).
+    Returns (the launches of each path, the block kernels' records)."""
+    from kubeflow_controller_tpu_torch.parallel import ulysses
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, t, h, d = SP_SHAPE
+    q, k, v, do = (torch.randn(SP_SHAPE, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    ref = flash_run(q, k, v, do)
+    one_ms = time_ms(fwd_bwd(at.flash_attention, q, k, v, do), 3)
+    print(f"sp: B{b} T{t} H{h} D{d} causal bf16; one flash_attention call "
+          f"fwd+bwd {one_ms:.3f} ms", flush=True)
+    launches, block = {}, None
+    for n in SP_RINGS:
+        parts = {name: shards(x, n) for name, x in
+                 (("q", q), ("k", k), ("v", v), ("do", do))}
+        for name in FLASH_KERNELS:
+            counter(name).launches = 0
+        with plain_versions_raise():
+            got = ring_lockstep(parts, n)
+        launches[f"ring_n{n}"] = {name: counter(name).launches
+                                  for name in FLASH_KERNELS}
+        rel = sp_row_errs(got, ref)
+        timing = {}             # a second run, past the first calls' costs
+        ring_lockstep(parts, n, timing=timing)
+        per_rank = {r: {d: sum(s.elapsed_time(e) for s, e in
+                               timing[(r, d)]) for d in ("fwd", "bwd")}
+                    for r in range(n)}
+        ring_ms = time_ms(lambda: ring_lockstep(parts, n), 2, warmup=1)
+        # Control: each rank's backward reads its own diagonal block's lse
+        # in place of the ring's merged one.
+        own = [at.flash_fwd(parts["q"][r], parts["k"][r], parts["v"][r],
+                            True)[1] for r in range(n)]
+        bad = sp_row_errs(ring_lockstep(parts, n,
+                                        lse_of=lambda r, _: own[r]), ref)
+        print(f"  ring n={n} (T_local {t // n}): " + json.dumps({
+            "launches": launches[f"ring_n{n}"],
+            "want_each": n * (n + 1) // 2, "max_row_rel": rel,
+            "tol": FLASH_ROW_TOL,
+            "ms_per_virtual_rank": per_rank,
+            "critical_path_ms": sum(per_rank[n - 1].values()),
+            "lockstep_fwd_bwd_ms": ring_ms, "one_call_fwd_bwd_ms": one_ms,
+            "control_own_lse_max_row_rel": bad}), flush=True)
+        assert all(c == n * (n + 1) // 2
+                   for c in launches[f"ring_n{n}"].values()), launches
+        for key in FLASH_OUTS:
+            assert rel[key] <= FLASH_ROW_TOL, f"ring n={n}: {key} disagrees"
+        assert any(bad[key] > FLASH_ROW_TOL for key in FLASH_OUTS), (
+            "the ring check passed the block's own lse")
+        if n == SP_RINGS[0]:
+            block = sp_block_check(parts, got, n)
+        del got, parts
+        torch.cuda.empty_cache()
+
+    n = SP_ULYSSES
+    leaves = {name: [x.detach().requires_grad_() for x in shards(y, n)]
+              for name, y in (("q", q), ("k", k), ("v", v))}
+    for name in FLASH_KERNELS:
+        counter(name).launches = 0
+    with plain_versions_raise():
+        outs = ulysses.ulysses_lockstep(leaves["q"], leaves["k"],
+                                        leaves["v"], causal=True)
+        torch.autograd.backward(outs, shards(do, n))
+    torch.cuda.synchronize()
+    launches[f"ulysses_n{n}"] = {name: counter(name).launches
+                                 for name in FLASH_KERNELS}
+    got = {"o": torch.cat(outs, dim=1).detach(),
+           **{f"d{x}": torch.cat([y.grad for y in leaves[x]], dim=1)
+              for x in "qkv"}}
+    same = {key: torch.equal(got[key], ref[key]) for key in FLASH_OUTS}
+    rel = sp_row_errs(got, ref)
+    print(f"  ulysses n={n} ({h // n} heads a rank over T {t}): "
+          + json.dumps({"launches": launches[f"ulysses_n{n}"],
+                        "bit_identical_to_one_call": same,
+                        "max_row_rel": rel}), flush=True)
+    assert all(c == n for c in launches[f"ulysses_n{n}"].values()), launches
+    for key in FLASH_OUTS:
+        assert rel[key] <= FLASH_ROW_TOL, f"ulysses: {key} disagrees"
+    del q, k, v, do, ref, got, outs, leaves
+    torch.cuda.empty_cache()
+    return launches, block
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2342,7 +2592,8 @@ def kernels_line(results, flash, paths, serve_designs):
     """One entry per kernel; ``launches`` is the MoE train run's (the
     path that launches all six) and the grouped kernels' top-level times
     are at its layout; ``launches_by_path`` gives each path's own run
-    (``mesh_moe``: the mesh MoE step, this slice's path),
+    (``mesh_moe``: the mesh MoE step; ``ring_n4``, ``ring_n2``,
+    ``ulysses_n4``: the sequence-parallel paths of phase 18),
     ``skip_launches_by_path`` the launches of ``gmm`` and ``tgmm`` that
     carried ``valid_tiles``, and ``serve_launches_by_design`` the serve
     run's ``gmm`` and ``gmm_swiglu`` launches by design."""
@@ -2447,6 +2698,10 @@ def main(argv=None) -> int:
     paths["resume"] = resume_child(args.seed)["launches"]
     paths["vision"] = vision_phase(dev)
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    sp_launches, sp_block = sp_phase(dev, args.seed)
+    paths.update(sp_launches)
+    for name in FLASH_KERNELS:
+        flash[name]["sp_block"] = sp_block[name]
     print(card_line())
     print(kernels_line(results, flash, paths, serve_designs))
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,13 @@ MoE layers train through the same path: their expert FFN is
 backward; under a mesh, per shard over ep), and ``llama_loss`` adds the
 router losses.
 
+Sequence parallelism: under a mesh with an ``sp`` axis above 1 the
+activations are sharded over T, each shard's RoPE angles are those of its
+own positions, attention is ring or Ulysses (``cfg.sp_attention``,
+``parallel/ring.py``, ``parallel/ulysses.py``) per shard, and the loss's
+shifted targets are built from the global tokens before they are staged,
+so each shard's cross-entropy is local.
+
 Remat: every policy of the reference (``"full"``, ``"dots"``, ``"ffn"``,
 ``"gateup"``, ``"gateup_attn"``, ``"moe"``) as selective activation
 checkpointing (``models/remat.py``); the ``checkpoint_name`` scopes sit
@@ -48,7 +55,12 @@ from ..parallel.mesh import (
     AXIS_SEQUENCE,
     AXIS_TENSOR,
 )
-from ..parallel.ring import attention_reference
+from ..parallel.ring import (
+    GroupRing,
+    attention_reference,
+    flash_reason,
+    ring_attention_local,
+)
 from ..parallel.sharding import (
     DEFAULT_RULES,
     ShardingRules,
@@ -57,6 +69,7 @@ from ..parallel.sharding import (
     shard_pytree_specs,
     with_logical_constraint,
 )
+from ..parallel.ulysses import ulysses_attention_local
 from .moe import moe_ffn, moe_ffn_stats
 from .remat import checkpoint_name, remat
 
@@ -65,8 +78,7 @@ from .remat import checkpoint_name, remat
 class LlamaConfig:
     """A copy of the reference's ``LlamaConfig``: same fields, same
     defaults, so one set of keyword arguments builds either package's
-    config.  Fields the port does not read yet (``sp_attention``) are kept
-    for that reason."""
+    config."""
 
     vocab_size: int = 32000
     dim: int = 4096
@@ -268,23 +280,23 @@ def llama_param_pspecs(cfg: LlamaConfig, rules: ShardingRules = DEFAULT_RULES):
 
 
 # The mesh axes the model shards over; the others must be 1.
-MODEL_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_TENSOR)
+MODEL_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE, AXIS_TENSOR)
 _NOT_PORTED_AXES = (
-    (AXIS_SEQUENCE, "sequence parallelism (ring and Ulysses attention) is "
-                    "not ported yet (ROADMAP.md, M3)"),
     (AXIS_PIPELINE, "pipeline parallelism is not ported yet (ROADMAP.md, "
                     "M8)"),
 )
+MOE_UNDER_SP = ("MoE under sequence parallelism (--experts with --sp > 1) "
+                "is not ported yet (ROADMAP.md, M3b)")
 
 
 def model_mesh(mesh):
-    """The ``(dp, fsdp, ep, tp)`` part of ``mesh`` (a ``build_mesh``
+    """The ``(dp, fsdp, ep, sp, tp)`` part of ``mesh`` (a ``build_mesh``
     mesh), over which parameters and activations are DTensors: those of
     its axes that are above 1, or dp alone on one device.  A size-1 axis
     shards nothing, and each mesh dim multiplies the strategies DTensor's
     sharding propagation weighs for every op.  Raises
-    ``NotImplementedError`` for an sp or pp axis above 1, naming its
-    ROADMAP module."""
+    ``NotImplementedError`` for a pp axis above 1, naming its ROADMAP
+    module."""
     names = mesh.mesh_dim_names
     for axis, why in _NOT_PORTED_AXES:
         if axis in names and mesh.size(names.index(axis)) > 1:
@@ -338,12 +350,21 @@ def shard_llama(model: Llama, mesh, rules: ShardingRules = DEFAULT_RULES
     return model
 
 
+def _sp_size(mesh) -> int:
+    """The extent of ``mesh``'s sp axis (1 without a mesh or the axis)."""
+    if mesh is None or AXIS_SEQUENCE not in mesh.mesh_dim_names:
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index(AXIS_SEQUENCE))
+
+
 def _w(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A parameter as the product uses it, cast to ``dtype``.  A DTensor
     parameter is first gathered over fsdp (and dp): ZeRO-3's all-gather of
     the weight before use, whose backward reduce-scatters the gradient
     over fsdp and all-reduces it over dp; its tp and ep shards stay.  Its
-    gradient comes back placed as the parameter is (``grad_placed``)."""
+    gradient comes back placed as the parameter is (``grad_placed``: the
+    sums over the batch and sequence shards that read it, dp, fsdp and
+    sp)."""
     from torch.distributed.tensor import DTensor, Replicate
 
     if isinstance(p, DTensor):
@@ -395,13 +416,13 @@ def ffn_block(h: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig,
     w_gate, w_up = _w(lp.w_gate, dtype), _w(lp.w_up, dtype)
     w_down = _w(lp.w_down, dtype)
     with checkpoint_name("ffn_gate"):
-        gate = h @ w_gate
+        gate = _mm(h, w_gate)
     with checkpoint_name("ffn_up"):
-        up = h @ w_up
+        up = _mm(h, w_up)
     ff = nn.functional.silu(gate) * up
     ff = with_logical_constraint(ff, ("batch", "seq", "mlp"), rules)
     with checkpoint_name("ffn_down"):
-        out = ff @ w_down
+        out = _mm(ff, w_down)
     return with_logical_constraint(out, ("batch", "seq", None), rules)
 
 
@@ -463,12 +484,10 @@ def _attention(q, k, v, causal: bool, cfg: Optional[LlamaConfig] = None,
     ``local_map``, the analog of the reference's ``shard_map``: dp and fsdp
     shard the batch, tp the heads (q's heads and the kv heads alike, so a
     shard's query heads read its own kv heads: H/tp = repeats * KV/tp).
-    An sp axis above 1 (ring or Ulysses attention) raises: M3."""
+    An sp axis above 1 shards T, and each shard runs ring or Ulysses
+    attention over the mesh's sp group (:func:`_sp_attention`)."""
     if mesh is None:
         return _local_attention(q, k, v, causal=causal, cfg=cfg)
-    names = mesh.mesh_dim_names
-    if AXIS_SEQUENCE in names and mesh.size(names.index(AXIS_SEQUENCE)) > 1:
-        raise NotImplementedError(_NOT_PORTED_AXES[0][1])
     from functools import partial
 
     from torch.distributed.tensor.experimental import local_map
@@ -477,18 +496,48 @@ def _attention(q, k, v, causal: bool, cfg: Optional[LlamaConfig] = None,
     k = with_logical_constraint(k, KV_AXES, rules)
     v = with_logical_constraint(v, KV_AXES, rules)
     qp, kp = list(q.placements), list(k.placements)  # a list: one output
-    fn = local_map(partial(_local_attention, causal=causal, cfg=cfg),
+    sub = q.device_mesh
+    body = _local_attention
+    if _sp_size(sub) > 1:
+        body = partial(_sp_attention, group=sub.get_group(AXIS_SEQUENCE))
+    fn = local_map(partial(body, causal=causal, cfg=cfg),
                    out_placements=qp, in_placements=(qp, kp, kp),
-                   device_mesh=q.device_mesh)
+                   device_mesh=sub)
     return fn(q, k, v)
 
 
-def _local_attention(q, k, v, *, causal: bool,
-                     cfg: Optional[LlamaConfig]) -> torch.Tensor:
+def _repeat_kv(q, k, v):
     repeats = q.shape[2] // k.shape[2]
     if repeats > 1:  # GQA: expand kv heads to query heads (jnp.repeat)
         k = k.repeat_interleave(repeats, dim=2)
         v = v.repeat_interleave(repeats, dim=2)
+    return k, v
+
+
+def _sp_attention(q, k, v, *, group, causal: bool,
+                  cfg: Optional[LlamaConfig]) -> torch.Tensor:
+    """One shard's sequence-parallel attention, as the reference's
+    ``_attention`` takes it: the kv heads repeated first (Ulysses splits
+    the heads n ways); Ulysses' inner follows ``cfg.attention`` as
+    :func:`_local_attention` does, and the ring always folds with the
+    flash inner, which takes a shard the kernels take
+    (``ring.flash_reason``) and the dense inner otherwise, with the
+    fallback warning under ``attention="flash"``."""
+    k, v = _repeat_kv(q, k, v)
+    if cfg is not None and cfg.sp_attention == "ulysses":
+        def inner(qg, kg, vg, *, causal, scale):
+            return _local_attention(qg, kg, vg, causal=causal, cfg=cfg)
+        return ulysses_attention_local(q, k, v, group, causal=causal,
+                                       inner=inner)
+    if (cfg is not None and cfg.attention == "flash"
+            and flash_reason(q, k, v) is not None):
+        _warn_flash_fallback(q.shape[1], q.dtype, q.shape[-1])
+    return ring_attention_local(q, k, v, GroupRing(group), causal=causal)
+
+
+def _local_attention(q, k, v, *, causal: bool,
+                     cfg: Optional[LlamaConfig]) -> torch.Tensor:
+    k, v = _repeat_kv(q, k, v)
     if cfg is not None and cfg.attention in ("auto", "flash"):
         out = _flash_path(q, k, v, causal, cfg)
         if out is not None:
@@ -532,7 +581,7 @@ def _decoder_layer_fn(cfg: LlamaConfig, angles: torch.Tensor, mesh=None,
         attn = _attention(q, k, v, True, cfg, mesh, rules)
         wo = _w(lp.wo, dtype)
         with checkpoint_name("attn_proj"):
-            proj = attn.flatten(2) @ wo.flatten(0, 1)
+            proj = _mm(attn.flatten(2), wo.flatten(0, 1))
         x = x + with_logical_constraint(proj, ("batch", "seq", None), rules)
 
         h = rmsnorm(x, _w(lp.mlp_norm, dtype), cfg.norm_eps)
@@ -552,7 +601,28 @@ def _heads(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[B, T, D] @ [D, H, K] -> [B, T, H, K] as one 2-D product (the
     reference's ``einsum("btd,dhk->bthk")``; a product with no batch dims
     is an ``aten.mm`` in the port, which the ``"dots"`` policy keeps)."""
-    return (h @ w.flatten(1)).unflatten(-1, w.shape[1:])
+    return _mm(h, w.flatten(1)).unflatten(-1, w.shape[1:])
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]`` as one 2-D product (``aten.mm``), but for a
+    DTensor ``x`` sharded on two of its leading dims (the batch and the
+    sequence, under sp with a data axis): folding both into mm's rows
+    needs a redistribution that DTensor refuses on some torch versions,
+    so the product runs batched over dim 0 (``aten.bmm``, ``w``
+    broadcast; the "dots" policy keeps only ``aten.mm``)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    lead = {pl.dim for pl in getattr(x, "placements", ())
+            if isinstance(pl, Shard) and pl.dim < x.ndim - 1}
+    if not isinstance(x, DTensor) or len(lead) < 2:
+        return x @ w
+    # Dims 1 .. -2 fold into one: its outermost (the sequence) is sharded.
+    # ``torch.bmm``, not ``matmul``: matmul folds a broadcast batch back
+    # into mm's rows.
+    x3 = x.flatten(1, -2)
+    out = torch.bmm(x3, w.unsqueeze(0).expand(x3.shape[0], *w.shape))
+    return out.unflatten(1, x.shape[1:-1])
 
 
 def _maybe_remat(layer, cfg: LlamaConfig):
@@ -637,19 +707,18 @@ def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     :func:`stage_tokens`."""
     dtype = torch_dtype(cfg.dtype)
     t = tokens.shape[1]
-    angles = rope_freqs(cfg, torch.arange(t, device=tokens.device))
     if mesh is None:
+        angles = rope_freqs(cfg, torch.arange(t, device=tokens.device))
         x = model.embed[tokens.long()].to(dtype)
     else:
-        from torch.distributed.tensor import DTensor, Replicate
-
+        if _sp_size(mesh) > 1 and cfg.n_experts:
+            raise NotImplementedError(MOE_UNDER_SP)
         mesh = model_mesh(mesh)
         tokens = stage_tokens(tokens, mesh, rules)
         x = _embed(tokens, _w(model.embed, model.embed.dtype))
         x = with_logical_constraint(x.to(dtype), ("batch", "seq", None),
                                     rules)
-        angles = DTensor.from_local(angles, mesh, [Replicate()] * mesh.ndim,
-                                    run_check=False)
+        angles = _shard_angles(cfg, t, mesh, x.device)
     layer_fn = _maybe_remat(_decoder_layer_fn(cfg, angles, mesh, rules), cfg)
     auxes = []
     for lp in model.layers:
@@ -659,13 +728,29 @@ def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     if return_hidden:
         out = x
     else:
-        out = x @ _w(model.lm_head, dtype)
+        out = _mm(x, _w(model.lm_head, dtype))
         out = with_logical_constraint(out, ("batch", "seq", "vocab"),
                                       rules).float()
     if return_aux:
         return out, {key: torch.stack([a[key] for a in auxes]).mean()
                      for key in auxes[0]}
     return out
+
+
+def _shard_angles(cfg: LlamaConfig, t: int, mesh, device):
+    """The RoPE angles [T, head_dim//2] as a DTensor on ``mesh``: sharded
+    over T by sp, each shard the angles of its own positions (from its
+    offset), and replicated over every other dim."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    sp = _sp_size(mesh)
+    if t % sp:
+        raise ValueError(f"seq len {t} does not divide by sp {sp}")
+    lo = (t // sp) * (mesh.get_local_rank(AXIS_SEQUENCE) if sp > 1 else 0)
+    angles = rope_freqs(cfg, torch.arange(lo, lo + t // sp, device=device))
+    return DTensor.from_local(
+        angles, mesh, [Shard(0) if name == AXIS_SEQUENCE else Replicate()
+                       for name in mesh.mesh_dim_names], run_check=False)
 
 
 def _vocab_whole(logits: torch.Tensor, rules: ShardingRules
@@ -682,62 +767,107 @@ def llama_loss(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     plus the router losses weighted by ``moe_aux_coef``/``moe_z_coef``.
     With ``cfg.loss_chunks > 0`` the CE is computed chunk by chunk without
     materialising the full [B, T, vocab] f32 logits.  Under ``mesh`` the
-    loss is a replicated DTensor scalar: the mean over the global batch."""
-    aux = None
+    loss is a replicated DTensor scalar: the mean over the global batch.
+
+    Under an sp axis above 1 the shifted targets and the zero weight of
+    the last global position are built from the global tokens (gathered
+    first if they come staged) and staged as ``("batch", "seq")``, so each
+    shard's CE is local: slicing seq-sharded logits at ``[:, :-1]`` would
+    gather the whole [B, T, vocab] f32 logits on every process."""
+    aux, targets = None, None
     if mesh is not None:
-        tokens = stage_tokens(tokens, model_mesh(mesh), rules)
+        sub = model_mesh(mesh)
+        if _sp_size(sub) > 1:
+            targets = _staged_targets(tokens, sub, rules)
+        tokens = stage_tokens(tokens, sub, rules)
     if cfg.loss_chunks:
         out = llama_forward(model, tokens, cfg, mesh, rules,
                             return_aux=bool(cfg.n_experts), return_hidden=True)
         h, aux = out if cfg.n_experts else (out, None)
-        ce = _chunked_ce(h, model.lm_head, tokens, cfg, rules)
+        ce = _chunked_ce(h, model.lm_head, tokens, cfg, rules, targets)
     else:
         out = llama_forward(model, tokens, cfg, mesh, rules,
                             return_aux=bool(cfg.n_experts))
         logits, aux = out if cfg.n_experts else (out, None)
-        targets = tokens[:, 1:].long()
-        logp = torch.log_softmax(_vocab_whole(logits, rules)[:, :-1], dim=-1)
-        nll = -logp.gather(-1, targets[..., None])
-        ce = with_logical_constraint(nll.mean(), (), rules)
+        logp = torch.log_softmax(_vocab_whole(logits, rules), dim=-1)
+        if targets is None:
+            targets = tokens[:, 1:].long()
+            nll = -logp[:, :-1].gather(-1, targets[..., None])
+            ce = nll.mean()
+        else:
+            tgt, weight = targets
+            nll = -logp.gather(-1, tgt[..., None])[..., 0]
+            ce = torch.sum(nll * weight) / torch.sum(weight)
+        ce = with_logical_constraint(ce, (), rules)
     if cfg.n_experts:
         return (ce + cfg.moe_aux_coef * aux["aux_loss"]
                 + cfg.moe_z_coef * aux["z_loss"])
     return ce
 
 
+def _shifted(tokens: torch.Tensor):
+    """(targets, weight) [B, T]: each position's next token, and weight 1
+    but 0 at the final position, which has none."""
+    tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).long()
+    ones = torch.ones_like(tgt, dtype=torch.float32)
+    weight = torch.cat([ones[:, :-1], torch.zeros_like(ones[:, -1:])], dim=1)
+    return tgt, weight
+
+
+def _staged_targets(tokens, mesh, rules: ShardingRules):
+    """:func:`_shifted` of the global tokens, each staged as ``("batch",
+    "seq")`` on ``mesh`` (every process holds the global tokens, or gathers
+    staged ones)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tokens, DTensor):
+        tokens = tokens.full_tensor()
+    return tuple(stage_tokens(x, mesh, rules) for x in _shifted(tokens))
+
+
 def _chunked_ce(h: torch.Tensor, lm_head: torch.Tensor, tokens: torch.Tensor,
-                cfg: LlamaConfig,
-                rules: ShardingRules = DEFAULT_RULES) -> torch.Tensor:
+                cfg: LlamaConfig, rules: ShardingRules = DEFAULT_RULES,
+                targets=None) -> torch.Tensor:
     """Next-token CE over ``cfg.loss_chunks`` sequence chunks, each under
     ``torch.utils.checkpoint``: the backward recomputes a chunk's logits
     from its saved [B, C, D] hidden slice, so one chunk's logits live at a
     time.  The final position has no next token: its weight is zero,
-    matching the dense path's mean over positions [0, T-1)."""
+    matching the dense path's mean over positions [0, T-1).
+
+    ``targets``: (targets, weight) staged by :func:`_staged_targets` when
+    sp shards T; then each shard chunks its own slice ([B, sp, T/sp]
+    views, the shards on dim 1), and T/sp must divide by the chunks."""
     b, t, _ = h.shape
     n = cfg.loss_chunks
-    if t % n:
-        raise ValueError(f"seq len {t} not divisible by loss_chunks {n}")
+    sp = 1 if targets is None else _sp_size(h.device_mesh)
+    if (t // sp) % n:
+        raise ValueError(f"seq len {t} (over sp {sp}) not divisible by "
+                         f"loss_chunks {n}")
     dtype = h.dtype
     w = _w(lm_head, dtype)
-    tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).long()
-    ones = torch.ones_like(tgt, dtype=torch.float32)
-    weight = torch.cat([ones[:, :-1], torch.zeros_like(ones[:, -1:])], dim=1)
+    tgt, weight = _shifted(tokens) if targets is None else targets
+    lead = ("batch",)
+    if sp > 1:
+        h, tgt, weight = (x.unflatten(1, (sp, t // sp))
+                          for x in (h, tgt, weight))
+        lead = ("batch", "seq")
 
     def chunk(xc, w, tc, wc):
-        xc = with_logical_constraint(xc, ("batch", None, None), rules)
-        logits = (xc @ w).float()
-        logits = with_logical_constraint(logits, ("batch", None, "vocab"),
+        xc = with_logical_constraint(xc, (*lead, None, None), rules)
+        logits = _mm(xc, w).float()
+        logits = with_logical_constraint(logits, (*lead, None, "vocab"),
                                          rules)
-        logits = _vocab_whole(logits, rules)
+        # The vocab dim gathered, so the softmax runs over whole rows.
+        logits = with_logical_constraint(logits, (*lead, None, None), rules)
         lse = torch.logsumexp(logits, dim=-1)
         t_logit = logits.gather(-1, tc[..., None])[..., 0]
         return torch.sum((lse - t_logit) * wc)
 
-    c = t // n
+    c = t // sp // n
     total = None
     for i in range(n):
-        sl = slice(i * c, (i + 1) * c)
-        part = checkpoint(chunk, h[:, sl], w, tgt[:, sl], weight[:, sl],
+        sl = (slice(None),) * len(lead) + (slice(i * c, (i + 1) * c),)
+        part = checkpoint(chunk, h[sl], w, tgt[sl], weight[sl],
                           use_reentrant=False)
         total = part if total is None else total + part
     return with_logical_constraint(total / torch.sum(weight), (), rules)

@@ -127,11 +127,12 @@ class _GradPlaced(torch.autograd.Function):
 def grad_placed(x):
     """A DTensor as it is, whose gradient comes back placed as ``x`` is:
     the identity, whose backward redistributes the gradient to ``x``'s
-    placements (a ``Partial`` gradient is summed there).  A replicated
-    parameter read by batch-sharded activations (a norm's scale) would
-    otherwise keep a per-shard ``Partial`` gradient, and each process's
-    optimizer would step on its own part.  A plain tensor is returned as
-    it is."""
+    placements (a ``Partial`` gradient is summed there).  A parameter
+    replicated over a mesh dim and read by activations sharded over it
+    (every weight under dp, fsdp and sp: the batch and sequence shards;
+    a norm's scale) would otherwise keep a per-shard ``Partial`` gradient,
+    and each process's optimizer would step on its own part.  A plain
+    tensor is returned as it is."""
     from torch.distributed.tensor import DTensor
 
     return _GradPlaced.apply(x) if isinstance(x, DTensor) else x

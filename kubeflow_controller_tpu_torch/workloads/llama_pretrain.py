@@ -45,16 +45,19 @@ exists (that gang, or a group the caller formed) the model trains on a
 controller's ``$KCTPU_MESH`` overrides: parameters are DTensors, built
 already sharded one at a time (``llama_init(mesh=)``: fsdp shards the
 embed dim and is gathered before each use, tp shards heads, mlp and vocab,
-ep the experts, dp replicates), the global batch is rounded to the data
-parallel size and each process stages its own ``("batch", "seq")`` shard.
-MoE runs per shard under the mesh (``--ep``; "grouped" takes the
-ep-sharded dropless path, ``models/moe.py``).  Each process prints "Mesh:
+ep the experts, dp and sp replicate), the global batch is rounded to the
+data parallel size and each process stages its own ``("batch", "seq")``
+shard.  MoE runs per shard under the mesh (``--ep``; "grouped" takes the
+ep-sharded dropless path, ``models/moe.py``).  ``--sp N`` shards the
+sequence N ways (T must divide by N, and on CUDA by N x 64 for the flash
+kernels; else the dense inner) and ``--sp-attention`` takes ring or
+Ulysses attention (``models/llama.py``).  Each process prints "Mesh:
 {...} over N devices, process i/n".
 
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md): ``--sp >
-1`` (M3) and ``--pp > 1`` (M8).  Without a group, an axis above 1 asks for
-more devices than the one there is, and raises ``ValueError`` as the
-reference's mesh does.
+Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md): ``--pp >
+1`` (M8) and ``--experts`` with ``--sp > 1`` (M3b).  Without a group, an
+axis above 1 asks for more devices than the one there is, and raises
+``ValueError`` as the reference's mesh does.
 """
 
 from __future__ import annotations
@@ -73,13 +76,13 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.llama import (
+    MOE_UNDER_SP,
     Llama,
     LlamaConfig,
     llama_init,
     llama_loss,
     model_mesh,
     shard_llama,
-    stage_tokens,
 )
 from ..parallel.mesh import MeshSpec, build_mesh, data_parallel_size
 from ..obs.phases import PHASE_FIT, PHASE_RESTORE
@@ -135,8 +138,9 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
     one parameter at a time (``llama_init(mesh=)``; a given ``model`` is
     sharded whole by ``shard_llama``), the batch is rounded down to a
     multiple of the data parallel size (at least one row a shard), each
-    process stages its own shard of every batch, and the losses are the
-    global batch's."""
+    process stages its own shard of every batch (in ``llama_loss``, which
+    builds the shifted targets from the global batch first when sp shards
+    T), and the losses are the global batch's."""
     dev = resolve_device(device)
     rep = reporter()
     if model is None:
@@ -162,10 +166,7 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
 
     def step(i: int) -> float:
         lo = (i * bs) % max(1, tokens_all.shape[0] - bs + 1)
-        batch = tokens_all[lo:lo + bs]
-        if mesh is not None:
-            batch = stage_tokens(batch, mesh)
-        loss = llama_loss(model, batch, cfg, mesh)
+        loss = llama_loss(model, tokens_all[lo:lo + bs], cfg, mesh)
         loss.backward()
         opt.step()
         opt.zero_grad()
@@ -227,8 +228,6 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
 
 
 _NOT_PORTED = {
-    "sp": "--sp {}: sequence parallelism (ring and Ulysses attention) is "
-          "not ported yet (ROADMAP.md, M3)",
     "pp": "--pp {}: pipeline parallelism is not ported yet (ROADMAP.md, M8)",
 }
 
@@ -330,6 +329,8 @@ def main(argv=None) -> int:
     for axis, why in _NOT_PORTED.items():
         if axes[axis] > 1:
             raise NotImplementedError(why.format(axes[axis]))
+    if args.experts and axes["sp"] > 1:
+        raise NotImplementedError(MOE_UNDER_SP)
     import torch.distributed as dist
 
     joined = not dist.is_initialized()

@@ -7,11 +7,13 @@ and runs SCENARIO; rank 0 (every rank for ``collectives``) writes its
 results to OUT (``OUT.<rank>`` for ``collectives``) with ``torch.save``:
 
 - ``collectives``: ``parallel/collectives.py`` over a (dp, tp) mesh.
-- ``step DP FSDP TP POLICY PARAMS``: one loss, backward and AdamW step of
-  the JAX-initialised model in PARAMS (a pickle of numpy arrays and the
-  tokens) sharded on a (DP, FSDP, TP) mesh; the full gradients (before
-  and after the clip) and parameters, the shapes the flash forward ran
-  at, and the all-gathers over fsdp.
+- ``step DP FSDP TP POLICY PARAMS [SP SP_ATTENTION [LOSS_CHUNKS]]``: one
+  loss, backward and AdamW step of the JAX-initialised model in PARAMS (a
+  pickle of numpy arrays and the tokens) sharded on a (DP, FSDP, TP)
+  mesh, or (DP, FSDP, SP, TP) with ring or Ulysses attention (and the
+  chunked CE); the full gradients (before and after the clip) and
+  parameters, the shapes the flash forward ran at, and the all-gathers
+  over fsdp.
 - ``train STEPS [MODEL_DIR [hang]]``: ``llama_pretrain.train`` of the tiny
   model under fsdp; with ``hang``, one more step after the run and then a
   wait to be killed.
@@ -21,6 +23,15 @@ results to OUT (``OUT.<rank>`` for ``collectives``) with ``torch.save``:
   full gradients and parameters, the FFN call's output and stats, the
   kernels' plain-version calls (the skip forms apart), the fallback
   warnings, and every rank's per-shard grouped layouts.
+- ``seqpar KIND SP TP INPUTS``: ring (KIND ``ring``) or Ulysses
+  (``ulysses``) attention of the global q/k/v in INPUTS (an ``.npz``, with
+  the cotangent ``do`` and a bf16 set ``*_bf16``) on a (fsdp, sp, tp) mesh
+  of the world, causal and not, flash and dense inner: the full outputs
+  and q/k/v gradients, every rank's plain-version calls of the flash
+  kernels; on an sp-only mesh, the same schedules over virtual ranks in
+  rank 0's process (``run_lockstep``, ``ulysses_lockstep``); for the ring,
+  the bf16 set with the kernels' rule applied to the shards (T/sp under
+  ``TILE``: the dense inner).
 - ``init DP FSDP EP TP EXPERTS``: ``llama_init(mesh=)`` against
   ``llama_init`` + ``shard_llama`` from one seed (every local shard), and
   the live bytes of the tensors ``llama_pretrain.train(mesh=)`` makes while
@@ -79,14 +90,17 @@ def collectives(out: str) -> None:
 
 
 def step(out: str, dp: str, fsdp: str, tp: str, policy: str,
-         params_path: str) -> None:
+         params_path: str, sp: str = "1", sp_attention: str = "ring",
+         loss_chunks: str = "0") -> None:
     with open(params_path, "rb") as fh:
         params, tokens = pickle.load(fh)
-    mesh = build_mesh(MeshSpec(dp=int(dp), fsdp=int(fsdp), tp=int(tp)),
-                      "cpu")
+    mesh = build_mesh(MeshSpec(dp=int(dp), fsdp=int(fsdp), tp=int(tp),
+                               sp=int(sp)), "cpu")
     cfg = llama.LlamaConfig.tiny(attention="flash", remat=policy != "none",
                                  remat_policy=("full" if policy == "none"
-                                               else policy), **TINY)
+                                               else policy),
+                                 sp_attention=sp_attention,
+                                 loss_chunks=int(loss_chunks), **TINY)
     model = bridge.llama_from_jax(params, cfg, device="cpu",
                                   requires_grad=True)
     llama.shard_llama(model, mesh)
@@ -362,12 +376,119 @@ def init(out: str, dp: str, fsdp: str, ep: str, tp: str,
                     "all_params": sum(full.values())}, out)
 
 
+PLAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def counting_plain(calls: dict):
+    """Patches counting each flash kernel's plain-version calls."""
+    def counted(name, real):
+        def plain(*args, **kwargs):
+            calls[name] += 1
+            return real(*args, **kwargs)
+        return plain
+    return [mock.patch.object(attention, f"{name}_plain",
+                              counted(name, getattr(attention,
+                                                    f"{name}_plain")))
+            for name in PLAIN_KERNELS]
+
+
+def seqpar(out: str, kind: str, sp: str, tp: str, inputs: str) -> None:
+    import contextlib
+
+    import numpy as np
+    from torch.distributed.tensor import distribute_tensor
+
+    from kubeflow_controller_tpu_torch.parallel import ring, ulysses
+
+    sp, tp = int(sp), int(tp)
+    world = dist.get_world_size()
+    mesh = build_mesh(MeshSpec(fsdp=world // (sp * tp), sp=sp, tp=tp), "cpu")
+    # The dims above 1 only: DTensor's propagation weighs every mesh dim.
+    mesh = mesh[tuple(a for a in ("fsdp", "sp", "tp")
+                      if mesh.size(mesh.mesh_dim_names.index(a)) > 1)]
+    placements = ring.seq_placements(mesh)
+    arrays = dict(np.load(inputs))
+    full = {k: torch.from_numpy(v) for k, v in arrays.items()
+            if not k.endswith("_bf16")}
+
+    def attend(q, k, v, causal, inner):
+        if kind == "ring":
+            return ring.ring_attention(q, k, v, mesh, causal=causal,
+                                       inner=inner)
+        return ulysses.ulysses_attention(
+            q, k, v, mesh, causal=causal,
+            inner=None if inner == "flash" else ring.attention_reference)
+
+    def run(tensors, causal, inner):
+        qkv = [distribute_tensor(tensors[n], mesh, placements)
+               .requires_grad_() for n in "qkv"]
+        calls = dict.fromkeys(PLAIN_KERNELS, 0)
+        with contextlib.ExitStack() as stack:
+            for patch in counting_plain(calls):
+                stack.enter_context(patch)
+            o = attend(*qkv, causal, inner)
+            o.backward(distribute_tensor(tensors["do"].to(o.dtype), mesh,
+                                         placements))
+        everyone = [None] * world
+        dist.all_gather_object(everyone, {
+            "rank": dist.get_rank(), "calls": calls,
+            "sp_index": mesh.get_local_rank("sp")})
+        return {"out": o.full_tensor().detach(),
+                "grads": [x.grad.full_tensor() for x in qkv],
+                "ranks": everyone}
+
+    res = {}
+    for causal in (True, False):
+        for inner in ("flash", "dense"):
+            res[(causal, inner)] = run(full, causal, inner)
+    if kind == "ring":
+        bf16 = {k[:-len("_bf16")]: torch.from_numpy(v).to(torch.bfloat16)
+                for k, v in arrays.items() if k.endswith("_bf16")}
+        for causal in (True, False):
+            with mock.patch.object(ring, "flash_reason",
+                                   lambda q, k, v: attention.kernel_rule(
+                                       q, k, v)):
+                res[("fallback", causal)] = run(bf16, causal, "flash")
+    if world == sp and dist.get_rank() == 0:
+        for causal in (True, False):
+            res[("lockstep", causal)] = lockstep(kind, full, sp, causal)
+    if dist.get_rank() == 0:
+        torch.save(res, out)
+
+
+def lockstep(kind: str, full: dict, n: int, causal: bool) -> dict:
+    """The flash inner over n virtual ranks in this process."""
+    from kubeflow_controller_tpu_torch.parallel import ring, ulysses
+
+    parts = {k: [c.contiguous() for c in full[k].chunk(n, dim=1)]
+             for k in ("q", "k", "v", "do")}
+    scale = full["q"].shape[-1] ** -0.5
+    if kind == "ring":
+        fwd = ring.run_lockstep([ring.ring_flash_forward(
+            parts["q"][r], parts["k"][r], parts["v"][r], r, n, causal, scale)
+            for r in range(n)])
+        bwd = ring.run_lockstep([ring.ring_flash_backward(
+            parts["q"][r], parts["k"][r], parts["v"][r], *fwd[r],
+            parts["do"][r], r, n, causal, scale) for r in range(n)])
+        return {"out": torch.cat([o for o, _ in fwd], dim=1),
+                "grads": [torch.cat([g[i] for g in bwd], dim=1)
+                          for i in range(3)]}
+    leaves = {k: [c.detach().requires_grad_() for c in parts[k]]
+              for k in "qkv"}
+    outs = ulysses.ulysses_lockstep(leaves["q"], leaves["k"], leaves["v"],
+                                    causal=causal)
+    torch.autograd.backward(outs, parts["do"])
+    return {"out": torch.cat(outs, dim=1).detach(),
+            "grads": [torch.cat([x.grad for x in leaves[k]], dim=1)
+                      for k in "qkv"]}
+
+
 def main(argv) -> int:
     rt = JobRuntime.from_env()
     rt.initialize("cpu", timeout_s=120)
     scenario, out, *rest = argv
     {"collectives": collectives, "step": step, "train": train, "moe": moe,
-     "init": init}[scenario](out, *rest)
+     "init": init, "seqpar": seqpar}[scenario](out, *rest)
     rt.shutdown()
     return 0
 

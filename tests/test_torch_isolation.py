@@ -53,7 +53,7 @@ SLICE_MODULES = ("workloads.serve", "ops.grouped_matmul", "ops.attention",
                  "models.vision", "workloads.flax_mnist",
                  "workloads.cifar_allreduce", "models.remat",
                  "parallel.mesh", "parallel.sharding",
-                 "parallel.collectives")
+                 "parallel.collectives", "parallel.ulysses")
 
 
 def forbidden(name: str) -> bool:

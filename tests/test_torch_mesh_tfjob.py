@@ -13,6 +13,10 @@
   the 8 experts and runs the ep-sharded grouped path; both reach
   ``Succeeded``, print the ep-2 mesh line and the final loss of one
   process within 1e-5 relative.
+- The same 2-Worker TFJob under sequence parallelism (``--sp 2 --fsdp 1``,
+  ring attention: the CPU mirror of ``examples/jobs/llama-sp.yaml``): each
+  worker holds half of every sequence; both reach ``Succeeded``, print the
+  sp-2 mesh line and the final loss of one process within 1e-5 relative.
 - A sharded kill-and-resume (the pattern of
   ``tests/test_torch_checkpoint.py``): two gloo ranks under fsdp 2 train 2
   steps with ``MODEL_DIR`` (saving step 2 collectively, each rank its own
@@ -48,6 +52,7 @@ ONE = ("--preset", "tiny", "--device", "cpu", "--steps", "2")
 MOE_ONE = ONE + ("--experts", "8", "--moe-dispatch", "grouped",
                  "--strict-moe-dispatch")
 MOE_ARGS = MOE_ONE + ("--ep", "2", "--fsdp", "1")
+SP_ARGS = ONE + ("--sp", "2", "--fsdp", "1")
 
 
 def llama_job(name, args=ARGS):
@@ -100,6 +105,11 @@ def test_two_worker_ep_moe_pretrain_job_succeeds(rig, capsys, monkeypatch):
     run_two_worker_job(rig, capsys, monkeypatch, "torch-llama-moe-ep",
                        MOE_ARGS, MOE_ONE,
                        "'fsdp': 1, 'ep': 2, 'sp': 1, 'tp': 1}")
+
+
+def test_two_worker_sp_pretrain_job_succeeds(rig, capsys, monkeypatch):
+    run_two_worker_job(rig, capsys, monkeypatch, "torch-llama-sp", SP_ARGS,
+                       ONE, "'fsdp': 1, 'ep': 1, 'sp': 2, 'tp': 1}")
 
 
 def run_two_worker_job(rig, capsys, monkeypatch, name, args, one_args,

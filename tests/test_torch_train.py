@@ -19,14 +19,16 @@ package, from JAX parameters bridged into the port.
 - three steps of the pretrain loop from one bridged init, dense and MoE
   (grouped): each step's loss within 1e-4 of the JAX loop's.
 - the CLI on the CPU (dense, and MoE under the strict grouped dispatch),
-  and what it refuses: sp (M3), pp (M8), ep and MoE under a mesh or a
-  gang (M4); without a group, a mesh wider than one device.
-- what is not ported yet raises, naming its module: sp, pp and ep axes,
-  MoE under a mesh.
+  and what it refuses: pp (M8), MoE under sp (M3b); without a group, a
+  mesh wider than one device (``--sp 2`` too).
+- what is not ported yet raises, naming its module: a pp axis, MoE under
+  sp; a dense model under an sp mesh takes ring or Ulysses attention.
 """
 
+import contextlib
 import dataclasses
 import warnings
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -272,20 +274,25 @@ def test_main_trains_moe_on_the_cpu(capsys, monkeypatch):
     assert np.isfinite(loss)
 
 
-@pytest.mark.parametrize("argv,env", [
-    (["--sp", "2"], {}),
-    (["--pp", "2"], {}),
-    ([], {"KCTPU_MESH": '{"sp": 2}'}),
-], ids=["sp", "pp", "env-mesh-sp"])
-def test_main_refuses_what_is_not_ported(argv, env, monkeypatch):
-    """Refused before any join: sp (M3) and pp (M8).  (dp, fsdp, ep, tp,
-    MoE under a mesh and a gang train now: tests/test_torch_mesh_train.py,
-    tests/test_torch_moe_mesh.py, tests/test_torch_mesh_tfjob.py.)"""
+@pytest.mark.parametrize("argv,env,error,match", [
+    (["--sp", "2"], {}, ValueError, "devices"),
+    (["--pp", "2"], {}, NotImplementedError, "ROADMAP.md, M8"),
+    ([], {"KCTPU_MESH": '{"sp": 2}'}, ValueError, "devices"),
+    (["--experts", "4", "--sp", "2"], {}, NotImplementedError,
+     "ROADMAP.md, M3b"),
+], ids=["sp", "pp", "env-mesh-sp", "sp-experts"])
+def test_main_refuses_what_is_not_ported(argv, env, error, match,
+                                         monkeypatch):
+    """Refused before any join: pp (M8) and MoE under sp (M3b).  ``--sp``
+    trains now (over gloo ranks: tests/test_torch_sp_train.py,
+    tests/test_torch_mesh_tfjob.py), so without a group it asks for more
+    devices than the one there is, from the flag or from $KCTPU_MESH, and
+    raises the reference's mesh error."""
     for name in ("MODEL_DIR", "KCTPU_MESH", "JAX_NUM_PROCESSES"):
         monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
         monkeypatch.setenv(name, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         tpre.main(["--device", "cpu", "--steps", "1", *argv])
 
 
@@ -337,22 +344,77 @@ class FakeMesh:
         return self.sizes[i]
 
 
+@contextlib.contextmanager
+def fake_world(n: int):
+    """A process group of ``n`` ranks in this process whose collectives do
+    nothing (torch's fake backend): enough for meshes and DTensors."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def sp_attention_taken(sp_attention: str):
+    """The local attention ``_attention`` runs under a 2-rank sp mesh: the
+    body the model calls, spied on, with its ring or group."""
+    from torch.distributed.tensor import DTensor
+
+    from kubeflow_controller_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from kubeflow_controller_tpu_torch.parallel.ring import GroupRing
+    from kubeflow_controller_tpu_torch.parallel.sharding import placements_for
+
+    cfg = tllama.LlamaConfig.tiny(sp_attention=sp_attention)
+    taken = []
+
+    def spy(name):
+        def body(q, k, v, transport, **kwargs):
+            taken.append((name, transport))
+            return q
+        return body
+
+    with fake_world(2):
+        sub = tllama.model_mesh(build_mesh(MeshSpec(fsdp=1, sp=2), "cpu"))
+        q, k = (DTensor.from_local(torch.zeros((1, 8, h, 16)), sub,
+                                   placements_for(tllama.QKV_AXES, sub),
+                                   run_check=False) for h in (4, 2))
+        with mock.patch.object(tllama, "ring_attention_local",
+                               spy("ring")), \
+                mock.patch.object(tllama, "ulysses_attention_local",
+                                  spy("ulysses")):
+            out = tllama._attention(q, k, k, True, cfg, mesh=sub)
+        assert out.shape == (1, 16, 4, 16)
+        assert sub.mesh_dim_names == ("sp",)
+        [(name, transport)] = taken
+        if name == "ring":
+            assert isinstance(transport, GroupRing)
+            assert (transport.n, transport.idx) == (2, 0)
+        else:
+            assert transport is sub.get_group("sp")
+    return name
+
+
 @pytest.mark.parametrize("axis,module", [("sp", "M3"), ("pp", "M8")])
 def test_not_ported_paths_raise(axis, module):
-    """What is still not ported raises, naming its ROADMAP module: an sp
-    or pp axis above 1 (sp also at the attention); a policy no one
-    defines is a ValueError.  (The named remat policies, dp/fsdp/ep/tp and
-    MoE under a mesh run now: tests/test_torch_remat.py,
-    tests/test_torch_mesh_train.py, tests/test_torch_moe_mesh.py.)"""
-    cfg = tllama.LlamaConfig.tiny()
+    """What is still not ported raises, naming its ROADMAP module: a pp
+    axis above 1, MoE under an sp axis above 1 (M3b); a policy no one
+    defines is a ValueError.  A dense model under sp takes ring or
+    Ulysses attention, as ``cfg.sp_attention`` says.  (The named remat
+    policies, dp/fsdp/ep/sp/tp and MoE under a mesh run now:
+    tests/test_torch_remat.py, tests/test_torch_mesh_train.py,
+    tests/test_torch_sp_train.py, tests/test_torch_moe_mesh.py.)"""
+    cfg = tllama.LlamaConfig.tiny(n_experts=4 if axis == "sp" else 0)
     model = tllama.Llama(cfg, device="cpu", requires_grad=True)
     tokens = torch.zeros((1, 8), dtype=torch.long)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {module}"):
         tllama.llama_forward(model, tokens, cfg, mesh=FakeMesh(**{axis: 2}))
     if axis == "sp":
-        q = torch.zeros((1, 8, 4, 16))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, M3"):
-            tllama._attention(q, q, q, True, cfg, mesh=FakeMesh(sp=2))
+        assert sp_attention_taken("ring") == "ring"
+        assert sp_attention_taken("ulysses") == "ulysses"
     with pytest.raises(ValueError, match="unknown remat_policy"):
         tllama.llama_loss(model, tokens, dataclasses.replace(
             cfg, remat=True, remat_policy="nope"))
