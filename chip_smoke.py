@@ -6,7 +6,9 @@ through the continuous-batching replica at Mixtral-8x7B's published widths
 the Mixtral-8x7B-width MoE (2 of its 32 layers) for a few steps, kill and
 resume a Llama-2-7B-width run from its checkpoint, train the vision TFJobs
 (ResNet-50 at its published widths, the Flax-MNIST CNN), run ring and
-Ulysses attention at T 32768 over virtual ranks, and check what comes out.
+Ulysses attention at T 32768 over virtual ranks, generate from a KV cache
+at Mixtral-8x7B widths and on Llama-2-7B at all 32 layers, and check what
+comes out.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -244,12 +246,45 @@ Phases, in order (any failure raises and exits non-zero):
    layout moves, ``flash_attention`` on 8 heads over the whole T): output
    and gradients against the one call, bit identity printed, rows within
    ``FLASH_ROW_TOL``, launches 4 each.
-19. The card's name and power limit, the ``kernels`` JSON line (launches
-   from phase 10; each path's own counts beside them, phase 13's, and this
-   slice's paths, ``ring_n4``, ``ring_n2`` and ``ulysses_n4``, with the skip
-   launches of ``gmm`` and ``tgmm``; each flash entry's ``sp_block``: the
-   block kernels of phase 18), and the contract line ``{"ok": true,
-   "device": {...}}`` last.
+19. cached generation (``models/generate.py``: ``generate``,
+   ``forward_with_cache``), B 8, 64 new tokens, greedy.  19a: Mixtral-8x7B
+   widths (``mixtral_8x7b(8)``, bf16 parameters, grouped dispatch),
+   512-token prompts (S 576, rounded up to 768: the blocked read over 3
+   blocks), with the grouped kernels' plain versions patched to raise:
+   ``gmm_swiglu`` and ``gmm`` launch exactly 8 x (1 + 63) = 512 times each
+   (the prefill's 8192 routed rows on the wgmma design, each decode step's
+   16 on the swap-AB one), the flash kernels 0; each prefill layer's
+   expert FFN, kernels against plain versions on the plain path's input,
+   within ``LAYER_REL_TOL`` of max, and a control with one expert's rows
+   zeroed must fail that check; printed, not gated: the whole prefill
+   logits against the plain path's, the share of tokens each layer routes
+   differently (bf16 rounding flips top-2 choices) and the greedy tokens
+   the two paths agree on; prefill ms, ms per token (p50 of the 63
+   steps), peak GB, the weight bytes a decode step reads over the touched
+   experts with their floor at ``PEAK_HBM_BYTES``, and one profiled
+   decode token.  19b: Llama-2-7B at all 32 layers (bf16
+   parameters, ``llama2_7b_decode``), 2048-token prompts, in four
+   variants: the bf16 and the int8 cache, each with the blocked read (S
+   2112 -> 2304, 9 blocks) and the dense one (``kv_block`` 4096 > S): for
+   each prefill ms, ms per token, peak and cache GB, launches per decode
+   token and the idle share of one profiled token; every launch counter 0;
+   blocked against dense, the tokens they agree on and their largest
+   logit difference at each step; then the int8 cache against the bf16
+   one, teacher-forced over the bf16 run's 64 positions: the largest logit
+   difference and the argmax agreement (printed, not gated); then one
+   blocked prefill of B 8 x 4096 tokens (S 4352): its ms and peak GB, and
+   the peak over the model and cache must stay below the f32 scores one
+   unchunked pass of a layer's read would hold.  19c:
+   ``generate(mesh=)`` at Llama-2-7B widths (8 layers) in a one-rank nccl
+   group: tokens bit-identical to the run with no mesh, host ms per token
+   beside it.
+20. The card's name and power limit, the ``kernels`` JSON line (launches
+   from phase 10; each path's own counts beside them, phase 13's, the
+   sequence-parallel paths ``ring_n4``, ``ring_n2`` and ``ulysses_n4``, and
+   ``generate``, phase 19a's, with the skip launches of ``gmm`` and
+   ``tgmm``, and the serve and generate runs' grouped launches by design;
+   each flash entry's ``sp_block``: the block kernels of phase 18), and
+   the contract line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -257,6 +292,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import importlib
 import io
 import json
 import math
@@ -303,6 +339,9 @@ from kubeflow_controller_tpu_torch.workloads.serve import (
     ServeConfig,
     ServeEngine,
 )
+
+# The module by its name: the package exports the function ``generate``.
+gen_mod = importlib.import_module("kubeflow_controller_tpu_torch.models.generate")
 
 # H100 SXM published peaks (dense bf16, HBM3), at the full 700 W limit.
 PEAK_BF16_FLOPS = 989e12
@@ -1502,7 +1541,8 @@ KERNEL_GROUPS = (
 def profile_calls(name, fn, n):
     """torch.profiler over ``n`` calls of ``fn`` (after one unprofiled
     call): wall ms per call, device-busy ms (the sum of kernel times on the
-    one stream), the idle share, and kernel time by group."""
+    one stream), the idle share, and kernel time by group; printed and
+    returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1526,14 +1566,14 @@ def profile_calls(name, fn, n):
         by_group[group] += e.self_device_time_total / 1e3 / n
     busy_ms = sum(by_group.values())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"profile[{name}]: " + json.dumps({
-        "calls": n, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "idle_share": 1 - busy_ms / wall_ms if kernels else None,
-        "kernel_launches": sum(e.count for e in kernels) / n,
-        "ms_by_group": by_group,
-        "top": [[e.key[:90], e.count // n,
-                 e.self_device_time_total / 1e3 / n] for e in top],
-    }), flush=True)
+    rec = {"calls": n, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / wall_ms if kernels else None,
+           "kernel_launches": sum(e.count for e in kernels) / n,
+           "ms_by_group": by_group,
+           "top": [[e.key[:90], e.count // n,
+                    e.self_device_time_total / 1e3 / n] for e in top]}
+    print(f"profile[{name}]: " + json.dumps(rec), flush=True)
+    return rec
 
 
 def touched_experts(fn):
@@ -2580,6 +2620,440 @@ def sp_phase(dev, seed: int):
     return launches, block
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: cached generation (forward_with_cache, generate)
+# ---------------------------------------------------------------------------
+
+GEN_BATCH = 8
+GEN_NEW = 64
+GEN_MOE_PROMPT = 512       # S 576, rounded up to 768: 3 blocks
+GEN_DENSE_PROMPT = 2048    # S 2112, rounded up to 2304: 9 blocks
+GEN_LONG_PROMPT = 4096     # 19b's long prefill: S 4352, 17 blocks
+GEN_MESH_LAYERS = 8
+# 19b's reads: kv_block 4096 is above the cache's 2112, so S is not a block
+# multiple and the dense read runs.
+GEN_READS = {"bf16_blocked": (None, False), "bf16_dense": (4096, False),
+             "int8_blocked": (None, True), "int8_dense": (4096, True)}
+
+
+def llama2_7b_decode(n_layers: int = 32) -> LlamaConfig:
+    """Llama-2-7B widths with bf16 parameters (≈13.5 GB at 32 layers): a
+    decode step reads each weight once, where f32 parameters would be cast
+    to bf16 at every use."""
+    return replace(LlamaConfig.llama2_7b(), n_layers=n_layers,
+                   param_dtype="bfloat16")
+
+
+@contextmanager
+def generate_recorded(rec: dict):
+    """Record, while open, every forward of ``generate``: CUDA events and
+    host seconds around it (``rec["events"]``, ``rec["host_s"]``), the
+    last position's logits it sampled from (``rec["logits"]``) and the
+    cache it made (``rec["cache"]``)."""
+    real_forward, real_next = gen_mod._forward, gen_mod._next_tokens
+    real_init = gen_mod.init_cache
+    rec.update(events=[], host_s=[], logits=[])
+
+    def forward(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = real_forward(*args, **kwargs)
+        end.record()
+        rec["host_s"].append(time.perf_counter() - t0)
+        rec["events"].append((start, end))
+        return out
+
+    def next_tokens(logits, *args, **kwargs):
+        rec["logits"].append(logits[:, -1].clone())
+        return real_next(logits, *args, **kwargs)
+
+    def init(*args, **kwargs):
+        rec["cache"] = real_init(*args, **kwargs)
+        return rec["cache"]
+
+    with mock.patch.object(gen_mod, "_forward", forward), \
+            mock.patch.object(gen_mod, "_next_tokens", next_tokens), \
+            mock.patch.object(gen_mod, "init_cache", init):
+        yield rec
+
+
+def timed_generate(model, prompt, cfg, **kwargs):
+    """``generate`` with each forward timed: (tokens, record) where the
+    record holds prefill ms, the decode steps' ms and their p50 (CUDA
+    events: a step's wall time on the device, host gaps included), the host
+    ms a step, the peak GB and the cache's GB."""
+    rec = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with generate_recorded(rec):
+        out = gen_mod.generate(model, prompt, cfg, **kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = [s.elapsed_time(e) for s, e in rec["events"]]
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in rec["cache"].values()) / 1e9
+    return out, {
+        "prefill_ms": ms[0], "step_ms": ms[1:],
+        "ms_per_token_p50": statistics.median(ms[1:]),
+        "host_ms_per_token_p50": statistics.median(rec["host_s"][1:]) * 1e3,
+        "wall_s": wall, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "cache_gb": cache_gb, "cache_len": rec["cache"]["k"].shape[2],
+        "logits": rec["logits"], "cache": rec["cache"]}
+
+
+def token_agreement(a: torch.Tensor, b: torch.Tensor, t_p: int) -> dict:
+    """How far two generations' new tokens agree: per sequence the new
+    tokens before the first difference, and the share of equal ones."""
+    na, nb = a[:, t_p:], b[:, t_p:]
+    same = na == nb
+    lead = [int(row.tolist().index(False)) if not row.all() else row.numel()
+            for row in same]
+    return {"leading_equal_by_seq": lead,
+            "equal_share": same.float().mean().item()}
+
+
+def decode_profile(name, model, cfg, cache, t_p, kv_block=None):
+    """One decode token (position ``t_p + GEN_NEW - 1``, the cache's last
+    written row plus one) under the profiler: launches, busy and idle."""
+    tok = torch.ones((GEN_BATCH, 1), dtype=torch.long,
+                     device=cache["k"].device)
+    return profile_calls(name, lambda: gen_mod.forward_with_cache(
+        model, tok, cache, t_p + GEN_NEW - 1, cfg, kv_block=kv_block), 1)
+
+
+@contextmanager
+def grouped_plain_raise():
+    """The grouped kernels' plain versions raise while this is open."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a grouped plain version ran on the generate "
+                             "path")
+    with mock.patch.object(gm, "gmm_plain", refuse), \
+            mock.patch.object(gm, "gmm_swiglu_plain", refuse):
+        yield
+
+
+def zero_counters():
+    for name in GROUPED_KERNELS + FLASH_KERNELS:
+        c = counter(name)
+        c.launches = 0
+        if hasattr(c, "launches_by_design"):
+            c.launches_by_design = dict.fromkeys(c.launches_by_design, 0)
+
+
+def read_counters() -> dict:
+    return {name: counter(name).launches
+            for name in GROUPED_KERNELS + FLASH_KERNELS}
+
+
+def generate_prefill(model, cfg, prompt, s, ctx, record_calls=False):
+    """One prefill of ``prompt`` through ``forward_with_cache`` on a fresh
+    cache of length ``s`` under ``ctx()``: (logits, each layer's routing
+    [B, T, k], each layer's expert-FFN call when ``record_calls``, the
+    call's ms by CUDA events)."""
+    calls, routes = [], []
+    real_ffn, real_route = llama_mod.moe_ffn, moe._route
+
+    def ffn(*args, **kwargs):
+        if record_calls:
+            calls.append((args, kwargs))
+        return real_ffn(*args, **kwargs)
+
+    def route(*args, **kwargs):
+        out = real_route(*args, **kwargs)
+        routes.append(out[2])
+        return out
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with ctx(), mock.patch.object(llama_mod, "moe_ffn", ffn), \
+            mock.patch.object(moe, "_route", route):
+        cache = gen_mod.init_cache(cfg, prompt.shape[0], s,
+                                   device=prompt.device)
+        start.record()
+        logits = gen_mod.forward_with_cache(model, prompt, cache, 0, cfg)[0]
+        end.record()
+    end.synchronize()
+    return logits, routes, calls, start.elapsed_time(end)
+
+
+def routing_flips(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The share of tokens whose top-k expert set differs."""
+    return (a.sort(dim=-1).values != b.sort(dim=-1).values).any(
+        dim=-1).float().mean().item()
+
+
+def generate_moe_phase(dev, seed: int):
+    """19a: ``generate`` at Mixtral-8x7B widths (8 layers, bf16, grouped):
+    B 8 x 512-token prompts, 64 new tokens, greedy; the grouped kernels'
+    launches exact with their plain versions raising; the prefill's
+    expert FFN, kernels against plain, layer by layer on the plain path's
+    input (a control must fail); the whole prefill logits, the routing
+    flips between the two paths and the tokens they agree on, printed.
+    Returns (launches, launches by design)."""
+    cfg = mixtral_8x7b(8)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = llama_init(cfg, gen, dev)
+    prompt = synthetic_tokens(seed, GEN_BATCH, GEN_MOE_PROMPT,
+                              cfg.vocab_size, dev)
+    zero_counters()
+    with grouped_plain_raise():
+        out, rec = timed_generate(model, prompt, cfg,
+                                  max_new_tokens=GEN_NEW)
+    launches = read_counters()
+    by_design = {name: dict(counter(name).launches_by_design)
+                 for name in ("gmm", "gmm_swiglu")}
+    steps = 1 + (GEN_NEW - 1)
+    want = {name: (cfg.n_layers * steps if name in ("gmm", "gmm_swiglu")
+                   else 0) for name in launches}
+    assert out.shape == (GEN_BATCH, GEN_MOE_PROMPT + GEN_NEW), out.shape
+    assert ((out >= 0) & (out < cfg.vocab_size)).all()
+    assert launches == want, (launches, want)
+
+    s = rec["cache_len"]
+    lk, rk, _, prefill_ms = generate_prefill(model, cfg, prompt, s,
+                                             contextlib.nullcontext)
+    lp, rp, calls, _ = generate_prefill(model, cfg, prompt, s,
+                                        plain_grouped_kernels, True)
+    assert torch.isfinite(lk).all() and lk.shape == (
+        GEN_BATCH, GEN_MOE_PROMPT, cfg.vocab_size)
+    logits_rel = rel_max(lk, lp)
+    flips = [routing_flips(a, b) for a, b in zip(rk, rp)]
+    del lk, lp, rk, rp
+    assert len(calls) == cfg.n_layers, len(calls)
+    per_layer = layer_rel_errs(calls, contextlib.nullcontext,
+                               plain_grouped_kernels)
+    control = layer_rel_errs(calls[:1], expert_rows_zeroed,
+                             plain_grouped_kernels)[0]
+    del calls
+    with plain_grouped_kernels():
+        plain_out = gen_mod.generate(model, prompt, cfg,
+                                     max_new_tokens=GEN_NEW)
+    touched = touched_experts(lambda: gen_mod.forward_with_cache(
+        model, out[:, -2:-1], rec["cache"], GEN_MOE_PROMPT + GEN_NEW - 1,
+        cfg))
+    expert_bytes = 3 * cfg.dim * cfg.intermediate * 2
+    dense_bytes = sum(p.numel() * p.element_size()
+                      for n, p in model.named_parameters()
+                      if n != "embed" and not n.endswith(
+                          ("w_gate", "w_up", "w_down")))
+    read_bytes = sum(touched) * expert_bytes + dense_bytes
+    prof = decode_profile("generate moe decode token", model, cfg,
+                          rec["cache"], GEN_MOE_PROMPT)
+    print("generate[19a mixtral 8 layers]: " + json.dumps({
+        "batch": GEN_BATCH, "prompt": GEN_MOE_PROMPT, "new": GEN_NEW,
+        "cache_len": s, "read": "blocked", "launches": launches,
+        "launches_by_design": by_design,
+        "prefill_ms": prefill_ms,
+        "prefill_ms_first_call": rec["prefill_ms"],
+        "ms_per_token_p50": rec["ms_per_token_p50"],
+        "host_ms_per_token_p50": rec["host_ms_per_token_p50"],
+        "peak_gb": rec["peak_gb"], "cache_gb": rec["cache_gb"],
+        "touched_experts_per_layer": touched,
+        "weights_read_gb_per_step": read_bytes / 1e9,
+        "weights_read_floor_ms": read_bytes / PEAK_HBM_BYTES * 1e3,
+        "prefill_ffn_rel_per_layer": per_layer, "tol": LAYER_REL_TOL,
+        "control_rel": control,
+        "prefill_logits_rel_vs_plain": logits_rel,
+        "routing_flips_per_layer": flips,
+        "tokens_vs_plain": token_agreement(out, plain_out, GEN_MOE_PROMPT),
+        "launches_per_decode_token": prof["kernel_launches"],
+        "idle_share": prof["idle_share"]}), flush=True)
+    assert max(per_layer) <= LAYER_REL_TOL, "a layer's expert FFN disagrees"
+    assert control > LAYER_REL_TOL, (
+        "the per-layer check passed an FFN output with an expert's rows "
+        "zeroed")
+    assert flips[0] == 0, "layer 0 routed the same input differently"
+    del model, rec, out, plain_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, by_design
+
+
+def teacher_forced_logits(model, cfg, tokens, t_p, quantize, s):
+    """The last-position logits at each of the GEN_NEW positions, the
+    cache fed ``tokens`` (prompt then the new tokens) rather than its own
+    samples: [GEN_NEW, B, vocab]."""
+    cache = gen_mod.init_cache(cfg, GEN_BATCH, s, quantize, tokens.device)
+    logits, _ = gen_mod.forward_with_cache(model, tokens[:, :t_p], cache, 0,
+                                           cfg)
+    out = [logits[:, -1]]
+    for pos in range(t_p, t_p + GEN_NEW - 1):
+        logits, _ = gen_mod.forward_with_cache(
+            model, tokens[:, pos:pos + 1], cache, pos, cfg)
+        out.append(logits[:, -1])
+    return torch.stack(out)
+
+
+def generate_dense_phase(dev, seed: int):
+    """19b: Llama-2-7B at 32 layers, bf16 parameters, B 8 x 2048 + 64,
+    greedy, in the four (cache, read) variants; no hand-written kernel
+    runs, so every counter stays 0.  Then the int8 cache against the bf16
+    one, teacher-forced over the same 64 positions."""
+    cfg = llama2_7b_decode(32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = llama_init(cfg, gen, dev)
+    t_p = GEN_DENSE_PROMPT
+    prompt = synthetic_tokens(seed, GEN_BATCH, t_p, cfg.vocab_size, dev)
+    runs = {}
+    for name, (kv_block, quant) in GEN_READS.items():
+        zero_counters()
+        out, rec = timed_generate(model, prompt, cfg, max_new_tokens=GEN_NEW,
+                                  kv_block=kv_block, kv_quant=quant)
+        launches = read_counters()
+        prof = decode_profile(f"generate 7b decode token {name}", model, cfg,
+                              rec["cache"], t_p, kv_block)
+        runs[name] = (out, torch.stack(rec["logits"]))
+        print(f"generate[19b llama2-7b 32 layers {name}]: " + json.dumps({
+            "batch": GEN_BATCH, "prompt": t_p, "new": GEN_NEW,
+            "cache_len": rec["cache_len"], "kv_block": kv_block,
+            "int8": quant, "prefill_ms": rec["prefill_ms"],
+            "ms_per_token_p50": rec["ms_per_token_p50"],
+            "host_ms_per_token_p50": rec["host_ms_per_token_p50"],
+            "peak_gb": rec["peak_gb"], "cache_gb": rec["cache_gb"],
+            "launches": launches,
+            "launches_per_decode_token": prof["kernel_launches"],
+            "idle_share": prof["idle_share"]}), flush=True)
+        assert out.shape == (GEN_BATCH, t_p + GEN_NEW)
+        assert torch.isfinite(runs[name][1]).all()
+        assert not any(launches.values()), launches
+        del rec
+        torch.cuda.empty_cache()
+    for a, b in (("bf16_blocked", "bf16_dense"),
+                 ("int8_blocked", "int8_dense")):
+        (ta, la), (tb, lb) = runs[a], runs[b]
+        print(f"generate[19b {a} vs {b}]: " + json.dumps({
+            "tokens": token_agreement(ta, tb, t_p),
+            "max_logit_diff_by_step": (la - lb).abs().amax(
+                dim=(1, 2)).tolist()}), flush=True)
+    ref_tokens, ref_logits = runs["bf16_blocked"]
+    s = -(-(t_p + GEN_NEW) // gen_mod.DECODE_KV_BLOCK) * \
+        gen_mod.DECODE_KV_BLOCK
+    q_logits = teacher_forced_logits(model, cfg, ref_tokens, t_p, True, s)
+    diff = (q_logits - ref_logits).abs()
+    agree = (q_logits.argmax(-1) == ref_logits.argmax(-1)).float().mean()
+    print("generate[19b int8 vs bf16 cache, teacher-forced]: " + json.dumps({
+        "positions": GEN_NEW * GEN_BATCH,
+        "max_logit_diff": diff.max().item(),
+        "mean_logit_diff": diff.mean().item(),
+        "argmax_agreement": agree.item()}), flush=True)
+    del runs, q_logits, ref_logits, diff
+    torch.cuda.empty_cache()
+    long_prefill(model, cfg, seed, dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def long_prefill(model, cfg, seed: int, dev) -> dict:
+    """One blocked prefill of B 8 x ``GEN_LONG_PROMPT`` on a fresh cache:
+    its ms (CUDA events), the peak GB, and the peak over what the model
+    and the cache hold beside the f32 scores [B, H, T, span] that one
+    unchunked pass of a layer's read would hold; the former must stay
+    below the latter (the read takes its query rows in chunks)."""
+    t = GEN_LONG_PROMPT
+    block = gen_mod.DECODE_KV_BLOCK
+    s = -(-(t + GEN_NEW) // block) * block
+    prompt = synthetic_tokens(seed + 1, GEN_BATCH, t, cfg.vocab_size, dev)
+    cache = gen_mod.init_cache(cfg, GEN_BATCH, s, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    logits = gen_mod.forward_with_cache(model, prompt, cache, 0, cfg)[0]
+    end.record()
+    end.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    span = -(-t // block) * block
+    one_pass = GEN_BATCH * cfg.n_heads * t * span * 4
+    out = {"batch": GEN_BATCH, "prompt": t, "cache_len": s, "read": "blocked",
+           "prefill_ms": start.elapsed_time(end), "peak_gb": peak / 1e9,
+           "over_model_and_cache_gb": (peak - held) / 1e9,
+           "logits_gb": logits.numel() * logits.element_size() / 1e9,
+           "one_pass_scores_gb": one_pass / 1e9,
+           "chunk_scores_gb": gen_mod.SCORE_CHUNK_BYTES / 1e9}
+    print("generate[19b long prefill]: " + json.dumps(out), flush=True)
+    assert logits.shape == (GEN_BATCH, t, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    assert peak - held < one_pass, (
+        "the prefill held a layer's whole scores at once")
+    del logits, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def generate_mesh_phase(dev, seed: int) -> dict:
+    """19c: ``generate(mesh=)`` at Llama-2-7B widths (8 layers, bf16
+    parameters) in a one-rank nccl group, 19b's batch and lengths: tokens
+    bit-identical to the run with no mesh, host ms per token beside it."""
+    from torch.distributed.tensor import DTensor
+
+    from kubeflow_controller_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+
+    cfg = llama2_7b_decode(GEN_MESH_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = llama_init(cfg, gen, dev)
+    prompt = synthetic_tokens(seed, GEN_BATCH, GEN_DENSE_PROMPT,
+                              cfg.vocab_size, dev)
+    zero_counters()
+    plain, rec_plain = timed_generate(model, prompt, cfg,
+                                      max_new_tokens=GEN_NEW)
+    rt = JobRuntime(coordinator=f"127.0.0.1:{free_port()}", num_processes=1,
+                    process_id=0)
+    backend = rt.join_group(dev, timeout_s=120)
+    try:
+        mesh = build_mesh(MeshSpec(fsdp=-1), dev.type)
+        llama_mod.shard_llama(model, mesh)
+        sharded = all(isinstance(p, DTensor) for p in model.parameters())
+        meshed, rec_mesh = timed_generate(model, prompt, cfg,
+                                          max_new_tokens=GEN_NEW, mesh=mesh)
+    finally:
+        rt.shutdown()
+    launches = read_counters()
+    out = {"backend": backend, "layers": GEN_MESH_LAYERS,
+           "params_dtensor": sharded,
+           "bit_identical": torch.equal(plain, meshed),
+           "tokens": token_agreement(meshed, plain, GEN_DENSE_PROMPT),
+           "host_ms_per_token_p50": rec_mesh["host_ms_per_token_p50"],
+           "host_ms_per_token_p50_no_mesh":
+               rec_plain["host_ms_per_token_p50"],
+           "ms_per_token_p50": rec_mesh["ms_per_token_p50"],
+           "ms_per_token_p50_no_mesh": rec_plain["ms_per_token_p50"],
+           "prefill_ms": rec_mesh["prefill_ms"],
+           "prefill_ms_no_mesh": rec_plain["prefill_ms"],
+           "peak_gb": rec_mesh["peak_gb"], "launches": launches}
+    print("generate[19c one-rank nccl mesh]: " + json.dumps(out), flush=True)
+    assert backend == "nccl" and sharded
+    assert out["bit_identical"], "the mesh's tokens differ from no mesh's"
+    assert not any(launches.values()), launches
+    del model, rec_plain, rec_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def generate_phase(dev, seed: int):
+    """Phase 19: 19a, 19b, 19c, each with its seconds.  Returns 19a's
+    (launches, by design)."""
+    t0 = time.perf_counter()
+    launches, by_design = generate_moe_phase(dev, seed)
+    t1 = time.perf_counter()
+    generate_dense_phase(dev, seed)
+    t2 = time.perf_counter()
+    generate_mesh_phase(dev, seed)
+    print("generate: seconds " + json.dumps({
+        "19a": t1 - t0, "19b": t2 - t1,
+        "19c": time.perf_counter() - t2}), flush=True)
+    return launches, by_design
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2588,15 +3062,17 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def kernels_line(results, flash, paths, serve_designs):
+def kernels_line(results, flash, paths, serve_designs, generate_designs):
     """One entry per kernel; ``launches`` is the MoE train run's (the
     path that launches all six) and the grouped kernels' top-level times
     are at its layout; ``launches_by_path`` gives each path's own run
     (``mesh_moe``: the mesh MoE step; ``ring_n4``, ``ring_n2``,
-    ``ulysses_n4``: the sequence-parallel paths of phase 18),
-    ``skip_launches_by_path`` the launches of ``gmm`` and ``tgmm`` that
-    carried ``valid_tiles``, and ``serve_launches_by_design`` the serve
-    run's ``gmm`` and ``gmm_swiglu`` launches by design."""
+    ``ulysses_n4``: the sequence-parallel paths of phase 18; ``generate``:
+    phase 19a's ``generate`` call), ``skip_launches_by_path`` the
+    launches of ``gmm`` and ``tgmm`` that carried ``valid_tiles``, and
+    ``serve_launches_by_design`` and ``generate_launches_by_design`` the
+    serve run's and the generate call's ``gmm`` and ``gmm_swiglu``
+    launches by design."""
     replaces = {
         "gmm": (f"{REF_FILE}:132 (_gmm_single_k_kernel, decode); "
                 f"{REF_FILE}:78 (_gmm_kernel, prefill); "
@@ -2637,7 +3113,8 @@ def kernels_line(results, flash, paths, serve_designs):
             "shape": main_shape, "variant": shapes[main_shape]["variant"],
             "designs": {"bm < 64": gm.kernel_variant(name, 1),
                         "bm >= 64": gm.kernel_variant(name, 64)},
-            **({"serve_launches_by_design": serve_designs[name]}
+            **({"serve_launches_by_design": serve_designs[name],
+                "generate_launches_by_design": generate_designs[name]}
                if name in serve_designs else {}),
             **{shape: rec for shape, rec in shapes.items()
                if shape != main_shape},
@@ -2702,8 +3179,10 @@ def main(argv=None) -> int:
     paths.update(sp_launches)
     for name in FLASH_KERNELS:
         flash[name]["sp_block"] = sp_block[name]
+    paths["generate"], generate_designs = generate_phase(dev, args.seed)
     print(card_line())
-    print(kernels_line(results, flash, paths, serve_designs))
+    print(kernels_line(results, flash, paths, serve_designs,
+                       generate_designs))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,8 +10,9 @@ expert axis) and the dense ones are covered.  The tests use this so that
 both packages compute the same function; ``requires_grad=True`` makes the
 bridged model trainable, so its gradients can be held against
 ``jax.grad``.  ``tokens_from_jax`` carries a ``[B, T]`` token array across,
-``mnist_params_from_jax`` the MNIST models' flat parameter dicts, and
-``vision_params_from_jax`` a flax vision model's variables.
+``mnist_params_from_jax`` the MNIST models' flat parameter dicts,
+``vision_params_from_jax`` a flax vision model's variables, and
+``cache_from_jax`` a contiguous KV cache (plain or int8) mid-sequence.
 """
 
 from __future__ import annotations
@@ -81,6 +82,29 @@ def tokens_from_jax(tokens: Any, device: DeviceLike = "cuda") -> torch.Tensor:
         raise ValueError(f"tokens must be a [B, T] integer array, got "
                          f"{arr.dtype} {arr.shape}")
     return torch.from_numpy(arr.astype(np.int64)).to(resolve_device(device))
+
+
+CACHE_KEYS = (("k", "v"), ("k", "v", "k_scale", "v_scale"))
+
+
+def cache_from_jax(cache: Mapping[str, Any],
+                   device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+    """The reference's ``init_cache`` dict (``k``/``v``, and for the int8
+    cache ``k_scale``/``v_scale``; numpy or JAX leaves) as the port's
+    cache on ``device``: the same keys, shapes, dtypes and values, so both
+    packages can decode on from one mid-sequence cache."""
+    if tuple(sorted(cache)) not in tuple(tuple(sorted(k))
+                                         for k in CACHE_KEYS):
+        raise KeyError(f"not a KV cache: {sorted(cache)}")
+    dev = resolve_device(device)
+    out = {}
+    for key, a in cache.items():
+        arr = np.array(a)
+        t = _to_tensor(arr)
+        if arr.dtype.name == "bfloat16":
+            t = t.to(torch.bfloat16)    # exact: the values came from bf16
+        out[key] = t.to(dev)
+    return out
 
 
 def mnist_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

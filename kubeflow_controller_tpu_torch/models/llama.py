@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -393,13 +393,24 @@ def rope_freqs(cfg: LlamaConfig, positions: torch.Tensor) -> torch.Tensor:
     return positions[:, None].float() * inv[None, :]
 
 
-def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
-    """Rotate-half RoPE; x: [B, T, H, D], angles: [T, D//2]."""
-    x1, x2 = x.float().chunk(2, dim=-1)
-    cos = torch.cos(angles)[None, :, None, :]
-    sin = torch.sin(angles)[None, :, None, :]
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
-                     dim=-1).to(x.dtype)
+def rope_tables(cfg: LlamaConfig, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin of the RoPE angles of ``positions``, each [T, head_dim]
+    f32 (the half-dim angles twice): made once a forward, for every
+    layer's :func:`apply_rope`."""
+    angles = rope_freqs(cfg, positions)
+    angles = torch.cat([angles, angles], dim=-1)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE, x·cos + [-x2, x1]·sin in f32; x: [B, T, H, D],
+    cos/sin: [T, D] (:func:`rope_tables`)."""
+    xf = x.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    rot = torch.cat([-x2, x1], dim=-1)
+    return (xf * cos[None, :, None] + rot * sin[None, :, None]).to(x.dtype)
 
 
 def ffn_block(h: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig,
@@ -566,7 +577,8 @@ def _flash_path(q, k, v, causal: bool, cfg: LlamaConfig):
 # Forward and loss
 # ---------------------------------------------------------------------------
 
-def _decoder_layer_fn(cfg: LlamaConfig, angles: torch.Tensor, mesh=None,
+def _decoder_layer_fn(cfg: LlamaConfig,
+                      rope: Tuple[torch.Tensor, torch.Tensor], mesh=None,
                       rules: ShardingRules = DEFAULT_RULES):
     """One decoder layer as ``(x, lp) -> (x, aux)`` where ``aux`` is the
     layer's MoE router stats (zeros for dense layers).  Under a mesh x and
@@ -575,8 +587,8 @@ def _decoder_layer_fn(cfg: LlamaConfig, angles: torch.Tensor, mesh=None,
 
     def layer(x, lp):
         h = rmsnorm(x, _w(lp.attn_norm, dtype), cfg.norm_eps)
-        q = apply_rope(_heads(h, _w(lp.wq, dtype)), angles)
-        k = apply_rope(_heads(h, _w(lp.wk, dtype)), angles)
+        q = apply_rope(_heads(h, _w(lp.wq, dtype)), *rope)
+        k = apply_rope(_heads(h, _w(lp.wk, dtype)), *rope)
         v = _heads(h, _w(lp.wv, dtype))
         attn = _attention(q, k, v, True, cfg, mesh, rules)
         wo = _w(lp.wo, dtype)
@@ -708,7 +720,7 @@ def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     dtype = torch_dtype(cfg.dtype)
     t = tokens.shape[1]
     if mesh is None:
-        angles = rope_freqs(cfg, torch.arange(t, device=tokens.device))
+        rope = rope_tables(cfg, torch.arange(t, device=tokens.device))
         x = model.embed[tokens.long()].to(dtype)
     else:
         if _sp_size(mesh) > 1 and cfg.n_experts:
@@ -718,8 +730,8 @@ def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
         x = _embed(tokens, _w(model.embed, model.embed.dtype))
         x = with_logical_constraint(x.to(dtype), ("batch", "seq", None),
                                     rules)
-        angles = _shard_angles(cfg, t, mesh, x.device)
-    layer_fn = _maybe_remat(_decoder_layer_fn(cfg, angles, mesh, rules), cfg)
+        rope = _shard_rope(cfg, t, mesh, x.device)
+    layer_fn = _maybe_remat(_decoder_layer_fn(cfg, rope, mesh, rules), cfg)
     auxes = []
     for lp in model.layers:
         x, aux = layer_fn(x, lp)
@@ -737,20 +749,21 @@ def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     return out
 
 
-def _shard_angles(cfg: LlamaConfig, t: int, mesh, device):
-    """The RoPE angles [T, head_dim//2] as a DTensor on ``mesh``: sharded
-    over T by sp, each shard the angles of its own positions (from its
-    offset), and replicated over every other dim."""
+def _shard_rope(cfg: LlamaConfig, t: int, mesh, device):
+    """The RoPE tables (:func:`rope_tables`) as DTensors on ``mesh``:
+    sharded over T by sp, each shard the tables of its own positions (from
+    its offset), and replicated over every other dim."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     sp = _sp_size(mesh)
     if t % sp:
         raise ValueError(f"seq len {t} does not divide by sp {sp}")
     lo = (t // sp) * (mesh.get_local_rank(AXIS_SEQUENCE) if sp > 1 else 0)
-    angles = rope_freqs(cfg, torch.arange(lo, lo + t // sp, device=device))
-    return DTensor.from_local(
-        angles, mesh, [Shard(0) if name == AXIS_SEQUENCE else Replicate()
-                       for name in mesh.mesh_dim_names], run_check=False)
+    placements = [Shard(0) if name == AXIS_SEQUENCE else Replicate()
+                  for name in mesh.mesh_dim_names]
+    return tuple(DTensor.from_local(table, mesh, placements, run_check=False)
+                 for table in rope_tables(cfg, torch.arange(
+                     lo, lo + t // sp, device=device)))
 
 
 def _vocab_whole(logits: torch.Tensor, rules: ShardingRules

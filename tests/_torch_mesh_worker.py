@@ -32,6 +32,15 @@ results to OUT (``OUT.<rank>`` for ``collectives``) with ``torch.save``:
   rank 0's process (``run_lockstep``, ``ulysses_lockstep``); for the ring,
   the bf16 set with the kernels' rule applied to the shards (T/sp under
   ``TILE``: the dense inner).
+- ``generate DP FSDP TP EP SP CONFIG PARAMS``: cached generation of the
+  JAX-initialised model in PARAMS (with the prompt) sharded on a (DP,
+  FSDP, EP, SP, TP) mesh (sp shards nothing in decode), CONFIG ``dense``
+  or ``moe``: the prefill's logits and cache
+  through ``forward_with_cache(mesh=)``, the cache's placements and local
+  shapes beside ``cache_placements``, and greedy ``generate(mesh=)`` with
+  the default read, ``kv_block`` 4 and the int8 cache, then a sampled one
+  (PARAMS' prompt, temperature, top-k and generator seed), every rank's
+  tokens.
 - ``init DP FSDP EP TP EXPERTS``: ``llama_init(mesh=)`` against
   ``llama_init`` + ``shard_llama`` from one seed (every local shard), and
   the live bytes of the tensors ``llama_pretrain.train(mesh=)`` makes while
@@ -376,6 +385,53 @@ def init(out: str, dp: str, fsdp: str, ep: str, tp: str,
                     "all_params": sum(full.values())}, out)
 
 
+GENERATE_CONFIGS = {"dense": {}, "moe": dict(MOE, moe_dispatch="grouped")}
+GENERATE_RUNS = {"default": {}, "block4": {"kv_block": 4},
+                 "int8": {"kv_block": 4, "kv_quant": True}}
+GENERATE_CACHE_LEN = 16
+
+
+def generate(out: str, dp: str, fsdp: str, tp: str, ep: str, sp: str,
+             config: str, params_path: str) -> None:
+    import importlib
+
+    tgen = importlib.import_module(
+        "kubeflow_controller_tpu_torch.models.generate")
+    with open(params_path, "rb") as fh:
+        params, prompt, sample = pickle.load(fh)
+    mesh = build_mesh(MeshSpec(dp=int(dp), fsdp=int(fsdp), ep=int(ep),
+                               sp=int(sp), tp=int(tp)), "cpu")
+    cfg = llama.LlamaConfig.tiny(**GENERATE_CONFIGS[config])
+    model = llama.shard_llama(
+        bridge.llama_from_jax(params, cfg, device="cpu"), mesh)
+    prompt = torch.from_numpy(prompt).long()
+    cache = tgen.init_cache(cfg, prompt.shape[0], GENERATE_CACHE_LEN,
+                            device="cpu", mesh=mesh)
+    logits, same = tgen.forward_with_cache(model, prompt, cache, 0, cfg,
+                                           mesh=mesh)
+    res = {"prefill": logits.full_tensor().numpy(),
+           "in_place": same is cache,
+           "cache": {k: v.full_tensor().numpy() for k, v in cache.items()},
+           "placements": {k: list(v.placements) for k, v in cache.items()},
+           "want_placements": {
+               k: list(v) for k, v in
+               tgen.cache_placements(mesh, quantize=True).items()},
+           "local_shapes": {k: tuple(v.to_local().shape)
+                            for k, v in cache.items()}}
+    tokens = {name: tgen.generate(model, prompt, cfg, max_new_tokens=6,
+                                  mesh=mesh, **kw).numpy()
+              for name, kw in GENERATE_RUNS.items()}
+    tokens["sampled"] = tgen.generate(
+        model, torch.from_numpy(sample["prompt"]).long(), cfg,
+        max_new_tokens=6, temperature=sample["temperature"],
+        top_k=sample["top_k"], mesh=mesh,
+        generator=torch.Generator().manual_seed(sample["seed"])).numpy()
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, tokens)
+    if dist.get_rank() == 0:
+        torch.save({**res, "tokens": tokens, "ranks": everyone}, out)
+
+
 PLAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
@@ -488,7 +544,8 @@ def main(argv) -> int:
     rt.initialize("cpu", timeout_s=120)
     scenario, out, *rest = argv
     {"collectives": collectives, "step": step, "train": train, "moe": moe,
-     "init": init, "seqpar": seqpar}[scenario](out, *rest)
+     "init": init, "seqpar": seqpar, "generate": generate}[scenario](
+         out, *rest)
     rt.shutdown()
     return 0
 

@@ -20,7 +20,8 @@ versions on the card by ``chip_smoke.py``):
   build and up to its last step;
 - ``chip_smoke.py``'s kernel-name rules: the profile's kernel groups, the
   HGMMA count read from ``cuobjdump -sass`` and the registers and spills
-  read from ptxas.
+  read from ptxas; and phase 19's readings: the generated tokens two runs
+  agree on, and the share of tokens whose routing two runs differ on.
 """
 
 import json
@@ -201,6 +202,19 @@ def test_ptxas_report_names_each_kernel_with_its_template_arguments():
 def test_profile_groups_file_each_kernel(name):
     group = next(g for g, match in chip_smoke.KERNEL_GROUPS if match(name))
     assert group == PROFILE_NAMES[name]
+
+
+def test_generate_phase_readings():
+    a = torch.tensor([[1, 2, 3, 4, 5], [1, 2, 3, 4, 5]])
+    b = torch.tensor([[1, 2, 3, 4, 5], [1, 2, 9, 4, 9]])
+    agree = chip_smoke.token_agreement(a, b, 2)
+    assert agree["leading_equal_by_seq"] == [3, 0]
+    assert agree["equal_share"] == pytest.approx(4 / 6)
+    # top-2 sets: the order within a token's pair does not count.
+    ra = torch.tensor([[[0, 1], [2, 3], [4, 5], [6, 7]]])
+    rb = torch.tensor([[[1, 0], [2, 3], [4, 6], [6, 7]]])
+    assert chip_smoke.routing_flips(ra, rb) == pytest.approx(0.25)
+    assert chip_smoke.routing_flips(ra, ra) == 0.0
 
 
 def test_hgmma_count_reads_cuobjdump_sections():

@@ -17,6 +17,8 @@ cache rows within 1e-5 absolute (f32 throughout; the packages sum in
 different orders, nothing else differs).
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,8 +32,10 @@ from kubeflow_controller_tpu.models.generate import paged_extend as jax_paged_ex
 from kubeflow_controller_tpu.models.generate import paged_prefill as jax_paged_prefill
 from kubeflow_controller_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from kubeflow_controller_tpu_torch import bridge
-from kubeflow_controller_tpu_torch.models import generate as tgen
 from kubeflow_controller_tpu_torch.models.llama import LlamaConfig
+
+# The module by its name: the package exports the function ``generate``.
+tgen = importlib.import_module("kubeflow_controller_tpu_torch.models.generate")
 
 torch.set_num_threads(2)
 

@@ -11,6 +11,7 @@
 """
 
 import ast
+import importlib
 import json
 import shutil
 import subprocess
@@ -23,7 +24,7 @@ import torch
 
 import kubeflow_controller_tpu_torch as port
 from kubeflow_controller_tpu_torch import bridge, device
-from kubeflow_controller_tpu_torch.models import generate, llama, mnist, vision
+from kubeflow_controller_tpu_torch.models import llama, mnist, vision
 from kubeflow_controller_tpu_torch.workloads import (
     cifar_allreduce,
     data,
@@ -34,6 +35,9 @@ from kubeflow_controller_tpu_torch.workloads import (
     runtime,
     serve,
 )
+
+# The module by its name: the package exports the function ``generate``.
+generate = importlib.import_module("kubeflow_controller_tpu_torch.models.generate")
 
 torch.set_num_threads(1)
 
@@ -53,7 +57,8 @@ SLICE_MODULES = ("workloads.serve", "ops.grouped_matmul", "ops.attention",
                  "models.vision", "workloads.flax_mnist",
                  "workloads.cifar_allreduce", "models.remat",
                  "parallel.mesh", "parallel.sharding",
-                 "parallel.collectives", "parallel.ulysses")
+                 "parallel.collectives", "parallel.ulysses",
+                 "models.generate")
 
 
 def forbidden(name: str) -> bool:
@@ -127,6 +132,7 @@ def tiny():
     lambda: llama.Llama(tiny()),
     lambda: llama.llama_init(tiny(), torch.Generator()),
     lambda: generate.init_paged_cache(tiny(), 3, 8),
+    lambda: generate.init_cache(tiny(), 1, 8),
     lambda: bridge.llama_from_jax({}, tiny()),
     lambda: serve.LlamaBackend(tiny()),
     lambda: serve.main(["--port", "0"]),
@@ -149,6 +155,7 @@ def tiny():
     lambda: flax_mnist.main(["--steps", "1"]),
     lambda: cifar_allreduce.main(["--steps", "1"]),
 ], ids=["resolve_device", "Llama", "llama_init", "init_paged_cache",
+        "init_cache",
         "llama_from_jax", "LlamaBackend", "serve.main", "tokens_from_jax",
         "synthetic_tokens", "llama_pretrain.train", "llama_pretrain.main",
         "synthetic_mnist", "MnistMLP", "mnist_local.train",

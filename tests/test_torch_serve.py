@@ -1,6 +1,9 @@
 """Port parity: the port's serving replica (``ServeEngine`` over
 ``LlamaBackend(device="cpu")``) against the JAX package's, on the same
-weights, and the engine's own contracts on the synthetic backend.
+weights, the engine's own contracts on the synthetic backend, and the
+reference's serving oracles (``tests/test_serving.py::TestPagedCache``)
+against the port's own contiguous-cache ``generate``: the paged pool and
+the engine are greedy-exact to it (dense tiny config, f32).
 
 The model is the grouped-dispatch MoE config of ``test_torch_generate``
 (the JAX side runs its grouped Pallas kernels under ``interpret=True``);
@@ -28,7 +31,13 @@ from test_torch_generate import MOE, numpy_params
 import kubeflow_controller_tpu.models.llama as jax_llama
 from kubeflow_controller_tpu.workloads import serve as jax_serve
 from kubeflow_controller_tpu_torch import bridge
-from kubeflow_controller_tpu_torch.models.llama import LlamaConfig
+from kubeflow_controller_tpu_torch.models.generate import (
+    generate,
+    init_paged_cache,
+    paged_decode_step,
+    paged_prefill,
+)
+from kubeflow_controller_tpu_torch.models.llama import LlamaConfig, llama_init
 from kubeflow_controller_tpu_torch.workloads import progress
 from kubeflow_controller_tpu_torch.workloads.serve import (
     REFUSED_DRAINING,
@@ -133,6 +142,74 @@ def test_prefix_cache_tail_extend_tokens_equal_cold_prefill(weights,
     st = engine.stats()
     assert st.prefix_hits >= 2 and st.cow_copies >= 1
     assert st.prefix_reused_tokens >= 8 + 16
+
+
+# ---------------------------------------------------------------------------
+# The paged pool and the engine against the port's generate()
+# ---------------------------------------------------------------------------
+
+def tiny_model():
+    cfg = LlamaConfig.tiny()
+    return cfg, llama_init(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+def generate_oracle(model, cfg, prompt, new_tokens):
+    out = generate(model, torch.tensor([prompt]), cfg,
+                   max_new_tokens=new_tokens)
+    return [int(t) for t in out[0, len(prompt):]]
+
+
+def test_paged_decode_of_staggered_slots_matches_generate():
+    """Two slots of different prompt lengths, prefilled into their pages
+    and decoded together through ``paged_decode_step``, reproduce the
+    contiguous-cache ``generate`` token for token (greedy)."""
+    cfg, model = tiny_model()
+    page, new_tokens = 8, 6
+    cache = init_paged_cache(cfg, num_pages=17, page_size=page, device="cpu")
+    prompts = [[7, 3, 9, 11, 2], [5, 1, 4, 1, 5, 9, 2, 6, 5]]
+    # Slot 0 owns pages 1..8, slot 1 pages 9..16.
+    tables = torch.stack([torch.arange(1, 9), torch.arange(9, 17)])
+    outs, positions = [[], []], []
+    for b, prompt in enumerate(prompts):
+        plen, bucket = len(prompt), 16
+        toks = torch.zeros((1, bucket), dtype=torch.long)
+        toks[0, :plen] = torch.tensor(prompt)
+        rows = torch.zeros(bucket, dtype=torch.long)
+        for j in range(plen):
+            rows[j] = tables[b, j // page] * page + j % page
+        logits, _ = paged_prefill(model, toks, cache, rows, plen, cfg)
+        outs[b].append(int(logits.argmax()))
+        positions.append(plen)
+    for _ in range(new_tokens - 1):
+        logits, _ = paged_decode_step(
+            model, torch.tensor([o[-1] for o in outs]), cache,
+            torch.tensor(positions), tables, cfg, page)
+        for b, tok in enumerate(logits.argmax(dim=-1).tolist()):
+            outs[b].append(tok)
+            positions[b] += 1
+    for b, prompt in enumerate(prompts):
+        assert outs[b] == generate_oracle(model, cfg, prompt, new_tokens), b
+
+
+def test_engine_matches_generate_oracle():
+    """The whole engine (admission, paging, bucketing) gives each of 7
+    concurrent requests the tokens of ``generate``."""
+    cfg, model = tiny_model()
+    eng = mk_engine(slots=3, page_size=8, max_len=64,
+                    backend=LlamaBackend(cfg, device="cpu", params=model))
+    rng = random.Random(23)
+    reqs = [Request(id=str(i),
+                    tokens=[rng.randrange(1, 250)
+                            for _ in range(rng.randrange(2, 20))],
+                    max_new_tokens=5) for i in range(7)]
+    for r in reqs:
+        assert eng.submit(r)
+    for r in reqs:
+        assert r.done.wait(120), r.id
+        assert not r.error, (r.id, r.error)
+    eng.stop()
+    for r in reqs:
+        assert r.output == generate_oracle(model, cfg, r.tokens, 5), r.id
 
 
 # ---------------------------------------------------------------------------

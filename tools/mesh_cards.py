@@ -22,9 +22,27 @@ command with no gang.
   (fsdp 2, sp 2) ring, where fsdp makes the global batch 2), each against
   one card at the same global batch.
 
+- ``--generate``: cached generation (``models/generate.py:generate``,
+  greedy, the blocked read) on Llama-2-7B at all 32 layers with bf16
+  parameters, B 8, a 2048-token prompt and 64 new tokens; meshes dp,tp
+  (default (tp 4) and (dp 2, tp 2)), each process building its shards
+  with ``llama_init(mesh=)``, against one card.  Each run's prefill
+  logits (``forward_with_cache`` at position 0; every 64th position and
+  the last, gathered) with f32 activations must lie within 1e-3 of max of
+  one card's, and every rank's tokens must equal rank 0's.  The bf16
+  prefill's logits are compared too, and printed: tp sums bf16 partial
+  products that one card accumulates in f32, and 32 random-weight layers
+  amplify that rounding (to 6% of max on an H100, PERF.md), so that
+  check would gate on rounding, not on the sharding.  The agreement with one
+  card's tokens,
+  prefill ms, ms per token (p50 of the 63 steps, CUDA events around each
+  forward) and peak GB a card are printed.  ``--preset tiny --device-type
+  cpu`` rehearses it over gloo ranks on the CPU.
+
     python3 tools/mesh_cards.py [--cards 4] [--meshes 1,4,1 2,2,1 ...]
     python3 tools/mesh_cards.py --experts 8 [--meshes 1,1,4,1 1,2,2,1]
     python3 tools/mesh_cards.py --sp [--meshes 1,4,ring 1,4,ulysses ...]
+    python3 tools/mesh_cards.py --generate [--meshes 1,4 2,2]
 
 Prints the card line, then one JSON line per run: the mesh, every rank's
 exit code, rank 0's per-step losses and their largest relative
@@ -65,6 +83,12 @@ SP_ARGV = ["--preset", "llama2-7b", "--n-layers", "8", "--seq-len", "32768",
            "--steps", "3"]
 SP_MESHES = ("1,4,ring", "1,4,ulysses", "2,2,ring")
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+GEN_MESHES = ("1,4", "2,2")             # dp,tp
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 2048, 64
+GEN_LOGITS_EVERY = 64       # prefill positions kept: every 64th and the last
+# Their f32 logits against one card's: the sharded sums only reorder f32
+# products, which moves them by ~2e-5 of max on an H100.
+GEN_LOGITS_REL_TOL = 1e-3
 
 
 def child(argv) -> int:
@@ -110,13 +134,163 @@ def child(argv) -> int:
     return rc
 
 
+def generate_child(argv) -> int:
+    """One rank of a ``--generate`` run: ``--dp D --tp T --device DEV
+    --preset P --logits PATH``.  Joins the gang its env names (none for
+    one process), builds the model (sharded on the (dp, tp) mesh in a
+    gang), writes the sampled prefill logits to PATH (rank 0) and prints
+    its ``RESULT``: new tokens, prefill ms, ms per token, peak GB."""
+    from dataclasses import replace
+
+    import torch
+
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs
+    from kubeflow_controller_tpu_torch.models.llama import (
+        LlamaConfig,
+        llama_init,
+    )
+    from kubeflow_controller_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+    from kubeflow_controller_tpu_torch.workloads.data import synthetic_tokens
+    from kubeflow_controller_tpu_torch.workloads.runtime import JobRuntime
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--device", default="cuda:0")
+    ap.add_argument("--preset", default="llama2-7b")
+    ap.add_argument("--logits", required=True)
+    args = ap.parse_args(argv)
+    dev = torch.device(args.device)
+    if args.preset == "tiny":
+        cfg = LlamaConfig.tiny(dtype="bfloat16", param_dtype="bfloat16",
+                               n_kv_heads=4)
+        batch, t_p, new = 4, 24, 6
+    else:
+        cfg = cs.llama2_7b_decode(32)
+        batch, t_p, new = GEN_BATCH, GEN_PROMPT, GEN_NEW
+    cfg = replace(cfg, max_seq_len=t_p + new)
+    rt = JobRuntime.from_env()
+    rt.initialize(dev, timeout_s=300)
+    mesh = None
+    if rt.num_processes > 1:
+        mesh = build_mesh(MeshSpec(dp=args.dp, fsdp=1, tp=args.tp),
+                          dev.type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = llama_init(cfg, gen, dev, mesh=mesh)
+    prompt = synthetic_tokens(0, batch, t_p, cfg.vocab_size, dev)
+    gm = cs.gen_mod
+    s = -(-(t_p + new) // gm.DECODE_KV_BLOCK) * gm.DECODE_KV_BLOCK
+    keep = list(range(0, t_p, GEN_LOGITS_EVERY)) + [t_p - 1]
+    sampled = {}
+    for dtype in ("float32", cfg.dtype):
+        run_cfg = replace(cfg, dtype=dtype)
+        cache = gm.init_cache(run_cfg, batch, max(s, t_p + new), device=dev,
+                              mesh=mesh)
+        logits = gm.forward_with_cache(model, prompt, cache, 0, run_cfg,
+                                       mesh=mesh)[0]
+        if mesh is not None:
+            logits = logits.full_tensor()
+        sampled[dtype] = logits[:, keep].cpu()
+        del cache, logits
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if rt.process_id == 0:
+        torch.save(sampled, args.logits)
+    timed = (cs.timed_generate if dev.type == "cuda" else
+             lambda *a, **k: (gm.generate(*a, **k), None))
+    out, rec = timed(model, prompt, cfg, max_new_tokens=new, mesh=mesh)
+    print("RESULT " + json.dumps({
+        "rc": 0, "tokens": out[:, t_p:].tolist(),
+        **({} if rec is None else {
+            k: rec[k] for k in ("prefill_ms", "ms_per_token_p50",
+                                "host_ms_per_token_p50", "peak_gb",
+                                "cache_gb")})}), flush=True)
+    rt.shutdown()
+    return 0
+
+
+def generate_main(args) -> int:
+    """The ``--generate`` runs, each against one card (the sampled logits
+    pass through a temporary directory)."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="mesh_generate_"))
+    try:
+        return generate_runs(args, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def generate_runs(args, tmp: Path) -> int:
+    import torch
+
+    flags = ["--generate-child", "--preset", args.preset]
+
+    def launch(ranks, mesh_args, name):
+        path = tmp / f"logits_{name}.pt"
+        res = run(flags + mesh_args + ["--logits", str(path)], ranks, [],
+                  args.timeout, args.device_type)
+        logits = torch.load(path) if path.exists() else None
+        return res, logits
+
+    [(rc, one)], one_logits = launch(1, [], "one")
+    failed = rc != 0 or one is None
+    if one is not None:
+        print(json.dumps({"mesh": "one card",
+                          **{k: v for k, v in one.items()
+                             if k != "tokens"}}), flush=True)
+    for spec in args.meshes or list(GEN_MESHES):
+        dp, tp = (int(x) for x in spec.split(","))
+        if dp * tp != args.cards:
+            raise SystemExit(f"mesh {spec} is not dp,tp over {args.cards} "
+                             f"cards")
+        res, logits = launch(args.cards, ["--dp", str(dp), "--tp", str(tp)],
+                             f"dp{dp}_tp{tp}")
+        rcs = [rc for rc, _ in res]
+        recs = [rec or {} for _, rec in res]
+        toks = [r.get("tokens") for r in recs]
+        rel = ({dtype: ((logits[dtype] - one_logits[dtype]).abs().max()
+                        / one_logits[dtype].abs().max()).item()
+                for dtype in one_logits}
+               if logits is not None and one_logits is not None else None)
+        agree = None
+        if one is not None and toks[0] is not None:
+            a, b = torch.tensor(toks[0]), torch.tensor(one["tokens"])
+            agree = {"equal_share": (a == b).float().mean().item(),
+                     "leading_equal_by_seq": [
+                         int((row == 0).nonzero()[0]) if (row == 0).any()
+                         else row.numel() for row in (a == b).int()]}
+        ranks_agree = all(t is not None and t == toks[0] for t in toks)
+        print(json.dumps({
+            "mesh": {"dp": dp, "tp": tp}, "rcs": rcs,
+            "prefill_logits_rel": rel, "tol_float32": GEN_LOGITS_REL_TOL,
+            "ranks_agree": ranks_agree, "tokens_vs_one_card": agree,
+            **{k: recs[0].get(k) for k in (
+                "prefill_ms", "ms_per_token_p50", "host_ms_per_token_p50")},
+            "peak_gb": [r.get("peak_gb") for r in recs],
+            **({f"{k}_one_card": one.get(k) for k in (
+                "prefill_ms", "ms_per_token_p50", "host_ms_per_token_p50",
+                "peak_gb")} if one else {})}), flush=True)
+        failed |= (any(rcs) or not ranks_agree or rel is None
+                   or rel["float32"] > GEN_LOGITS_REL_TOL)
+    return 1 if failed else 0
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-def run(argv, ranks: int, mesh_args, timeout: float) -> list:
+def run(argv, ranks: int, mesh_args, timeout: float,
+        device_type: str = "cuda") -> list:
     """``ranks`` processes of this script's child; their RESULT records
     (None for a rank that printed none) and exit codes."""
     port = free_port()
@@ -128,9 +302,13 @@ def run(argv, ranks: int, mesh_args, timeout: float) -> list:
         if ranks > 1:
             env.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                        JAX_NUM_PROCESSES=str(ranks), JAX_PROCESS_ID=str(r))
+        if device_type == "cpu":
+            env["OMP_NUM_THREADS"] = "1"
+        child = ([] if argv[:1] == ["--generate-child"] else ["--child"])
+        device = f"cuda:{r}" if device_type == "cuda" else "cpu"
         procs.append(subprocess.Popen(
-            [sys.executable, __file__, "--child", *argv, *mesh_args,
-             "--device", f"cuda:{r}"], cwd=HERE, env=env,
+            [sys.executable, __file__, *child, *argv, *mesh_args,
+             "--device", device], cwd=HERE, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     out = []
     for p in procs:
@@ -160,12 +338,27 @@ def main(argv=None) -> int:
     ap.add_argument("--experts", type=int, default=0,
                     help="train the Mixtral-width MoE with this many "
                          "experts (0: the dense model)")
+    ap.add_argument("--generate", action="store_true",
+                    help="cached generation, Llama-2-7B at 32 layers: "
+                         "meshes dp,tp")
+    ap.add_argument("--preset", default="llama2-7b",
+                    help="--generate's model: llama2-7b, or tiny for a "
+                         "rehearsal")
+    ap.add_argument("--device-type", default="cuda",
+                    help="--generate on cuda cards, or cpu (gloo) for a "
+                         "rehearsal")
     ap.add_argument("--timeout", type=float, default=600)
     ap.add_argument("--child", nargs=argparse.REMAINDER,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--generate-child", nargs=argparse.REMAINDER,
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child is not None:
         return child(args.child)
+    if args.generate_child is not None:
+        return generate_child(args.generate_child)
+    if args.generate and args.device_type == "cpu":
+        return generate_main(args)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -173,6 +366,8 @@ def main(argv=None) -> int:
     print(card[0], f"x {len(card)}", flush=True)
     if args.sp:
         return sp_main(args)
+    if args.generate:
+        return generate_main(args)
     if args.experts:
         argv, axes = MOE_ARGV + ["--experts", str(args.experts)], MOE_AXES
         meshes = args.meshes or list(MOE_MESHES)
