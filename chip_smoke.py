@@ -278,13 +278,30 @@ Phases, in order (any failure raises and exits non-zero):
    ``generate(mesh=)`` at Llama-2-7B widths (8 layers) in a one-rank nccl
    group: tokens bit-identical to the run with no mesh, host ms per token
    beside it.
-20. The card's name and power limit, the ``kernels`` JSON line (launches
+20. pipeline parallelism on one card, through ``llama_pretrain.train(pp=,
+   microbatches=)`` on virtual stages in this process
+   (``parallel/pipeline.py:Lockstep``; the 1F1B schedule of
+   ``models/llama.py:llama_loss_and_grads_pp``), every kernel's plain
+   version patched to raise.  20a: Llama-2-7B widths, 8 layers, B 4 x T
+   4096, (pp 4) x 2 layers, M 4: one 1F1B step against ``llama_loss`` +
+   backward on the same init and batch (loss within 1e-3 relative, every
+   gradient within 5e-2 relative norm), its launches exact
+   (``PP_LAUNCHES_PER_LAYER`` times the layers and the real microbatches:
+   a bubble launches nothing), then 3 steps of ``train``, launches exact,
+   ms p50 and peak GB beside phase 8's step.  20b: Mixtral-8x7B widths, 2
+   layers, grouped, B 2 x T 4096, (pp 2) x 1 layer: M 1 against
+   ``llama_loss`` with its router penalties (the same limits), then 3
+   steps at M 2; ``gmm``/``gmm_swiglu``/``tgmm`` and flash launches exact
+   (``PP_MOE_LAUNCHES_PER_LAYER``).
+21. The card's name and power limit, the ``kernels`` JSON line (launches
    from phase 10; each path's own counts beside them, phase 13's, the
-   sequence-parallel paths ``ring_n4``, ``ring_n2`` and ``ulysses_n4``, and
-   ``generate``, phase 19a's, with the skip launches of ``gmm`` and
-   ``tgmm``, and the serve and generate runs' grouped launches by design;
-   each flash entry's ``sp_block``: the block kernels of phase 18), and
-   the contract line ``{"ok": true, "device": {...}}`` last.
+   sequence-parallel paths ``ring_n4``, ``ring_n2`` and ``ulysses_n4``,
+   ``generate``, phase 19a's, and ``pp_dense`` and ``pp_moe``, phase 20's
+   timed runs, with the skip launches of ``gmm`` and ``tgmm``, and the
+   serve and generate runs' grouped launches by design; each flash entry's
+   ``sp_block``: the block kernels of phase 18, SDPA's backward as the
+   library time of dq and dkv), and the contract line ``{"ok": true,
+   "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -2476,7 +2493,8 @@ def sp_block_check(parts, ring_out, n):
     """The ring's visible-block calls at T_local = T / n, non-causal, on
     ``SP_BLOCK_HEADS`` heads: rank n - 1 holding rank 0's block, with rank
     n - 1's merged lse and delta; each kernel against its plain version,
-    row by row, with ms, plain ms, the bound and (forward) SDPA's ms."""
+    row by row, with ms, plain ms, the bound and SDPA's ms (forward; for
+    dq and dkv its backward, which makes dq, dk and dv in one call)."""
     h = SP_BLOCK_HEADS
     r = n - 1
     q, do = (parts[x][r][:, :, :h].contiguous() for x in ("q", "do"))
@@ -2513,10 +2531,18 @@ def sp_block_check(parts, ring_out, n):
                       lambda: at.flash_dkv_plain(q, k, v, do, lse, delta,
                                                  False), ("dk", "dv")),
     }
-    # Library yardstick: SDPA's non-causal forward on [B, H, T, D] copies.
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    # Library yardstick: SDPA's non-causal forward on [B, H, T, D] copies,
+    # and its backward alone (one call gives dq, dk and dv: the yardstick
+    # of flash_dq and flash_dkv alike, as on the main rows).
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                       for x in (q, k, v, do))
     sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt), 10)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    o_sdpa = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        o_sdpa, (qg, kg, vg), dot, retain_graph=True), 10)
+    del o_sdpa, qg, kg, vg
     recs = {}
     for name, (kern, plain, keys) in calls.items():
         b_ms, b_by = bound(*work[name])
@@ -2524,7 +2550,7 @@ def sp_block_check(parts, ring_out, n):
             "shape": f"B1 T{t} H{h} D{SP_SHAPE[3]} non-causal, merged lse",
             "ms": time_ms(kern, 10), "plain_ms": time_ms(plain, 3),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": sdpa_ms if name == "flash_fwd" else None,
+            "library_ms": sdpa_ms if name == "flash_fwd" else sdpa_bwd_ms,
             "max_abs_err": max(err[key] for key in keys),
             "max_row_rel_err": max(rel[key] for key in keys)}
     print("  sp block kernels vs plain: " + json.dumps(
@@ -3054,6 +3080,164 @@ def generate_phase(dev, seed: int):
     return launches, by_design
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: pipeline parallelism on one card (virtual stages)
+# ---------------------------------------------------------------------------
+
+PP_STEPS = 3
+PP_DENSE = {"layers": 8, "stages": 4, "microbatches": 4, "batch": 4,
+            "seq_len": 4096}
+PP_MOE = {"layers": 2, "stages": 2, "microbatches": 2, "batch": 2,
+          "seq_len": 4096}
+PP_LOSS_RTOL = 1e-3
+PP_GRAD_RTOL = 5e-2
+# Launches per layer per real microbatch of a 1F1B step under remat
+# "full": the stage forward (one flash_fwd), the stage backward's re-run of
+# the stage (one) and, inside its backward, the layer's recompute (one),
+# then dq and dkv; the MoE layer's gmm_swiglu and down gmm the same three
+# times, then 3 dlhs gmm and 3 tgmm.  What tests/test_torch_pp_train.py
+# holds the port to against the pallas_calls of the reference's stage
+# forward and ``bwd_one`` jaxprs.  A bubble step launches nothing.
+PP_LAUNCHES_PER_LAYER = {"flash_fwd": 3, "flash_dq": 1, "flash_dkv": 1}
+PP_MOE_LAUNCHES_PER_LAYER = {"gmm_swiglu": 3, "gmm": 6, "tgmm": 3,
+                             **PP_LAUNCHES_PER_LAYER}
+
+
+@contextmanager
+def all_plain_raise():
+    """Every kernel's plain version raises while this is open."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the pp path")
+    with contextlib.ExitStack() as stack:
+        for mod, name in ((gm, "gmm_plain"), (gm, "gmm_swiglu_plain"),
+                          (gm, "tgmm_plain"), (at, "flash_fwd_plain"),
+                          (at, "flash_dq_plain"), (at, "flash_dkv_plain")):
+            stack.enter_context(mock.patch.object(mod, name, refuse))
+        yield
+
+
+def pp_want(cfg: LlamaConfig, per_layer: dict, microbatches: int,
+            steps: int = 1) -> dict:
+    return {name: n * cfg.n_layers * microbatches * steps
+            for name, n in per_layer.items()}
+
+
+def pp_check(label: str, cfg: LlamaConfig, dev, seed: int, run: dict,
+             per_layer: dict) -> dict:
+    """One 1F1B step (``llama_loss_and_grads_pp`` over ``run``'s virtual
+    stages and microbatches) against ``llama_loss`` + backward on the same
+    init and batch: the loss within ``PP_LOSS_RTOL`` relative, every
+    gradient within ``PP_GRAD_RTOL`` relative norm, and the launches of the
+    pp step (counters zeroed just before, read just after) as predicted."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = llama_init(cfg, gen, dev, requires_grad=True)
+    tokens = synthetic_tokens(seed, run["batch"], run["seq_len"],
+                              cfg.vocab_size, dev)
+    with all_plain_raise():
+        loss = llama_loss(model, tokens, cfg)
+        loss.backward()
+        ref_loss = loss.item()
+        ref = {}
+        for n, p in model.named_parameters():
+            ref[n], p.grad = p.grad, None
+        del loss
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        t0 = time.perf_counter()
+        pp_loss, grads = llama_mod.llama_loss_and_grads_pp(
+            model, tokens, cfg, n_microbatches=run["microbatches"],
+            n_stages=run["stages"])
+        pp_loss = pp_loss.item()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counters()
+    rel = {n: ((grads[n].float() - ref[n].float()).norm()
+               / ref[n].float().norm().clamp_min(1e-30)).item() for n in ref}
+    worst = max(rel, key=rel.get)
+    want = {k: v for k, v in pp_want(cfg, per_layer,
+                                     run["microbatches"]).items()}
+    got = {k: launches[k] for k in want}
+    rec = {"layers": cfg.n_layers, **run, "loss_pp": pp_loss,
+           "loss_ref": ref_loss,
+           "loss_rel_err": abs(pp_loss - ref_loss) / abs(ref_loss),
+           "grad_rel_err_max": rel[worst], "grad_rel_err_worst": worst,
+           "first_step_wall_ms": wall_ms,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": got, "want": want,
+           "tol": {"loss": PP_LOSS_RTOL, "grad": PP_GRAD_RTOL}}
+    print(f"{label} 1F1B vs llama_loss: " + json.dumps(rec), flush=True)
+    assert abs(pp_loss - ref_loss) <= PP_LOSS_RTOL * abs(ref_loss), label
+    assert rel[worst] <= PP_GRAD_RTOL, f"{label}: gradient {worst}"
+    assert got == want, (label, got, want)
+    del model, ref, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def pp_train(label: str, cfg: LlamaConfig, dev, seed: int, run: dict,
+             per_layer: dict) -> dict:
+    """``PP_STEPS`` steps of ``llama_pretrain.train(pp=, microbatches=)``
+    on virtual stages, the launch counters zeroed just before and read just
+    after: each as predicted.  Every loss finite; ms p50, peak GB."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    with all_plain_raise():
+        res = llama_pretrain.train(
+            cfg, steps=PP_STEPS, batch_size=run["batch"],
+            seq_len=run["seq_len"], lr=3e-4, device=dev, seed=seed,
+            pp=run["stages"], microbatches=run["microbatches"])
+    launches = read_counters()
+    want = pp_want(cfg, per_layer, run["microbatches"], PP_STEPS)
+    got = {k: launches[k] for k in want}
+    p50 = statistics.median(res.step_s)
+    S, M = run["stages"], run["microbatches"]
+    rec = {"layers": cfg.n_layers, **run, "steps": PP_STEPS,
+           "losses": res.losses, "step_ms": [x * 1e3 for x in res.step_s],
+           "step_ms_p50": p50 * 1e3,
+           "tokens_per_s_p50": run["batch"] * run["seq_len"] / p50,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "bubble_share": (2 * S - 2) / (M + 2 * S - 2),
+           "launches": got, "want": want}
+    print(f"{label} train: " + json.dumps(rec), flush=True)
+    assert got == want, (label, got, want)
+    assert all(np.isfinite(x) for x in res.losses), res.losses
+    assert rec["peak_mem_gb"] < 80, rec["peak_mem_gb"]
+    # One more step of the same loop, profiled (beside phase 8's).
+    rec["profile"] = profile_calls(f"{label} step",
+                                   lambda: res.step(PP_STEPS + 1), 1)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def pp_phase(dev, seed: int, dense_step: dict) -> dict:
+    """Phase 20 (see the docstring): 20a dense, 20b MoE.  Returns the
+    launches of each timed run, by path."""
+    t0 = time.perf_counter()
+    dense = llama2_7b(n_layers=PP_DENSE["layers"])
+    pp_check("pp 20a dense", dense, dev, seed, PP_DENSE,
+             PP_LAUNCHES_PER_LAYER)
+    a = pp_train("pp 20a dense", dense, dev, seed, PP_DENSE,
+                 PP_LAUNCHES_PER_LAYER)
+    print("pp 20a against the non-pp step (phase 8): " + json.dumps({
+        "pp_ms_p50": a["step_ms_p50"], "pp_peak_gb": a["peak_mem_gb"],
+        "non_pp_ms_p50": dense_step["step_ms_p50"],
+        "non_pp_peak_gb": dense_step["peak_mem_gb"]}), flush=True)
+    t1 = time.perf_counter()
+    moe_cfg = mixtral_8x7b_train(PP_MOE["layers"])
+    pp_check("pp 20b moe", moe_cfg, dev, seed, {**PP_MOE, "microbatches": 1},
+             PP_MOE_LAUNCHES_PER_LAYER)
+    b = pp_train("pp 20b moe", moe_cfg, dev, seed, PP_MOE,
+                 PP_MOE_LAUNCHES_PER_LAYER)
+    print("pp: seconds " + json.dumps({"20a": t1 - t0,
+                                       "20b": time.perf_counter() - t1}),
+          flush=True)
+    return {"pp_dense": a["launches"], "pp_moe": b["launches"]}
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3159,7 +3343,8 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_check_phase(dev, args.seed)
-    paths["dense_train"] = train_phase(dev, args.seed)["launches"]
+    dense_step = train_phase(dev, args.seed)
+    paths["dense_train"] = dense_step["launches"]
     moe_train_check_phase(mixtral_8x7b_train(MOE_CHECK["layers"]), dev,
                           args.seed)
     moe_run = moe_train_phase(mixtral_8x7b_train(MOE_TRAIN["layers"]), dev,
@@ -3180,6 +3365,7 @@ def main(argv=None) -> int:
     for name in FLASH_KERNELS:
         flash[name]["sp_block"] = sp_block[name]
     paths["generate"], generate_designs = generate_phase(dev, args.seed)
+    paths.update(pp_phase(dev, args.seed, dense_step))
     print(card_line())
     print(kernels_line(results, flash, paths, serve_designs,
                        generate_designs))

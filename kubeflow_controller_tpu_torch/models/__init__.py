@@ -4,7 +4,9 @@ serving path.
 - ``llama`` — ``LlamaConfig``, the parameter module tree, ``llama_init``,
   the building blocks (``rmsnorm``, RoPE, ``ffn_block``) and the training
   forward and loss (``llama_forward``, ``llama_loss``), on one device or
-  sharded on a mesh (``shard_llama``).
+  sharded on a mesh (``shard_llama``); the pipeline-parallel forward and
+  loss-and-gradients (``llama_forward_pp``, GPipe, and
+  ``llama_loss_and_grads_pp``, 1F1B), over a pp group or virtual stages.
 - ``remat`` — the named remat policies as selective checkpointing.
 - ``moe`` — router and the expert dispatches: ``einsum`` and ``scatter``
   (capacity-dropping) and ``grouped`` (dropless, the CUDA kernels).
@@ -19,7 +21,15 @@ serving path.
 """
 
 from .generate import forward_with_cache, generate, init_cache
-from .llama import Llama, LlamaConfig, LlamaLayer, llama_init
+from .llama import (
+    Llama,
+    LlamaConfig,
+    LlamaLayer,
+    llama_forward_pp,
+    llama_init,
+    llama_loss_and_grads_pp,
+)
 
 __all__ = ["Llama", "LlamaConfig", "LlamaLayer", "forward_with_cache",
-           "generate", "init_cache", "llama_init"]
+           "generate", "init_cache", "llama_forward_pp", "llama_init",
+           "llama_loss_and_grads_pp"]

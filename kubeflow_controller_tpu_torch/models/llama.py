@@ -28,6 +28,14 @@ own positions, attention is ring or Ulysses (``cfg.sp_attention``,
 shifted targets are built from the global tokens before they are staged,
 so each shard's cross-entropy is local.
 
+Pipeline parallelism: under a mesh with a ``pp`` axis above 1 each
+process builds and runs one stage's layers (``llama_init(mesh=)``, the
+layers under their global index), the embedding, final norm and head
+replicated over pp as the reference places them; ``llama_forward_pp``
+(GPipe) and ``llama_loss_and_grads_pp`` (1F1B) run the layers as stages
+over the pp group, or over virtual stages in one process
+(``parallel/pipeline.py``).
+
 Remat: every policy of the reference (``"full"``, ``"dots"``, ``"ffn"``,
 ``"gateup"``, ``"gateup_attn"``, ``"moe"``) as selective activation
 checkpointing (``models/remat.py``); the ``checkpoint_name`` scopes sit
@@ -157,19 +165,42 @@ class LlamaLayer(nn.Module):
             self.w_down = _param((f, d), dtype, device)
 
 
+class StageLayers(nn.Module):
+    """One pipeline stage's layers, each under its global index (so
+    ``layers.4.wq`` names the same parameter with or without pp); iterates
+    like a list."""
+
+    def __init__(self, layers: dict):
+        super().__init__()
+        for i, layer in layers.items():
+            self.add_module(str(i), layer)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+
 class Llama(nn.Module):
     """The parameter tree: ``embed``, ``layers``, ``final_norm``,
-    ``lm_head`` — the JAX pytree's top-level keys."""
+    ``lm_head`` — the JAX pytree's top-level keys.  ``layers``: the global
+    indices of the layers this process holds (a pipeline stage's,
+    :class:`StageLayers`), or all of them."""
 
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = "cuda",
-                 requires_grad: bool = False):
+                 requires_grad: bool = False, layers=None):
         super().__init__()
         dev = resolve_device(device)
         dtype = torch_dtype(cfg.param_dtype)
         self.cfg = cfg
         self.embed = _param((cfg.vocab_size, cfg.dim), dtype, dev)
-        self.layers = nn.ModuleList(
-            LlamaLayer(cfg, dev, dtype) for _ in range(cfg.n_layers))
+        if layers is None:
+            self.layers = nn.ModuleList(
+                LlamaLayer(cfg, dev, dtype) for _ in range(cfg.n_layers))
+        else:
+            self.layers = StageLayers({i: LlamaLayer(cfg, dev, dtype)
+                                       for i in layers})
         self.final_norm = _param((cfg.dim,), dtype, dev)
         self.lm_head = _param((cfg.dim, cfg.vocab_size), dtype, dev)
         self.requires_grad_(requires_grad)
@@ -192,10 +223,14 @@ def llama_init(cfg: LlamaConfig, generator: torch.Generator,
     Every process draws the same values from the same seed, so no
     collective runs, and the shards equal ``llama_init`` followed by
     ``shard_llama`` bit for bit, while one full parameter at most is
-    alive at a time."""
+    alive at a time.  On a mesh with a pp axis above 1 the module holds
+    this process's stage's layers only (:func:`stage_layers`); the other
+    layers' values are drawn and dropped, so that every stage draws what
+    the whole model would."""
     resid_scale = 0.02 / (2 * cfg.n_layers) ** 0.5
     if mesh is None:
         model = Llama(cfg, device, requires_grad)
+        layers = list(model.layers)
 
         def normal_(p: nn.Parameter, scale: float = 0.02) -> None:
             # Draw in f32 and round once, as the reference casts its f32
@@ -206,11 +241,21 @@ def llama_init(cfg: LlamaConfig, generator: torch.Generator,
         def ones_(p: nn.Parameter) -> None:
             p.fill_(1.0)
     else:
-        model = Llama(cfg, "meta", requires_grad)
+        own = stage_layers(cfg, mesh)
+        model = Llama(cfg, "meta", requires_grad, layers=own)
         dev = resolve_device(device)
         placed = _placements(model, model_mesh(mesh), rules)
+        # Every layer in draw order; another stage's on the meta device,
+        # whose draws are made and dropped.
+        layers = (list(model.layers) if own is None else [
+            model.layers.get_submodule(str(i)) if i in own
+            else LlamaLayer(cfg, torch.device("meta"),
+                            torch_dtype(cfg.param_dtype))
+            for i in range(cfg.n_layers)])
 
         def _shard(p: nn.Parameter, full: torch.Tensor) -> None:
+            if id(p) not in placed:     # another stage's layer
+                return
             module, name, sub, placements = placed[id(p)]
             d = _distribute(full, sub, placements).to(p.dtype)
             setattr(module, name, nn.Parameter(d,
@@ -225,7 +270,7 @@ def llama_init(cfg: LlamaConfig, generator: torch.Generator,
             _shard(p, torch.ones(p.shape, device=dev, dtype=torch.float32))
 
     normal_(model.embed)
-    for lp in model.layers:
+    for lp in layers:
         ones_(lp.attn_norm)
         ones_(lp.mlp_norm)
         for p in (lp.wq, lp.wk, lp.wv):
@@ -279,14 +324,17 @@ def llama_param_pspecs(cfg: LlamaConfig, rules: ShardingRules = DEFAULT_RULES):
     return shard_pytree_specs(llama_param_logical_axes(cfg), rules)
 
 
-# The mesh axes the model shards over; the others must be 1.
+# The mesh axes a stage shards over (pp runs the layers as stages).
 MODEL_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE, AXIS_TENSOR)
-_NOT_PORTED_AXES = (
-    (AXIS_PIPELINE, "pipeline parallelism is not ported yet (ROADMAP.md, "
-                    "M8)"),
-)
-MOE_UNDER_SP = ("MoE under sequence parallelism (--experts with --sp > 1) "
-                "is not ported yet (ROADMAP.md, M3b)")
+PP_UNDER_SP = ("pipeline parallelism with sequence parallelism (--pp with "
+               "--sp > 1) is not ported yet (ROADMAP.md, M8c)")
+
+
+def _axis_size(mesh, axis: str) -> int:
+    """The extent of ``mesh``'s ``axis`` (1 without a mesh or the axis)."""
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index(axis))
 
 
 def model_mesh(mesh):
@@ -294,17 +342,48 @@ def model_mesh(mesh):
     mesh), over which parameters and activations are DTensors: those of
     its axes that are above 1, or dp alone on one device.  A size-1 axis
     shards nothing, and each mesh dim multiplies the strategies DTensor's
-    sharding propagation weighs for every op.  Raises
-    ``NotImplementedError`` for a pp axis above 1, naming its ROADMAP
-    module."""
+    sharding propagation weighs for every op.  pp is left out: under a pp
+    axis above 1 this is the sub-mesh of this process's stage."""
     names = mesh.mesh_dim_names
-    for axis, why in _NOT_PORTED_AXES:
-        if axis in names and mesh.size(names.index(axis)) > 1:
-            raise NotImplementedError(why)
     used = tuple(a for a in MODEL_AXES
                  if a in names and mesh.size(names.index(a)) > 1)
     used = used or MODEL_AXES[:1]
     return mesh if tuple(names) == used else mesh[used]
+
+
+def pp_size(mesh) -> int:
+    """The extent of ``mesh``'s pp axis (1 without a mesh or the axis)."""
+    return _axis_size(mesh, AXIS_PIPELINE)
+
+
+def pp_group(mesh):
+    """The process group of ``mesh``'s pp axis (None at pp 1)."""
+    return mesh.get_group(AXIS_PIPELINE) if pp_size(mesh) > 1 else None
+
+
+def pp_stage(mesh) -> int:
+    """This process's pipeline stage: its index along pp (0 at pp 1)."""
+    return mesh.get_local_rank(AXIS_PIPELINE) if pp_size(mesh) > 1 else 0
+
+
+def stage_layers(cfg: LlamaConfig, mesh) -> Optional[range]:
+    """The global indices of the layers this process's stage holds on
+    ``mesh`` (contiguous, ``n_layers / pp`` of them), or None at pp 1."""
+    pp = pp_size(mesh)
+    if pp == 1:
+        return None
+    if cfg.n_layers % pp:
+        raise ValueError(f"pp {pp} does not divide n_layers {cfg.n_layers}")
+    k = cfg.n_layers // pp
+    return range(pp_stage(mesh) * k, (pp_stage(mesh) + 1) * k)
+
+
+def _refuse_pp(mesh) -> None:
+    """The non-pipelined forward and loss take no pp axis above 1."""
+    if pp_size(mesh) > 1:
+        raise ValueError("a mesh with pp > 1 runs the layers as pipeline "
+                         "stages: call llama_forward_pp or "
+                         "llama_loss_and_grads_pp")
 
 
 def _placements(model: Llama, sub, rules: ShardingRules) -> dict:
@@ -352,9 +431,7 @@ def shard_llama(model: Llama, mesh, rules: ShardingRules = DEFAULT_RULES
 
 def _sp_size(mesh) -> int:
     """The extent of ``mesh``'s sp axis (1 without a mesh or the axis)."""
-    if mesh is None or AXIS_SEQUENCE not in mesh.mesh_dim_names:
-        return 1
-    return mesh.size(mesh.mesh_dim_names.index(AXIS_SEQUENCE))
+    return _axis_size(mesh, AXIS_SEQUENCE)
 
 
 def _w(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -718,19 +795,12 @@ def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     the outputs come back as DTensors; ``tokens`` go through
     :func:`stage_tokens`."""
     dtype = torch_dtype(cfg.dtype)
-    t = tokens.shape[1]
-    if mesh is None:
-        rope = rope_tables(cfg, torch.arange(t, device=tokens.device))
-        x = model.embed[tokens.long()].to(dtype)
-    else:
-        if _sp_size(mesh) > 1 and cfg.n_experts:
-            raise NotImplementedError(MOE_UNDER_SP)
+    if mesh is not None:
+        _refuse_pp(mesh)
         mesh = model_mesh(mesh)
         tokens = stage_tokens(tokens, mesh, rules)
-        x = _embed(tokens, _w(model.embed, model.embed.dtype))
-        x = with_logical_constraint(x.to(dtype), ("batch", "seq", None),
-                                    rules)
-        rope = _shard_rope(cfg, t, mesh, x.device)
+    x = _lookup(model.embed, tokens, dtype, rules)
+    rope = _rope(cfg, tokens.shape[1], mesh, x.device)
     layer_fn = _maybe_remat(_decoder_layer_fn(cfg, rope, mesh, rules), cfg)
     auxes = []
     for lp in model.layers:
@@ -747,6 +817,26 @@ def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
         return out, {key: torch.stack([a[key] for a in auxes]).mean()
                      for key in auxes[0]}
     return out
+
+
+def _lookup(table, tokens, dtype, rules: ShardingRules):
+    """The embedding of ``tokens`` in ``table``, in ``dtype``: a gather,
+    or for staged (DTensor) tokens the vocab-parallel :func:`_embed` of
+    the table as ``_w`` hands it over."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(tokens, DTensor):
+        return table[tokens.long()].to(dtype)
+    x = _embed(tokens, _w(table, table.dtype))
+    return with_logical_constraint(x.to(dtype), ("batch", "seq", None), rules)
+
+
+def _rope(cfg: LlamaConfig, t: int, mesh, device):
+    """The RoPE tables of positions [0, t): plain without ``mesh``, else
+    as :func:`_shard_rope` places them."""
+    if mesh is None:
+        return rope_tables(cfg, torch.arange(t, device=device))
+    return _shard_rope(cfg, t, mesh, device)
 
 
 def _shard_rope(cfg: LlamaConfig, t: int, mesh, device):
@@ -789,6 +879,7 @@ def llama_loss(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     gather the whole [B, T, vocab] f32 logits on every process."""
     aux, targets = None, None
     if mesh is not None:
+        _refuse_pp(mesh)
         sub = model_mesh(mesh)
         if _sp_size(sub) > 1:
             targets = _staged_targets(tokens, sub, rules)
@@ -884,3 +975,221 @@ def _chunked_ce(h: torch.Tensor, lm_head: torch.Tensor, tokens: torch.Tensor,
                           use_reentrant=False)
         total = part if total is None else total + part
     return with_logical_constraint(total / torch.sum(weight), (), rules)
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism
+# ---------------------------------------------------------------------------
+
+def _pipeline(model: Llama, cfg: LlamaConfig, mesh, n_stages):
+    """``(transport, stages, sub)``: over ``mesh``'s pp group with this
+    process's stage (the model holds its layers), or ``n_stages``
+    (default 1) virtual stages in one process, each ``n_layers / S``
+    layers; ``sub`` the stage's model mesh (None without a mesh).  The
+    stage body runs attention per shard on ``sub``, where the reference
+    passes ``mesh=None`` inside its pp-manual region; pp with sp raises
+    (:data:`PP_UNDER_SP`)."""
+    from ..parallel.pipeline import GroupPipe, Lockstep, split_stages
+
+    sub = None if mesh is None else model_mesh(mesh)
+    if sub is not None and _sp_size(sub) > 1:
+        raise NotImplementedError(PP_UNDER_SP)
+    layers = list(model.layers)
+    if pp_size(mesh) > 1:
+        dev = model.embed.device
+        return GroupPipe(pp_group(mesh), dev), [layers], sub
+    n = n_stages or 1
+    return Lockstep(n), split_stages(layers, n), sub
+
+
+def _stage_fn(cfg: LlamaConfig, rope, sub, rules: ShardingRules,
+              extra: str):
+    """The stage body: the stage's layers through ``_decoder_layer_fn``
+    (remat per layer), returning the output and with ``extra`` "stats" the
+    router stats' sums (a dict, for ``llama_forward_pp``), with "penalty"
+    (for a MoE config) the stage's router penalty, ``Σ (aux_coef · aux +
+    z_coef · z) / n_layers`` (the reference's)."""
+    layer_fn = _maybe_remat(_decoder_layer_fn(cfg, rope, sub, rules), cfg)
+
+    def stage_fn(stage, x):
+        auxes = []
+        for lp in stage:
+            x, aux = layer_fn(x, lp)
+            auxes.append(aux)
+        if extra == "stats":
+            return x, {k: sum((a[k] for a in auxes[1:]), auxes[0][k])
+                       for k in auxes[0]}
+        if extra != "penalty":
+            return x
+        pens = [cfg.moe_aux_coef * a["aux_loss"] + cfg.moe_z_coef * a["z_loss"]
+                for a in auxes]
+        return x, sum(pens[1:], pens[0]) / cfg.n_layers
+
+    return stage_fn
+
+
+def _microbatches(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
+                  sub, n_microbatches: int, embed: bool, rules):
+    """``(tokens_m, x_m)``: the global batch's M microbatches of rows (each
+    staged on ``sub``) and their embeddings (``embed``; else tensors shaped
+    alike, for a stage that only needs their shape)."""
+    from torch.distributed.tensor import DTensor
+
+    b, t = tokens.shape
+    if b % n_microbatches:
+        raise ValueError(f"batch {b} not divisible by {n_microbatches} "
+                         f"microbatches")
+    dtype = torch_dtype(cfg.dtype)
+    toks = list(tokens.long().chunk(n_microbatches, dim=0))
+    if sub is not None:
+        toks = [stage_tokens(tm, sub, rules) for tm in toks]
+    if embed:
+        return toks, [_lookup(model.embed, tm, dtype, rules) for tm in toks]
+    if sub is None:
+        like = torch.empty((*toks[0].shape, cfg.dim), dtype=dtype,
+                           device=tokens.device)
+    else:
+        local = toks[0].to_local()
+        like = DTensor.from_local(
+            torch.empty((*local.shape, cfg.dim), dtype=dtype,
+                        device=local.device), sub,
+            placements_for(("batch", "seq", None), sub, rules),
+            run_check=False)
+    return toks, [like] * n_microbatches
+
+
+def llama_forward_pp(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
+                     mesh=None, *, n_microbatches: int = 2,
+                     n_stages: Optional[int] = None,
+                     rules: ShardingRules = DEFAULT_RULES,
+                     return_aux: bool = False):
+    """Pipeline-parallel forward: the layers as pp stages, the batch as
+    ``n_microbatches`` microbatches streaming GPipe-style
+    (``parallel/pipeline.py:gpipe``), then the final norm and head:
+    logits [B, T, vocab] f32 on every stage's process.
+
+    Over ``mesh``'s pp group when it has a pp axis above 1 (``model``
+    built by ``llama_init(mesh=)``: this process's stage), else over
+    ``n_stages`` virtual stages in one process.  ``return_aux``: also the
+    MoE router stats summed over the stages' layers and the microbatches,
+    over ``n_layers × M`` (zeros for dense), as ``llama_forward``'s."""
+    from ..parallel.pipeline import gpipe
+
+    transport, stages, sub = _pipeline(model, cfg, mesh, n_stages)
+    _, micro = _microbatches(model, tokens, cfg, sub, n_microbatches, True,
+                             rules)
+    rope = _rope(cfg, tokens.shape[1], sub, tokens.device)
+    out = gpipe(_stage_fn(cfg, rope, sub, rules,
+                          "stats" if return_aux else ""),
+                stages, micro, transport, stage_aux=return_aux)
+    out, sums = out if return_aux else (out, None)
+    x = torch.cat(list(out), dim=0)
+    dtype = torch_dtype(cfg.dtype)
+    x = rmsnorm(x, _w(model.final_norm, dtype), cfg.norm_eps)
+    logits = with_logical_constraint(_mm(x, _w(model.lm_head, dtype)),
+                                     ("batch", "seq", "vocab"), rules).float()
+    if return_aux:
+        denom = cfg.n_layers * n_microbatches
+        return logits, {k: v / denom for k, v in sums.items()}
+    return logits
+
+
+def _microbatch_ce(cfg: LlamaConfig, rules: ShardingRules):
+    """The last stage's loss: final norm, head and the next-token CE over
+    positions [0, T - 1) of one microbatch (chunked with
+    ``cfg.loss_chunks``: the same value)."""
+    dtype = torch_dtype(cfg.dtype)
+
+    def loss_fn(loss_params, y, tokens_m):
+        final_norm, lm_head = loss_params
+        h = rmsnorm(y, _w(final_norm, dtype), cfg.norm_eps)
+        if cfg.loss_chunks:
+            ce = _chunked_ce(h, lm_head, tokens_m, cfg, rules)
+        else:
+            logits = with_logical_constraint(_mm(h, _w(lm_head, dtype)),
+                                             ("batch", "seq", "vocab"),
+                                             rules).float()
+            logp = torch.log_softmax(_vocab_whole(logits, rules), dim=-1)
+            nll = -logp[:, :-1].gather(-1, tokens_m[:, 1:, None])
+            ce = with_logical_constraint(nll.mean(), (), rules)
+        # A replicated DTensor scalar as a plain one (``to_local`` is
+        # differentiable): the schedule adds it to plain sums.
+        return ce.to_local() if hasattr(ce, "to_local") else ce
+
+    return loss_fn
+
+
+def llama_loss_and_grads_pp(model: Llama, tokens: torch.Tensor,
+                            cfg: LlamaConfig, mesh=None, *,
+                            n_microbatches: int = 2,
+                            n_stages: Optional[int] = None,
+                            rules: ShardingRules = DEFAULT_RULES):
+    """The loss and every parameter's gradient under the 1F1B schedule
+    (``parallel/pipeline.py:pipeline_1f1b``): each gradient is added to
+    the parameter's ``.grad``, as ``llama_loss(...).backward()`` would.
+    Returns ``(loss, grads)``: the mean loss, a plain f32 scalar equal on
+    every process, and ``{name: parameter.grad}``.
+
+    The stages, their transport and the mesh as :func:`llama_forward_pp`
+    takes them.  For MoE configs each stage adds its router penalty
+    (``Σ (aux_coef · aux + z_coef · z) / n_layers``), per microbatch, as
+    the reference's does.  The embedding's gradient is an ``index_add`` of
+    stage 0's input cotangents (under a mesh, the lookup's own backward);
+    the embedding, final norm and head are replicated over pp, and their
+    gradients, made on stage 0 and on the last stage, are broadcast over
+    the pp group, so every copy steps alike."""
+    from ..parallel.pipeline import pipeline_1f1b
+
+    transport, stages, sub = _pipeline(model, cfg, mesh, n_stages)
+    first, last = 0 in transport.stages, transport.n - 1 in transport.stages
+    with torch.no_grad():
+        toks, micro = _microbatches(model, tokens, cfg, sub, n_microbatches,
+                                    first, rules)
+    rope = _rope(cfg, tokens.shape[1], sub, tokens.device)
+    loss_params = [model.final_norm, model.lm_head]
+    loss, stage_grads, loss_grads, input_grads = pipeline_1f1b(
+        _stage_fn(cfg, rope, sub, rules,
+                  "penalty" if cfg.n_experts else ""), stages, micro,
+        _microbatch_ce(cfg, rules), loss_params, toks, transport,
+        stage_aux=bool(cfg.n_experts))
+
+    def add(p, g):
+        p.grad = g if p.grad is None else p.grad + g
+
+    from ..parallel.pipeline import stage_parameters
+
+    for stage, grads in zip(stages, stage_grads):
+        for p, g in zip(stage_parameters(stage), grads):
+            add(p, g)
+    if first:
+        gembed = _embed_grad(model, toks, input_grads, sub, cfg, rules)
+    else:
+        gembed = torch.zeros_like(model.embed)
+    if not last:
+        loss_grads = [torch.zeros_like(p) for p in loss_params]
+    gembed = transport.broadcast(gembed, 0)
+    loss_grads = transport.broadcast(loss_grads, transport.n - 1)
+    add(model.embed, gembed)
+    for p, g in zip(loss_params, loss_grads):
+        add(p, g)
+    return loss, {n: p.grad for n, p in model.named_parameters()}
+
+
+def _embed_grad(model: Llama, toks, input_grads, sub, cfg: LlamaConfig,
+                rules) -> torch.Tensor:
+    """The embedding's gradient from stage 0's (scaled) input cotangents:
+    an ``index_add`` at the token ids, or under a mesh the backward of the
+    staged lookup (the vocab-parallel ``_embed``), whose gradient comes
+    back placed as the table."""
+    table = model.embed
+    if sub is None:
+        g = torch.stack(list(input_grads)) if not isinstance(
+            input_grads, torch.Tensor) else input_grads
+        ids = torch.cat(toks, dim=0).reshape(-1)
+        return torch.zeros_like(table).index_add_(
+            0, ids, g.reshape(ids.numel(), -1).to(table.dtype))
+    leaf = table.detach().requires_grad_()
+    with torch.enable_grad():
+        xs = [_lookup(leaf, tm, torch_dtype(cfg.dtype), rules) for tm in toks]
+        (g,) = torch.autograd.grad(xs, [leaf], list(input_grads))
+    return g

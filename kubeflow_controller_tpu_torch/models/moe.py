@@ -36,14 +36,20 @@ on "moe dispatch") turns into an error.  On the CPU the plain versions take
 every shape.
 
 Under a mesh (``mesh=``, the model mesh of ``models/llama.py``: dp, fsdp,
-ep, tp) every dispatch runs per shard, through two ``local_map`` regions,
-the analog of the reference's ``shard_map``.  Tokens are sharded over the
-batch by dp x fsdp and replicated over ep and tp; the expert weights come
-in gathered over dp and fsdp, their expert dim sharded over ep and their F
-dim over tp.  The first region routes each shard's tokens and returns the
-router statistics' per-shard sums, which are summed over dp x fsdp before
-``aux_loss`` multiplies its two means (a mean of per-shard products would
-be another loss).  The second runs the shard's own E/ep experts on its F/tp
+ep, sp, tp) every dispatch runs per shard, through two ``local_map``
+regions, the analog of the reference's ``shard_map``.  Tokens are sharded
+over the batch by dp x fsdp, over the sequence by sp, and replicated over
+ep and tp; the expert weights come in gathered over dp and fsdp, their
+expert dim sharded over ep and their F dim over tp.  The first region
+routes each shard's tokens and returns the router statistics' per-shard
+sums, which are summed over dp x fsdp x sp before ``aux_loss`` multiplies
+its two means (a mean of per-shard products would be another loss).  The
+capacity dispatches count their capacity from the global T and each
+token's position in its expert's buffer over the whole (T, k) row of its
+sequence, as the reference's auto-SPMD program does: a sequence shard's
+positions start after the assignments the lower sp shards of the same
+rows made (an exclusive prefix of the per-row counts over the sp group,
+:func:`_sp_offsets`), so it drops exactly what one device drops.  The second runs the shard's own E/ep experts on its F/tp
 slice: the einsum and scatter dispatches slice their capacity buffers to
 those experts; "grouped" is the reference's ``_grouped_ffn_sharded``, the
 dropless decomposition whose per-shard layout (:func:`grouped_layout` with
@@ -234,15 +240,19 @@ def _capacity(t: int, k: int, n_experts: int, capacity_factor: float,
     return capacity or max(1, math.ceil(t * k / n_experts * capacity_factor))
 
 
-def _capacity_positions(idx: torch.Tensor, n_experts: int, capacity: int):
+def _capacity_positions(idx: torch.Tensor, n_experts: int, capacity: int,
+                        offset: Optional[torch.Tensor] = None):
     """``(pos_flat [B, T·k, E], pos [B, T, k, E], keep [B, T, k, E])``:
     each (token, slot)'s position in its expert's buffer, counted in
-    routing order over the flattened (T, k) axis, and the assignments
-    that fit the capacity."""
+    routing order over the flattened (T, k) axis (from ``offset`` [B, E],
+    a sequence shard's start, when given), and the assignments that fit
+    the capacity."""
     b, t, k = idx.shape
     assign = F.one_hot(idx, n_experts).float()                  # [B,T,k,E]
     flat = assign.reshape(b, t * k, n_experts)
     pos_flat = flat.cumsum(dim=1) - flat                        # exclusive
+    if offset is not None:
+        pos_flat = pos_flat + offset[:, None, :]
     pos = pos_flat.reshape(b, t, k, n_experts)
     keep = (pos < capacity) * assign                            # drop overflow
     return pos_flat, pos, keep
@@ -465,8 +475,8 @@ def _moe_ffn_mesh(x, router_w, w_gate, w_up, w_down, top_k: int,
                   capacity_factor: float, capacity: int, dispatch: str,
                   block_m: int):
     """:func:`moe_ffn_stats` on DTensors: x sharded over the batch by the
-    mesh dims that split the tokens (dp, fsdp) and replicated over the
-    others; the router replicated; the expert weights sharded over the
+    mesh dims that split it (dp, fsdp), over the sequence by sp, and
+    replicated over the others; the router replicated; the expert weights sharded over the
     mesh dims that split the experts (ep on E, tp on F) and replicated
     over the token dims.
 
@@ -486,14 +496,19 @@ def _moe_ffn_mesh(x, router_w, w_gate, w_up, w_down, top_k: int,
     tok_dims = {i for i, pl in enumerate(xp) if pl != Replicate()}
     w_dims = {i for w in weights for i, pl in enumerate(w.placements)
               if pl != Replicate()}
-    if (any(pl not in (Shard(0), Replicate()) for pl in xp)
-            or tok_dims & w_dims
+    seq_dims = [i for i, pl in enumerate(xp) if pl == Shard(1)]
+    if (any(pl not in (Shard(0), Shard(1), Replicate()) for pl in xp)
+            or len(seq_dims) > 1 or tok_dims & w_dims
             or any(pl != Replicate() for pl in router_w.placements)):
         raise ValueError(
-            f"MoE under a mesh takes tokens sharded on the batch only "
-            f"({xp}), expert weights replicated where the tokens are split "
+            f"MoE under a mesh takes tokens sharded on the batch and on "
+            f"the sequence by one mesh dim ({xp}), expert weights "
+            f"replicated where the tokens are split "
             f"({[w.placements for w in weights]}) and a replicated router "
             f"({router_w.placements})")
+    # The sp group over which a capacity dispatch's positions continue.
+    seq_group = (mesh.get_group(seq_dims[0])
+                 if seq_dims and dispatch != "grouped" else None)
     ep_shards, e_first = 1, 0
     for i, pl in enumerate(w_gate.placements):  # mesh order, as DTensor splits
         if pl == Shard(0):
@@ -517,7 +532,7 @@ def _moe_ffn_mesh(x, router_w, w_gate, w_up, w_down, top_k: int,
     cap = (0 if dispatch == "grouped" else
            _capacity(t, top_k, n_experts, capacity_factor, capacity))
     route = local_map(
-        partial(_route_sums, top_k=top_k, capacity=cap),
+        partial(_route_sums, top_k=top_k, capacity=cap, seq_group=seq_group),
         out_placements=(xp, xp, sums, sums, sums, sums),
         in_placements=(xp, list(router_w.placements)),
         in_grad_placements=(xp, over(router_w.placements, tok_dims)),
@@ -530,7 +545,7 @@ def _moe_ffn_mesh(x, router_w, w_gate, w_up, w_down, top_k: int,
     experts = local_map(
         partial(_experts_local, dispatch=dispatch, n_experts=n_experts,
                 first_expert=e_first * e_local, capacity=cap,
-                block_m=_pow2_floor(block_m)),
+                block_m=_pow2_floor(block_m), seq_group=seq_group),
         out_placements=yp,
         in_placements=(xp, xp, xp, wgp, wgp, wdp),
         in_grad_placements=(yp, yp, xp, over(wgp, tok_dims),
@@ -552,15 +567,32 @@ def _moe_ffn_mesh(x, router_w, w_gate, w_up, w_down, top_k: int,
     return y, stats
 
 
-def _route_sums(x, router_w, *, top_k: int, capacity: int):
+def _sp_offsets(idx: torch.Tensor, n_experts: int, group):
+    """[B, E]: per sequence row and expert, the assignments that the sp
+    shards below this one made (an exclusive prefix over ``group`` of the
+    per-row counts; None without a group)."""
+    if group is None:
+        return None
+    import torch.distributed as dist
+
+    counts = F.one_hot(idx, n_experts).float().sum(dim=(1, 2))   # [B, E]
+    parts = [torch.empty_like(counts)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, counts.contiguous(), group=group)
+    below = parts[:dist.get_group_rank(group, dist.get_rank())]
+    return sum(below, torch.zeros_like(counts))
+
+
+def _route_sums(x, router_w, *, top_k: int, capacity: int, seq_group=None):
     """One shard's routing, and its sums of the router statistics:
     ``(probs, idx, Σ assign [E], Σ softmax [E], Σ lse², Σ keep)`` (keep:
-    the assignments within ``capacity``; every one when it is 0)."""
+    the assignments within ``capacity``; every one when it is 0; positions
+    continued over ``seq_group``'s lower shards)."""
     logits, probs, idx = _route(x, router_w, top_k)
     n_experts = router_w.shape[-1]
     assign = F.one_hot(idx, n_experts).float()
-    keep = (_capacity_positions(idx, n_experts, capacity)[2] if capacity
-            else assign)
+    keep = (_capacity_positions(idx, n_experts, capacity, _sp_offsets(
+        idx, n_experts, seq_group))[2] if capacity else assign)
     return (probs, idx, assign.sum(dim=(0, 1, 2)),
             torch.softmax(logits, dim=-1).sum(dim=(0, 1)),
             (torch.logsumexp(logits, dim=-1) ** 2).sum(), keep.sum())
@@ -568,14 +600,17 @@ def _route_sums(x, router_w, *, top_k: int, capacity: int):
 
 def _experts_local(x, probs, idx, w_gate, w_up, w_down, *, dispatch: str,
                    n_experts: int, first_expert: int, capacity: int,
-                   block_m: int):
+                   block_m: int, seq_group=None):
     """One shard's expert FFN: its experts ``first_expert ..`` on its F
-    slice; the output is its share of y (summed over ep and tp after)."""
+    slice; the output is its share of y (summed over ep and tp after).  A
+    sequence shard's capacity positions continue those of the lower shards
+    of ``seq_group``."""
     dtype = x.dtype
     wg, wu, wd = w_gate.to(dtype), w_up.to(dtype), w_down.to(dtype)
     if dispatch == "grouped":
         return _grouped_ffn(x, probs, idx, wg, wu, wd, block_m, first_expert)
-    pos_flat, pos, keep = _capacity_positions(idx, n_experts, capacity)
+    pos_flat, pos, keep = _capacity_positions(
+        idx, n_experts, capacity, _sp_offsets(idx, n_experts, seq_group))
     if dispatch == "scatter":
         return _scatter_ffn(x, probs, idx, pos_flat, capacity, wg, wu, wd,
                             first_expert)

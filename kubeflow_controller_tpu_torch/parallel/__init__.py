@@ -13,4 +13,8 @@
   schedules and their two transports) and the attention oracle
   (``attention_reference``).
 - ``ulysses`` — Ulysses attention: all-to-all to head shards and back.
+- ``pipeline`` — pipeline parallelism: ``split_stages``, ``gpipe`` and the
+  1F1B schedule ``pipeline_1f1b``, each stage's schedule written once and
+  driven over the pp process group (``GroupPipe``) or over virtual stages
+  in one process (``Lockstep``).
 """

@@ -92,13 +92,15 @@ def placements_for(logical_axes: Sequence[Optional[str]], mesh,
                    rules: ShardingRules = DEFAULT_RULES) -> List:
     """DTensor placements of a tensor with ``logical_axes`` on ``mesh``:
     per mesh dim, ``Shard(d)`` for the tensor dim its axis shards, else
-    ``Replicate()``.  Mesh axes ``mesh`` does not have stay replicated."""
+    ``Replicate()``.  Mesh axes ``mesh`` does not have stay replicated,
+    and so does a mesh dim of size 1, which splits nothing (a one-row
+    pipeline microbatch "sharded" over it could not be reshaped)."""
     from torch.distributed.tensor import Replicate, Shard
 
     dim_of = {m: d for d, axes in enumerate(logical_to_pspec(
         logical_axes, rules)) for m in axes}
-    return [Shard(dim_of[name]) if name in dim_of else Replicate()
-            for name in mesh.mesh_dim_names]
+    return [Shard(dim_of[name]) if name in dim_of and mesh.size(i) > 1
+            else Replicate() for i, name in enumerate(mesh.mesh_dim_names)]
 
 
 def with_logical_constraint(x, logical_axes,

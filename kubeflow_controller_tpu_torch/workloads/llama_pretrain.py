@@ -54,10 +54,21 @@ kernels; else the dense inner) and ``--sp-attention`` takes ring or
 Ulysses attention (``models/llama.py``).  Each process prints "Mesh:
 {...} over N devices, process i/n".
 
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md): ``--pp >
-1`` (M8) and ``--experts`` with ``--sp > 1`` (M3b).  Without a group, an
-axis above 1 asks for more devices than the one there is, and raises
-``ValueError`` as the reference's mesh does.
+MoE under ``--sp`` routes each sequence shard's tokens; the capacity
+dispatches count positions over the whole sequence (``models/moe.py``).
+
+Pipeline parallelism (as in the reference): ``--pp S --microbatches M``
+trains the layers as S stages under the 1F1B schedule
+(``models/llama.py:llama_loss_and_grads_pp``), one stage a process over the
+mesh's pp group, the other axes sharding within each stage; pp must divide
+the layers, and the global batch is rounded to ``dp_size x M``.
+:func:`train` also takes ``pp`` without a group, as virtual stages in one
+process (one card).  The clip's norm spans every stage.
+
+Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md): ``--pp``
+with ``--sp > 1`` (M8c).  Without a group, an axis above 1 asks for more
+devices than the one there is, and raises ``ValueError`` as the
+reference's mesh does.
 """
 
 from __future__ import annotations
@@ -76,12 +87,16 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.llama import (
-    MOE_UNDER_SP,
+    PP_UNDER_SP,
     Llama,
     LlamaConfig,
     llama_init,
     llama_loss,
+    llama_loss_and_grads_pp,
     model_mesh,
+    pp_group,
+    pp_size,
+    pp_stage,
     shard_llama,
 )
 from ..parallel.mesh import MeshSpec, build_mesh, data_parallel_size
@@ -120,7 +135,8 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
           lr: float = 3e-4, device: DeviceLike = "cuda", seed: int = 0,
           model: Optional[Llama] = None,
           profile_dir: str = "", model_dir: str = "",
-          checkpoint_every: int = 0, mesh=None) -> TrainResult:
+          checkpoint_every: int = 0, mesh=None, pp: int = 1,
+          microbatches: int = 4) -> TrainResult:
     """``steps`` optimizer steps of ``cfg`` from ``llama_init`` (seeded
     with ``seed``) or from ``model`` (trained in place), the reference's
     loop: ``default_optimizer(lr, weight_decay=0.1)`` (clip 1.0), and batch
@@ -140,17 +156,36 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
     multiple of the data parallel size (at least one row a shard), each
     process stages its own shard of every batch (in ``llama_loss``, which
     builds the shifted targets from the global batch first when sp shards
-    T), and the losses are the global batch's."""
+    T), and the losses are the global batch's.
+
+    Pipeline parallelism: on a mesh with a pp axis above 1 each process
+    builds and trains its own stage (``pp`` is the mesh's); without one,
+    ``pp`` above 1 runs that many virtual stages in this process.  Each
+    step is ``llama_loss_and_grads_pp`` over ``microbatches`` microbatches
+    (the batch rounded to a multiple of the data parallel size times
+    them), then the clip over every stage's gradients and AdamW."""
     dev = resolve_device(device)
     rep = reporter()
+    if pp_size(mesh) > 1:
+        if model is not None:
+            raise ValueError("under a pp mesh each process builds its own "
+                             "stage: pass no model")
+        pp = pp_size(mesh)
     if model is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         model = llama_init(cfg, gen, dev, requires_grad=True, mesh=mesh)
     elif mesh is not None:
         shard_llama(model, mesh)
+    if pp > 1 and cfg.n_layers % pp:
+        raise ValueError(f"pp {pp} does not divide n_layers {cfg.n_layers}")
+    full_mesh = mesh
     if mesh is not None:
         mesh = model_mesh(mesh)
     opt = default_optimizer(model.parameters(), lr, weight_decay=0.1)
+    if pp_size(full_mesh) > 1:
+        opt.over_stages(pp_group(full_mesh),
+                        [model.embed, model.final_norm, model.lm_head],
+                        pp_stage(full_mesh) == 0)
     start_step, ckpt = 0, None
     if model_dir:
         ckpt = CheckpointManager(model_dir)
@@ -160,18 +195,26 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
             print(f"Resumed from step {start_step} in {model_dir}",
                   flush=True)
     unit = 1 if mesh is None else data_parallel_size(mesh)
+    if pp > 1:
+        unit *= microbatches
     bs = max(unit, batch_size - batch_size % unit)
     tokens_all = synthetic_tokens(1, max(64, 2 * bs), seq_len,
                                   cfg.vocab_size, dev)
 
     def step(i: int) -> float:
         lo = (i * bs) % max(1, tokens_all.shape[0] - bs + 1)
-        loss = llama_loss(model, tokens_all[lo:lo + bs], cfg, mesh)
-        loss.backward()
+        tokens = tokens_all[lo:lo + bs]
+        if pp > 1:
+            loss, _ = llama_loss_and_grads_pp(
+                model, tokens, cfg, full_mesh, n_microbatches=microbatches,
+                n_stages=pp)
+        else:
+            loss = llama_loss(model, tokens, cfg, mesh)
+            loss.backward()
+            if mesh is not None:
+                loss = loss.to_local()      # replicated: the global mean
         opt.step()
         opt.zero_grad()
-        if mesh is not None:
-            loss = loss.to_local()      # replicated: the global mean
         return float(loss.detach())
 
     prof = contextlib.nullcontext()
@@ -227,11 +270,6 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
                        start_step, ckpt, note)
 
 
-_NOT_PORTED = {
-    "pp": "--pp {}: pipeline parallelism is not ported yet (ROADMAP.md, M8)",
-}
-
-
 def mixtral_8x7b() -> LlamaConfig:
     """mistralai/Mixtral-8x7B-v0.1's config.json widths (32 layers, 8
     experts, top-2), trained as the reference trains: f32 parameters, bf16
@@ -265,7 +303,7 @@ def main(argv=None) -> int:
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline stages (> 1 is not ported yet)")
+                   help="pipeline stages (1F1B over the mesh's pp axis)")
     p.add_argument("--microbatches", type=int, default=4,
                    help="pipeline microbatches per step when --pp > 1")
     p.add_argument("--ep", type=int, default=1,
@@ -326,24 +364,6 @@ def main(argv=None) -> int:
             "sp": args.sp, "pp": args.pp, "ep": args.ep}
     if rt.mesh:
         axes.update({k: v for k, v in rt.mesh.items() if k in axes})
-    for axis, why in _NOT_PORTED.items():
-        if axes[axis] > 1:
-            raise NotImplementedError(why.format(axes[axis]))
-    if args.experts and axes["sp"] > 1:
-        raise NotImplementedError(MOE_UNDER_SP)
-    import torch.distributed as dist
-
-    joined = not dist.is_initialized()
-    rt.initialize(dev)
-    joined = joined and dist.is_initialized()
-    spec = MeshSpec(dp=axes["dp"], fsdp=axes["fsdp"], tp=axes["tp"],
-                    sp=axes["sp"], pp=axes["pp"], ep=axes["ep"])
-    if dist.is_initialized():
-        mesh = build_mesh(spec, dev.type)
-    else:
-        spec.resolve(1)     # one device: an axis above 1 raises here
-        mesh = None
-
     if args.strict_moe_dispatch:
         warnings.filterwarnings("error", message="moe dispatch")
 
@@ -373,13 +393,32 @@ def main(argv=None) -> int:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
 
+    pp = axes["pp"]
+    if pp > 1 and cfg.n_layers % pp:
+        p.error(f"pp {pp} does not divide n_layers {cfg.n_layers}")
+    if pp > 1 and axes["sp"] > 1:
+        raise NotImplementedError(PP_UNDER_SP)
+    import torch.distributed as dist
+
+    joined = not dist.is_initialized()
+    rt.initialize(dev)
+    joined = joined and dist.is_initialized()
+    spec = MeshSpec(dp=axes["dp"], fsdp=axes["fsdp"], tp=axes["tp"],
+                    sp=axes["sp"], pp=axes["pp"], ep=axes["ep"])
+    if dist.is_initialized():
+        mesh = build_mesh(spec, dev.type)
+    else:
+        spec.resolve(1)     # one device: an axis above 1 raises here
+        mesh = None
+
     profile_dir = args.profile_dir
     if profile_dir == "auto":
         profile_dir = os.path.join(rt.log_dir, "trace") if rt.log_dir else ""
     res = train(cfg, steps=args.steps, batch_size=args.batch_size,
                 seq_len=args.seq_len, lr=args.lr, device=dev,
                 profile_dir=profile_dir, model_dir=rt.model_dir,
-                checkpoint_every=args.checkpoint_every, mesh=mesh)
+                checkpoint_every=args.checkpoint_every, mesh=mesh,
+                microbatches=args.microbatches)
     loss = res.losses[-1] if res.losses else float("nan")
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")

@@ -12,7 +12,10 @@ port keeps optax's arithmetic:
   above ``clip`` each gradient becomes ``(g / norm) * clip``, otherwise it
   is left alone (``clip_grad_norm_`` would add 1e-6 to the norm).  A
   DTensor gradient (a sharded model) counts whole: its norm is taken over
-  every shard, so each process clips by the same global norm;
+  every shard, so each process clips by the same global norm; under
+  pipeline parallelism (:meth:`Optimizer.over_stages`) each stage's sum of
+  squares is added over the pp group, a parameter that every stage holds
+  (the embedding, final norm and head) counted on stage 0 only;
 - AdamW with optax's defaults (b1 0.9, b2 0.999, eps 1e-8, ``eps_root``
   0) and decoupled decay on every parameter: ``torch.optim.AdamW`` makes
   the same update, ``p -= lr * (m̂ / (sqrt(v̂) + eps) + wd * p)``;
@@ -93,6 +96,37 @@ class Optimizer:
         self.params: List[torch.nn.Parameter] = list(params)
         self.clip = clip
         self.inner = make(self.params)
+        self.group = None           # the pp group the clip's norm spans
+        self.counted: Optional[set] = None
+
+    def over_stages(self, group, shared: Iterable[torch.nn.Parameter],
+                    first: bool) -> "Optimizer":
+        """Clip by the norm over every pipeline stage: each process's sum
+        of squares is all-gathered over ``group`` (the pp group) and added
+        in stage order.  ``shared`` (the parameters every stage holds) is
+        counted only where ``first`` (stage 0).  Returns self."""
+        skip = set() if first else {id(p) for p in shared}
+        self.group = group
+        self.counted = {id(p) for p in self.params if id(p) not in skip}
+        return self
+
+    def _norm(self, params) -> torch.Tensor:
+        norms = [_whole(torch.linalg.vector_norm(p.grad.float()))
+                 for p in params]
+        if self.group is None:
+            return torch.linalg.vector_norm(torch.stack(norms))
+        import torch.distributed as dist
+
+        local = sum((n.square() for n, p in zip(norms, params)
+                     if id(p) in self.counted),
+                    torch.zeros((), device=norms[0].device))
+        parts = [torch.empty_like(local)
+                 for _ in range(dist.get_world_size(self.group))]
+        dist.all_gather(parts, local, group=self.group)
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total.sqrt()
 
     def step(self) -> Optional[torch.Tensor]:
         """Clip every ``.grad`` by the global norm (when ``clip``), then the
@@ -100,9 +134,9 @@ class Optimizer:
         clipping)."""
         norm = None
         if self.clip:
-            grads = [p.grad for p in self.params if p.grad is not None]
-            norm = torch.linalg.vector_norm(torch.stack(
-                [_whole(torch.linalg.vector_norm(g.float())) for g in grads]))
+            with_grad = [p for p in self.params if p.grad is not None]
+            grads = [p.grad for p in with_grad]
+            norm = self._norm(with_grad)
             if norm >= self.clip:  # one host sync per step
                 for g in grads:
                     g = _local(g)

@@ -41,6 +41,31 @@ results to OUT (``OUT.<rank>`` for ``collectives``) with ``torch.save``:
   the default read, ``kv_block`` 4 and the int8 cache, then a sampled one
   (PARAMS' prompt, temperature, top-k and generator seed), every rank's
   tokens.
+- ``pipeline S TOY``: the toy pipeline in TOY (a pickle of the stacked
+  layer weights, the loss head, the microbatches and targets) over the
+  world's S ranks as pp stages (``GroupPipe``): ``pipeline_1f1b``, with
+  and without the stage penalty, and ``gpipe`` differentiated through a
+  loss; rank 0 then runs the same over S virtual stages in its process
+  (``Lockstep``) and writes both.
+- ``pp PP FSDP EP CONFIG M PARAMS``: ``llama_loss_and_grads_pp`` of the
+  JAX-initialised model in PARAMS (with the tokens), CONFIG ``dense``,
+  ``einsum`` or ``grouped`` (the ``moe`` scenario's widths), on a (PP,
+  FSDP, EP) mesh, each process building its stage with
+  ``llama_init(mesh=)`` and taking its shards of PARAMS: the loss on every
+  rank, every gradient gathered whole (each stage's own), the gradients
+  left off their parameters' placements, the replicated gradients of every
+  pp rank, and each rank's grouped plain-version calls by kind.
+- ``main ARGS...``: ``llama_pretrain.main(ARGS)`` with every clip's
+  global norm recorded: each rank's losses and norms.
+- ``train_pp STEPS [MODEL_DIR [hang]]``: ``train`` as ``train`` does, on a
+  (pp 2) mesh with 2 microbatches; every rank's full parameters, merged
+  by name.
+- ``moe_sp EP SP CF PARAMS``: for each dispatch (grouped, einsum,
+  scatter), one ``llama_loss`` + backward of the JAX-initialised MoE in
+  PARAMS (with the tokens and one FFN call's inputs) on an (EP, SP) mesh,
+  and that FFN call on its own with x sharded over the sequence: the loss,
+  the router stats, the full gradients, the misplaced ones, the FFN's
+  output and stats.
 - ``init DP FSDP EP TP EXPERTS``: ``llama_init(mesh=)`` against
   ``llama_init`` + ``shard_llama`` from one seed (every local shard), and
   the live bytes of the tensors ``llama_pretrain.train(mesh=)`` makes while
@@ -539,13 +564,255 @@ def lockstep(kind: str, full: dict, n: int, causal: bool) -> dict:
                       for k in "qkv"]}
 
 
+def toy_stage(stage, x):
+    """The toy pipeline's stage: tanh(x @ w) over its layers."""
+    for w in stage:
+        x = torch.tanh(x @ w)
+    return x
+
+
+def toy_stage_pen(stage, x):
+    y = toy_stage(stage, x)
+    return y, 0.01 * (y * y).mean()
+
+
+def toy_loss(loss_params, y, target):
+    return ((y @ loss_params[0] - target) ** 2).mean()
+
+
+def toy_run(transport, stages, toy: dict) -> dict:
+    """1F1B without and with the penalty, and gpipe through the loss; the
+    results of this process's stages."""
+    from kubeflow_controller_tpu_torch.parallel import pipeline as pl
+
+    head = torch.from_numpy(toy["head"]).requires_grad_()
+    x = torch.from_numpy(toy["x"])
+    targets = torch.from_numpy(toy["targets"])
+    res = {}
+    for name, fn, aux in (("1f1b", toy_stage, False),
+                          ("1f1b_pen", toy_stage_pen, True)):
+        res[name] = pl.pipeline_1f1b(fn, stages, x, toy_loss, [head],
+                                     targets, transport, stage_aux=aux)
+    xg = x.clone().requires_grad_()
+    out = pl.gpipe(toy_stage, stages, xg, transport)
+    loss = sum(toy_loss([head], out[m], targets[m])
+               for m in range(x.shape[0])) / x.shape[0]
+    grads = torch.autograd.grad(loss, [*stages, head, xg])
+    res["gpipe"] = (loss.detach(), grads[:len(stages)], grads[-2],
+                    grads[-1], out.detach())
+    return res
+
+
+def pipeline(out: str, n: str, toy_path: str) -> None:
+    from kubeflow_controller_tpu_torch.parallel import pipeline as pl
+
+    n = int(n)
+    with open(toy_path, "rb") as fh:
+        toy = pickle.load(fh)
+    mesh = build_mesh(MeshSpec(pp=n, fsdp=1), "cpu")
+    w = torch.from_numpy(toy["w"]).requires_grad_()
+    stages = pl.split_stages(w, n)
+    rank = dist.get_rank()
+    res = toy_run(pl.GroupPipe(mesh.get_group("pp"), "cpu"),
+                  [stages[rank]], toy)
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, res)
+    if rank == 0:
+        w = torch.from_numpy(toy["w"]).requires_grad_()
+        local = toy_run(pl.Lockstep(n), pl.split_stages(w, n), toy)
+        torch.save({"group": everyone, "lockstep": local}, out)
+
+
+def _load_stage(model, params: dict) -> None:
+    """Each parameter of ``model`` (a stage's, sharded) set to its shard
+    of the full array of the same name in ``params``."""
+    from torch.distributed.tensor import DTensor
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            full = torch.from_numpy(params[name])
+            if isinstance(p, DTensor):
+                full = llama._distribute(full, p.device_mesh,
+                                         p.placements).to_local()
+                p.to_local().copy_(full)
+            else:
+                p.copy_(full)
+
+
+def _port_names(tree) -> dict:
+    out = {k: tree[k] for k in ("embed", "final_norm", "lm_head")}
+    for key, stacked in tree["layers"].items():
+        for i, a in enumerate(stacked):
+            out[f"layers.{i}.{key}"] = a
+    return out
+
+
+PP_CONFIGS = {"dense": {}, "einsum": dict(MOE, moe_dispatch="einsum"),
+              "grouped": dict(MOE, moe_dispatch="grouped")}
+
+
+def pp(out: str, pp_: str, fsdp: str, ep: str, config: str, m: str,
+       params_path: str) -> None:
+    import contextlib
+
+    from kubeflow_controller_tpu_torch.ops import grouped_matmul as gm
+
+    with open(params_path, "rb") as fh:
+        params, tokens = pickle.load(fh)
+    mesh = build_mesh(MeshSpec(pp=int(pp_), fsdp=int(fsdp), ep=int(ep)),
+                      "cpu")
+    cfg = llama.LlamaConfig.tiny(attention="flash", **PP_CONFIGS[config])
+    model = llama.llama_init(cfg, torch.Generator().manual_seed(0), "cpu",
+                             requires_grad=True, mesh=mesh)
+    _load_stage(model, _port_names(params))
+    calls = {"gmm": 0, "gmm_skip": 0, "tgmm": 0, "tgmm_skip": 0,
+             "gmm_swiglu": 0}
+
+    def counted(name, real):
+        def plain(*args, **kwargs):
+            at = 4 if name == "gmm" else 5
+            skip = (len(args) > at and args[at] is not None) or (
+                kwargs.get("valid_tiles") is not None)
+            calls[name + ("_skip" if skip else "")] += 1
+            return real(*args, **kwargs)
+        return plain
+
+    with contextlib.ExitStack() as stack:
+        for name in ("gmm", "tgmm"):
+            stack.enter_context(mock.patch.object(
+                gm, f"{name}_plain", counted(name,
+                                             getattr(gm, f"{name}_plain"))))
+
+        def swiglu(*args, _real=gm.gmm_swiglu_plain, **kwargs):
+            calls["gmm_swiglu"] += 1
+            return _real(*args, **kwargs)
+        stack.enter_context(mock.patch.object(gm, "gmm_swiglu_plain",
+                                              swiglu))
+        loss, grads = llama.llama_loss_and_grads_pp(
+            model, torch.from_numpy(tokens).long(), cfg, mesh,
+            n_microbatches=int(m))
+    full = {n: g.full_tensor().numpy() for n, g in grads.items()}
+    shared = {n: full[n] for n in ("embed", "final_norm", "lm_head")}
+    misplaced = [n for n, p in model.named_parameters()
+                 if p.grad.placements != p.placements]
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, {
+        "rank": dist.get_rank(), "loss": float(loss), "grads": full,
+        "shared": shared, "misplaced": misplaced, "calls": dict(calls),
+        "stage": llama.pp_stage(mesh)})
+    if dist.get_rank() == 0:
+        merged = {}
+        for r in everyone:
+            merged.update(r["grads"])
+        torch.save({"grads": merged, "ranks": everyone}, out)
+
+
+def main_run(out: str, *args: str) -> None:
+    from kubeflow_controller_tpu_torch.workloads import trainer
+
+    norms, runs = [], []
+    real_step, real_train = trainer.Optimizer.step, llama_pretrain.train
+
+    def step_(self):
+        norm = real_step(self)
+        norms.append(float(norm))
+        return norm
+
+    def train_(*a, **k):
+        runs.append(real_train(*a, **k))
+        return runs[-1]
+
+    with mock.patch.object(trainer.Optimizer, "step", step_), \
+            mock.patch.object(llama_pretrain, "train", train_):
+        llama_pretrain.main(list(args))
+    # main has left the gang: the result goes to a file a rank.
+    torch.save({"losses": runs[0].losses, "norms": norms},
+               f"{out}.{JobRuntime.from_env().process_id}")
+
+
+def train_pp(out: str, steps: str, model_dir: str = "",
+             hang: str = "") -> None:
+    mesh = build_mesh(MeshSpec(pp=2, fsdp=-1), "cpu")
+    cfg = llama.LlamaConfig.tiny(max_seq_len=32)
+    res = llama_pretrain.train(cfg, steps=int(steps), batch_size=2,
+                               seq_len=32, device="cpu", seed=0,
+                               model_dir=model_dir, checkpoint_every=2,
+                               mesh=mesh, microbatches=2)
+    params = {n: p.full_tensor().detach().numpy()
+              for n, p in res.model.named_parameters()}
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, params)
+    if dist.get_rank() == 0:
+        merged = {}
+        for r in everyone:
+            merged.update(r)
+        torch.save({"losses": res.losses, "start": res.start_step,
+                    "params": merged}, out)
+    if hang:
+        res.step(res.start_step + int(steps))   # a step past the save
+        print("past the checkpoint", flush=True)
+        time.sleep(600)                          # until killed
+
+
+def moe_sp(out: str, ep: str, sp: str, cf: str, params_path: str) -> None:
+    from torch.distributed.tensor import DTensor
+
+    from kubeflow_controller_tpu_torch.models import moe as tmoe
+    from kubeflow_controller_tpu_torch.parallel.sharding import (
+        placements_for,
+    )
+
+    with open(params_path, "rb") as fh:
+        params, tokens, ffn = pickle.load(fh)
+    mesh = build_mesh(MeshSpec(fsdp=1, ep=int(ep), sp=int(sp)), "cpu")
+    sub = llama.model_mesh(mesh)
+    tokens = bridge.tokens_from_jax(tokens, "cpu")
+    res = {}
+    for dispatch in ("grouped", "einsum", "scatter"):
+        cfg = moe_config("none", dispatch, cf)
+        model = llama.shard_llama(bridge.llama_from_jax(
+            params, cfg, device="cpu", requires_grad=True), mesh)
+        with torch.no_grad():
+            _, aux = llama.llama_forward(model, tokens, cfg, mesh,
+                                         return_aux=True)
+        loss = llama.llama_loss(model, tokens, cfg, mesh)
+        loss.backward()
+        x, router, wg, wu, wd = (torch.from_numpy(a) for a in ffn)
+        y, stats = tmoe.moe_ffn_stats(
+            llama.stage_tokens(x, sub), DTensor.from_local(
+                router, sub, placements_for((), sub), run_check=False),
+            *(llama._distribute(w, sub, placements_for(axes, sub))
+              for w, axes in ((wg, ("expert", None, "mlp")),
+                              (wu, ("expert", None, "mlp")),
+                              (wd, ("expert", "mlp", None)))),
+            top_k=2, capacity_factor=float(cf), dispatch=dispatch, mesh=sub)
+        res[dispatch] = {
+            "loss": float(loss.to_local()),
+            "aux": {k: float(v.full_tensor()) for k, v in aux.items()},
+            "grads": {n: p.grad.full_tensor().numpy()
+                      for n, p in model.named_parameters()},
+            "misplaced": [n for n, p in model.named_parameters()
+                          if p.grad.placements != p.placements],
+            "ffn_y": y.full_tensor().detach().numpy(),
+            "ffn_stats": {k: float(v.full_tensor())
+                          for k, v in stats.items()},
+            "x_placements": [str(pl) for pl in
+                             llama.stage_tokens(x, sub).placements]}
+    if dist.get_rank() == 0:
+        torch.save(res, out)
+
+
 def main(argv) -> int:
     rt = JobRuntime.from_env()
-    rt.initialize("cpu", timeout_s=120)
     scenario, out, *rest = argv
+    if scenario == "main":      # main joins and leaves the gang itself
+        main_run(out, *rest)
+        return 0
+    rt.initialize("cpu", timeout_s=120)
     {"collectives": collectives, "step": step, "train": train, "moe": moe,
-     "init": init, "seqpar": seqpar, "generate": generate}[scenario](
-         out, *rest)
+     "init": init, "seqpar": seqpar, "generate": generate,
+     "pipeline": pipeline, "pp": pp, "train_pp": train_pp,
+     "moe_sp": moe_sp}[scenario](out, *rest)
     rt.shutdown()
     return 0
 

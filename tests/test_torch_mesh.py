@@ -112,6 +112,12 @@ def test_bare_string_leaf_is_rejected():
 class FakeMesh:
     mesh_dim_names = ("dp", "fsdp", "tp")
 
+    def __init__(self, sizes=(2, 2, 2)):
+        self.sizes = sizes
+
+    def size(self, i):
+        return self.sizes[i]
+
 
 def test_placements_for():
     from torch.distributed.tensor import Replicate, Shard
@@ -127,6 +133,10 @@ def test_placements_for():
     assert tsharding.placements_for(("embed", "vocab"), m) == [
         Replicate(), Shard(0), Shard(1)]
     assert tsharding.placements_for((), m) == [Replicate()] * 3
+    # A mesh dim of size 1 splits nothing: it replicates.
+    assert tsharding.placements_for(("batch", "seq", None),
+                                    FakeMesh((1, 2, 2))) == [
+        Replicate(), Shard(0), Replicate()]
 
 
 def test_constraint_is_a_noop_outside_a_mesh():

@@ -17,12 +17,20 @@
   ring attention: the CPU mirror of ``examples/jobs/llama-sp.yaml``): each
   worker holds half of every sequence; both reach ``Succeeded``, print the
   sp-2 mesh line and the final loss of one process within 1e-5 relative.
+- The same 2-Worker TFJob under pipeline parallelism, with the flags of
+  ``examples/jobs/llama-pp.yaml`` (``--pp 2 --microbatches 8 --fsdp -1
+  --checkpoint-every 100``): each worker holds one of the two layers and
+  runs the 1F1B schedule over the pp group; both reach ``Succeeded``,
+  print the pp-2 mesh line and the final loss of one process within 1e-5
+  relative.
 - A sharded kill-and-resume (the pattern of
   ``tests/test_torch_checkpoint.py``): two gloo ranks under fsdp 2 train 2
   steps with ``MODEL_DIR`` (saving step 2 collectively, each rank its own
   shards), run a third step and are killed (SIGKILL); two fresh ranks
   resume from step 2 to step 4.  Every loss and the final parameters are
-  bit-identical to an uninterrupted 4-step run's.
+  bit-identical to an uninterrupted 4-step run's.  The same under pp 2
+  (each rank saving its own stage's layers and optimizer state, the
+  embedding and head once).
 """
 
 import os
@@ -53,6 +61,8 @@ MOE_ONE = ONE + ("--experts", "8", "--moe-dispatch", "grouped",
                  "--strict-moe-dispatch")
 MOE_ARGS = MOE_ONE + ("--ep", "2", "--fsdp", "1")
 SP_ARGS = ONE + ("--sp", "2", "--fsdp", "1")
+PP_ARGS = ONE + ("--pp", "2", "--microbatches", "8", "--fsdp", "-1",
+                 "--checkpoint-every", "100")
 
 
 def llama_job(name, args=ARGS):
@@ -112,6 +122,12 @@ def test_two_worker_sp_pretrain_job_succeeds(rig, capsys, monkeypatch):
                        ONE, "'fsdp': 1, 'ep': 1, 'sp': 2, 'tp': 1}")
 
 
+def test_two_worker_pp_pretrain_job_succeeds(rig, capsys, monkeypatch):
+    run_two_worker_job(rig, capsys, monkeypatch, "torch-llama-pp", PP_ARGS,
+                       ONE, "{'pp': 2, 'dp': 1, 'fsdp': 1, 'ep': 1, 'sp': 1, "
+                       "'tp': 1}")
+
+
 def run_two_worker_job(rig, capsys, monkeypatch, name, args, one_args,
                        mesh_line):
     """The 2-Worker TFJob running ``llama_pretrain`` with ``args`` under
@@ -156,11 +172,21 @@ def wait_for(proc, text, timeout):
 
 
 def test_sharded_kill_and_resume_is_bit_identical(tmp_path):
+    kill_and_resume("train", tmp_path)
+
+
+def test_pp_kill_and_resume_is_bit_identical(tmp_path):
+    kill_and_resume("train_pp", tmp_path)
+
+
+def kill_and_resume(scenario, tmp_path):
+    """Two ranks of ``scenario`` killed after saving step 2 and resumed to
+    step 4, against 4 uninterrupted steps."""
     whole, first, second = (str(tmp_path / n) for n in ("whole", "first",
                                                          "second"))
     model_dir = str(tmp_path / "ckpt")
-    uninterrupted = start_ranks(2, "train", whole, "4")
-    procs = start_ranks(2, "train", first, "2", model_dir, "hang")
+    uninterrupted = start_ranks(2, scenario, whole, "4")
+    procs = start_ranks(2, scenario, first, "2", model_dir, "hang")
     try:
         for p in procs:
             wait_for(p, "past the checkpoint", 150)
@@ -174,7 +200,7 @@ def test_sharded_kill_and_resume_is_bit_identical(tmp_path):
                     if f.endswith(".distcp"))
     assert len(shards) == 2, shards      # each rank wrote its own
 
-    run_ranks(2, "train", second, "2", model_dir)
+    run_ranks(2, scenario, second, "2", model_dir)
     w, a, b = (torch.load(x, weights_only=False) for x in (whole, first,
                                                            second))
     assert a["start"] == 0 and b["start"] == 2

@@ -276,24 +276,31 @@ def test_main_trains_moe_on_the_cpu(capsys, monkeypatch):
 
 @pytest.mark.parametrize("argv,env,error,match", [
     (["--sp", "2"], {}, ValueError, "devices"),
-    (["--pp", "2"], {}, NotImplementedError, "ROADMAP.md, M8"),
+    (["--pp", "2"], {}, ValueError, "devices"),
     ([], {"KCTPU_MESH": '{"sp": 2}'}, ValueError, "devices"),
-    (["--experts", "4", "--sp", "2"], {}, NotImplementedError,
-     "ROADMAP.md, M3b"),
+    (["--experts", "4", "--sp", "2"], {}, ValueError, "devices"),
 ], ids=["sp", "pp", "env-mesh-sp", "sp-experts"])
 def test_main_refuses_what_is_not_ported(argv, env, error, match,
                                          monkeypatch):
-    """Refused before any join: pp (M8) and MoE under sp (M3b).  ``--sp``
-    trains now (over gloo ranks: tests/test_torch_sp_train.py,
-    tests/test_torch_mesh_tfjob.py), so without a group it asks for more
-    devices than the one there is, from the flag or from $KCTPU_MESH, and
-    raises the reference's mesh error."""
+    """``--sp``, ``--pp`` and MoE under ``--sp`` train now (over gloo
+    ranks: tests/test_torch_sp_train.py, tests/test_torch_pp_train.py,
+    tests/test_torch_moe_sp.py, tests/test_torch_mesh_tfjob.py), so
+    without a group each asks for more devices than the one there is, from
+    the flag or from $KCTPU_MESH, and raises the reference's mesh error.
+    What is still refused before any join: pp with sp (M8c), and a pp that
+    does not divide the layers (the reference's parser error)."""
     for name in ("MODEL_DIR", "KCTPU_MESH", "JAX_NUM_PROCESSES"):
         monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
         monkeypatch.setenv(name, value)
     with pytest.raises(error, match=match):
         tpre.main(["--device", "cpu", "--steps", "1", *argv])
+    if argv == ["--pp", "2"]:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, M8c"):
+            tpre.main(["--device", "cpu", "--steps", "1", "--pp", "2",
+                       "--sp", "2"])
+        with pytest.raises(SystemExit):
+            tpre.main(["--device", "cpu", "--steps", "1", "--pp", "3"])
 
 
 @pytest.mark.parametrize("argv", [["--tp", "2"], ["--fsdp", "2"],
@@ -400,18 +407,28 @@ def sp_attention_taken(sp_attention: str):
 
 @pytest.mark.parametrize("axis,module", [("sp", "M3"), ("pp", "M8")])
 def test_not_ported_paths_raise(axis, module):
-    """What is still not ported raises, naming its ROADMAP module: a pp
-    axis above 1, MoE under an sp axis above 1 (M3b); a policy no one
-    defines is a ValueError.  A dense model under sp takes ring or
-    Ulysses attention, as ``cfg.sp_attention`` says.  (The named remat
-    policies, dp/fsdp/ep/sp/tp and MoE under a mesh run now:
+    """What each path refuses: a pp axis above 1 through ``llama_forward``
+    or ``llama_loss`` raises, pointing to the pipelined calls (M8); pp
+    with an sp axis above 1 raises ``NotImplementedError`` naming its
+    ROADMAP module (M8c), MoE under sp included (that runs without pp,
+    M3b: tests/test_torch_moe_sp.py); a policy no one defines is a
+    ValueError.  A dense model under sp takes ring or Ulysses attention, as
+    ``cfg.sp_attention`` says.  (The named remat policies,
+    dp/fsdp/ep/sp/tp/pp and MoE under a mesh run:
     tests/test_torch_remat.py, tests/test_torch_mesh_train.py,
-    tests/test_torch_sp_train.py, tests/test_torch_moe_mesh.py.)"""
+    tests/test_torch_sp_train.py, tests/test_torch_moe_mesh.py,
+    tests/test_torch_pp_train.py.)"""
     cfg = tllama.LlamaConfig.tiny(n_experts=4 if axis == "sp" else 0)
     model = tllama.Llama(cfg, device="cpu", requires_grad=True)
     tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {module}"):
-        tllama.llama_forward(model, tokens, cfg, mesh=FakeMesh(**{axis: 2}))
+    if axis == "pp":
+        for fn in (tllama.llama_forward, tllama.llama_loss):
+            with pytest.raises(ValueError, match="llama_forward_pp"):
+                fn(model, tokens, cfg, mesh=FakeMesh(pp=2))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, M8c"):
+        with mock.patch.object(tllama, "model_mesh", lambda mesh: mesh):
+            tllama.llama_loss_and_grads_pp(model, tokens, cfg,
+                                           mesh=FakeMesh(pp=2, sp=2))
     if axis == "sp":
         assert sp_attention_taken("ring") == "ring"
         assert sp_attention_taken("ulysses") == "ulysses"

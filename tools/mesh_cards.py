@@ -43,6 +43,31 @@ command with no gang.
     python3 tools/mesh_cards.py --experts 8 [--meshes 1,1,4,1 1,2,2,1]
     python3 tools/mesh_cards.py --sp [--meshes 1,4,ring 1,4,ulysses ...]
     python3 tools/mesh_cards.py --generate [--meshes 1,4 2,2]
+    python3 tools/mesh_cards.py --pp
+    python3 tools/mesh_cards.py --sp --experts 8 [--meshes 2,2]
+    python3 tools/mesh_cards.py --fake-pg [--device-type cpu]
+
+- ``--pp``: pipeline parallelism (1F1B, ``llama_pretrain --pp S
+  --microbatches M``).  Llama-2-7B widths at 8 layers, global batch 8 x T
+  4096, 3 steps, under (pp 4) M 8 and (pp 2, fsdp 2) M 4 (a one-row
+  microbatch cannot split over fsdp 2), each against one card's non-pp
+  run at the same batch (losses within ``PP_LOSS_RTOL``, every rank's
+  equal to rank 0's, each rank's flash launches those of its stage's
+  layers: 3 forward, 1 dq and 1 dkv a layer a microbatch); then (pp 4) at
+  all 32 layers, M 8, the run no one card holds, with one more step
+  profiled on every rank (``torch.profiler``: the step's wall ms, the
+  device's compute-busy ms without the nccl kernels, its idle share
+  beside the 1F1B bubble (2S - 2) / (M + 2S - 2)); then config B3, (pp
+  2, ep 2) on the Mixtral-width MoE, 2 layers, M 2, each rank's skip
+  launches of ``gmm`` and ``tgmm`` against 12 and 3 a layer a
+  microbatch.
+- ``--sp --experts 8``: MoE under sequence parallelism, the Mixtral-width
+  MoE at 2 layers, B 1 x T 8192, grouped, under (ep 2, sp 2) (``ep,sp``
+  meshes) against one card: losses within ``PP_LOSS_RTOL``, ranks equal.
+- ``--fake-pg``: each pp mesh's first and last rank alone under torch's
+  fake process group (collectives do nothing, DTensor's propagation runs
+  in full) at tiny widths in bf16: a one-card check that this torch
+  propagates every op of the stage step, before the 4-card call.
 
 Prints the card line, then one JSON line per run: the mesh, every rank's
 exit code, rank 0's per-step losses and their largest relative
@@ -89,6 +114,25 @@ GEN_LOGITS_EVERY = 64       # prefill positions kept: every 64th and the last
 # Their f32 logits against one card's: the sharded sums only reorder f32
 # products, which moves them by ~2e-5 of max on an H100.
 GEN_LOGITS_REL_TOL = 1e-3
+PP_RUNS = (("pp4", ["--pp", "4", "--fsdp", "1", "--microbatches", "8"]),
+           ("pp2_fsdp2", ["--pp", "2", "--fsdp", "2", "--microbatches",
+                          "4"]))
+PP32_ARGV = ["--preset", "llama2-7b", "--n-layers", "32", "--batch-size",
+             "8", "--seq-len", "4096", "--steps", "3"]
+PP32_RUN = ["--pp", "4", "--fsdp", "1", "--microbatches", "8",
+            "--profile-step"]
+B3_RUN = ["--experts", "8", "--pp", "2", "--ep", "2", "--fsdp", "1",
+          "--microbatches", "2"]
+PP_LOSS_RTOL = 1e-3
+# Launches a layer a microbatch of a 1F1B step under remat "full" (the
+# stage forward, its re-run, the layer's recompute; chip_smoke.py).
+PP_FLASH_PER_LAYER = {"flash_fwd": 3, "flash_dq": 1, "flash_dkv": 1}
+PP_SKIP_PER_LAYER = {"gmm": 12, "tgmm": 3}
+MOE_SP_ARGV = ["--preset", "mixtral-8x7b", "--n-layers", "2", "--top-k",
+               "2", "--moe-dispatch", "grouped", "--strict-moe-dispatch",
+               "--batch-size", "1", "--seq-len", "8192", "--steps", "3"]
+MOE_SP_MESHES = ("2,2",)                # ep,sp
+FAKE_MESHES = (("pp4", 4, 1, (0, 3)), ("pp2_fsdp2", 2, 2, (0, 3)))
 
 
 def child(argv) -> int:
@@ -103,12 +147,20 @@ def child(argv) -> int:
     from kubeflow_controller_tpu_torch.ops import attention
     from kubeflow_controller_tpu_torch.workloads import llama_pretrain
 
-    runs, layouts = [], []
+    from kubeflow_controller_tpu_torch.ops import grouped_matmul as gm
+
+    runs, layouts, profiles = [], [], []
     real = llama_pretrain.train
     real_layout = moe.grouped_layout
+    profile_step = "--profile-step" in argv
+    argv = [a for a in argv if a != "--profile-step"]
 
     def recording(*args, **kwargs):
         runs.append(real(*args, **kwargs))
+        if profile_step:    # one more step, before main leaves the gang
+            res = runs[-1]
+            profiles.append(profiled(lambda: res.step(
+                res.start_step + len(res.losses))))
         return runs[-1]
 
     def layout(*args, **kwargs):
@@ -127,11 +179,87 @@ def child(argv) -> int:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "flash_launches": {name: getattr(attention, name).launches
                            for name in FLASH_KERNELS},
+        "grouped_launches": {"gmm": gm.gmm.launches,
+                             "gmm_skip": gm.gmm.skip_launches,
+                             "gmm_swiglu": gm.gmm_swiglu.launches,
+                             "tgmm": gm.tgmm.launches,
+                             "tgmm_skip": gm.tgmm.skip_launches},
+        "profile": profiles[0] if profiles else None,
         "layouts": [{"M": m, "tiles": m // bm, "valid_tiles":
                      None if vt is None else int(vt.item())}
                     for m, bm, vt in layouts[:layers]]}),
         flush=True)
     return rc
+
+
+def profiled(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall ms (ending
+    in a device sync), the device's compute-busy ms (every kernel but
+    nccl's, which wait on the device for their peer), nccl's ms, and the
+    compute idle share."""
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    nccl = sum(e.self_device_time_total for e in kernels
+               if "nccl" in e.key.lower()) / 1e3
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 - nccl
+    return {"wall_ms": wall, "compute_busy_ms": busy, "nccl_ms": nccl,
+            "compute_idle_share": 1 - busy / wall if kernels else None}
+
+
+def fake_child(argv) -> int:
+    """One rank of a pp mesh alone under torch's fake process group:
+    ``PP FSDP RANK DEVICE_TYPE``; two steps of the tiny model in bf16."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from kubeflow_controller_tpu_torch.models.llama import LlamaConfig
+    from kubeflow_controller_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+    from kubeflow_controller_tpu_torch.workloads import llama_pretrain
+
+    pp, fsdp, rank, device_type = argv
+    pp, fsdp, rank = int(pp), int(fsdp), int(rank)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=pp * fsdp)
+    mesh = build_mesh(MeshSpec(pp=pp, fsdp=fsdp), device_type)
+    cfg = LlamaConfig.tiny(n_layers=4, dtype="bfloat16", attention="flash")
+    device = "cuda:0" if device_type == "cuda" else "cpu"
+    res = llama_pretrain.train(cfg, steps=2, batch_size=8, seq_len=64,
+                               device=device, mesh=mesh, microbatches=4)
+    print("RESULT " + json.dumps({"rc": 0, "losses": res.losses}),
+          flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def fake_main(args) -> int:
+    """Each ``FAKE_MESHES`` rank alone under the fake process group."""
+    failed = False
+    for label, pp, fsdp, ranks in FAKE_MESHES:
+        for rank in ranks:
+            [(rc, rec)] = run([str(pp), str(fsdp), str(rank),
+                               args.device_type], 1, [], args.timeout,
+                              args.device_type, mode="--fake-child")
+            print(json.dumps({"fake_pg": label, "rank": rank, "rc": rc,
+                              "losses": rec and rec["losses"]}), flush=True)
+            failed |= rc != 0
+    return 1 if failed else 0
 
 
 def generate_child(argv) -> int:
@@ -290,9 +418,10 @@ def free_port() -> int:
 
 
 def run(argv, ranks: int, mesh_args, timeout: float,
-        device_type: str = "cuda") -> list:
-    """``ranks`` processes of this script's child; their RESULT records
-    (None for a rank that printed none) and exit codes."""
+        device_type: str = "cuda", mode: str = "") -> list:
+    """``ranks`` processes of this script's child (``mode``: its flag, by
+    default ``--child``, or ``--generate-child`` as ``argv`` starts); their
+    RESULT records (None for a rank that printed none) and exit codes."""
     port = free_port()
     procs = []
     for r in range(ranks):
@@ -304,11 +433,13 @@ def run(argv, ranks: int, mesh_args, timeout: float,
                        JAX_NUM_PROCESSES=str(ranks), JAX_PROCESS_ID=str(r))
         if device_type == "cpu":
             env["OMP_NUM_THREADS"] = "1"
-        child = ([] if argv[:1] == ["--generate-child"] else ["--child"])
+        child = ([] if argv[:1] == ["--generate-child"]
+                 else [mode or "--child"])
         device = f"cuda:{r}" if device_type == "cuda" else "cpu"
+        tail = [] if mode else ["--device", device]
         procs.append(subprocess.Popen(
-            [sys.executable, __file__, *child, *argv, *mesh_args,
-             "--device", device], cwd=HERE, env=env,
+            [sys.executable, __file__, *child, *argv, *mesh_args, *tail],
+            cwd=HERE, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     out = []
     for p in procs:
@@ -341,6 +472,12 @@ def main(argv=None) -> int:
     ap.add_argument("--generate", action="store_true",
                     help="cached generation, Llama-2-7B at 32 layers: "
                          "meshes dp,tp")
+    ap.add_argument("--pp", action="store_true",
+                    help="pipeline parallelism: (pp 4), (pp 2, fsdp 2) at 8 "
+                         "layers, (pp 4) at 32, config B3")
+    ap.add_argument("--fake-pg", action="store_true",
+                    help="each pp mesh's first and last rank alone under "
+                         "the fake process group")
     ap.add_argument("--preset", default="llama2-7b",
                     help="--generate's model: llama2-7b, or tiny for a "
                          "rehearsal")
@@ -352,9 +489,15 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--generate-child", nargs=argparse.REMAINDER,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--fake-child", nargs=argparse.REMAINDER,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child is not None:
         return child(args.child)
+    if args.fake_child is not None:
+        return fake_child(args.fake_child)
+    if args.fake_pg:
+        return fake_main(args)
     if args.generate_child is not None:
         return generate_child(args.generate_child)
     if args.generate and args.device_type == "cpu":
@@ -364,6 +507,10 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     print(card[0], f"x {len(card)}", flush=True)
+    if args.pp:
+        return pp_main(args)
+    if args.sp and args.experts:
+        return moe_sp_main(args)
     if args.sp:
         return sp_main(args)
     if args.generate:
@@ -406,6 +553,91 @@ def main(argv=None) -> int:
             "layout_tiles": (rec0.get("layouts") or [{}])[0].get("tiles")}),
             flush=True)
         failed |= any(rcs) or not agree
+    return 1 if failed else 0
+
+
+def arg(argv, flag: str) -> int:
+    return int(argv[argv.index(flag) + 1])
+
+
+def compare(label, one, res, extra=None) -> bool:
+    """Print one run against the one-card run; whether it failed (a rank's
+    exit code, losses off the one card's by more than ``PP_LOSS_RTOL``, a
+    rank's losses off rank 0's)."""
+    rcs = [rc for rc, _ in res]
+    recs = [rec or {} for _, rec in res]
+    losses = recs[0].get("losses", [])
+    rel = (max((abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])),
+               default=None) if one and losses else None)
+    agree = all(r.get("losses") == losses for r in recs)
+    steps = recs[0].get("step_ms", [])
+    print(json.dumps({
+        "run": label, "rcs": rcs, "losses": losses,
+        "losses_one_card": one and one["losses"], "loss_rel_diff_max": rel,
+        "tol": PP_LOSS_RTOL, "ranks_agree": agree, "step_ms": steps,
+        "step_ms_p50": statistics.median(steps) if steps else None,
+        "step_ms_p50_one_card": one and statistics.median(one["step_ms"]),
+        "peak_mem_gb": [r.get("peak_mem_gb") for r in recs],
+        "peak_mem_gb_one_card": one and one["peak_mem_gb"],
+        **(extra or {})}), flush=True)
+    return (any(rcs) or not agree or (one is not None and (
+        rel is None or rel > PP_LOSS_RTOL)))
+
+
+def pp_main(args) -> int:
+    """The ``--pp`` runs (see the docstring)."""
+    [(rc, one)] = run(ARGV, 1, [], args.timeout)
+    failed = rc != 0
+    if one is not None:
+        print(json.dumps({"run": "one card", **one}), flush=True)
+    layers, steps = arg(ARGV, "--n-layers"), arg(ARGV, "--steps")
+    for label, extra in PP_RUNS:
+        res = run(ARGV, args.cards, extra, args.timeout)
+        S, M = arg(extra, "--pp"), arg(extra, "--microbatches")
+        want = {k: v * (layers // S) * M * steps
+                for k, v in PP_FLASH_PER_LAYER.items()}
+        got = [(rec or {}).get("flash_launches") for _, rec in res]
+        failed |= compare(label, one, res, {
+            "flash_launches_by_rank": got,
+            "flash_launches_predicted": want,
+            "bubble_share": (2 * S - 2) / (M + 2 * S - 2)})
+        failed |= any(g != want for g in got)
+    res = run(PP32_ARGV, args.cards, PP32_RUN, args.timeout)
+    S, M = arg(PP32_RUN, "--pp"), arg(PP32_RUN, "--microbatches")
+    failed |= compare("pp4_32_layers", None, res, {
+        "profile_by_rank": [(rec or {}).get("profile") for _, rec in res],
+        "bubble_share": (2 * S - 2) / (M + 2 * S - 2)})
+    moe_argv = MOE_ARGV + B3_RUN
+    res = run(moe_argv, args.cards, [], args.timeout)
+    M = arg(B3_RUN, "--microbatches")
+    per_stage = arg(MOE_ARGV, "--n-layers") // arg(B3_RUN, "--pp")
+    want = {f"{k}_skip": v * per_stage * M * arg(MOE_ARGV, "--steps")
+            for k, v in PP_SKIP_PER_LAYER.items()}
+    got = [(rec or {}).get("grouped_launches") for _, rec in res]
+    failed |= compare("b3_pp2_ep2", None, res, {
+        "grouped_launches_by_rank": got, "skip_predicted": want})
+    failed |= any(g is None or any(g[k] != v for k, v in want.items())
+                  or g["gmm_swiglu"] for g in got)
+    return 1 if failed else 0
+
+
+def moe_sp_main(args) -> int:
+    """``--sp --experts E``: MoE under (ep, sp) against one card."""
+    argv = MOE_SP_ARGV + ["--experts", str(args.experts)]
+    [(rc, one)] = run(argv, 1, [], args.timeout)
+    failed = rc != 0
+    if one is not None:
+        print(json.dumps({"run": "one card", **one}), flush=True)
+    for spec in args.meshes or list(MOE_SP_MESHES):
+        ep, sp = (int(x) for x in spec.split(","))
+        if ep * sp != args.cards:
+            raise SystemExit(f"mesh {spec} is not ep,sp over {args.cards} "
+                             f"cards")
+        res = run(argv, args.cards, ["--ep", str(ep), "--sp", str(sp),
+                                     "--fsdp", "1"], args.timeout)
+        failed |= compare(f"ep{ep}_sp{sp}", one, res, {
+            "valid_tiles_by_rank": [(rec or {}).get("layouts")
+                                    for _, rec in res]})
     return 1 if failed else 0
 
 
