@@ -293,7 +293,29 @@ Phases, in order (any failure raises and exits non-zero):
    ``llama_loss`` with its router penalties (the same limits), then 3
    steps at M 2; ``gmm``/``gmm_swiglu``/``tgmm`` and flash launches exact
    (``PP_MOE_LAUNCHES_PER_LAYER``).
-21. The card's name and power limit, the ``kernels`` JSON line (launches
+21. the graft-entry hooks and the workload traces.  21a:
+   ``graft_entry.entry()`` with no device, so on the card: the flagship
+   forward's logits [2, 64, 512] f32, finite, and its ms.  21b: under one
+   job's trace context and dir (``$KCTPU_TRACE_CONTEXT``,
+   ``$KCTPU_TRACE_DIR``) and a file-drop reporter, three child processes
+   at once as the node agent starts them: ``llama_pretrain --preset tiny
+   --steps 2``, ``mnist_dist --steps 20`` and ``mnist_local --steps 20``
+   on the card.  Their dumps (one event a span id, as the controller's
+   merge keeps them) must be one tree under the context (every span of
+   its trace, each parent a span of the dumps or the context's root
+   span), holding exactly ``workload/compile`` with source "cache-hit"
+   (phase 1 built the library), ``workload/first_step`` three times (the
+   pretrain's first beat, the dist step loop's span and its first beat),
+   the dist fit's spans (``workload/rendezvous``, ``workload/init``,
+   ``workload/fit`` twice, ``workload/stage``, ``workload/host_setup``)
+   and ``workload/train``.  21c: phase 5's 8 requests, on a
+   ``LlamaBackend`` at Mixtral-8x7B widths cut to 2 layers, through a
+   ``ServeEngine`` built under a trace context: 8 ``serve/request`` spans
+   under the context's root, each with ``serve/queue_wait``,
+   ``serve/prefill`` and ``serve/decode`` under it, in that order and
+   within it; the grouped kernels' launches counted from 0 (path
+   ``serve_traced``).
+22. The card's name and power limit, the ``kernels`` JSON line (launches
    from phase 10; each path's own counts beside them, phase 13's, the
    sequence-parallel paths ``ring_n4``, ``ring_n2`` and ``ulysses_n4``,
    ``generate``, phase 19a's, and ``pp_dense`` and ``pp_moe``, phase 20's
@@ -339,6 +361,8 @@ from kubeflow_controller_tpu_torch.ops import attention as at
 from kubeflow_controller_tpu_torch.ops import grouped_matmul as gm
 from kubeflow_controller_tpu_torch.parallel.ring import attention_reference
 from kubeflow_controller_tpu_torch.models import mnist
+from kubeflow_controller_tpu_torch import graft_entry
+from kubeflow_controller_tpu_torch.obs import trace
 from kubeflow_controller_tpu_torch.workloads import (
     cifar_allreduce,
     compile_cache,
@@ -3238,6 +3262,154 @@ def pp_phase(dev, seed: int, dense_step: dict) -> dict:
     return {"pp_dense": a["launches"], "pp_moe": b["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the graft-entry hooks and the workload traces
+# ---------------------------------------------------------------------------
+
+TRACED_WORKLOADS = (
+    ("llama_pretrain", ["--preset", "tiny", "--steps", "2"]),
+    ("mnist_dist", ["--steps", "20"]),
+    ("mnist_local", ["--steps", "20"]),
+)
+# The spans the traced workloads dump, each this often (one process, so
+# no runtime/* span).
+TRACED_SPANS = {"workload/compile": 1, "workload/first_step": 3,
+                "workload/fit": 2, "workload/host_setup": 1,
+                "workload/init": 1, "workload/rendezvous": 1,
+                "workload/stage": 1, "workload/train": 1}
+SERVE_TRACE_LAYERS = 2
+
+
+def entry_hook_phase() -> dict:
+    """21a: the flagship forward of ``graft_entry.entry()`` on the card."""
+    fn, args = graft_entry.entry()
+    with torch.no_grad():
+        fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+    rec = {"shape": list(out.shape), "dtype": str(out.dtype),
+           "device": str(out.device),
+           "ms": (time.perf_counter() - t0) * 1e3}
+    print("entry: graft_entry.entry() forward " + json.dumps(rec),
+          flush=True)
+    assert tuple(out.shape) == (2, 64, 512) and out.dtype == torch.float32
+    assert out.device.type == "cuda" and torch.isfinite(out).all()
+    return rec
+
+
+def dumped_events(trace_dir: str) -> list:
+    """Every span the processes dumped into ``trace_dir``, once each: a
+    process dumps at the end of its ``main`` and again at exit, and the
+    controller's merge keeps one event a span id."""
+    events = {}
+    for name in sorted(os.listdir(trace_dir)):
+        if name.startswith("trace-") and name.endswith(".json"):
+            with open(os.path.join(trace_dir, name)) as fh:
+                for e in json.load(fh)["traceEvents"]:
+                    events.setdefault(e["args"]["span_id"], e)
+    return list(events.values())
+
+
+def traced_workloads_phase(seed: int) -> dict:
+    """21b: the workloads as the node agent starts them, under one job's
+    trace context; their dumps must form one tree under it."""
+    ctx = trace.TraceContext.for_job(f"chip-smoke-{seed}")
+    SMOKE_DIR.mkdir(exist_ok=True)
+    trace_dir = tempfile.mkdtemp(dir=SMOKE_DIR)
+    drop = tempfile.mkdtemp(dir=SMOKE_DIR)
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        # The three pods at once, as a node runs them.
+        for i, (name, argv) in enumerate(TRACED_WORKLOADS):
+            env = dict(os.environ, KCTPU_TRACE_CONTEXT=ctx.encode(),
+                       KCTPU_TRACE_DIR=trace_dir, KCTPU_PROGRESS_DIR=drop,
+                       KCTPU_POD_NAMESPACE="default",
+                       KCTPU_POD_NAME=f"chip-smoke-trace-{i}")
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m",
+                 f"kubeflow_controller_tpu_torch.workloads.{name}", *argv],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            assert proc.returncode == 0, (name, err[-3000:])
+            assert "Final loss" in out, (name, out[-2000:])
+        wall_s = time.perf_counter() - t0
+        events = dumped_events(trace_dir)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        shutil.rmtree(drop, ignore_errors=True)
+    ids = {e["args"]["span_id"] for e in events}
+    for e in events:
+        args = e["args"]
+        assert args["trace_id"] == ctx.trace_id, e
+        assert args["parent_id"] in ids | {ctx.span_id}, e
+    names = {n: sum(e["name"] == n for e in events)
+             for n in sorted({e["name"] for e in events})}
+    (compiled,) = [e["args"] for e in events
+                   if e["name"] == "workload/compile"]
+    rec = {"spans": names, "compile": compiled,
+           "processes": len({e["pid"] for e in events}),
+           "wall_s": wall_s}
+    print("traces: " + json.dumps(rec), flush=True)
+    assert compiled["source"] == "cache-hit", compiled
+    assert names == TRACED_SPANS, (names, TRACED_SPANS)
+    assert rec["processes"] == len(TRACED_WORKLOADS), rec
+    return rec
+
+
+def traced_serve_phase(dev, seed: int) -> dict:
+    """21c: phase 5's requests through an engine built under a trace
+    context; returns the launch counts."""
+    cfg = mixtral_8x7b(SERVE_TRACE_LAYERS)
+    backend = LlamaBackend(cfg, seed=seed, device=dev)
+    ctx = trace.TraceContext.for_job(f"chip-smoke-serve-{seed}")
+    reqs = serve_requests(cfg, seed)
+    zero_counters()
+    with trace.context(ctx):
+        engine = ServeEngine(backend, SERVE_CONFIG)
+    engine.start()
+    assert engine.wait_ready(900), "engine never became ready"
+    for r in reqs:
+        assert engine.submit(r), r.id
+    for r in reqs:
+        assert r.done.wait(900), f"{r.id} never finished"
+    engine.drain()
+    assert engine._drained.wait(60)
+    engine.stop()
+    launches = read_counters()
+    del backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    spans = [s for s in trace.TRACER.spans() if s.trace_id == ctx.trace_id]
+    chains = {}
+    for sp in spans:
+        if sp.name == "serve/request":
+            assert sp.parent_id == ctx.span_id, sp
+            kids = sorted((k for k in spans if k.parent_id == sp.span_id),
+                          key=lambda k: k.ts)
+            assert [k.name for k in kids] == [
+                "serve/queue_wait", "serve/prefill", "serve/decode"], kids
+            for k in kids:
+                assert sp.ts - 1e-6 <= k.ts <= k.ts + k.dur <= (
+                    sp.ts + sp.dur + 1e-3), (sp, k)
+            chains[sp.args["request"]] = {
+                "ms": sp.dur * 1e3, **{k.name.split("/")[1] + "_ms":
+                                       k.dur * 1e3 for k in kids}}
+    print("traces: serve/request chains " + json.dumps(chains), flush=True)
+    assert sorted(chains) == sorted(r.id for r in reqs), sorted(chains)
+    assert len(spans) == 4 * len(reqs), len(spans)
+    assert launches["gmm"] > 0 and launches["gmm_swiglu"] > 0, launches
+    return launches
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3366,6 +3538,10 @@ def main(argv=None) -> int:
         flash[name]["sp_block"] = sp_block[name]
     paths["generate"], generate_designs = generate_phase(dev, args.seed)
     paths.update(pp_phase(dev, args.seed, dense_step))
+    entry_hook_phase()
+    traced_workloads_phase(args.seed)
+    paths["serve_traced"] = traced_serve_phase(dev, args.seed)
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     print(card_line())
     print(kernels_line(results, flash, paths, serve_designs,
                        generate_designs))

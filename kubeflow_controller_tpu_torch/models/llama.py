@@ -45,6 +45,7 @@ where the reference names its values.  The products with no batch dims
 
 from __future__ import annotations
 
+import math
 import warnings
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
@@ -695,16 +696,19 @@ def _heads(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x [..., K] @ w [K, N]`` as one 2-D product (``aten.mm``), but for a
-    DTensor ``x`` sharded on two of its leading dims (the batch and the
-    sequence, under sp with a data axis): folding both into mm's rows
-    needs a redistribution that DTensor refuses on some torch versions,
-    so the product runs batched over dim 0 (``aten.bmm``, ``w``
-    broadcast; the "dots" policy keeps only ``aten.mm``)."""
+    DTensor ``x`` sharded on a leading dim that a dim of size above 1
+    comes before (the sequence under sp, with the batch sharded over a
+    data axis or a batch of several rows): folding them into mm's rows
+    needs a redistribution that DTensor refuses on some torch versions
+    (2.11 refuses both forms), so the product runs batched over dim 0
+    (``aten.bmm``, ``w`` broadcast; the "dots" policy keeps only
+    ``aten.mm``)."""
     from torch.distributed.tensor import DTensor, Shard
 
     lead = {pl.dim for pl in getattr(x, "placements", ())
             if isinstance(pl, Shard) and pl.dim < x.ndim - 1}
-    if not isinstance(x, DTensor) or len(lead) < 2:
+    if not isinstance(x, DTensor) or not any(
+            d >= 1 and math.prod(x.shape[:d]) > 1 for d in lead):
         return x @ w
     # Dims 1 .. -2 fold into one: its outermost (the sequence) is sharded.
     # ``torch.bmm``, not ``matmul``: matmul folds a broadcast batch back

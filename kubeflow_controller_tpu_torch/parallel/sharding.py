@@ -9,12 +9,18 @@ entries, each as a tuple), and :func:`placements_for` turns that into
 DTensor placements, one per dim of a ``DeviceMesh``.
 
 A tensor dim sharded over two mesh axes (the vocab over ``("tp",
-"fsdp")``) is split in the mesh's order by DTensor (fsdp, then tp), in the
-tuple's order by JAX: the local shards differ, the full tensors agree.
+"fsdp")``) is split in the tuple's order, as JAX splits it: tp's chunks
+are the major ones, and fsdp splits each of them (DTensor's
+``_StridedShard`` on fsdp, the layout FSDP2 with TP uses; DTensor's own
+order, the mesh's, would make fsdp the major split).  So ``_w``'s gather
+of the embedding table over fsdp is one all-gather over fsdp that leaves
+each tp shard its own rows; with fsdp major, DTensor gathers the whole
+table over tp and fsdp and slices it again.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -91,16 +97,43 @@ def shard_pytree_specs(logical_tree, rules: ShardingRules = DEFAULT_RULES):
 def placements_for(logical_axes: Sequence[Optional[str]], mesh,
                    rules: ShardingRules = DEFAULT_RULES) -> List:
     """DTensor placements of a tensor with ``logical_axes`` on ``mesh``:
-    per mesh dim, ``Shard(d)`` for the tensor dim its axis shards, else
-    ``Replicate()``.  Mesh axes ``mesh`` does not have stay replicated,
+    per mesh dim, ``Shard(d)`` for the tensor dim its axis shards
+    (``_StridedShard`` where an axis earlier in the rule's tuple comes
+    later in the mesh: the module doc), else ``Replicate()``.  Mesh axes ``mesh`` does not have stay replicated,
     and so does a mesh dim of size 1, which splits nothing (a one-row
     pipeline microbatch "sharded" over it could not be reshaped)."""
     from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
 
-    dim_of = {m: d for d, axes in enumerate(logical_to_pspec(
-        logical_axes, rules)) for m in axes}
-    return [Shard(dim_of[name]) if name in dim_of and mesh.size(i) > 1
-            else Replicate() for i, name in enumerate(mesh.mesh_dim_names)]
+    pspec = logical_to_pspec(logical_axes, rules)
+    names = list(mesh.mesh_dim_names)
+    size = {name: mesh.size(i) for i, name in enumerate(names)}
+    dim_of = {m: d for d, axes in enumerate(pspec) for m in axes}
+    out = []
+    for i, name in enumerate(names):
+        if name not in dim_of or size[name] == 1:
+            out.append(Replicate())
+            continue
+        d = dim_of[name]
+        axes = [a for a in pspec[d] if size.get(a, 1) > 1]
+        # The axes before this one in the tuple split the dim first; those
+        # of them that come later in the mesh make this a strided shard.
+        split = math.prod(size[a] for a in axes[:axes.index(name)]
+                          if names.index(a) > i)
+        out.append(Shard(d) if split == 1
+                   else _StridedShard(d, split_factor=split))
+    return out
+
+
+def shard_dim(placement) -> Optional[int]:
+    """The tensor dim a placement shards (``Shard`` or ``_StridedShard``),
+    or None."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    if isinstance(placement, (Shard, _StridedShard)):
+        return placement.dim
+    return None
 
 
 def with_logical_constraint(x, logical_axes,

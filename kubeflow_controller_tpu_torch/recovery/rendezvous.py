@@ -13,9 +13,9 @@ marker means the gang is torn, and the survivor exits with
 ``EXIT_REJOIN``: its pod fails with ``GangBroken`` and the controller
 replaces the whole gang under a bumped gang generation.
 
-One difference: the reference's default handler dumps the process's
-trace spans before it exits; the port has no trace module yet (ROADMAP.md
-M7), so it logs and exits.
+The default handler dumps the process's trace spans to
+``$KCTPU_TRACE_DIR`` before it exits, as the reference's does
+(``os._exit`` skips the exit-time dump).
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ import os
 import threading
 import time
 from typing import Callable, Optional
+
+from ..obs import trace
 
 logger = logging.getLogger("kubeflow_controller_tpu_torch.recovery")
 
@@ -185,6 +187,12 @@ class GangGuard:
             "for re-rendezvous (exit %d); the controller replaces the gang",
             self.gang, self.generation, member,
             EXIT_REJOIN)
+        # Flush what the process can flush: the pod fails with GangBroken
+        # and the controller replaces the whole gang.
+        try:
+            trace.dump_to_env_dir()
+        except Exception:  # noqa: BLE001
+            pass
         os._exit(EXIT_REJOIN)
 
 

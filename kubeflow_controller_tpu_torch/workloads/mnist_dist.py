@@ -32,8 +32,12 @@ The only fit shape is the reference's ``--step-loop`` one (its default,
 one compiled scan with data drawn by threefry in the program, has no
 eager counterpart), so ``--step-loop`` is accepted and changes nothing;
 ``--aot-cache`` is accepted and ignored, as eager PyTorch compiles
-nothing.  The phase times come from the worker's own clocks (trace spans
-are M7).
+nothing (so there is no ``workload/compile`` span under the fit, where the
+reference's step loop has one).  The phases are the reference's trace
+spans, ``workload/rendezvous``, ``workload/init`` and ``workload/fit``
+(with ``workload/stage`` and, on a resume, ``workload/restore`` inside
+it), and the "Phase times" line reads them; the spans are dumped to
+``$KCTPU_TRACE_DIR`` before the sign-off.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ import sys
 import time
 from dataclasses import dataclass
 from typing import Any, Dict
+
+from ..obs.trace import dump_to_env_dir
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -113,6 +119,7 @@ def run_worker(args: argparse.Namespace) -> DistResult:
     from ..device import resolve_device
     from ..models import mnist as m
     from ..obs.phases import PHASE_RESHARD, PHASE_RESTORE
+    from ..obs.trace import span
     from ..recovery.rendezvous import guard_from_env
     from . import data as d
     from .checkpoint import CheckpointManager, is_writer
@@ -142,85 +149,89 @@ def run_worker(args: argparse.Namespace) -> DistResult:
 
     setup = HostSetup(host_setup, overlap=not args.no_overlap)
 
-    t0 = time.perf_counter()
-    rt.initialize(dev)
-    t_rdv = time.perf_counter() - t0
+    with span("workload/rendezvous", task_index=args.task_index) as sp_rdv:
+        rt.initialize(dev)
 
-    t0 = time.perf_counter()
     pc, proc = process_count(), process_index()
-    # One device per process.  Round the global batch down to a multiple
-    # of the data-parallel width (the reference's batch 100 over 8
-    # devices -> 96 per step).
-    dp = pc
-    bs = max(dp, args.batch_size - args.batch_size % dp)
-    spe = max(1, args.train_size // bs)  # steps per epoch
-    t_init = time.perf_counter() - t0
+    with span("workload/init", process=proc) as sp_init:
+        # One device per process.  Round the global batch down to a
+        # multiple of the data-parallel width (the reference's batch 100
+        # over 8 devices -> 96 per step).
+        dp = pc
+        bs = max(dp, args.batch_size - args.batch_size % dp)
+        spe = max(1, args.train_size // bs)  # steps per epoch
 
-    t0 = time.perf_counter()
-    params, (x_np, y_np), (ex_np, ey_np) = setup.result()
-    # Stack the epoch's batches [spe, bs] and keep this process's columns
-    # of every batch.
-    idx = (np.arange(spe)[:, None] * bs + np.arange(bs)[None, :]) \
-        % x_np.shape[0]
-    rows = bs // pc
-    idx = idx[:, proc * rows:(proc + 1) * rows]
-    x_all = torch.from_numpy(x_np[idx]).to(dev)
-    y_all = torch.from_numpy(y_np[idx]).to(dev)
-    model = m.MnistMLP(params, dev)
-    opt = default_optimizer(model.parameters(), args.lr)
-    step = make_dist_step(lambda xb, yb: m.mlp_loss(model, xb, yb), opt)
-    if args.step_sleep > 0:
-        def step(x, y, t, _inner=step, _zz=args.step_sleep):
-            time.sleep(_zz)
-            return _inner(x, y, t)
+    with span("workload/fit", process=proc, steps=args.steps,
+              step_loop=True) as sp_fit:
+        params, (x_np, y_np), (ex_np, ey_np) = setup.result()
+        with span("workload/stage", process=proc):
+            # Stack the epoch's batches [spe, bs] and keep this process's
+            # columns of every batch.
+            idx = (np.arange(spe)[:, None] * bs + np.arange(bs)[None, :]) \
+                % x_np.shape[0]
+            rows = bs // pc
+            idx = idx[:, proc * rows:(proc + 1) * rows]
+            x_all = torch.from_numpy(x_np[idx]).to(dev)
+            y_all = torch.from_numpy(y_np[idx]).to(dev)
+            model = m.MnistMLP(params, dev)
+        opt = default_optimizer(model.parameters(), args.lr)
+        step = make_dist_step(lambda xb, yb: m.mlp_loss(model, xb, yb), opt)
+        if args.step_sleep > 0:
+            def step(x, y, t, _inner=step, _zz=args.step_sleep):
+                time.sleep(_zz)
+                return _inner(x, y, t)
 
-    # Checkpoint-resume: restore the latest readable step BEFORE the first
-    # beat, so a replacement replica resumes where the gang's checkpoints
-    # left off and the progress plane reads the backward jump as a resume.
-    start_step, mgr, ck_fn = 0, None, None
-    if rt.model_dir:
-        mgr = CheckpointManager(rt.model_dir)
-        # The width that wrote these checkpoints (the marker) against this
-        # generation's (the runtime env): a restore at another width is a
-        # re-shard, and the beats say so.
-        prev_width = mgr.read_width()
-        phase = (PHASE_RESHARD
-                 if prev_width is not None and prev_width != rt.gang_width
-                 else PHASE_RESTORE)
-        if mgr.latest_step() is not None:
-            reporter().beat(phase=phase)
-            _, _, start_step = mgr.restore(model, opt)
-            start_step = min(start_step, args.steps)
-            reporter().beat(step=start_step, phase=phase,
-                            resumed_from_step=start_step)
-        if pc > 1:
-            dist.barrier()  # every process has read the old marker
-        if proc == 0:
-            mgr.write_width(rt.gang_width)
-        if args.checkpoint_every > 0:
-            def ck_fn(done, _mgr=mgr):
-                _mgr.save(done, model, opt, wait=False)
+        # Checkpoint-resume: restore the latest readable step BEFORE the
+        # first beat, so a replacement replica resumes where the gang's
+        # checkpoints left off and the progress plane reads the backward
+        # jump as a resume.
+        start_step, mgr, ck_fn = 0, None, None
+        if rt.model_dir:
+            mgr = CheckpointManager(rt.model_dir)
+            # The width that wrote these checkpoints (the marker) against
+            # this generation's (the runtime env): a restore at another
+            # width is a re-shard, and the beats say so.
+            prev_width = mgr.read_width()
+            phase = (PHASE_RESHARD
+                     if prev_width is not None and prev_width != rt.gang_width
+                     else PHASE_RESTORE)
+            if mgr.latest_step() is not None:
+                reporter().beat(phase=phase)
+                with span("workload/restore", process=proc,
+                          reshard=(phase == PHASE_RESHARD)) as sp_r:
+                    _, _, start_step = mgr.restore(model, opt)
+                    sp_r.args["step"] = start_step
+                start_step = min(start_step, args.steps)
+                reporter().beat(step=start_step, phase=phase,
+                                resumed_from_step=start_step)
+            if pc > 1:
+                dist.barrier()  # every process has read the old marker
+            if proc == 0:
+                mgr.write_width(rt.gang_width)
+            if args.checkpoint_every > 0:
+                def ck_fn(done, _mgr=mgr):
+                    _mgr.save(done, model, opt, wait=False)
 
-    losses = train_step_loop_dist(step, x_all, y_all, args.steps,
-                                  examples_per_step=bs, compile_source="",
-                                  start_step=start_step,
-                                  checkpoint_every=args.checkpoint_every,
-                                  checkpoint_fn=ck_fn)
-    ex = torch.from_numpy(np.array(ex_np)).to(dev)
-    ey = torch.from_numpy(np.array(ey_np)).to(dev)
-    acc = float(m.mlp_accuracy(model, ex, ey))
-    t_fit = time.perf_counter() - t0
+        losses = train_step_loop_dist(step, x_all, y_all, args.steps,
+                                      examples_per_step=bs,
+                                      compile_source="",
+                                      start_step=start_step,
+                                      checkpoint_every=args.checkpoint_every,
+                                      checkpoint_fn=ck_fn)
+        if mgr is not None:
+            mgr.wait()  # in-flight async saves
+        ex = torch.from_numpy(np.array(ex_np)).to(dev)
+        ey = torch.from_numpy(np.array(ey_np)).to(dev)
+        acc = float(m.mlp_accuracy(model, ex, ey))
     saved_to = ""
     if mgr is not None:
-        # In-flight async saves first, then the final step (unless a resume
-        # at the finish line already has it), while the group still names
-        # the one writer.
-        mgr.wait()
+        # The final step (unless a resume at the finish line already has
+        # it), while the group still names the one writer.
         if mgr.latest_step() != args.steps:
             mgr.save(args.steps, model, opt)
         saved_to = rt.model_dir if is_writer() else ""
-    times = {"rendezvous": t_rdv, "init": t_init, "fit": t_fit,
-             "total": time.perf_counter() - t_start}
+    times = {"rendezvous": sp_rdv.dur, "init": sp_init.dur,
+             "fit": sp_fit.dur, "total": time.perf_counter() - t_start}
 
     if guard is not None:
         # The done marker BEFORE the exit barrier, so a fast peer's
@@ -258,6 +269,9 @@ def main(argv=None) -> int:
           f"total={t['total']:.3f}s")
     print(f"Training elapsed time: {t['fit']:f} s")
     print(f"Final loss: {res.loss:f}; eval accuracy: {res.accuracy:f}")
+    # Explicit span dump: a process that leaves through os._exit skips
+    # atexit.
+    dump_to_env_dir()
     if res.saved_to:
         print(f"Checkpoint saved to {res.saved_to}")
     if args.target_accuracy and res.accuracy < args.target_accuracy:

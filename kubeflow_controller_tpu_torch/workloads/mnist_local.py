@@ -13,6 +13,9 @@ step per stacked batch (``trainer.train_scan``), on the synthetic mixture
 counters).  ``--target-accuracy`` makes a lower final accuracy exit 1.
 With ``MODEL_DIR`` set the trained model and optimizer are saved there as
 step ``--steps`` (``checkpoint.CheckpointManager``), as in the reference.
+Under a job's trace context (``$KCTPU_TRACE_CONTEXT``) the run is one
+``workload/train`` span, dumped to ``$KCTPU_TRACE_DIR``, as the
+reference's is.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models import mnist as m
+from ..obs import trace
 from .checkpoint import CheckpointManager
 from .data import synthetic_mnist
 from .runtime import JobRuntime
@@ -40,6 +44,7 @@ class LocalResult:
     elapsed_s: float           # batch staging + training, ending in a sync
     model: torch.nn.Module     # the trained model
     optimizer: Optimizer       # and its optimizer
+    started: float = 0.0       # wall clock (s since the epoch) at its start
 
 
 def train(model: str = "mlp", steps: int = 200, batch_size: int = 100,
@@ -62,7 +67,7 @@ def train(model: str = "mlp", steps: int = 200, batch_size: int = 100,
     loss = float(losses[-1])
     elapsed = time.time() - start
     acc = float(m.mlp_accuracy(net, ex, ey))
-    return LocalResult(losses, loss, acc, elapsed, net, opt)
+    return LocalResult(losses, loss, acc, elapsed, net, opt, start)
 
 
 def main(argv=None) -> int:
@@ -84,6 +89,11 @@ def main(argv=None) -> int:
     rt = JobRuntime.from_env()
     res = train(args.model, args.steps, args.batch_size, args.lr,
                 args.train_size, args.eval_size, dev)
+    # Join the job's causal trace: one span for the whole run, dumped
+    # explicitly (a process that leaves through os._exit skips atexit).
+    trace.add_span("workload/train", res.started, res.elapsed_s,
+                   ctx=trace.current_context(), steps=args.steps)
+    trace.dump_to_env_dir()
     print(f"Training elapsed time: {res.elapsed_s:f} s")
     print(f"Final loss: {res.loss:f}; eval accuracy: {res.accuracy:f}")
     if rt.model_dir:

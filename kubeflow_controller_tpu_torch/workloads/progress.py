@@ -11,8 +11,10 @@ per pod).  Both are best-effort: a lost beat never fails the workload.
 :meth:`ProgressReporter.compiling` covers the port's one compile, the
 ``nvcc`` build of the CUDA kernels (``compile_cache.build_kernels``): it
 beats ``phase="compile"`` and keeps the beat fresh from a keepalive thread
-while the build runs; the caller beats its next phase.  Left out against
-the reference: the ``workload/first_step`` trace span (ROADMAP.md M7).
+while the build runs; the caller beats its next phase.  The first beat
+that carries a step (``step >= 1``) closes the job's causal timeline with
+a ``workload/first_step`` span under the current trace context
+(``$KCTPU_TRACE_CONTEXT``), as the reference's does.
 """
 
 from __future__ import annotations
@@ -20,10 +22,12 @@ from __future__ import annotations
 import json
 import os
 import threading
+import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, Optional
 
+from ..obs import trace
 from ..obs.phases import PHASE_COMPILE
 
 ENV_POD_NAMESPACE = "KCTPU_POD_NAMESPACE"
@@ -86,8 +90,11 @@ class ProgressReporter:
         (``ServeStats.as_beat``), published under camelCase keys."""
         if not self.enabled:
             return
+        first_step = False
         with self._lock:
             if step is not None:
+                if int(step) >= 1 and self._last.get("step", 0) < 1:
+                    first_step = True
                 self._last["step"] = int(step)
             if examples_per_sec is not None:
                 self._last["examplesPerSec"] = float(examples_per_sec)
@@ -102,6 +109,15 @@ class ProgressReporter:
             for snake, value in (serving or {}).items():
                 self._last[camel(snake)] = value
             body = dict(self._last)
+        if first_step:
+            # The terminal leg of the job's causal timeline: the first step
+            # done in this workload process.
+            ctx = trace.TRACER.current_context()
+            if ctx is not None:
+                trace.add_span("workload/first_step", time.time(), 0.0,
+                               ctx=ctx, pod=self.name,
+                               namespace=self.namespace,
+                               step=int(body.get("step", 1)))
         self._publish(body)
 
     @contextmanager

@@ -8,7 +8,9 @@ A gang joins through ``torch.distributed`` where the reference joins
 through ``jax.distributed``: :meth:`JobRuntime.initialize` keeps the
 reference's readiness drop (process 0), TCP pre-poll (every other
 process) and beats, then calls ``init_process_group`` with
-``init_method="tcp://<coordinator>"``.  Process 0 hosts the TCP store at
+``init_method="tcp://<coordinator>"``; the pre-poll and the join are the
+reference's trace spans ``runtime/wait_coordinator`` and
+``runtime/distributed_initialize``.  Process 0 hosts the TCP store at
 the coordinator's address, the role JAX's coordination service plays.  The
 backend is ``nccl`` for a CUDA device and ``gloo`` for the CPU, which the
 caller must name.  A single process joins nothing, as in the reference.
@@ -29,6 +31,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..obs.phases import PHASE_INIT, PHASE_RENDEZVOUS
+from ..obs.trace import span
 from .progress import reporter
 
 ENV_COORDINATOR = "JAX_COORDINATOR_ADDRESS"
@@ -102,13 +105,13 @@ class HostSetup:
 
     ``fn`` must stay pure numpy / Python: it runs while the process group
     is forming.  ``overlap=False`` is the serial baseline — ``fn`` runs
-    inline at :meth:`result`, after the rendezvous.  (The reference also
-    wraps the run in a ``workload/host_setup`` trace span; the port has no
-    trace module yet, ROADMAP.md M7.)
+    inline at :meth:`result`, after the rendezvous.  The run is a
+    ``workload/host_setup`` trace span.
     """
 
     def __init__(self, fn: Callable[[], Any], overlap: bool = True):
         self._fn = fn
+        self._overlap = overlap
         self._value: Any = None
         self._exc: Optional[BaseException] = None
         self._done = False
@@ -120,7 +123,8 @@ class HostSetup:
 
     def _run(self) -> None:
         try:
-            self._value = self._fn()
+            with span("workload/host_setup", overlap=self._overlap):
+                self._value = self._fn()
         except BaseException as e:  # noqa: BLE001 - re-raised at result()
             self._exc = e
         self._done = True
@@ -226,11 +230,20 @@ class JobRuntime:
         reporter().beat(phase=PHASE_RENDEZVOUS)
         if self.process_id == 0:
             self._drop_ready_file()
-        elif not self._wait_coordinator(timeout_s):
-            raise TimeoutError(
-                f"process {self.process_id}: coordinator "
-                f"{self.coordinator!r} not reachable within {timeout_s:g} s")
-        self.join_group(dev, timeout_s)
+        else:
+            with span("runtime/wait_coordinator",
+                      coordinator=self.coordinator,
+                      process=self.process_id):
+                reached = self._wait_coordinator(timeout_s)
+            if not reached:
+                raise TimeoutError(
+                    f"process {self.process_id}: coordinator "
+                    f"{self.coordinator!r} not reachable within "
+                    f"{timeout_s:g} s")
+        with span("runtime/distributed_initialize",
+                  process=self.process_id,
+                  num_processes=self.num_processes):
+            self.join_group(dev, timeout_s)
         self._initialized = True
         reporter().beat(phase=PHASE_INIT)  # rendezvous done, setup next
 

@@ -18,10 +18,13 @@ cache (``models/generate.py``) and runs ONE decode loop:
   mid-page divergence), so only the divergent tail is prefilled.
 
 The engine (``ServeConfig`` .. ``ServeEngine``) is a copy of the
-reference's, with plain ``threading`` locks and without the per-request
-trace spans (ROADMAP.md).  ``LlamaBackend`` runs the port's model on
-``device`` (default ``"cuda"``; raises without CUDA unless the caller
-passes ``"cpu"``).
+reference's, with plain ``threading`` locks.  An engine built under a
+trace context (``$KCTPU_TRACE_CONTEXT``, or ``trace.context``) emits each
+completed request's ``serve/request`` span, parented to the gateway's
+``gw/route`` span when the request carries its id (``trace_parent``), with
+``serve/queue_wait``, ``serve/prefill`` and ``serve/decode`` under it.
+``LlamaBackend`` runs the port's model on ``device`` (default
+``"cuda"``; raises without CUDA unless the caller passes ``"cpu"``).
 
 ``python -m kubeflow_controller_tpu_torch.workloads.serve`` is the
 executed-pod entry: a JSON-lines TCP front end plus a SIGTERM handler
@@ -54,6 +57,7 @@ from ..models.generate import (
     paged_prefill,
 )
 from ..models.llama import LlamaConfig, llama_init
+from ..obs import trace
 from ..obs.phases import PHASE_DRAIN, PHASE_LOAD, PHASE_SERVING
 from .compile_cache import build_kernels
 from .progress import reporter
@@ -443,6 +447,9 @@ class ServeEngine:
         self._window: deque = deque()
         self._itl: deque = deque(maxlen=2048)
         self._thread: Optional[threading.Thread] = None
+        # Causal trace: under a job's trace context every completed request
+        # emits its queue -> prefill -> decode span chain.
+        self._trace_ctx = trace.TRACER.current_context()
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -904,7 +911,34 @@ class ServeEngine:
             self._release_slot_pages_locked(slot)
             if slot_index is not None:
                 self._slots[slot_index] = None
+        self._trace_request(slot.req)
         slot.req.done.set()
+
+    def _trace_request(self, req: Request) -> None:
+        """Emit the request's causal span chain (the request envelope with
+        queue-wait, prefill and decode children) onto the job trace.
+        Request clocks are monotonic; the offset to wall time is taken once
+        here, so the spans line up with the cross-process timeline."""
+        ctx = self._trace_ctx
+        if ctx is None:
+            return
+        off = time.time() - time.monotonic()
+        # A gateway-routed request carries the gw/route span id: parenting
+        # under it joins the route and the serve work into one tree.
+        parent = trace.add_span(
+            "serve/request", req.submit_t + off,
+            max(0.0, req.finish_t - req.submit_t), ctx=ctx,
+            parent_id=req.trace_parent,
+            request=req.id, tokens_out=len(req.output))
+        if parent is None:
+            return  # trace unsampled
+        admit = req.admit_t or req.first_token_t or req.finish_t
+        first = req.first_token_t or req.finish_t
+        for name, t0, t1 in (("serve/queue_wait", req.submit_t, admit),
+                             ("serve/prefill", admit, first),
+                             ("serve/decode", first, req.finish_t)):
+            trace.add_span(name, t0 + off, max(0.0, t1 - t0), ctx=ctx,
+                           parent_id=parent.span_id, request=req.id)
 
 
 # ---------------------------------------------------------------------------

@@ -30,9 +30,13 @@ The loops run eagerly, one step per batch: :func:`train_scan` and
 one-program scans, and :func:`make_dist_step` keeps its collective shape —
 every gradient and the loss ride ONE flat f32 ``all_reduce`` per step (the
 scans too, inside a process group).  :func:`train_step_loop_dist` resumes
-from a restored step and saves every ``checkpoint_every`` steps.  Not
-ported: ``record_step_telemetry`` (the obs metrics registry, ROADMAP.md
-M7).
+from a restored step and saves every ``checkpoint_every`` steps, inside
+the reference's ``workload/first_step`` and ``workload/fit`` trace spans,
+and publishes the run's :func:`record_step_telemetry` on the metrics
+registry.  The reference's ``trainer/fit`` span belongs to its
+one-program ``train_scan_dist``, which has no eager counterpart; the
+reference's ``train_scan`` emits no span and no telemetry, and neither
+does the port's.
 """
 
 from __future__ import annotations
@@ -43,12 +47,44 @@ from typing import Any, Callable, Iterable, List, Optional, Tuple
 
 import torch
 
+from ..obs.metrics import REGISTRY
 from ..obs.phases import PHASE_FIT
+from ..obs.trace import span
 from .progress import reporter
+from .runtime import process_index
 
 # Beats after a run's first step come at most this often (each reads the
 # loss: one host sync).
 BEAT_INTERVAL_S = 0.25
+
+
+def record_step_telemetry(steps: int, duration_s: float,
+                          examples_per_step: int = 0,
+                          registry=None) -> None:
+    """Publish a training run's step time and throughput on the metrics
+    registry, as the reference does: one observation of the run's mean
+    step time and of its wall time, cumulative step and example counters,
+    and an examples-per-second gauge."""
+    reg = registry or REGISTRY
+    if steps <= 0 or duration_s < 0:
+        return
+    reg.histogram(
+        "kctpu_trainer_step_duration_seconds",
+        "Mean per-step train time of a completed run (one observation per run)",
+    ).observe(duration_s / steps)
+    reg.histogram(
+        "kctpu_trainer_fit_duration_seconds",
+        "Whole-run compiled-train-program wall time",
+    ).observe(duration_s)
+    reg.counter("kctpu_trainer_steps_total",
+                "Training steps completed").inc(steps)
+    if examples_per_step > 0:
+        reg.counter("kctpu_trainer_examples_total",
+                    "Training examples consumed").inc(steps * examples_per_step)
+        if duration_s > 0:
+            reg.gauge("kctpu_trainer_examples_per_second",
+                      "Throughput of the most recent completed run").set(
+                steps * examples_per_step / duration_s)
 
 
 @dataclass
@@ -287,8 +323,10 @@ def train_step_loop_dist(step: Callable, x_all: torch.Tensor,
     ``checkpoint_every`` completed steps, except the first step run and the
     last (as in the reference; callers pass an
     async ``CheckpointManager.save``, so the write overlaps the next
-    steps).  Returns the per-step losses of the steps run,
-    ``[steps - start_step]``."""
+    steps).  The first step is the ``workload/first_step`` span and the
+    rest the ``workload/fit`` span, each ending in the loss's host sync;
+    their sum is the run's :func:`record_step_telemetry`.  Returns the
+    per-step losses of the steps run, ``[steps - start_step]``."""
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
     start_step = max(0, min(start_step, steps - 1))
@@ -296,8 +334,10 @@ def train_step_loop_dist(step: Callable, x_all: torch.Tensor,
     rep = reporter()
 
     t0 = time.perf_counter()
-    losses = [step(x_all, y_all, start_step)]
-    first = float(losses[0])
+    with span("workload/first_step", start_step=start_step) as sp_first:
+        losses = [step(x_all, y_all, start_step)]
+        first = float(losses[0])
+        sp_first.args["process"] = process_index()
     first_s = time.perf_counter() - t0
     rep.beat(step=start_step + 1, loss=first, phase=PHASE_FIT,
              compile_source=compile_source,
@@ -306,22 +346,24 @@ def train_step_loop_dist(step: Callable, x_all: torch.Tensor,
                                if first_s > 0 and examples_per_step
                                else None))
     next_beat = time.perf_counter() + BEAT_INTERVAL_S
-    for t in range(start_step + 1, steps):
-        losses.append(step(x_all, y_all, t))
-        done = t + 1
-        if (checkpoint_fn is not None and checkpoint_every > 0
-                and done % checkpoint_every == 0 and done < steps):
-            checkpoint_fn(done)
-        now = time.perf_counter()
-        if now >= next_beat:
-            next_beat = now + BEAT_INTERVAL_S
-            rep.beat(step=done, loss=float(losses[-1]),
-                     examples_per_sec=((done - start_step)
-                                       * examples_per_step / (now - t0)
-                                       if examples_per_step else None))
-    out = torch.stack(losses)
-    final = float(out[-1])
-    dur = time.perf_counter() - t0
+    with span("workload/fit", steps=steps, start_step=start_step) as sp_fit:
+        for t in range(start_step + 1, steps):
+            losses.append(step(x_all, y_all, t))
+            done = t + 1
+            if (checkpoint_fn is not None and checkpoint_every > 0
+                    and done % checkpoint_every == 0 and done < steps):
+                checkpoint_fn(done)
+            now = time.perf_counter()
+            if now >= next_beat:
+                next_beat = now + BEAT_INTERVAL_S
+                rep.beat(step=done, loss=float(losses[-1]),
+                         examples_per_sec=((done - start_step)
+                                           * examples_per_step / (now - t0)
+                                           if examples_per_step else None))
+        out = torch.stack(losses)
+        final = float(out[-1])
+    dur = sp_first.dur + sp_fit.dur
+    record_step_telemetry(run_steps, dur, examples_per_step)
     rep.beat(step=steps, loss=final, phase=PHASE_FIT,
              examples_per_sec=(run_steps * examples_per_step / dur
                                if dur > 0 and examples_per_step else None))

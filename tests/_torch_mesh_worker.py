@@ -55,6 +55,14 @@ results to OUT (``OUT.<rank>`` for ``collectives``) with ``torch.save``:
   rank, every gradient gathered whole (each stage's own), the gradients
   left off their parameters' placements, the replicated gradients of every
   pp rank, and each rank's grouped plain-version calls by kind.
+- ``dryrun PARAMS``: ``graft_entry.dryrun_step`` of each configuration
+  in PARAMS (a pickle of ``{letter: (params, tokens)}``, the JAX package's
+  init and tokens) on its mesh for the world's size: rank 0 writes each
+  loss.
+- ``dryrun_control``: config A of ``graft_entry`` twice with the guard's
+  controls, each of which must trip it: ``_w`` gathering every mesh dim
+  (tp too), and a gradient moved off its parameter's placements; rank 0
+  writes each guard message.
 - ``main ARGS...``: ``llama_pretrain.main(ARGS)`` with every clip's
   global norm recorded: each rank's losses and norms.
 - ``train_pp STEPS [MODEL_DIR [hang]]``: ``train`` as ``train`` does, on a
@@ -802,6 +810,70 @@ def moe_sp(out: str, ep: str, sp: str, cf: str, params_path: str) -> None:
         torch.save(res, out)
 
 
+def _dryrun_config(letter: str):
+    from kubeflow_controller_tpu_torch import graft_entry
+
+    for conf in graft_entry._configs(dist.get_world_size(),
+                                     torch.device("cpu")):
+        if conf[0] == letter:
+            return conf
+    raise KeyError(letter)
+
+
+def dryrun(out: str, params_path: str) -> None:
+    from kubeflow_controller_tpu_torch import graft_entry
+
+    with open(params_path, "rb") as fh:
+        inputs = pickle.load(fh)
+    losses = {}
+    for letter, (params, tokens) in inputs.items():
+        _, _, cfg, sizes, kind, _ = _dryrun_config(letter)
+        res = graft_entry.dryrun_step(cfg, sizes, kind, params, tokens,
+                                      device="cpu")
+        losses[letter] = res.loss
+    if dist.get_rank() == 0:
+        torch.save(losses, out)
+
+
+def dryrun_control(out: str) -> None:
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from kubeflow_controller_tpu_torch import graft_entry
+    from kubeflow_controller_tpu_torch.workloads import trainer
+
+    _, _, cfg, sizes, kind, _ = _dryrun_config("A")
+    caught = {}
+
+    def w_everything(p, dtype):
+        if isinstance(p, DTensor):
+            p = llama.grad_placed(p).redistribute(
+                p.device_mesh, [Replicate()] * p.device_mesh.ndim)
+        return p.to(dtype)
+
+    real_step = trainer.Optimizer.step
+
+    def misplace(self):
+        norm = real_step(self)
+        for p in self.params:
+            if (isinstance(p, DTensor) and p.grad is not None
+                    and any(isinstance(pl, Shard) for pl in p.placements)):
+                mesh = p.grad.device_mesh
+                p.grad = p.grad.redistribute(mesh, [Replicate()] * mesh.ndim)
+                break
+        return norm
+
+    for name, target, attr, fake in (
+            ("gather", llama, "_w", w_everything),
+            ("placement", trainer.Optimizer, "step", misplace)):
+        with mock.patch.object(target, attr, fake):
+            try:
+                graft_entry.dryrun_step(cfg, sizes, kind, device="cpu")
+            except AssertionError as e:
+                caught[name] = str(e)
+    if dist.get_rank() == 0:
+        torch.save(caught, out)
+
+
 def main(argv) -> int:
     rt = JobRuntime.from_env()
     scenario, out, *rest = argv
@@ -812,7 +884,8 @@ def main(argv) -> int:
     {"collectives": collectives, "step": step, "train": train, "moe": moe,
      "init": init, "seqpar": seqpar, "generate": generate,
      "pipeline": pipeline, "pp": pp, "train_pp": train_pp,
-     "moe_sp": moe_sp}[scenario](out, *rest)
+     "moe_sp": moe_sp, "dryrun": dryrun,
+     "dryrun_control": dryrun_control}[scenario](out, *rest)
     rt.shutdown()
     return 0
 

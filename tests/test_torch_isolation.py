@@ -23,7 +23,7 @@ import pytest
 import torch
 
 import kubeflow_controller_tpu_torch as port
-from kubeflow_controller_tpu_torch import bridge, device
+from kubeflow_controller_tpu_torch import bridge, device, graft_entry
 from kubeflow_controller_tpu_torch.models import llama, mnist, vision
 from kubeflow_controller_tpu_torch.workloads import (
     cifar_allreduce,
@@ -58,7 +58,8 @@ SLICE_MODULES = ("workloads.serve", "ops.grouped_matmul", "ops.attention",
                  "workloads.cifar_allreduce", "models.remat",
                  "parallel.mesh", "parallel.sharding",
                  "parallel.collectives", "parallel.ulysses",
-                 "models.generate")
+                 "models.generate", "graft_entry", "obs.trace",
+                 "obs.metrics")
 
 
 def forbidden(name: str) -> bool:
@@ -154,6 +155,8 @@ def tiny():
     lambda: vision.resnet50(width=8),
     lambda: flax_mnist.main(["--steps", "1"]),
     lambda: cifar_allreduce.main(["--steps", "1"]),
+    lambda: graft_entry.entry(),
+    lambda: graft_entry.dryrun_multichip(2),
 ], ids=["resolve_device", "Llama", "llama_init", "init_paged_cache",
         "init_cache",
         "llama_from_jax", "LlamaBackend", "serve.main", "tokens_from_jax",
@@ -161,7 +164,8 @@ def tiny():
         "synthetic_mnist", "MnistMLP", "mnist_local.train",
         "mnist_local.main", "mnist_dist.main", "JobRuntime.initialize",
         "synthetic_cifar", "synthetic_mnist_images", "FlaxMNISTCNN",
-        "resnet18", "resnet50", "flax_mnist.main", "cifar_allreduce.main"])
+        "resnet18", "resnet50", "flax_mnist.main", "cifar_allreduce.main",
+        "graft_entry.entry", "graft_entry.dryrun_multichip"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()

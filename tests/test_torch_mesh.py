@@ -121,15 +121,17 @@ class FakeMesh:
 
 def test_placements_for():
     from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
 
     m = FakeMesh()
     assert tsharding.placements_for(("batch", "seq", None), m) == [
         Shard(0), Shard(0), Replicate()]
     assert tsharding.placements_for(("embed", "heads", "head_dim"), m) == [
         Replicate(), Shard(0), Shard(1)]
-    # the vocab over tp and fsdp: the same dim on both mesh dims
+    # the vocab over tp and fsdp: the same dim on both mesh dims, split by
+    # tp first (the rule's order, JAX's): fsdp's shard is strided
     assert tsharding.placements_for(("vocab", None), m) == [
-        Replicate(), Shard(0), Shard(0)]
+        Replicate(), _StridedShard(0, split_factor=2), Shard(0)]
     assert tsharding.placements_for(("embed", "vocab"), m) == [
         Replicate(), Shard(0), Shard(1)]
     assert tsharding.placements_for((), m) == [Replicate()] * 3

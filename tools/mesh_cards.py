@@ -46,6 +46,8 @@ command with no gang.
     python3 tools/mesh_cards.py --pp
     python3 tools/mesh_cards.py --sp --experts 8 [--meshes 2,2]
     python3 tools/mesh_cards.py --fake-pg [--device-type cpu]
+    python3 tools/mesh_cards.py --dryrun [--device-type cpu]
+    python3 tools/mesh_cards.py --fake-pg --dryrun [--device-type cpu]
 
 - ``--pp``: pipeline parallelism (1F1B, ``llama_pretrain --pp S
   --microbatches M``).  Llama-2-7B widths at 8 layers, global batch 8 x T
@@ -68,6 +70,18 @@ command with no gang.
   fake process group (collectives do nothing, DTensor's propagation runs
   in full) at tiny widths in bf16: a one-card check that this torch
   propagates every op of the stage step, before the 4-card call.
+- ``--dryrun``: ``graft_entry.dryrun_multichip(cards)``, every parallel
+  configuration of ``graft_entry``'s dry run (A, B, B2, B3, C, E, D) over an
+  nccl gang of the cards (gloo ranks with ``--device-type cpu``), two
+  steps each; one JSON line a configuration: its mesh, each rank's first-
+  and second-step ms and losses, and each rank's skip launches of ``gmm``
+  and ``tgmm`` (B2 and B3 fail without them on the cards).  With
+  ``--fake-pg``, every configuration at 4 and at 8 ranks (the 3-D
+  meshes), as the first and the last rank alone under the fake process
+  group, each step held to the dry run's guard, then A with ``_w``
+  gathering tp too, which the guard must refuse: a one-card check that
+  this torch propagates and places them all, and that the guard sees
+  its gathers, before the 4-card call.
 
 Prints the card line, then one JSON line per run: the mesh, every rank's
 exit code, rank 0's per-step losses and their largest relative
@@ -260,6 +274,106 @@ def fake_main(args) -> int:
                               "losses": rec and rec["losses"]}), flush=True)
             failed |= rc != 0
     return 1 if failed else 0
+
+
+# (ranks, rank, control): every configuration of the dry run for that many
+# ranks as that rank; the control runs config A with _w gathering every
+# mesh dim, tp too, which the guard must refuse.
+DRYRUN_FAKE = ((4, 0, ""), (4, 3, ""), (8, 0, ""), (8, 7, ""),
+               (8, 0, "control"))
+
+
+def fake_dryrun_child(argv) -> int:
+    """``N RANK DEVICE_TYPE [control]``: each configuration of the dry run
+    for N ranks, one step, as rank RANK alone under the fake process
+    group, each held to the guard; with ``control``, config A with ``_w``
+    gathering every mesh dim, which the guard must refuse.  Collectives
+    do nothing there, so a received buffer holds whatever it held: a NaN
+    loss is reported and tolerated, any other failure is not."""
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from kubeflow_controller_tpu_torch import graft_entry
+    from kubeflow_controller_tpu_torch.models import llama
+
+    n, rank, device_type, *control = argv
+    n, rank = int(n), int(rank)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
+    device = torch.device("cuda:0" if device_type == "cuda" else "cpu")
+    configs = graft_entry._configs(n, device)
+    if control:
+        def w_everything(p, dtype):
+            if isinstance(p, DTensor):
+                p = llama.grad_placed(p).redistribute(
+                    p.device_mesh, [Replicate()] * p.device_mesh.ndim)
+            return p.to(dtype)
+
+        (_, label, cfg, sizes, kind, _), = [c for c in configs
+                                            if c[0] == "A"]
+        with mock.patch.object(llama, "_w", w_everything):
+            try:
+                graft_entry.dryrun_step(cfg, sizes, kind, device=device)
+                tripped = ""
+            except AssertionError as e:
+                tripped = str(e)
+        print("RESULT " + json.dumps({"rc": 0, "control_tripped":
+                                      tripped[:300]}), flush=True)
+        return 0 if "gathered whole over tp" in tripped else 1
+    status = {}
+    for letter, label, cfg, sizes, kind, _ in configs:
+        try:
+            if kind == "decode":
+                graft_entry._decode(cfg, sizes, device)
+            else:
+                graft_entry.dryrun_step(cfg, sizes, kind, device=device)
+            status[letter] = "ok"
+        except Exception as e:  # noqa: BLE001 - reported, then judged
+            status[letter] = f"{type(e).__name__}: {str(e)[:300]}"
+    print("RESULT " + json.dumps({"rc": 0, "configs": status}), flush=True)
+    dist.destroy_process_group()
+    return 0 if all(v in ("ok", "AssertionError: loss is NaN")
+                    for v in status.values()) else 1
+
+
+def fake_dryrun_main(args) -> int:
+    failed = False
+    for n, rank, control in DRYRUN_FAKE:
+        [(rc, rec)] = run([str(n), str(rank), args.device_type,
+                           *([control] if control else [])], 1,
+                          [], args.timeout, args.device_type,
+                          mode="--fake-dryrun-child")
+        print(json.dumps({"fake_pg_dryrun": n, "rank": rank,
+                          "control": bool(control), "rc": rc,
+                          **(rec or {})}), flush=True)
+        failed |= rc != 0
+    return 1 if failed else 0
+
+
+def dryrun_main(args) -> int:
+    """``graft_entry``'s dry run over the cards, two steps a
+    configuration."""
+    sys.path.insert(0, str(HERE))
+    from kubeflow_controller_tpu_torch import graft_entry
+
+    ranks = graft_entry.dryrun_multichip(args.cards, args.device_type,
+                                         steps=2, timeout_s=args.timeout)
+    for i, first in enumerate(ranks[0]):
+        recs = [rank[i] for rank in ranks]
+        print(json.dumps({
+            "dryrun": first["label"], "config": first["config"],
+            "mesh": first["mesh"],
+            "first_step_ms": [r["ms"][0] for r in recs],
+            "second_step_ms": [r["ms"][1] if len(r["ms"]) > 1 else None
+                               for r in recs],
+            "losses": [r.get("losses") for r in recs],
+            "gmm_skip": [r.get("gmm_skip") for r in recs],
+            "tgmm_skip": [r.get("tgmm_skip") for r in recs]}), flush=True)
+    return 0
 
 
 def generate_child(argv) -> int:
@@ -478,6 +592,10 @@ def main(argv=None) -> int:
     ap.add_argument("--fake-pg", action="store_true",
                     help="each pp mesh's first and last rank alone under "
                          "the fake process group")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="graft_entry's dry run over the "
+                         "cards; with --fake-pg, every config at 4 and 8 "
+                         "ranks under the fake process group")
     ap.add_argument("--preset", default="llama2-7b",
                     help="--generate's model: llama2-7b, or tiny for a "
                          "rehearsal")
@@ -491,13 +609,21 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--fake-child", nargs=argparse.REMAINDER,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--fake-dryrun-child", nargs=argparse.REMAINDER,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child is not None:
         return child(args.child)
     if args.fake_child is not None:
         return fake_child(args.fake_child)
+    if args.fake_dryrun_child is not None:
+        return fake_dryrun_child(args.fake_dryrun_child)
+    if args.fake_pg and args.dryrun:
+        return fake_dryrun_main(args)
     if args.fake_pg:
         return fake_main(args)
+    if args.dryrun and args.device_type == "cpu":
+        return dryrun_main(args)
     if args.generate_child is not None:
         return generate_child(args.generate_child)
     if args.generate and args.device_type == "cpu":
@@ -507,6 +633,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     print(card[0], f"x {len(card)}", flush=True)
+    if args.dryrun:
+        return dryrun_main(args)
     if args.pp:
         return pp_main(args)
     if args.sp and args.experts:
