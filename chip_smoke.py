@@ -7,8 +7,8 @@ the Mixtral-8x7B-width MoE (2 of its 32 layers) for a few steps, kill and
 resume a Llama-2-7B-width run from its checkpoint, train the vision TFJobs
 (ResNet-50 at its published widths, the Flax-MNIST CNN), run ring and
 Ulysses attention at T 32768 over virtual ranks, generate from a KV cache
-at Mixtral-8x7B widths and on Llama-2-7B at all 32 layers, and check what
-comes out.
+at Mixtral-8x7B widths and on Llama-2-7B at all 32 layers, run each rank
+of a (pp 2, sp 2) pipeline alone, and check what comes out.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -315,11 +315,25 @@ Phases, in order (any failure raises and exits non-zero):
    ``serve/prefill`` and ``serve/decode`` under it, in that order and
    within it; the grouped kernels' launches counted from 0 (path
    ``serve_traced``).
-22. The card's name and power limit, the ``kernels`` JSON line (launches
+22. pipeline parallelism under sequence parallelism, rank by rank.  One
+   card cannot give an sp axis real values (the contract is one card,
+   and nccl takes one rank a device), so each of the four ranks of a (pp
+   2, sp 2) mesh runs alone on the card under torch's fake process group
+   (collectives and hand-offs do nothing; DTensor's sharding propagation
+   runs in full on this torch): one step of ``llama_pretrain.train(mesh=,
+   microbatches=2)`` at Llama-2-7B widths, 4 layers (2 a stage), bf16
+   activations, attention "flash", remat "full", B 2 x T 8192, ring on
+   one pass and Ulysses on the other.  Every plain version raises and the
+   flash fallback warning is an error; each rank's flash launches must
+   equal ``pp_sp_launches_per_layer`` of its sp index (the CPU test's
+   counts) times its 2 layers and 2 microbatches.  The values come from
+   the 4-card run (``tools/mesh_cards.py --pp --sp``).
+23. The card's name and power limit, the ``kernels`` JSON line (launches
    from phase 10; each path's own counts beside them, phase 13's, the
    sequence-parallel paths ``ring_n4``, ``ring_n2`` and ``ulysses_n4``,
-   ``generate``, phase 19a's, and ``pp_dense`` and ``pp_moe``, phase 20's
-   timed runs, with the skip launches of ``gmm`` and ``tgmm``, and the
+   ``generate``, phase 19a's, ``pp_dense`` and ``pp_moe``, phase 20's
+   timed runs, and ``pp_sp_ring`` and ``pp_sp_ulysses``, phase 22's four
+   ranks summed, with the skip launches of ``gmm`` and ``tgmm``, and the
    serve and generate runs' grouped launches by design; each flash entry's
    ``sp_block``: the block kernels of phase 18, SDPA's backward as the
    library time of dq and dkv), and the contract line ``{"ok": true,
@@ -3127,6 +3141,15 @@ PP_MOE_LAUNCHES_PER_LAYER = {"gmm_swiglu": 3, "gmm": 6, "tgmm": 3,
                              **PP_LAUNCHES_PER_LAYER}
 
 
+def pp_sp_launches_per_layer(kind: str, sp_index: int) -> dict:
+    """``PP_LAUNCHES_PER_LAYER`` for the rank at ``sp_index`` of a stage's
+    sp group: the causal ring runs the flash kernels on each K/V block at
+    or below its own, ``sp_index + 1`` of them, wherever one device runs
+    them once; Ulysses runs them once, on the whole T of a head shard."""
+    n = sp_index + 1 if kind == "ring" else 1
+    return {k: v * n for k, v in PP_LAUNCHES_PER_LAYER.items()}
+
+
 @contextmanager
 def all_plain_raise():
     """Every kernel's plain version raises while this is open."""
@@ -3410,6 +3433,126 @@ def traced_serve_phase(dev, seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: pipeline parallelism under sequence parallelism, rank by rank
+# ---------------------------------------------------------------------------
+
+PP_SP = {"layers": 4, "pp": 2, "sp": 2, "microbatches": 2, "batch": 2,
+         "seq_len": 8192}
+# Rank processes on the card at a time (a rank peaks at 13.4 GB on an
+# H100, beside what this process still holds).
+PP_SP_AT_ONCE = 2
+
+
+def pp_sp_rank(rank: int, dev, seed: int) -> list:
+    """Run in a child process (``--pp-sp-rank``): this process as ``rank``
+    of a (pp 2, sp 2) mesh under torch's fake process group (collectives
+    and point-to-point ops do nothing, a received buffer holding whatever
+    it held; DTensor's sharding propagation runs in full), one step of
+    ``llama_pretrain.train`` with ring, then with Ulysses attention, every
+    plain version patched to raise and the flash fallback warning an
+    error, the launch counters zeroed just before and read just after
+    each.  The values are not checked: the hand-offs and the ring's blocks
+    are never received (the 4-card run of ``tools/mesh_cards.py --pp
+    --sp`` holds them).  One process group a process: torch keeps a
+    destroyed group's sub-meshes."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from kubeflow_controller_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=PP_SP["pp"] * PP_SP["sp"])
+    recs = []
+    try:
+        mesh = build_mesh(MeshSpec(pp=PP_SP["pp"], fsdp=1, sp=PP_SP["sp"]),
+                          dev.type)
+        for kind in ("ring", "ulysses"):
+            cfg = replace(llama2_7b(PP_SP["layers"]), attention="flash",
+                          sp_attention=kind)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counters()
+            with all_plain_raise(), warnings.catch_warnings():
+                warnings.filterwarnings("error", message="attention='flash'")
+                res = llama_pretrain.train(
+                    cfg, steps=1, batch_size=PP_SP["batch"],
+                    seq_len=PP_SP["seq_len"], device=dev, seed=seed,
+                    mesh=mesh, microbatches=PP_SP["microbatches"])
+            recs.append({"kind": kind, "rank": rank,
+                         "sp_index": mesh.get_local_rank("sp"),
+                         "launches": {k: v for k, v in
+                                      read_counters().items()
+                                      if k in FLASH_KERNELS},
+                         "step_ms": res.step_s[0] * 1e3,
+                         "peak_mem_gb":
+                             torch.cuda.max_memory_allocated() / 1e9})
+            del res
+    finally:
+        dist.destroy_process_group()
+    return recs
+
+
+def pp_sp_children(seed: int) -> list:
+    """:func:`pp_sp_rank` for every rank, each in a child process of this
+    script, ``PP_SP_AT_ONCE`` at a time; every child is waited for (killed
+    at its time limit)."""
+    SMOKE_DIR.mkdir(exist_ok=True)
+    ranks = list(range(PP_SP["pp"] * PP_SP["sp"]))
+    recs = []
+    for lo in range(0, len(ranks), PP_SP_AT_ONCE):
+        outs = {r: SMOKE_DIR / f"pp-sp-{os.getpid()}-{r}.json"
+                for r in ranks[lo:lo + PP_SP_AT_ONCE]}
+        procs = {r: subprocess.Popen([sys.executable, __file__, "--seed",
+                                      str(seed), "--pp-sp-rank", str(r),
+                                      str(out)])
+                 for r, out in outs.items()}
+        try:
+            for r, p in procs.items():
+                assert p.wait(timeout=600) == 0, f"pp_sp rank {r} exited " \
+                    f"{p.returncode}"
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, out in outs.items():
+            recs += json.loads(out.read_text())
+            out.unlink()
+    return recs
+
+
+def pp_sp_phase(seed: int) -> dict:
+    """Phase 22 (see the docstring): every rank of the (pp 2, sp 2) mesh,
+    ring and Ulysses, each rank's flash launches held to
+    ``pp_sp_launches_per_layer`` of its sp index times its stage's layers
+    and the microbatches.  Returns each pass's launches over its four
+    ranks, by path."""
+    t0 = time.perf_counter()
+    recs = pp_sp_children(seed)
+    layers = PP_SP["layers"] // PP_SP["pp"]
+    paths = {}
+    for kind in ("ring", "ulysses"):
+        mine = [r for r in recs if r["kind"] == kind]
+        for r in mine:
+            r["want"] = {k: v * layers * PP_SP["microbatches"] for k, v in
+                         pp_sp_launches_per_layer(kind,
+                                                  r["sp_index"]).items()}
+        print(f"pp_sp 22 {kind}: " + json.dumps({**PP_SP, "ranks": mine}),
+              flush=True)
+        for r in mine:
+            assert r["launches"] == r["want"], (kind, r)
+        assert len(mine) == PP_SP["pp"] * PP_SP["sp"], mine
+        paths[f"pp_sp_{kind}"] = {k: sum(r["launches"][k] for r in mine)
+                                  for k in FLASH_KERNELS}
+    print(f"pp_sp: seconds {time.perf_counter() - t0:.3f}", flush=True)
+    return paths
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3424,7 +3567,8 @@ def kernels_line(results, flash, paths, serve_designs, generate_designs):
     are at its layout; ``launches_by_path`` gives each path's own run
     (``mesh_moe``: the mesh MoE step; ``ring_n4``, ``ring_n2``,
     ``ulysses_n4``: the sequence-parallel paths of phase 18; ``generate``:
-    phase 19a's ``generate`` call), ``skip_launches_by_path`` the
+    phase 19a's ``generate`` call; ``pp_sp_ring``, ``pp_sp_ulysses``:
+    phase 22's four ranks summed), ``skip_launches_by_path`` the
     launches of ``gmm`` and ``tgmm`` that carried ``valid_tiles``, and
     ``serve_launches_by_design`` and ``generate_launches_by_design`` the
     serve run's and the generate call's ``gmm`` and ``gmm_swiglu``
@@ -3485,6 +3629,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--resume-phase", default="",
                     help=argparse.SUPPRESS)  # the child of phase 16
+    ap.add_argument("--pp-sp-rank", nargs=2, default=None,
+                    help=argparse.SUPPRESS)  # a child of phase 22
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3494,6 +3640,11 @@ def main(argv=None) -> int:
     if args.resume_phase:
         rec = resume_phase(dev, args.seed)
         Path(args.resume_phase).write_text(json.dumps(rec))
+        return 0
+    if args.pp_sp_rank:
+        rank, out = args.pp_sp_rank
+        Path(out).write_text(json.dumps(pp_sp_rank(int(rank), dev,
+                                                   args.seed)))
         return 0
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -3542,6 +3693,7 @@ def main(argv=None) -> int:
     traced_workloads_phase(args.seed)
     paths["serve_traced"] = traced_serve_phase(dev, args.seed)
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    paths.update(pp_sp_phase(args.seed))
     print(card_line())
     print(kernels_line(results, flash, paths, serve_designs,
                        generate_designs))

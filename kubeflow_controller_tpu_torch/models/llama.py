@@ -327,8 +327,6 @@ def llama_param_pspecs(cfg: LlamaConfig, rules: ShardingRules = DEFAULT_RULES):
 
 # The mesh axes a stage shards over (pp runs the layers as stages).
 MODEL_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE, AXIS_TENSOR)
-PP_UNDER_SP = ("pipeline parallelism with sequence parallelism (--pp with "
-               "--sp > 1) is not ported yet (ROADMAP.md, M8c)")
 
 
 def _axis_size(mesh, axis: str) -> int:
@@ -897,20 +895,27 @@ def llama_loss(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
         out = llama_forward(model, tokens, cfg, mesh, rules,
                             return_aux=bool(cfg.n_experts))
         logits, aux = out if cfg.n_experts else (out, None)
-        logp = torch.log_softmax(_vocab_whole(logits, rules), dim=-1)
-        if targets is None:
-            targets = tokens[:, 1:].long()
-            nll = -logp[:, :-1].gather(-1, targets[..., None])
-            ce = nll.mean()
-        else:
-            tgt, weight = targets
-            nll = -logp.gather(-1, tgt[..., None])[..., 0]
-            ce = torch.sum(nll * weight) / torch.sum(weight)
-        ce = with_logical_constraint(ce, (), rules)
+        ce = _dense_ce(logits, tokens, rules, targets)
     if cfg.n_experts:
         return (ce + cfg.moe_aux_coef * aux["aux_loss"]
                 + cfg.moe_z_coef * aux["z_loss"])
     return ce
+
+
+def _dense_ce(logits: torch.Tensor, tokens: torch.Tensor,
+              rules: ShardingRules, targets=None) -> torch.Tensor:
+    """Next-token CE of whole ``logits`` [B, T, vocab] f32: the mean over
+    positions [0, T - 1), or with ``targets`` (:func:`_staged_targets`,
+    under sp) the weighted mean of each shard's own positions."""
+    logp = torch.log_softmax(_vocab_whole(logits, rules), dim=-1)
+    if targets is None:
+        nll = -logp[:, :-1].gather(-1, tokens[:, 1:].long()[..., None])
+        ce = nll.mean()
+    else:
+        tgt, weight = targets
+        nll = -logp.gather(-1, tgt[..., None])[..., 0]
+        ce = torch.sum(nll * weight) / torch.sum(weight)
+    return with_logical_constraint(ce, (), rules)
 
 
 def _shifted(tokens: torch.Tensor):
@@ -991,13 +996,13 @@ def _pipeline(model: Llama, cfg: LlamaConfig, mesh, n_stages):
     (default 1) virtual stages in one process, each ``n_layers / S``
     layers; ``sub`` the stage's model mesh (None without a mesh).  The
     stage body runs attention per shard on ``sub``, where the reference
-    passes ``mesh=None`` inside its pp-manual region; pp with sp raises
-    (:data:`PP_UNDER_SP`)."""
+    passes ``mesh=None`` inside its pp-manual region: under an sp axis
+    above 1, ring or Ulysses attention over the stage's own sp group
+    (:func:`_sp_attention`), where the reference's XLA gathers T; each
+    rank keeps and hands off its T/sp shard of every activation."""
     from ..parallel.pipeline import GroupPipe, Lockstep, split_stages
 
     sub = None if mesh is None else model_mesh(mesh)
-    if sub is not None and _sp_size(sub) > 1:
-        raise NotImplementedError(PP_UNDER_SP)
     layers = list(model.layers)
     if pp_size(mesh) > 1:
         dev = model.embed.device
@@ -1035,8 +1040,9 @@ def _stage_fn(cfg: LlamaConfig, rope, sub, rules: ShardingRules,
 def _microbatches(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
                   sub, n_microbatches: int, embed: bool, rules):
     """``(tokens_m, x_m)``: the global batch's M microbatches of rows (each
-    staged on ``sub``) and their embeddings (``embed``; else tensors shaped
-    alike, for a stage that only needs their shape)."""
+    staged on ``sub``: under sp each process holds its T/sp columns) and
+    their embeddings (``embed``; else tensors shaped alike, and placed as
+    the hand-offs are, for a stage that only needs their shape)."""
     from torch.distributed.tensor import DTensor
 
     b, t = tokens.shape
@@ -1101,21 +1107,23 @@ def llama_forward_pp(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
 def _microbatch_ce(cfg: LlamaConfig, rules: ShardingRules):
     """The last stage's loss: final norm, head and the next-token CE over
     positions [0, T - 1) of one microbatch (chunked with
-    ``cfg.loss_chunks``: the same value)."""
+    ``cfg.loss_chunks``: the same value).  Its aux is ``(tokens_m,
+    targets_m)``: the targets staged by :func:`_staged_targets` from the
+    microbatch's global tokens under sp (each shard's CE local, as in
+    ``llama_loss``), else None."""
     dtype = torch_dtype(cfg.dtype)
 
-    def loss_fn(loss_params, y, tokens_m):
+    def loss_fn(loss_params, y, aux_m):
         final_norm, lm_head = loss_params
+        tokens_m, targets = aux_m
         h = rmsnorm(y, _w(final_norm, dtype), cfg.norm_eps)
         if cfg.loss_chunks:
-            ce = _chunked_ce(h, lm_head, tokens_m, cfg, rules)
+            ce = _chunked_ce(h, lm_head, tokens_m, cfg, rules, targets)
         else:
             logits = with_logical_constraint(_mm(h, _w(lm_head, dtype)),
                                              ("batch", "seq", "vocab"),
                                              rules).float()
-            logp = torch.log_softmax(_vocab_whole(logits, rules), dim=-1)
-            nll = -logp[:, :-1].gather(-1, tokens_m[:, 1:, None])
-            ce = with_logical_constraint(nll.mean(), (), rules)
+            ce = _dense_ce(logits, tokens_m, rules, targets)
         # A replicated DTensor scalar as a plain one (``to_local`` is
         # differentiable): the schedule adds it to plain sums.
         return ce.to_local() if hasattr(ce, "to_local") else ce
@@ -1141,7 +1149,10 @@ def llama_loss_and_grads_pp(model: Llama, tokens: torch.Tensor,
     stage 0's input cotangents (under a mesh, the lookup's own backward);
     the embedding, final norm and head are replicated over pp, and their
     gradients, made on stage 0 and on the last stage, are broadcast over
-    the pp group, so every copy steps alike."""
+    the pp group, so every copy steps alike.  Under an sp axis above 1 the
+    last stage's CE takes each microbatch's targets staged from its global
+    tokens (as ``llama_loss`` does): the same loss as ``llama_loss`` on the
+    whole batch, each shard's positions local."""
     from ..parallel.pipeline import pipeline_1f1b
 
     transport, stages, sub = _pipeline(model, cfg, mesh, n_stages)
@@ -1149,13 +1160,17 @@ def llama_loss_and_grads_pp(model: Llama, tokens: torch.Tensor,
     with torch.no_grad():
         toks, micro = _microbatches(model, tokens, cfg, sub, n_microbatches,
                                     first, rules)
+    targets = [None] * n_microbatches
+    if last and _sp_size(sub) > 1:
+        targets = [_staged_targets(tm, sub, rules)
+                   for tm in tokens.long().chunk(n_microbatches, dim=0)]
     rope = _rope(cfg, tokens.shape[1], sub, tokens.device)
     loss_params = [model.final_norm, model.lm_head]
     loss, stage_grads, loss_grads, input_grads = pipeline_1f1b(
         _stage_fn(cfg, rope, sub, rules,
                   "penalty" if cfg.n_experts else ""), stages, micro,
-        _microbatch_ce(cfg, rules), loss_params, toks, transport,
-        stage_aux=bool(cfg.n_experts))
+        _microbatch_ce(cfg, rules), loss_params, list(zip(toks, targets)),
+        transport, stage_aux=bool(cfg.n_experts))
 
     def add(p, g):
         p.grad = g if p.grad is None else p.grad + g

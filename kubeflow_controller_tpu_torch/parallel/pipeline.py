@@ -15,9 +15,13 @@ for the ring:
 
 - :class:`GroupPipe`: one stage a process, over the mesh's pp process
   group, each step's sends and receives in one ``batch_isend_irecv``; a
-  DTensor activation (the stage's own sub-mesh: dp, fsdp, ep, tp) travels
-  as its local shard and is re-wrapped with the same placements, since
-  the stage sub-meshes are congruent and rank (s, c) talks to (s ± 1, c).
+  DTensor activation (the stage's own sub-mesh: dp, fsdp, ep, sp, tp)
+  travels as its local shard and is re-wrapped with the same placements,
+  since the stage sub-meshes are congruent and rank (s, c) talks to (s ±
+  1, c): under sp, each rank hands its T/sp shard to the rank of the
+  same sp index on the next stage.  A stage step's own collectives (the
+  ring's rotations, Ulysses' all-to-alls, on the stage's sp group) run
+  between hand-offs, every rank of a stage in the same order.
 - :class:`Lockstep`: S virtual stages in one process, stepped together;
   for one card, and for the tests, which hold it bit-identical to the
   process group.

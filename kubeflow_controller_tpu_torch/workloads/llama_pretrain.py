@@ -63,12 +63,13 @@ trains the layers as S stages under the 1F1B schedule
 mesh's pp group, the other axes sharding within each stage; pp must divide
 the layers, and the global batch is rounded to ``dp_size x M``.
 :func:`train` also takes ``pp`` without a group, as virtual stages in one
-process (one card).  The clip's norm spans every stage.
+process (one card).  The clip's norm spans every stage.  With ``--sp``
+too, each stage runs ring or Ulysses attention (``--sp-attention``) over
+its own sp group, and every rank keeps and hands off its T/sp shard of
+the activations.
 
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md): ``--pp``
-with ``--sp > 1`` (M8c).  Without a group, an axis above 1 asks for more
-devices than the one there is, and raises ``ValueError`` as the
-reference's mesh does.
+Without a group, an axis above 1 asks for more devices than the one there
+is, and raises ``ValueError`` as the reference's mesh does.
 """
 
 from __future__ import annotations
@@ -87,7 +88,6 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.llama import (
-    PP_UNDER_SP,
     Llama,
     LlamaConfig,
     llama_init,
@@ -396,8 +396,6 @@ def main(argv=None) -> int:
     pp = axes["pp"]
     if pp > 1 and cfg.n_layers % pp:
         p.error(f"pp {pp} does not divide n_layers {cfg.n_layers}")
-    if pp > 1 and axes["sp"] > 1:
-        raise NotImplementedError(PP_UNDER_SP)
     import torch.distributed as dist
 
     joined = not dist.is_initialized()

@@ -55,6 +55,11 @@ results to OUT (``OUT.<rank>`` for ``collectives``) with ``torch.save``:
   rank, every gradient gathered whole (each stage's own), the gradients
   left off their parameters' placements, the replicated gradients of every
   pp rank, and each rank's grouped plain-version calls by kind.
+- ``pp_sp PP SP KIND CONFIG M PARAMS``: ``pp`` on a (PP, SP) mesh with
+  KIND (``ring`` or ``ulysses``) attention under remat "full" (PP ``v2``:
+  two virtual stages in each process over an (SP) mesh of the world);
+  also each rank's sp index, its flash kernels' plain-version calls and
+  ``llama_forward_pp``'s full logits.
 - ``dryrun PARAMS``: ``graft_entry.dryrun_step`` of each configuration
   in PARAMS (a pickle of ``{letter: (params, tokens)}``, the JAX package's
   init and tokens) on its mesh for the world's size: rank 0 writes each
@@ -659,22 +664,10 @@ PP_CONFIGS = {"dense": {}, "einsum": dict(MOE, moe_dispatch="einsum"),
               "grouped": dict(MOE, moe_dispatch="grouped")}
 
 
-def pp(out: str, pp_: str, fsdp: str, ep: str, config: str, m: str,
-       params_path: str) -> None:
-    import contextlib
-
+def counting_grouped(calls: dict):
+    """Patches counting the grouped kernels' plain-version calls by kind,
+    the skip forms (``valid_tiles`` given) apart."""
     from kubeflow_controller_tpu_torch.ops import grouped_matmul as gm
-
-    with open(params_path, "rb") as fh:
-        params, tokens = pickle.load(fh)
-    mesh = build_mesh(MeshSpec(pp=int(pp_), fsdp=int(fsdp), ep=int(ep)),
-                      "cpu")
-    cfg = llama.LlamaConfig.tiny(attention="flash", **PP_CONFIGS[config])
-    model = llama.llama_init(cfg, torch.Generator().manual_seed(0), "cpu",
-                             requires_grad=True, mesh=mesh)
-    _load_stage(model, _port_names(params))
-    calls = {"gmm": 0, "gmm_skip": 0, "tgmm": 0, "tgmm_skip": 0,
-             "gmm_swiglu": 0}
 
     def counted(name, real):
         def plain(*args, **kwargs):
@@ -685,34 +678,86 @@ def pp(out: str, pp_: str, fsdp: str, ep: str, config: str, m: str,
             return real(*args, **kwargs)
         return plain
 
-    with contextlib.ExitStack() as stack:
-        for name in ("gmm", "tgmm"):
-            stack.enter_context(mock.patch.object(
-                gm, f"{name}_plain", counted(name,
-                                             getattr(gm, f"{name}_plain"))))
+    def swiglu(*args, _real=gm.gmm_swiglu_plain, **kwargs):
+        calls["gmm_swiglu"] += 1
+        return _real(*args, **kwargs)
 
-        def swiglu(*args, _real=gm.gmm_swiglu_plain, **kwargs):
-            calls["gmm_swiglu"] += 1
-            return _real(*args, **kwargs)
-        stack.enter_context(mock.patch.object(gm, "gmm_swiglu_plain",
-                                              swiglu))
+    return [mock.patch.object(gm, f"{name}_plain",
+                              counted(name, getattr(gm, f"{name}_plain")))
+            for name in ("gmm", "tgmm")] + [
+        mock.patch.object(gm, "gmm_swiglu_plain", swiglu)]
+
+
+def _pp_run(out: str, mesh, cfg, m: int, params_path: str,
+            n_stages=None, forward: bool = False) -> None:
+    """``llama_loss_and_grads_pp`` (and with ``forward``
+    ``llama_forward_pp``) of the JAX-initialised model in PARAMS on
+    ``mesh``, each process building its stage with ``llama_init(mesh=)``;
+    rank 0 writes every rank's record and the merged gradients."""
+    import contextlib
+
+    with open(params_path, "rb") as fh:
+        params, tokens = pickle.load(fh)
+    model = llama.llama_init(cfg, torch.Generator().manual_seed(0), "cpu",
+                             requires_grad=True, mesh=mesh)
+    _load_stage(model, _port_names(params))
+    tokens = torch.from_numpy(tokens).long()
+    calls = {"gmm": 0, "gmm_skip": 0, "tgmm": 0, "tgmm_skip": 0,
+             "gmm_swiglu": 0}
+    flash = dict.fromkeys(PLAIN_KERNELS, 0)
+    with contextlib.ExitStack() as stack:
+        for patch in counting_grouped(calls) + counting_plain(flash):
+            stack.enter_context(patch)
         loss, grads = llama.llama_loss_and_grads_pp(
-            model, torch.from_numpy(tokens).long(), cfg, mesh,
-            n_microbatches=int(m))
+            model, tokens, cfg, mesh, n_microbatches=m, n_stages=n_stages)
+    logits = None
+    if forward:
+        with torch.no_grad():
+            logits = llama.llama_forward_pp(
+                model, tokens, cfg, mesh, n_microbatches=m,
+                n_stages=n_stages).full_tensor().numpy()
     full = {n: g.full_tensor().numpy() for n, g in grads.items()}
     shared = {n: full[n] for n in ("embed", "final_norm", "lm_head")}
     misplaced = [n for n, p in model.named_parameters()
                  if p.grad.placements != p.placements]
+    names = mesh.mesh_dim_names
     everyone = [None] * dist.get_world_size()
     dist.all_gather_object(everyone, {
         "rank": dist.get_rank(), "loss": float(loss), "grads": full,
         "shared": shared, "misplaced": misplaced, "calls": dict(calls),
-        "stage": llama.pp_stage(mesh)})
+        "flash": flash, "stage": llama.pp_stage(mesh),
+        "sp_index": mesh.get_local_rank("sp") if "sp" in names else 0,
+        "logits": logits})
     if dist.get_rank() == 0:
         merged = {}
         for r in everyone:
             merged.update(r["grads"])
         torch.save({"grads": merged, "ranks": everyone}, out)
+
+
+def pp(out: str, pp_: str, fsdp: str, ep: str, config: str, m: str,
+       params_path: str) -> None:
+    mesh = build_mesh(MeshSpec(pp=int(pp_), fsdp=int(fsdp), ep=int(ep)),
+                      "cpu")
+    cfg = llama.LlamaConfig.tiny(attention="flash", **PP_CONFIGS[config])
+    _pp_run(out, mesh, cfg, int(m), params_path)
+
+
+def pp_sp(out: str, pp_: str, sp: str, kind: str, config: str, m: str,
+          params_path: str) -> None:
+    """``pp`` on a (PP, SP) mesh (or, with PP ``v<S>``, S virtual stages
+    in each process over an (SP) mesh of the world) with KIND attention,
+    remat "full": also the flash kernels' plain-version calls and
+    ``llama_forward_pp``'s logits."""
+    virtual = pp_.startswith("v")
+    n = int(pp_.lstrip("v"))
+    mesh = build_mesh(MeshSpec(pp=1 if virtual else n, fsdp=1, sp=int(sp)),
+                      "cpu")
+    cfg = llama.LlamaConfig.tiny(attention="flash", remat=True,
+                                 remat_policy="full", sp_attention=kind,
+                                 **PP_CONFIGS[config])
+    _pp_run(out, mesh, cfg, int(m), params_path,
+            n_stages=n if virtual else None, forward=True)
 
 
 def main_run(out: str, *args: str) -> None:
@@ -883,7 +928,7 @@ def main(argv) -> int:
     rt.initialize("cpu", timeout_s=120)
     {"collectives": collectives, "step": step, "train": train, "moe": moe,
      "init": init, "seqpar": seqpar, "generate": generate,
-     "pipeline": pipeline, "pp": pp, "train_pp": train_pp,
+     "pipeline": pipeline, "pp": pp, "pp_sp": pp_sp, "train_pp": train_pp,
      "moe_sp": moe_sp, "dryrun": dryrun,
      "dryrun_control": dryrun_control}[scenario](out, *rest)
     rt.shutdown()

@@ -23,6 +23,11 @@
   runs the 1F1B schedule over the pp group; both reach ``Succeeded``,
   print the pp-2 mesh line and the final loss of one process within 1e-5
   relative.
+- A 4-Worker TFJob under pp with sp (``--pp 2 --sp 2 --microbatches 2
+  --fsdp 1``): each worker holds one stage's layer and half of every
+  sequence, running ring attention over its stage's sp group inside the
+  1F1B schedule; all four reach ``Succeeded``, print the (pp 2, sp 2)
+  mesh line and the final loss of one process within 1e-5 relative.
 - A sharded kill-and-resume (the pattern of
   ``tests/test_torch_checkpoint.py``): two gloo ranks under fsdp 2 train 2
   steps with ``MODEL_DIR`` (saving step 2 collectively, each rank its own
@@ -63,9 +68,11 @@ MOE_ARGS = MOE_ONE + ("--ep", "2", "--fsdp", "1")
 SP_ARGS = ONE + ("--sp", "2", "--fsdp", "1")
 PP_ARGS = ONE + ("--pp", "2", "--microbatches", "8", "--fsdp", "-1",
                  "--checkpoint-every", "100")
+PP_SP_ARGS = ONE + ("--pp", "2", "--sp", "2", "--microbatches", "2",
+                    "--fsdp", "1")
 
 
-def llama_job(name, args=ARGS):
+def llama_job(name, args=ARGS, replicas=2):
     container = {"name": "pytorch", "image": "llama", "workingDir": REPO,
                  "command": [sys.executable, "-m",
                              "kubeflow_controller_tpu_torch.workloads."
@@ -75,7 +82,7 @@ def llama_job(name, args=ARGS):
         "apiVersion": "kubeflow.caicloud.io/v1alpha1", "kind": "TFJob",
         "metadata": {"name": name, "namespace": "default"},
         "spec": {"tfReplicaSpecs": [{
-            "replicas": 2, "tfReplicaType": "Worker",
+            "replicas": replicas, "tfReplicaType": "Worker",
             "template": {"spec": {"restartPolicy": "OnFailure",
                                   "containers": [container]}}}]}})
 
@@ -128,12 +135,19 @@ def test_two_worker_pp_pretrain_job_succeeds(rig, capsys, monkeypatch):
                        "'tp': 1}")
 
 
+def test_four_worker_pp_sp_pretrain_job_succeeds(rig, capsys, monkeypatch):
+    run_two_worker_job(rig, capsys, monkeypatch, "torch-llama-pp-sp",
+                       PP_SP_ARGS, ONE, "{'pp': 2, 'dp': 1, 'fsdp': 1, "
+                       "'ep': 1, 'sp': 2, 'tp': 1}", replicas=4)
+
+
 def run_two_worker_job(rig, capsys, monkeypatch, name, args, one_args,
-                       mesh_line):
-    """The 2-Worker TFJob running ``llama_pretrain`` with ``args`` under
-    the controller, against one process of ``one_args``."""
+                       mesh_line, replicas=2):
+    """The TFJob of ``replicas`` Workers (2 by default) running
+    ``llama_pretrain`` with ``args`` under the controller, against one
+    process of ``one_args``."""
     cluster, kubelet = rig
-    cluster.tfjobs.create(llama_job(name, args))
+    cluster.tfjobs.create(llama_job(name, args, replicas))
     # The one-process run the workers' loss is held to, while they train.
     for var in ("MODEL_DIR", "KCTPU_MESH", "JAX_NUM_PROCESSES"):
         monkeypatch.delenv(var, raising=False)
@@ -147,13 +161,13 @@ def run_two_worker_job(rig, capsys, monkeypatch, name, args, one_args,
             .decode(errors="replace") for p in pods}
     assert job.status.phase == TFJobPhase.SUCCEEDED, (job.status.reason,
                                                       logs)
-    assert len(pods) == 2
+    assert len(pods) == replicas
     for p in pods:
         env = {e.name: e.value for e in p.spec.containers[0].env}
-        assert env["JAX_NUM_PROCESSES"] == "2"
+        assert env["JAX_NUM_PROCESSES"] == str(replicas)
         out = logs[p.metadata.name]
-        assert (f"{mesh_line} over 2 devices, "
-                f"process {env['JAX_PROCESS_ID']}/2") in out, out
+        assert (f"{mesh_line} over {replicas} devices, "
+                f"process {env['JAX_PROCESS_ID']}/{replicas}") in out, out
     finals = {final_loss(out) for out in logs.values()}
     assert len(finals) == 1, finals
     assert abs(finals.pop() - one) <= 1e-5 * abs(one)

@@ -36,13 +36,17 @@ import torch
 
 from kubeflow_controller_tpu.gateway import Gateway, GatewayConfig
 from kubeflow_controller_tpu.gateway.gateway import tcp_replica
+from kubeflow_controller_tpu.obs import metrics as jmetrics
 from kubeflow_controller_tpu.obs import trace as jtrace
-from kubeflow_controller_tpu.obs.metrics import REGISTRY as JAX_REGISTRY
 from kubeflow_controller_tpu.obs.metrics import validate_exposition
 from kubeflow_controller_tpu.workloads.serve import Request
 from kubeflow_controller_tpu_torch.obs import metrics as tmetrics
 from kubeflow_controller_tpu_torch.obs import trace as ttrace
-from kubeflow_controller_tpu_torch.workloads import compile_cache, mnist_dist
+from kubeflow_controller_tpu_torch.workloads import (
+    compile_cache,
+    mnist_dist,
+    trainer,
+)
 
 from _torch_ranks import free_port
 
@@ -240,8 +244,16 @@ def test_metrics_exposition_matches_the_reference(monkeypatch, tmp_path):
                          "JAX_PROCESS", "MODEL_DIR", "WORKLOAD_")):
             monkeypatch.delenv(k)
     monkeypatch.setenv("KCTPU_COMPILE_CACHE", str(tmp_path / "xla"))
-    steps = tmetrics.REGISTRY.counter("kctpu_trainer_steps_total",
-                                      "Training steps completed")
+    # Both registries are process-global, and other tests register on
+    # them (some with empty help): give each side one only this test
+    # fills.  The reference's workloads look theirs up at call time; the
+    # port's modules bound theirs at import.
+    monkeypatch.setattr(jmetrics, "REGISTRY", jmetrics.Registry())
+    port_registry = tmetrics.Registry()
+    for module in (tmetrics, compile_cache, trainer):
+        monkeypatch.setattr(module, "REGISTRY", port_registry)
+    steps = port_registry.counter("kctpu_trainer_steps_total",
+                                  "Training steps completed")
     before = steps.value
     res = mnist_dist.run_worker(mnist_dist.parse_args(
         ["--device", "cpu", *SMALL]))
@@ -261,8 +273,8 @@ def test_metrics_exposition_matches_the_reference(monkeypatch, tmp_path):
                              "--aot-cache", str(tmp_path / "aot"),
                              *SMALL]) == 0
     prefixes = ("kctpu_trainer_", "kctpu_compile_")
-    port_page = tmetrics.REGISTRY.render()
-    want = families(JAX_REGISTRY.render(), prefixes)
+    port_page = port_registry.render()
+    want = families(jmetrics.REGISTRY.render(), prefixes)
     assert len(want) == 2 * 8
     assert families(port_page, prefixes) == want
     assert validate_exposition(port_page) == []

@@ -37,10 +37,23 @@ and (pp 2, ep 2) grouped at M 1 against ``jax.value_and_grad
 (llama_loss)``; the loss equal on every rank, every gradient placed as
 its parameter, the embedding's, final norm's and head's gradients equal
 on every pp rank, and under ep each rank's skip ``gmm``/``tgmm`` calls 9
-and 3 a layer a microbatch (remat off), ``gmm_swiglu`` none.  And one
-``llama_pretrain.main --pp 2`` run over 2 ranks (scenario ``main``): its
-two steps' losses and the clip's global norms equal a one-process run's
-within 1e-5 relative.
+and 3 a layer a microbatch (remat off), ``gmm_swiglu`` none.
+
+Under pp with sp (scenario ``pp_sp``, remat "full", attention "flash"),
+the same checks over 4 ranks for (pp 2, sp 2) dense at M 2 and the MoE
+(grouped, M 1), each with the ring and with Ulysses, and over 2
+ranks for two virtual stages in each process (``Lockstep``) over an
+(sp 2) group; besides, each rank's flash calls equal
+``chip_smoke.pp_sp_launches_per_layer`` of its sp index (the causal
+ring's rank idx folds idx + 1 blocks) times its layers and microbatches,
+the MoE's grouped calls are all skip forms (12 ``gmm`` and 3 ``tgmm`` a
+layer a microbatch), and ``llama_forward_pp``'s logits equal JAX's
+``llama_forward``'s.
+
+``llama_pretrain.main`` over gloo ranks (scenario ``main``): ``--pp 2``
+over 2 ranks, and ``--pp 2 --sp 2`` over 4 with the ring, and with
+Ulysses and the chunked CE; its two steps' losses and the clip's global
+norms equal a one-process run's within 1e-5 relative.
 """
 
 import collections
@@ -282,20 +295,32 @@ def test_launches_per_layer_match_the_reference_jaxpr(config):
 
 # -- over gloo ranks -------------------------------------------------------------
 
-RANKED = [("pp2-dense", (2, 1, 1), "dense", 2),
-          ("pp2-fsdp2-dense", (2, 2, 1), "dense", 2),
-          ("pp2-ep2-grouped", (2, 1, 2), "grouped", 1)]
+# (id, world, scenario and its mesh arguments, config, M): the ``pp``
+# scenario over (pp, fsdp, ep); ``pp_sp`` over (pp, sp) with the ring or
+# Ulysses (pp ``v2``: two virtual stages in each process, ``Lockstep``,
+# over an sp group of the world).
+RANKED = [("pp2-dense", 2, ("pp", 2, 1, 1), "dense", 2),
+          ("pp2-fsdp2-dense", 4, ("pp", 2, 2, 1), "dense", 2),
+          ("pp2-ep2-grouped", 4, ("pp", 2, 1, 2), "grouped", 1),
+          ("pp2-sp2-ring-dense", 4, ("pp_sp", 2, 2, "ring"), "dense", 2),
+          ("pp2-sp2-ulysses-dense", 4, ("pp_sp", 2, 2, "ulysses"), "dense",
+           2),
+          ("pp2-sp2-ring-grouped", 4, ("pp_sp", 2, 2, "ring"), "grouped", 1),
+          ("pp2-sp2-ulysses-grouped", 4, ("pp_sp", 2, 2, "ulysses"),
+           "grouped", 1),
+          ("v2-sp2-ring-dense", 2, ("pp_sp", "v2", 2, "ring"), "dense", 2)]
 
 
-@pytest.mark.parametrize("axes,config,m", [r[1:] for r in RANKED],
+@pytest.mark.parametrize("world,axes,config,m", [r[1:] for r in RANKED],
                          ids=[r[0] for r in RANKED])
-def test_pp_over_gloo_ranks_matches_jax(axes, config, m, tmp_path):
+def test_pp_over_gloo_ranks_matches_jax(world, axes, config, m, tmp_path):
     jcfg, params, tokens = jax_setup(config)
     src = tmp_path / "params.pkl"
     with open(src, "wb") as fh:
         pickle.dump((np_tree(params), np.asarray(tokens)), fh)
     out = str(tmp_path / "pp.pt")
-    ranks = start_ranks(int(np.prod(axes)), "pp", out, *map(str, axes),
+    scenario, *mesh_args = axes
+    ranks = start_ranks(world, scenario, out, *map(str, mesh_args),
                         config, str(m), str(src))
     ref_loss, ref_grads = jax_loss_grads(jcfg, params, tokens)
     wait_ranks(ranks, timeout=240)
@@ -307,11 +332,41 @@ def test_pp_over_gloo_ranks_matches_jax(axes, config, m, tmp_path):
         assert not r["misplaced"], r["misplaced"]
         for name, g in r["shared"].items():
             np.testing.assert_array_equal(g, everyone[0]["shared"][name])
-    if config == "grouped":
+    if config == "grouped" and scenario == "pp":
         for r in everyone:
             assert r["calls"] == {"gmm": 0, "gmm_skip": 9 * m,
                                   "tgmm": 0, "tgmm_skip": 3 * m,
                                   "gmm_swiglu": 0}, r
+    if scenario == "pp_sp":
+        check_pp_sp(everyone, jcfg, params, tokens, config, m, *mesh_args)
+
+
+def check_pp_sp(everyone, jcfg, params, tokens, config, m, pp, sp, kind):
+    """Each (pp, sp) rank's kernel calls in the 1F1B step, against the
+    prediction for its sp index that the card is held to
+    (``chip_smoke.pp_sp_launches_per_layer``) times its layers and the
+    microbatches, and ``llama_forward_pp``'s logits against
+    ``llama_forward``'s."""
+    n_stages = int(str(pp).lstrip("v"))
+    layers = (jcfg.n_layers if str(pp).startswith("v")
+              else jcfg.n_layers // n_stages)
+    assert sorted(r["sp_index"] for r in everyone) == sorted(
+        list(range(sp)) * (len(everyone) // sp))
+    ref_logits = np.asarray(jllama.llama_forward(params, tokens, jcfg))
+    for r in everyone:
+        want = {k: v * layers * m for k, v in
+                chip_smoke.pp_sp_launches_per_layer(kind,
+                                                    r["sp_index"]).items()}
+        assert r["flash"] == want, (r["rank"], r["flash"], want)
+        # The MoE under a mesh runs the per-shard grouped FFN, every gmm
+        # and tgmm in its skip form: under remat "full" gate, up and down
+        # three times each and the three dlhs gmm, and three tgmm.
+        grouped = config == "grouped"
+        assert r["calls"] == {"gmm": 0, "gmm_skip": 12 * layers * m * grouped,
+                              "tgmm": 0, "tgmm_skip": 3 * layers * m * grouped,
+                              "gmm_swiglu": 0}, r["calls"]
+        np.testing.assert_allclose(r["logits"], ref_logits, atol=2e-4,
+                                   rtol=2e-4, err_msg=f"rank {r['rank']}")
 
 
 MAIN_ARGS = ("--device", "cpu", "--steps", "2", "--batch-size", "4",
@@ -319,9 +374,30 @@ MAIN_ARGS = ("--device", "cpu", "--steps", "2", "--batch-size", "4",
 
 
 def test_main_pp2_over_two_ranks_equals_one_process(tmp_path, monkeypatch):
+    main_over_ranks_equals_one_process(
+        2, ("--pp", "2", "--fsdp", "1", "--microbatches", "2"), tmp_path,
+        monkeypatch)
+
+
+@pytest.mark.parametrize("extra", [("--sp-attention", "ring"),
+                                   ("--sp-attention", "ulysses",
+                                    "--loss-chunks", "2")],
+                         ids=["ring", "ulysses-chunked"])
+def test_main_pp2_sp2_over_four_ranks_equals_one_process(extra, tmp_path,
+                                                         monkeypatch):
+    main_over_ranks_equals_one_process(
+        4, ("--pp", "2", "--sp", "2", "--fsdp", "1", "--microbatches", "2"),
+        tmp_path, monkeypatch, extra)
+
+
+def main_over_ranks_equals_one_process(world, mesh_args, tmp_path,
+                                       monkeypatch, extra=()):
+    """``llama_pretrain.main`` with ``mesh_args`` and ``extra`` over
+    ``world`` gloo ranks: every rank's two losses and the clip's global
+    norms equal a one-process run's (with ``extra``) within
+    ``MAIN_RTOL``."""
     out = str(tmp_path / "main")
-    ranks = start_ranks(2, "main", out, *MAIN_ARGS, "--pp", "2", "--fsdp",
-                        "1", "--microbatches", "2")
+    ranks = start_ranks(world, "main", out, *MAIN_ARGS, *mesh_args, *extra)
     for var in ("MODEL_DIR", "KCTPU_MESH", "JAX_NUM_PROCESSES"):
         monkeypatch.delenv(var, raising=False)
     norms, runs = [], []
@@ -338,10 +414,10 @@ def test_main_pp2_over_two_ranks_equals_one_process(tmp_path, monkeypatch):
 
     with mock.patch.object(trainer.Optimizer, "step", step_), \
             mock.patch.object(tpre, "train", train_):
-        assert tpre.main(list(MAIN_ARGS)) == 0
+        assert tpre.main([*MAIN_ARGS, *extra]) == 0
     wait_ranks(ranks, timeout=240)
     assert norms[0] > 1.0       # the clip scales the first step
-    for r in range(2):
+    for r in range(world):
         got = torch.load(f"{out}.{r}", weights_only=False)
         for a, b in zip(got["losses"] + got["norms"],
                         runs[0].losses + norms):

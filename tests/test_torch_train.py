@@ -286,9 +286,10 @@ def test_main_refuses_what_is_not_ported(argv, env, error, match,
     ranks: tests/test_torch_sp_train.py, tests/test_torch_pp_train.py,
     tests/test_torch_moe_sp.py, tests/test_torch_mesh_tfjob.py), so
     without a group each asks for more devices than the one there is, from
-    the flag or from $KCTPU_MESH, and raises the reference's mesh error.
-    What is still refused before any join: pp with sp (M8c), and a pp that
-    does not divide the layers (the reference's parser error)."""
+    the flag or from $KCTPU_MESH, and raises the reference's mesh error;
+    so does pp with sp (M8c: tests/test_torch_pp_train.py).  What is
+    still refused before any join: a pp that does not divide the layers
+    (the reference's parser error)."""
     for name in ("MODEL_DIR", "KCTPU_MESH", "JAX_NUM_PROCESSES"):
         monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
@@ -296,7 +297,7 @@ def test_main_refuses_what_is_not_ported(argv, env, error, match,
     with pytest.raises(error, match=match):
         tpre.main(["--device", "cpu", "--steps", "1", *argv])
     if argv == ["--pp", "2"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, M8c"):
+        with pytest.raises(ValueError, match="devices"):
             tpre.main(["--device", "cpu", "--steps", "1", "--pp", "2",
                        "--sp", "2"])
         with pytest.raises(SystemExit):
@@ -409,15 +410,17 @@ def sp_attention_taken(sp_attention: str):
 def test_not_ported_paths_raise(axis, module):
     """What each path refuses: a pp axis above 1 through ``llama_forward``
     or ``llama_loss`` raises, pointing to the pipelined calls (M8); pp
-    with an sp axis above 1 raises ``NotImplementedError`` naming its
-    ROADMAP module (M8c), MoE under sp included (that runs without pp,
-    M3b: tests/test_torch_moe_sp.py); a policy no one defines is a
-    ValueError.  A dense model under sp takes ring or Ulysses attention, as
+    with an sp axis above 1 runs (M8c, MoE included:
+    tests/test_torch_pp_train.py) and refuses, as without pp, a sequence
+    that sp does not divide, before any stage runs; a policy no one
+    defines is a ValueError.  A dense model under sp takes ring or Ulysses attention, as
     ``cfg.sp_attention`` says.  (The named remat policies,
     dp/fsdp/ep/sp/tp/pp and MoE under a mesh run:
     tests/test_torch_remat.py, tests/test_torch_mesh_train.py,
     tests/test_torch_sp_train.py, tests/test_torch_moe_mesh.py,
     tests/test_torch_pp_train.py.)"""
+    from kubeflow_controller_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
     cfg = tllama.LlamaConfig.tiny(n_experts=4 if axis == "sp" else 0)
     model = tllama.Llama(cfg, device="cpu", requires_grad=True)
     tokens = torch.zeros((1, 8), dtype=torch.long)
@@ -425,10 +428,13 @@ def test_not_ported_paths_raise(axis, module):
         for fn in (tllama.llama_forward, tllama.llama_loss):
             with pytest.raises(ValueError, match="llama_forward_pp"):
                 fn(model, tokens, cfg, mesh=FakeMesh(pp=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, M8c"):
-        with mock.patch.object(tllama, "model_mesh", lambda mesh: mesh):
-            tllama.llama_loss_and_grads_pp(model, tokens, cfg,
-                                           mesh=FakeMesh(pp=2, sp=2))
+    with fake_world(4):
+        mesh = build_mesh(MeshSpec(pp=2, fsdp=1, sp=2), "cpu")
+        stage = tllama.llama_init(cfg, torch.Generator().manual_seed(0),
+                                  "cpu", requires_grad=True, mesh=mesh)
+        with pytest.raises(ValueError, match="does not divide by sp 2"):
+            tllama.llama_loss_and_grads_pp(
+                stage, torch.zeros((2, 7), dtype=torch.long), cfg, mesh)
     if axis == "sp":
         assert sp_attention_taken("ring") == "ring"
         assert sp_attention_taken("ulysses") == "ulysses"

@@ -44,6 +44,7 @@ command with no gang.
     python3 tools/mesh_cards.py --sp [--meshes 1,4,ring 1,4,ulysses ...]
     python3 tools/mesh_cards.py --generate [--meshes 1,4 2,2]
     python3 tools/mesh_cards.py --pp
+    python3 tools/mesh_cards.py --pp --sp [--experts 8]
     python3 tools/mesh_cards.py --sp --experts 8 [--meshes 2,2]
     python3 tools/mesh_cards.py --fake-pg [--device-type cpu]
     python3 tools/mesh_cards.py --dryrun [--device-type cpu]
@@ -63,6 +64,24 @@ command with no gang.
   2, ep 2) on the Mixtral-width MoE, 2 layers, M 2, each rank's skip
   launches of ``gmm`` and ``tgmm`` against 12 and 3 a layer a
   microbatch.
+- ``--pp --sp``: pipeline parallelism under sequence parallelism, 1F1B
+  with ring or Ulysses attention over each stage's own sp group.
+  Llama-2-7B widths at 8 layers (4 a stage), B 4 x T 32768, M 4, under
+  (pp 2, sp 2) with the ring and with Ulysses, both sides with the
+  chunked CE (``--loss-chunks 8``), each against one card at the same
+  batch.  ``--pp --sp --experts 8``: the Mixtral-width MoE, 2 layers (1
+  a stage), grouped, B 2 x T 8192, under (pp 2, sp 2) with the ring at
+  M 2 and at M 1 and with Ulysses at M 1, each against one card; M 2
+  also against one card on 2 virtual stages at M 2 (``train(pp=2)``):
+  the router penalty is each microbatch's, as the reference's, so at M
+  > 1 the pipelined loss is not the one-card step's.  Limits: losses within ``PP_LOSS_RTOL``,
+  every rank's equal to rank 0's, each rank's launches those of its sp
+  index (flash: the causal ring's rank idx 3(idx + 1), idx + 1 and idx +
+  1 a layer a microbatch, Ulysses 3, 1 and 1; the MoE's skip ``gmm`` and
+  ``tgmm`` 12 and 3).
+  Each run profiles one more step on every rank (compute against nccl,
+  the compute idle share by stage beside the bubble (2S - 2) / (M + 2S -
+  2)).
 - ``--sp --experts 8``: MoE under sequence parallelism, the Mixtral-width
   MoE at 2 layers, B 1 x T 8192, grouped, under (ep 2, sp 2) (``ep,sp``
   meshes) against one card: losses within ``PP_LOSS_RTOL``, ranks equal.
@@ -147,12 +166,39 @@ MOE_SP_ARGV = ["--preset", "mixtral-8x7b", "--n-layers", "2", "--top-k",
                "--batch-size", "1", "--seq-len", "8192", "--steps", "3"]
 MOE_SP_MESHES = ("2,2",)                # ep,sp
 FAKE_MESHES = (("pp4", 4, 1, (0, 3)), ("pp2_fsdp2", 2, 2, (0, 3)))
+# --pp --sp: examples/jobs/llama-sp.yaml's T at 8 layers, B 4, and the
+# chunked CE on both sides (one card's unchunked [4, 32768, 32000] f32
+# logits, their log-softmax and gradient take ~50 GB beside ~38 GB of
+# state and activations).
+PP_SP_ARGV = ["--preset", "llama2-7b", "--n-layers", "8", "--batch-size",
+              "4", "--seq-len", "32768", "--steps", "3", "--loss-chunks",
+              "8"]
+PP_SP_RUNS = tuple(
+    (f"pp2_sp2_{kind}", kind, ["--pp", "2", "--sp", "2", "--sp-attention",
+                               kind, "--fsdp", "1", "--microbatches", "4",
+                               "--profile-step"])
+    for kind in ("ring", "ulysses"))
+PP_SP_MOE_ARGV = ["--preset", "mixtral-8x7b", "--n-layers", "2", "--top-k",
+                  "2", "--moe-dispatch", "grouped", "--strict-moe-dispatch",
+                  "--batch-size", "2", "--seq-len", "8192", "--steps", "3"]
+PP_SP_MOE_RUNS = tuple(
+    (label, kind, ["--pp", "2", "--sp", "2", "--sp-attention", kind,
+                   "--fsdp", "1", "--microbatches", m, *profile])
+    for label, kind, m, profile in (
+        ("moe_pp2_sp2_ring", "ring", "2", ["--profile-step"]),
+        ("moe_pp2_sp2_ring_m1", "ring", "1", []),
+        ("moe_pp2_sp2_ulysses_m1", "ulysses", "1", [])))
+# The MoE's router penalty is each microbatch's (as the reference's), a
+# loss of its own at M > 1: one card computes the same on virtual stages.
+PP_SP_MOE_VIRTUAL = ["--microbatches", "2", "--virtual-pp", "2"]
 
 
 def child(argv) -> int:
     """One rank: ``llama_pretrain.main(argv)`` with its ``train`` result
     kept, printed as a ``RESULT`` JSON line, with the ``valid_tiles`` of
-    the grouped layouts of its first step."""
+    the grouped layouts of its first step.  ``--profile-step``: one more
+    step, profiled; ``--virtual-pp S``: one process trains S virtual
+    stages (``train(pp=S)``), which ``main`` takes only from a mesh."""
     from unittest import mock
 
     import torch
@@ -168,8 +214,14 @@ def child(argv) -> int:
     real_layout = moe.grouped_layout
     profile_step = "--profile-step" in argv
     argv = [a for a in argv if a != "--profile-step"]
+    virtual_pp = 0      # --virtual-pp S: train on S virtual stages
+    if "--virtual-pp" in argv:
+        i = argv.index("--virtual-pp")
+        virtual_pp, argv = int(argv[i + 1]), argv[:i] + argv[i + 2:]
 
     def recording(*args, **kwargs):
+        if virtual_pp:
+            kwargs["pp"] = virtual_pp
         runs.append(real(*args, **kwargs))
         if profile_step:    # one more step, before main leaves the gang
             res = runs[-1]
@@ -588,7 +640,9 @@ def main(argv=None) -> int:
                          "meshes dp,tp")
     ap.add_argument("--pp", action="store_true",
                     help="pipeline parallelism: (pp 4), (pp 2, fsdp 2) at 8 "
-                         "layers, (pp 4) at 32, config B3")
+                         "layers, (pp 4) at 32, config B3; with --sp, "
+                         "(pp 2, sp 2) ring and Ulysses at T 32768 (with "
+                         "--experts, the MoE at T 8192)")
     ap.add_argument("--fake-pg", action="store_true",
                     help="each pp mesh's first and last rank alone under "
                          "the fake process group")
@@ -635,6 +689,8 @@ def main(argv=None) -> int:
     print(card[0], f"x {len(card)}", flush=True)
     if args.dryrun:
         return dryrun_main(args)
+    if args.pp and args.sp:
+        return pp_sp_main(args)
     if args.pp:
         return pp_main(args)
     if args.sp and args.experts:
@@ -746,6 +802,77 @@ def pp_main(args) -> int:
         "grouped_launches_by_rank": got, "skip_predicted": want})
     failed |= any(g is None or any(g[k] != v for k, v in want.items())
                   or g["gmm_swiglu"] for g in got)
+    return 1 if failed else 0
+
+
+def idle_by_stage(res, sp: int) -> list:
+    """Each stage's ranks' compute idle shares in the profiled step."""
+    shares = [((rec or {}).get("profile") or {}).get("compute_idle_share")
+              for _, rec in res]
+    return [shares[s * sp:(s + 1) * sp] for s in range(len(shares) // sp)]
+
+
+def pp_sp_main(args) -> int:
+    """The ``--pp --sp`` runs (see the docstring): the dense model, or with
+    ``--experts`` the MoE."""
+    sys.path.insert(0, str(HERE))
+    from chip_smoke import pp_sp_launches_per_layer
+
+    moe = bool(args.experts)
+    argv = (PP_SP_MOE_ARGV + ["--experts", str(args.experts)] if moe
+            else PP_SP_ARGV)
+    [(rc, one)] = run(argv, 1, [], args.timeout)
+    failed = rc != 0
+    if one is not None:
+        print(json.dumps({"run": "one card", "argv": argv, **one}),
+              flush=True)
+    virtual = None
+    if moe:
+        [(rc, virtual)] = run(argv, 1, PP_SP_MOE_VIRTUAL, args.timeout)
+        failed |= rc != 0 or virtual is None
+        if virtual is not None:
+            print(json.dumps({"run": "one card, virtual stages",
+                              "extra": PP_SP_MOE_VIRTUAL, **virtual}),
+                  flush=True)
+    for label, kind, extra in PP_SP_MOE_RUNS if moe else PP_SP_RUNS:
+        res = run(argv, args.cards, extra, args.timeout)
+        S, sp = arg(extra, "--pp"), arg(extra, "--sp")
+        M = arg(extra, "--microbatches")
+        steps = arg(argv, "--steps") + ("--profile-step" in extra)
+        per_stage = arg(argv, "--n-layers") // S
+        want = [{k: v * per_stage * M * steps for k, v in
+                 pp_sp_launches_per_layer(kind, rank % sp).items()}
+                for rank in range(args.cards)]
+        got = [(rec or {}).get("flash_launches") for _, rec in res]
+        grouped = [(rec or {}).get("grouped_launches") for _, rec in res]
+        skip = {f"{k}_skip": v * per_stage * M * steps
+                for k, v in PP_SKIP_PER_LAYER.items()}
+        extra_rec = {}
+        if moe:
+            extra_rec = {"grouped_launches_by_rank": grouped,
+                         "skip_predicted": skip}
+            failed |= any(g is None or g["gmm_swiglu"]
+                          or any(g[k] != v for k, v in skip.items())
+                          for g in grouped)
+        if moe and M > 1:
+            # Against the same loss on one card (virtual stages, M alike).
+            losses = (res[0][1] or {}).get("losses", [])
+            rel = (max((abs(a - b) / abs(b) for a, b in
+                        zip(losses, virtual["losses"])), default=None)
+                   if virtual and losses else None)
+            extra_rec.update(losses_one_card_virtual_stages=virtual and
+                             virtual["losses"],
+                             loss_rel_diff_max_vs_virtual_stages=rel)
+            failed |= rel is None or rel > PP_LOSS_RTOL
+        failed |= compare(label, one, res, {
+            **extra_rec,
+            "flash_launches_by_rank": got,
+            "flash_launches_predicted": want,
+            "profile_by_rank": [(rec or {}).get("profile")
+                                for _, rec in res],
+            "compute_idle_share_by_stage": idle_by_stage(res, sp),
+            "bubble_share": (2 * S - 2) / (M + 2 * S - 2)})
+        failed |= got != want
     return 1 if failed else 0
 
 
