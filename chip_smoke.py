@@ -8,7 +8,8 @@ resume a Llama-2-7B-width run from its checkpoint, train the vision TFJobs
 (ResNet-50 at its published widths, the Flax-MNIST CNN), run ring and
 Ulysses attention at T 32768 over virtual ranks, generate from a KV cache
 at Mixtral-8x7B widths and on Llama-2-7B at all 32 layers, run each rank
-of a (pp 2, sp 2) pipeline alone, and check what comes out.
+of a (pp 2, sp 2) pipeline alone, train as the one pod of a TPU-typed job
+through the pod's launcher, and check what comes out.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -328,12 +329,30 @@ Phases, in order (any failure raises and exits non-zero):
    equal ``pp_sp_launches_per_layer`` of its sp index (the CPU test's
    counts) times its 2 layers and 2 microbatches.  The values come from
    the 4-card run (``tools/mesh_cards.py --pp --sp``).
-23. The card's name and power limit, the ``kernels`` JSON line (launches
+23. the pod path on one card (``workloads/launch.py``), in a child
+   process of this script (``--pod-phase``, with
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``): ``llama_pretrain.main`` at
+   Llama-2-7B widths, 2 layers, B 1 x T 4096, 3 steps, in a one-rank nccl
+   group in that process (flash launches counted from 0 just before and
+   read just after), then the same flags as a pod: a child ``python -m
+   kubeflow_controller_tpu_torch.workloads.llama_pretrain --device cuda
+   --report`` with the env the controller gives the one pod of a one-host
+   ``h100-1`` TPU job (``pod_env``: ``JAX_NUM_PROCESSES`` 1,
+   ``TPU_ACCELERATOR_TYPE`` h100-1, the node agent's loopback coordinator)
+   and ``CUDA_VISIBLE_DEVICES`` of this card, so the contract's count of
+   cards is 1.  The pod's launcher must have started one rank, which
+   formed a one-rank nccl group on this card (its report: launched,
+   world 1, local 0/1, ``cuda:0``, this card's UUID; its mesh line "over 1
+   devices, process 0/1"); its flash launches, printed in its report,
+   must be exact (2, 1 and 1 a layer a step, as the in-process run's),
+   and its losses bit-identical to the in-process run's.  The pod's wall
+   seconds and its first step's end after the spawn are printed.
+24. The card's name and power limit, the ``kernels`` JSON line (launches
    from phase 10; each path's own counts beside them, phase 13's, the
    sequence-parallel paths ``ring_n4``, ``ring_n2`` and ``ulysses_n4``,
    ``generate``, phase 19a's, ``pp_dense`` and ``pp_moe``, phase 20's
-   timed runs, and ``pp_sp_ring`` and ``pp_sp_ulysses``, phase 22's four
-   ranks summed, with the skip launches of ``gmm`` and ``tgmm``, and the
+   timed runs, ``pp_sp_ring`` and ``pp_sp_ulysses``, phase 22's four
+   ranks summed, and ``pod``, phase 23's pod, with the skip launches of ``gmm`` and ``tgmm``, and the
    serve and generate runs' grouped launches by design; each flash entry's
    ``sp_block``: the block kernels of phase 18, SDPA's backward as the
    library time of dq and dkv), and the contract line ``{"ok": true,
@@ -3553,6 +3572,129 @@ def pp_sp_phase(seed: int) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the pod path on one card
+# ---------------------------------------------------------------------------
+
+POD = {"layers": 2, "batch": 1, "seq_len": 4096, "steps": 3}
+POD_ARGV = ["--preset", "llama2-7b", "--n-layers", str(POD["layers"]),
+            "--batch-size", str(POD["batch"]), "--seq-len",
+            str(POD["seq_len"]), "--steps", str(POD["steps"])]
+POD_MODULE = "kubeflow_controller_tpu_torch.workloads.llama_pretrain"
+COORDINATOR_PORT = 8476         # TPUSpec's default coordinatorPort
+
+
+def pod_env(job: str, index: int, pods: int, accel: str, cards: str,
+            port: int, mesh=None) -> dict:
+    """The env the controller gives pod ``index`` of a TPU-typed job of
+    ``pods`` one-host slices of ``accel`` (``_wire_tpu_pod`` in the JAX
+    package's ``planner/materialize.py``, written out here), with the
+    node agent's loopback coordinator at ``port``, ``mesh`` as
+    ``$KCTPU_MESH``, and ``cards`` (``CUDA_VISIBLE_DEVICES``) as the pod's
+    cards."""
+    host = f"host-{index}.{job}--tpu"
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("KCTPU_", "JAX_", "TPU_", "MEGASCALE_"))}
+    env.update({
+        "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+        "JAX_NUM_PROCESSES": str(pods), "JAX_PROCESS_ID": str(index),
+        "TPU_WORKER_ID": "0", "TPU_WORKER_HOSTNAMES": host,
+        "TPU_ACCELERATOR_TYPE": accel,
+        "MEGASCALE_NUM_SLICES": str(pods), "MEGASCALE_SLICE_ID": str(index),
+        "MEGASCALE_COORDINATOR_ADDRESS": f"{host}:{COORDINATOR_PORT}",
+        "KCTPU_GANG_GENERATION": "0", "KCTPU_GANG_NAME": f"{job}-",
+        "CUDA_VISIBLE_DEVICES": cards,
+        "PYTHONPATH": str(Path(__file__).resolve().parent)})
+    if mesh:
+        env["KCTPU_MESH"] = json.dumps(mesh, sort_keys=True)
+    return env
+
+
+def reports(text: str) -> list:
+    """The ``Report: {...}`` lines of a pod's or a rank's output (a pod's
+    other ranks' lines carry a ``[rank g]`` prefix), by global rank."""
+    recs = [json.loads(line.split("Report: ", 1)[1])
+            for line in text.splitlines() if "Report: {" in line]
+    return sorted(recs, key=lambda r: r["rank"])
+
+
+def pod_phase_child(dev, seed: int) -> dict:
+    """Run in the child (``--pod-phase``): ``llama_pretrain.main`` at
+    ``POD``'s size in a one-rank nccl group in this process, then the
+    same flags as the one pod of a one-host ``h100-1`` TPU job: a child
+    ``python -m ...llama_pretrain --device cuda --report`` with the pod's
+    env and this card alone visible.  Returns the record."""
+    card = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    counters = {name: (counter(name), "launches") for name in FLASH_KERNELS}
+    rc, res, out, launches, peak_gb, world, backend = main_in_one_rank_group(
+        dev, POD_ARGV, counters)
+    in_process = {"rc": rc, "backend": backend, "world": world,
+                  "losses": res.losses, "launches": launches,
+                  "step_ms": [x * 1e3 for x in res.step_s],
+                  "peak_mem_gb": peak_gb}
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    uuid = llama_pretrain.card_id(dev)
+    t0 = time.time()
+    pod = subprocess.run(
+        [sys.executable, "-m", POD_MODULE, *POD_ARGV, "--device", "cuda",
+         "--report"],
+        env=pod_env("smoke-pod", 0, 1, "h100-1", card, free_port()),
+        capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    for line in pod.stdout.splitlines():
+        print(f"pod: {line}", flush=True)
+    assert pod.returncode == 0, (pod.returncode, pod.stderr[-3000:])
+    [rep] = reports(pod.stdout)
+    return {"in_process": in_process, "pod": rep, "pod_stdout":
+            pod.stdout, "card": uuid, "pod_wall_s": wall,
+            "pod_first_step_s": rep["first_step_unix"] - t0}
+
+
+def pod_phase(seed: int) -> dict:
+    """Phase 23 (see the docstring), in a child process of this script
+    with cuBLAS's deterministic workspace on both sides.  Returns the
+    pod's flash launches, its path's counts."""
+    out = SMOKE_DIR / f"pod-{os.getpid()}.json"
+    SMOKE_DIR.mkdir(exist_ok=True)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    res = subprocess.run([sys.executable, __file__, "--seed", str(seed),
+                          "--pod-phase", str(out)], env=env, timeout=900)
+    assert res.returncode == 0, f"pod child exited {res.returncode}"
+    rec = json.loads(out.read_text())
+    out.unlink()
+    one, rep = rec["in_process"], rec["pod"]
+    want = {"flash_fwd": 2 * POD["layers"] * POD["steps"],
+            "flash_dq": POD["layers"] * POD["steps"],
+            "flash_dkv": POD["layers"] * POD["steps"]}
+    got = {k: rep["launches"][k] for k in FLASH_KERNELS}
+    summary = {
+        **POD, "pod": {k: rep[k] for k in (
+            "rank", "world", "process", "processes", "local_rank",
+            "local_devices", "launched", "device", "card", "backend",
+            "losses", "step_ms", "peak_mem_gb")},
+        "pod_launches": rep["launches"], "want": want,
+        "in_process": one, "card": rec["card"],
+        "losses_bit_identical": rep["losses"] == one["losses"],
+        "pod_wall_s": rec["pod_wall_s"],
+        "pod_first_step_s": rec["pod_first_step_s"]}
+    print("pod: " + json.dumps(summary), flush=True)
+    assert one["rc"] == 0 and one["backend"] == "nccl" and one["world"] == 1
+    assert one["launches"] == want, (one["launches"], want)
+    assert rep["launched"] and rep["backend"] == "nccl", rep
+    assert (rep["world"], rep["local_devices"], rep["rank"]) == (1, 1, 0), rep
+    assert rep["device"] == "cuda:0" and rep["card"] == rec["card"], rep
+    assert rep["launches"] == {**{k: 0 for k in rep["launches"]}, **want}, \
+        (rep["launches"], want)
+    assert summary["losses_bit_identical"], (rep["losses"], one["losses"])
+    assert ("Mesh: {'pp': 1, 'dp': 1, 'fsdp': 1, 'ep': 1, 'sp': 1, 'tp': 1} "
+            "over 1 devices, process 0/1") in rec["pod_stdout"]
+    assert f"Rank 0/1: local 0/1 on cuda:0 ({rec['card']}), nccl" in \
+        rec["pod_stdout"]
+    return got
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3568,7 +3710,8 @@ def kernels_line(results, flash, paths, serve_designs, generate_designs):
     (``mesh_moe``: the mesh MoE step; ``ring_n4``, ``ring_n2``,
     ``ulysses_n4``: the sequence-parallel paths of phase 18; ``generate``:
     phase 19a's ``generate`` call; ``pp_sp_ring``, ``pp_sp_ulysses``:
-    phase 22's four ranks summed), ``skip_launches_by_path`` the
+    phase 22's four ranks summed; ``pod``: phase 23's pod),
+    ``skip_launches_by_path`` the
     launches of ``gmm`` and ``tgmm`` that carried ``valid_tiles``, and
     ``serve_launches_by_design`` and ``generate_launches_by_design`` the
     serve run's and the generate call's ``gmm`` and ``gmm_swiglu``
@@ -3631,6 +3774,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)  # the child of phase 16
     ap.add_argument("--pp-sp-rank", nargs=2, default=None,
                     help=argparse.SUPPRESS)  # a child of phase 22
+    ap.add_argument("--pod-phase", default="",
+                    help=argparse.SUPPRESS)  # the child of phase 23
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3645,6 +3790,10 @@ def main(argv=None) -> int:
         rank, out = args.pp_sp_rank
         Path(out).write_text(json.dumps(pp_sp_rank(int(rank), dev,
                                                    args.seed)))
+        return 0
+    if args.pod_phase:
+        Path(args.pod_phase).write_text(json.dumps(pod_phase_child(
+            dev, args.seed)))
         return 0
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -3694,6 +3843,8 @@ def main(argv=None) -> int:
     paths["serve_traced"] = traced_serve_phase(dev, args.seed)
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     paths.update(pp_sp_phase(args.seed))
+    paths["pod"] = pod_phase(args.seed)
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     print(card_line())
     print(kernels_line(results, flash, paths, serve_designs,
                        generate_designs))

@@ -17,6 +17,9 @@ Sampling is head-based per trace id (``$KCTPU_TRACE_SAMPLE``, default
 1.0): a pure function of the id, so every process keeps or drops the same
 traces.
 
+A rank that its pod's launcher started stamps its global rank
+(``$KCTPU_RANK``) on every span as ``rank``, and dumps its own file.
+
 A workload dumps its spans to ``$KCTPU_TRACE_DIR/trace-<pid>-<nonce>.json``
 with :func:`dump_to_env_dir` at the end of its ``main`` (a process that
 leaves through ``os._exit`` skips ``atexit``), and at exit otherwise.  The
@@ -44,6 +47,10 @@ TRACE_DIR_ENV = "KCTPU_TRACE_DIR"
 TRACE_CONTEXT_ENV = "KCTPU_TRACE_CONTEXT"
 #: Head-based sampling rate in [0, 1]; default 1.0 (keep everything).
 TRACE_SAMPLE_ENV = "KCTPU_TRACE_SAMPLE"
+#: A rank's global rank, set by its pod's launcher
+#: (``workloads/launch.py``); every span of such a rank carries it as
+#: ``rank``.
+RANK_ENV = "KCTPU_RANK"
 
 
 def _hash16(text: str) -> str:
@@ -144,6 +151,13 @@ def process_context() -> Optional[TraceContext]:
     return _PROCESS_CTX
 
 
+def _rank_args(args: Dict[str, Any]) -> Dict[str, Any]:
+    """``args``, with this process's global rank first when its pod's
+    launcher started it (``$KCTPU_RANK``)."""
+    raw = os.environ.get(RANK_ENV, "")
+    return {"rank": int(raw), **args} if raw.isdigit() else args
+
+
 @dataclass
 class Span:
     """One completed (or in-flight, inside ``with``) span."""
@@ -225,8 +239,8 @@ class Tracer:
         ctx = self.current_context()
         sp = Span(name=name, ts=time.time(), pid=os.getpid(),
                   tid=threading.get_ident(),
-                  parent=stack[-1].name if stack else "", args=args,
-                  span_id=new_span_id())
+                  parent=stack[-1].name if stack else "",
+                  args=_rank_args(args), span_id=new_span_id())
         if ctx is not None:
             sp.trace_id = ctx.trace_id
             # Parent to the nearest enclosing span of the same trace, else
@@ -261,7 +275,7 @@ class Tracer:
         if ctx is not None and not ctx.sampled:
             return None
         sp = Span(name=name, ts=ts, dur=max(0.0, dur), pid=os.getpid(),
-                  tid=threading.get_ident(), args=args,
+                  tid=threading.get_ident(), args=_rank_args(args),
                   span_id=span_id or new_span_id(), parent_id=parent_id)
         if ctx is not None:
             sp.trace_id = ctx.trace_id

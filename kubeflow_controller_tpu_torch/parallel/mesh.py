@@ -6,6 +6,14 @@ reference's.  ``build_mesh`` returns a ``torch.distributed`` ``DeviceMesh``
 over the default process group's world, one device per process (rank r
 drives its own card, or its CPU under gloo), and keeps every canonical axis,
 size 1 where unused, so model code can always name dp/fsdp/tp/sp/pp/ep.
+
+The world is every pod's local devices, pod-major (``workloads/launch.py``:
+global rank = process id x L + local rank), and the mesh lays its ranks
+out row-major in the canonical order, tp fastest: the intra-slice axes
+(tp, sp, ep, fsdp and dp's intra-slice share) take consecutive ranks, so
+they stay within a pod's cards, while pp and dp's inter-slice share
+cross pods, as the reference's mesh-to-slice plan
+(``planner/meshmap.py``) places them.
 """
 
 from __future__ import annotations
@@ -84,8 +92,9 @@ def mesh_shape_for(n_devices: int, spec: Optional[MeshSpec] = None
 def build_mesh(spec: Optional[MeshSpec] = None, device_type: str = "cuda"):
     """A ``DeviceMesh`` with every canonical axis over the default process
     group's world (which must be joined: ``JobRuntime.initialize``, or a
-    group the caller formed), one device per process.  ``device_type`` is
-    ``"cuda"`` (nccl) or ``"cpu"`` (gloo)."""
+    group the caller formed), one device per process, every pod's ranks
+    together (see the module docstring).  ``device_type`` is ``"cuda"``
+    (nccl) or ``"cpu"`` (gloo)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 

@@ -200,12 +200,16 @@ def guard_from_env(rt, env=None) -> Optional[GangGuard]:
     """Build (but do not start) the workload-side guard from the node-agent
     env contract: enabled when ``KCTPU_GANG_MONITOR`` is set, the job is
     multi-process, and a shared rendezvous dir exists.  ``rt`` is the
-    :class:`workloads.runtime.JobRuntime`."""
+    :class:`workloads.runtime.JobRuntime`.  The guard is the pod's (the
+    controller's gang is pods): in a pod whose launcher runs several ranks
+    (``workloads/launch.py``), local rank 0 alone runs it, as member
+    ``process_id`` of ``num_processes``; its tear-down exit stops the
+    pod's other ranks."""
     e = os.environ if env is None else env
     if not e.get(ENV_GANG_MONITOR):
         return None
     d = e.get("KCTPU_RENDEZVOUS_DIR", "")
-    if not d or rt.num_processes <= 1:
+    if not d or rt.num_processes <= 1 or rt.local_rank != 0:
         return None
     gang = e.get("KCTPU_GANG_NAME", "") or rt.coordinator or "gang"
     try:

@@ -16,7 +16,7 @@ a hidden temporary name and renamed into place once complete, so
 newest ``keep`` steps are kept.
 
 A replicated state (data parallel, one model a process) is written by
-process 0 alone (``no_dist``) and read by every process.  A sharded state
+global rank 0 alone (``no_dist``) and read by every rank.  A sharded state
 (a model whose parameters are DTensors: ``models.llama.shard_llama``) is
 saved collectively: every process writes its own shards into the step's
 temporary directory, process 0 renames it into place, and every process
@@ -50,8 +50,9 @@ def torch_optimizer(optimizer: Any) -> torch.optim.Optimizer:
 
 
 def is_writer() -> bool:
-    """Whether this process writes checkpoints: process 0 of a group, or a
-    process with no group."""
+    """Whether this process writes checkpoints: global rank 0 of a group
+    (process 0's first local rank in a pod of several), or a process
+    with no group."""
     import torch.distributed as dist
 
     return not dist.is_initialized() or dist.get_rank() == 0

@@ -20,6 +20,12 @@ of it a step; the gang trains one model with SGD (momentum 0.9,
 1.  The printed loss is the global batch's; accuracy is on the eval set
 every worker holds whole, with the running statistics.  ``--model cnn``
 trains ``FlaxMNISTCNN`` on the 28x28 centre of the first channel.
+
+A pod of several local devices (``launch.py``) runs one rank a device, dp
+over every rank: the pod's process index picks the seed and the pod's
+``bs / pods`` rows a step, which its ranks split by local rank, as the
+reference shards a process's share over its local devices; local rank 0
+prints the pod's "Worker i/n" line.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import argparse
 import sys
 import time
 
-from ..device import resolve_device
+from ..device import rank_device
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -72,16 +78,18 @@ def run(args: argparse.Namespace):
 
     from ..models import vision as v
     from .data import synthetic_cifar
-    from .runtime import JobRuntime, process_count, process_index
+    from .runtime import JobRuntime, process_count, process_index, world_size
     from .trainer import FitResult, batch_stack, sgd, train_scan_stateful
 
-    dev = resolve_device(args.device)
+    dev = rank_device(args.device)
     rt = JobRuntime.from_env()
     rt.merge_tf_args(args.job_name, args.task_index, args.worker_hosts)
+    joined = not torch.distributed.is_initialized()
     rt.initialize(dev)
-    pc, proc = process_count(), process_index()
-    dp = pc
+    joined = joined and torch.distributed.is_initialized()
+    pc, proc, dp = process_count(), process_index(), world_size()
     bs = max(dp, args.batch_size - args.batch_size % dp)
+    rows = bs // dp      # this rank's, of its pod's bs / pc
 
     x, y = synthetic_cifar(1000 + proc, args.train_size, dev)
     ex, ey = synthetic_cifar(2, args.eval_size, dev)
@@ -94,23 +102,35 @@ def run(args: argparse.Namespace):
 
     start = time.time()
     xs, ys = batch_stack(x, y, args.steps, bs // pc)
+    cols = slice(rt.local_rank * rows, (rt.local_rank + 1) * rows)
+    xs, ys = xs[:, cols], ys[:, cols]
     _, losses = train_scan_stateful(
         lambda xb, yb, st: v.vision_loss(model, xb, yb), opt,
         v.batch_stats(model), xs, ys)
     loss = float(losses[-1])
     elapsed = time.time() - start
     acc = float(v.vision_accuracy(model, ex, ey))
-    if pc > 1:
+    if dp > 1 or joined:
         torch.distributed.barrier()
         rt.shutdown()
-    return FitResult(losses, loss, acc, elapsed, proc, pc, dp, bs, model)
+    return FitResult(losses, loss, acc, elapsed, proc, pc, dp, bs, model,
+                     local_rank=rt.local_rank)
 
 
 def main(argv=None) -> int:
+    from .launch import launch_pod
+    from .runtime import JobRuntime
+
     args = parse_args(argv)
+    rt = JobRuntime.from_env()
+    rt.merge_tf_args(args.job_name, args.task_index, args.worker_hosts)
+    code = launch_pod(__spec__.name, argv, args.device, rt)
+    if code is not None:
+        return code     # the pod's ranks ran
     res = run(args)
-    print(f"Worker {res.process}/{res.processes} ({args.model}) on "
-          f"{res.dp}-way mesh")
+    if res.local_rank == 0:
+        print(f"Worker {res.process}/{res.processes} ({args.model}) on "
+              f"{res.dp}-way mesh")
     print(f"Training elapsed time: {res.elapsed_s:f} s")
     print(f"Final loss: {res.loss:f}; eval accuracy: {res.accuracy:f}")
     if args.target_accuracy and res.accuracy < args.target_accuracy:

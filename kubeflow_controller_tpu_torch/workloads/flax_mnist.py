@@ -17,6 +17,12 @@ bs / n)`` of each, the gradients and the loss averaged in one
 update (``trainer.adam``).  The global batch is rounded down to a multiple
 of the width.  With ``MODEL_DIR`` set the chief saves the trained model
 and optimizer there as step ``--steps``.
+
+A pod of several local devices (``launch.py``) runs one rank a device:
+dp spans every rank, each global batch splits first by pod and then by
+local rank (rank ``process x L + local rank`` takes its rows, as the
+reference shards a process's share over its local devices), and local
+rank 0 prints the pod's "Process i/n on W devices" line.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import argparse
 import sys
 import time
 
-from ..device import resolve_device
+from ..device import rank_device
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -50,14 +56,15 @@ def run(args: argparse.Namespace):
     from ..models import vision as v
     from .checkpoint import CheckpointManager
     from .data import synthetic_mnist_images
-    from .runtime import JobRuntime, process_count, process_index
+    from .runtime import JobRuntime, global_rank, world_size
     from .trainer import FitResult, adam, batch_stack, train_scan
 
-    dev = resolve_device(args.device)
+    dev = rank_device(args.device)
     rt = JobRuntime.from_env()
+    joined = not torch.distributed.is_initialized()
     rt.initialize(dev)
-    pc, proc = process_count(), process_index()
-    dp = pc
+    joined = joined and torch.distributed.is_initialized()
+    dp, rank = world_size(), global_rank()
     bs = max(dp, args.batch_size - args.batch_size % dp)
     rows = bs // dp
 
@@ -69,7 +76,7 @@ def run(args: argparse.Namespace):
 
     start = time.time()
     xs, ys = batch_stack(x, y, args.steps, bs)
-    cols = slice(proc * rows, (proc + 1) * rows)
+    cols = slice(rank * rows, (rank + 1) * rows)
     losses = train_scan(lambda xb, yb: v.vision_loss(model, xb, yb)[0], opt,
                         xs[:, cols], ys[:, cols])
     loss = float(losses[-1])
@@ -79,18 +86,25 @@ def run(args: argparse.Namespace):
     if rt.model_dir and rt.is_chief:
         CheckpointManager(rt.model_dir).save(args.steps, model, opt)
         saved_to = rt.model_dir
-    if pc > 1:
+    if dp > 1 or joined:
         torch.distributed.barrier()  # the chief's save is in place
         rt.shutdown()
-    return FitResult(losses, loss, acc, elapsed, proc, pc, dp, bs, model,
-                     saved_to)
+    return FitResult(losses, loss, acc, elapsed, rt.process_id,
+                     rt.num_processes, dp, bs, model, saved_to,
+                     rt.local_rank)
 
 
 def main(argv=None) -> int:
+    from .launch import launch_pod
+
     args = parse_args(argv)
+    code = launch_pod(__spec__.name, argv, args.device)
+    if code is not None:
+        return code     # the pod's ranks ran
     res = run(args)
-    print(f"Process {res.process}/{res.processes} on {res.dp} devices "
-          f"(dp={res.dp})")
+    if res.local_rank == 0:
+        print(f"Process {res.process}/{res.processes} on {res.dp} devices "
+              f"(dp={res.dp})")
     print(f"Training elapsed time: {res.elapsed_s:f} s")
     print(f"Final loss: {res.loss:f}; eval accuracy: {res.accuracy:f}")
     if res.saved_to:

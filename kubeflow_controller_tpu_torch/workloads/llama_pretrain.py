@@ -70,6 +70,17 @@ the activations.
 
 Without a group, an axis above 1 asks for more devices than the one there
 is, and raises ``ValueError`` as the reference's mesh does.
+
+A pod of several local devices (``launch.py``: ``$KCTPU_LOCAL_DEVICES``, or
+``--device cuda`` under the controller's contract on a host of several
+cards) runs one rank a device, as the reference's pod drives every
+``jax.devices()`` entry: ``main`` starts the pod's ranks, each rank trains
+on its own card over the world of every pod's devices, and local rank 0
+prints the pod's one mesh line, "Mesh: {...} over W devices, process
+i/n"; each rank prints its "Rank g/W" line and its losses.  ``--report``
+prints one ``Report: {...}`` JSON line a rank (its losses, step ms, peak
+memory, first step's end, kernel launches and card), which the card
+tools read.
 """
 
 from __future__ import annotations
@@ -77,6 +88,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import json
 import os
 import sys
 import time
@@ -86,7 +98,7 @@ from typing import Callable, List, Optional
 
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, rank_device, resolve_device
 from ..models.llama import (
     Llama,
     LlamaConfig,
@@ -104,8 +116,9 @@ from ..obs.phases import PHASE_FIT, PHASE_RESTORE
 from .checkpoint import CheckpointManager
 from .compile_cache import build_kernels
 from .data import synthetic_tokens
+from .launch import launch_pod
 from .progress import reporter
-from .runtime import JobRuntime
+from .runtime import JobRuntime, global_rank, world_size
 from .trainer import BEAT_INTERVAL_S, default_optimizer
 
 
@@ -124,6 +137,7 @@ class TrainResult:
     # says where the final step is.
     checkpoint: Optional[CheckpointManager] = None
     checkpoint_note: str = ""
+    first_step_unix: float = 0.0   # wall clock at the first step's end
 
 
 def _sync(dev: torch.device) -> None:
@@ -227,6 +241,7 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
     # this content was built before); no step, no build.
     compile_source = build_kernels(dev, rep) if steps > 0 else ""
     losses, step_s = [], []
+    first_step_unix = 0.0
     next_beat = 0.0
     with prof:
         _sync(dev)
@@ -239,6 +254,7 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
             _sync(dev)
             now = time.perf_counter()
             step_s.append(now - t0)
+            first_step_unix = first_step_unix or time.time()
             if now >= next_beat or i + 1 == start_step + steps:
                 next_beat = now + BEAT_INTERVAL_S
                 rep.beat(step=i + 1, loss=losses[-1], phase=PHASE_FIT,
@@ -267,7 +283,7 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
             note = f"Checkpoint saved to {model_dir}"
     return TrainResult(losses, step_s, elapsed,
                        steps * bs * seq_len / max(elapsed, 1e-9), model, step,
-                       start_step, ckpt, note)
+                       start_step, ckpt, note, first_step_unix)
 
 
 def mixtral_8x7b() -> LlamaConfig:
@@ -282,6 +298,44 @@ def mixtral_8x7b() -> LlamaConfig:
 
 PRESETS = {"tiny": None, "llama2-7b": LlamaConfig.llama2_7b,
            "mixtral-8x7b": mixtral_8x7b}
+
+
+def card_id(dev: torch.device) -> str:
+    """The card's UUID (``nvidia-smi -L``'s ``GPU-...``) and PCI bus id,
+    else the device."""
+    if dev.type != "cuda":
+        return str(dev)
+    props = torch.cuda.get_device_properties(dev)
+    pci = ":".join(f"{getattr(props, k, 0):02x}" for k in (
+        "pci_domain_id", "pci_bus_id", "pci_device_id"))
+    return f"GPU-{getattr(props, 'uuid', '')} pci {pci}"
+
+
+def report(rt: JobRuntime, res: TrainResult, dev: torch.device,
+           card: str) -> dict:
+    """This rank's run: who and where it is, its exact losses, step ms,
+    peak memory, the wall clock at its first step's end, and the kernel
+    launches of the process (each wrapper's counter)."""
+    import torch.distributed as dist
+
+    from ..ops import attention, grouped_matmul as gm
+
+    return {
+        "rank": global_rank(), "world": world_size(),
+        "process": rt.process_id, "processes": rt.num_processes,
+        "local_rank": rt.local_rank, "local_devices": rt.local_devices,
+        "launched": rt.launched, "device": str(dev), "card": card,
+        "backend": dist.get_backend() if dist.is_initialized() else "",
+        "losses": res.losses, "step_ms": [x * 1e3 for x in res.step_s],
+        "first_step_unix": res.first_step_unix,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if dev.type == "cuda" else None),
+        "launches": {
+            **{k: getattr(attention, k).launches
+               for k in ("flash_fwd", "flash_dq", "flash_dkv")},
+            "gmm": gm.gmm.launches, "gmm_skip": gm.gmm.skip_launches,
+            "gmm_swiglu": gm.gmm_swiglu.launches, "tgmm": gm.tgmm.launches,
+            "tgmm_skip": gm.tgmm.skip_launches}}
 
 
 def main(argv=None) -> int:
@@ -351,12 +405,19 @@ def main(argv=None) -> int:
                         "LOG_DIR is plumbed")
     p.add_argument("--device", default="cuda",
                    help="torch device (raises without CUDA unless 'cpu' is "
-                        "named)")
+                        "named); 'cuda' in a pod of several cards runs one "
+                        "rank a card")
+    p.add_argument("--report", action="store_true",
+                   help="print one 'Report: {...}' JSON line a rank")
     args = p.parse_args(argv)
 
-    dev = resolve_device(args.device)
     rt = JobRuntime.from_env()
     rt.merge_tf_args(args.job_name, args.task_index, args.worker_hosts)
+    code = launch_pod(__spec__.name, argv, args.device, rt)
+    if code is not None:
+        return code     # the pod's ranks ran
+    dev = rank_device(args.device)
+    rt.check_mesh()
 
     # Mesh axes: the flags, or the controller's plan ($KCTPU_MESH, for the
     # gang's current width) where there is one, as in the reference.
@@ -412,6 +473,8 @@ def main(argv=None) -> int:
     profile_dir = args.profile_dir
     if profile_dir == "auto":
         profile_dir = os.path.join(rt.log_dir, "trace") if rt.log_dir else ""
+    if profile_dir and rt.launched:     # a pod's ranks share its argv
+        profile_dir = os.path.join(profile_dir, f"rank-{rt.global_rank}")
     res = train(cfg, steps=args.steps, batch_size=args.batch_size,
                 seq_len=args.seq_len, lr=args.lr, device=dev,
                 profile_dir=profile_dir, model_dir=rt.model_dir,
@@ -420,12 +483,20 @@ def main(argv=None) -> int:
     loss = res.losses[-1] if res.losses else float("nan")
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    if mesh is not None:
+    if mesh is not None and rt.local_rank == 0:
         shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
         print(f"Mesh: {shape} over {dist.get_world_size()} devices, "
               f"process {rt.process_id}/{rt.num_processes}")
     print(f"Device: {dev} ({name}), process "
           f"{rt.process_id}/{rt.num_processes}")
+    card = card_id(dev)
+    if rt.launched:
+        print(f"Rank {rt.global_rank}/{rt.world_size}: local "
+              f"{rt.local_rank}/{rt.local_devices} on {dev} ({card}), "
+              f"{dist.get_backend()}")
+    if args.report:
+        print("Report: " + json.dumps(report(rt, res, dev, card)),
+              flush=True)
     print(f"Training elapsed time: {res.elapsed_s:f} s")
     print(f"Final loss: {loss:f}; throughput: {res.tokens_per_s:.0f} "
           f"tokens/s")

@@ -15,9 +15,13 @@ Roles, from the TF-contract args the planner injects:
   under ``--no-overlap``), joins the process group (gloo on the CPU, nccl
   on CUDA), trains one shared model with one flat all-reduce per step
   (``trainer.make_dist_step``, driven per step with progress beats), and
-  evaluates on the whole eval set.  Each process stages its columns
-  ``[proc·bs/pc, (proc+1)·bs/pc)`` of every global batch; the global batch
-  is rounded down to a multiple of the data-parallel width.
+  evaluates on the whole eval set.  Each rank stages its columns
+  ``[r·bs/W, (r+1)·bs/W)`` of every global batch; the global batch is
+  rounded down to a multiple of the data-parallel width W.
+- a worker pod of several local devices (``launch.py``) runs one rank a
+  device: W is every pod's devices, rank r = process x L + local rank (the
+  batch splits by pod, then by local rank), the gang guard and the beats
+  are local rank 0's, and local rank 0 prints the pod's "Worker i/n" line.
 
 Checkpoint/resume (``MODEL_DIR``), as in the reference's step loop: the
 latest readable step is restored before the first beat, which reads
@@ -98,15 +102,16 @@ class DistResult:
     losses: Any                # torch.Tensor [steps], global means, on device
     loss: float                # the last step's
     accuracy: float            # on the whole eval set
-    process: int
+    process: int               # the pod (jax.process_index)
     processes: int
-    dp: int                    # data-parallel width (one device a process)
+    dp: int                    # data-parallel width (one device a rank)
     batch_size: int            # global, after rounding to dp
     times: Dict[str, float]    # rendezvous, init, fit, total (s)
     device: str
     model: Any                 # the trained MnistMLP
     start_step: int = 0        # the checkpoint step resumed from (0: none)
     saved_to: str = ""         # MODEL_DIR, if this process saved there
+    local_rank: int = 0        # the rank among its pod's local devices
 
 
 def run_worker(args: argparse.Namespace) -> DistResult:
@@ -116,7 +121,7 @@ def run_worker(args: argparse.Namespace) -> DistResult:
     import torch
     import torch.distributed as dist
 
-    from ..device import resolve_device
+    from ..device import rank_device
     from ..models import mnist as m
     from ..obs.phases import PHASE_RESHARD, PHASE_RESTORE
     from ..obs.trace import span
@@ -124,7 +129,14 @@ def run_worker(args: argparse.Namespace) -> DistResult:
     from . import data as d
     from .checkpoint import CheckpointManager, is_writer
     from .progress import reporter
-    from .runtime import HostSetup, JobRuntime, process_count, process_index
+    from .runtime import (
+        HostSetup,
+        JobRuntime,
+        global_rank,
+        process_count,
+        process_index,
+        world_size,
+    )
     from .trainer import (
         default_optimizer,
         make_dist_step,
@@ -132,7 +144,7 @@ def run_worker(args: argparse.Namespace) -> DistResult:
     )
 
     t_start = time.perf_counter()
-    dev = resolve_device(args.device)
+    dev = rank_device(args.device)
     rt = JobRuntime.from_env()
     rt.merge_tf_args(args.job_name, args.task_index, args.worker_hosts)
 
@@ -152,8 +164,11 @@ def run_worker(args: argparse.Namespace) -> DistResult:
     with span("workload/rendezvous", task_index=args.task_index) as sp_rdv:
         rt.initialize(dev)
 
-    pc, proc = process_count(), process_index()
-    with span("workload/init", process=proc) as sp_init:
+    # Ranks for the data split and the collectives; the pod for the spans
+    # and the sign-off, as jax.process_index() in the reference.
+    pc, proc = world_size(), global_rank()
+    pod, pods = process_index(), process_count()
+    with span("workload/init", process=pod) as sp_init:
         # One device per process.  Round the global batch down to a
         # multiple of the data-parallel width (the reference's batch 100
         # over 8 devices -> 96 per step).
@@ -161,10 +176,10 @@ def run_worker(args: argparse.Namespace) -> DistResult:
         bs = max(dp, args.batch_size - args.batch_size % dp)
         spe = max(1, args.train_size // bs)  # steps per epoch
 
-    with span("workload/fit", process=proc, steps=args.steps,
+    with span("workload/fit", process=pod, steps=args.steps,
               step_loop=True) as sp_fit:
         params, (x_np, y_np), (ex_np, ey_np) = setup.result()
-        with span("workload/stage", process=proc):
+        with span("workload/stage", process=pod):
             # Stack the epoch's batches [spe, bs] and keep this process's
             # columns of every batch.
             idx = (np.arange(spe)[:, None] * bs + np.arange(bs)[None, :]) \
@@ -197,7 +212,7 @@ def run_worker(args: argparse.Namespace) -> DistResult:
                      else PHASE_RESTORE)
             if mgr.latest_step() is not None:
                 reporter().beat(phase=phase)
-                with span("workload/restore", process=proc,
+                with span("workload/restore", process=pod,
                           reshard=(phase == PHASE_RESHARD)) as sp_r:
                     _, _, start_step = mgr.restore(model, opt)
                     sp_r.args["step"] = start_step
@@ -237,7 +252,7 @@ def run_worker(args: argparse.Namespace) -> DistResult:
         # The done marker BEFORE the exit barrier, so a fast peer's
         # silence is never mistaken for death.
         guard.mark_done()
-    if pc > 1:
+    if pc > 1 or rt.launched:
         # Leave together: process 0 hosts the store, and an early exit
         # would fail a peer still finishing its eval.
         try:
@@ -245,8 +260,9 @@ def run_worker(args: argparse.Namespace) -> DistResult:
         except RuntimeError:
             pass  # best effort; exit skew is rare
         rt.shutdown()
-    return DistResult(losses, float(losses[-1]), acc, proc, pc, dp, bs,
-                      times, str(dev), model, start_step, saved_to)
+    return DistResult(losses, float(losses[-1]), acc, pod, pods, dp, bs,
+                      times, str(dev), model, start_step, saved_to,
+                      rt.local_rank)
 
 
 def main(argv=None) -> int:
@@ -260,10 +276,19 @@ def main(argv=None) -> int:
         signal.sigwait(park)
         return 0
 
+    from .launch import launch_pod
+    from .runtime import JobRuntime
+
+    rt = JobRuntime.from_env()
+    rt.merge_tf_args(args.job_name, args.task_index, args.worker_hosts)
+    code = launch_pod(__spec__.name, argv, args.device, rt)
+    if code is not None:
+        return code     # the pod's ranks ran
     res = run_worker(args)
     t = res.times
-    print(f"Worker {res.process}/{res.processes} on {res.device} "
-          f"(dp={res.dp}, global batch {res.batch_size})")
+    if res.local_rank == 0:
+        print(f"Worker {res.process}/{res.processes} on {res.device} "
+              f"(dp={res.dp}, global batch {res.batch_size})")
     print(f"Phase times: rendezvous={t['rendezvous']:.3f}s "
           f"init={t['init']:.3f}s fit={t['fit']:.3f}s "
           f"total={t['total']:.3f}s")

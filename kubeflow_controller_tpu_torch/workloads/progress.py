@@ -7,6 +7,8 @@ over one of two transports, chosen from the environment the node agent
 injects: REST (``KCTPU_PROGRESS_URL``: PUT to the pod's ``progress``
 subresource) or a file drop (``KCTPU_PROGRESS_DIR``: one atomic JSON file
 per pod).  Both are best-effort: a lost beat never fails the workload.
+A pod whose launcher runs several ranks (``launch.py``) beats from local
+rank 0 alone.
 
 :meth:`ProgressReporter.compiling` covers the port's one compile, the
 ``nvcc`` build of the CUDA kernels (``compile_cache.build_kernels``): it
@@ -27,6 +29,7 @@ from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, Optional
 
+from ..device import ENV_LOCAL_RANK
 from ..obs import trace
 from ..obs.phases import PHASE_COMPILE
 
@@ -63,7 +66,12 @@ class ProgressReporter:
 
     @staticmethod
     def from_env(env: Optional[Dict[str, str]] = None) -> "ProgressReporter":
+        """The pod's reporter; a disabled one in a rank of the pod's
+        launcher other than local rank 0 (the controller reads one beat
+        stream a pod, keyed by the pod's name)."""
         e = os.environ if env is None else env
+        if e.get(ENV_LOCAL_RANK, "0") != "0":
+            return ProgressReporter()
         return ProgressReporter(
             namespace=e.get(ENV_POD_NAMESPACE, "default") or "default",
             name=e.get(ENV_POD_NAME, ""),

@@ -14,11 +14,23 @@ reference's trace spans ``runtime/wait_coordinator`` and
 the coordinator's address, the role JAX's coordination service plays.  The
 backend is ``nccl`` for a CUDA device and ``gloo`` for the CPU, which the
 caller must name.  A single process joins nothing, as in the reference.
+
+Where the reference's one process drives every local device of its pod
+(``jax.local_devices()``), the port runs one rank a device: a pod's
+launcher (``launch.py``) starts L ranks, and each one's runtime carries
+``local_devices`` (L, ``$KCTPU_LOCAL_DEVICES``) and ``local_rank``
+(``$KCTPU_LOCAL_RANK``).  Such a rank's global rank is ``process_id x L +
+local_rank`` and the world ``num_processes x L``; a launched rank always
+joins, a one-rank world too.  :func:`process_count` and
+:func:`process_index` count pods, as ``jax.process_count`` and
+``jax.process_index`` do; :func:`world_size` and :func:`global_rank` count
+ranks.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import socket
 import threading
@@ -29,7 +41,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import (
+    ENV_LOCAL_DEVICES,
+    ENV_LOCAL_RANK,
+    DeviceLike,
+    resolve_device,
+)
 from ..obs.phases import PHASE_INIT, PHASE_RENDEZVOUS
 from ..obs.trace import span
 from .progress import reporter
@@ -83,19 +100,38 @@ def _ready_filename(coordinator: str, generation: int = 0) -> str:
     return base + ".ready"
 
 
-def process_count() -> int:
-    """The gang's size once a group is joined, else 1
-    (``jax.process_count``)."""
+def world_size() -> int:
+    """The ranks of the joined group (one a device), else 1."""
     import torch.distributed as dist
 
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def process_index() -> int:
-    """This process's rank once a group is joined, else 0."""
+def global_rank() -> int:
+    """This rank's index in the joined group, else 0."""
     import torch.distributed as dist
 
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+def local_devices(env: Optional[Dict[str, str]] = None) -> int:
+    """The ranks of this process's pod: L for a rank that the pod's
+    launcher started, else 1 (the process is its pod's one rank)."""
+    e = os.environ if env is None else env
+    if e.get(ENV_LOCAL_RANK) is None:
+        return 1
+    return max(1, int(e.get(ENV_LOCAL_DEVICES, "1") or "1"))
+
+
+def process_count() -> int:
+    """The job's processes (pods) once a group is joined, else 1
+    (``jax.process_count``): the world over each pod's local devices."""
+    return max(1, world_size() // local_devices())
+
+
+def process_index() -> int:
+    """This rank's pod (``jax.process_index``)."""
+    return global_rank() // local_devices()
 
 
 class HostSetup:
@@ -168,12 +204,21 @@ class JobRuntime:
     export_dir: str = ""
     _initialized: bool = False
 
+    def __post_init__(self) -> None:
+        # This pod's local devices (L), this rank's index among them, and
+        # whether the pod's launcher started this rank (such a rank joins
+        # even a one-rank world).  Plain attributes, not fields: the
+        # fields stay the reference's.
+        self.local_devices = 1
+        self.local_rank = 0
+        self.launched = False
+
     @staticmethod
     def from_env(env: Optional[Dict[str, str]] = None) -> "JobRuntime":
         e = os.environ if env is None else env
         hostnames = [h for h in e.get(ENV_TPU_WORKER_HOSTNAMES, "").split(",")
                      if h]
-        return JobRuntime(
+        rt = JobRuntime(
             coordinator=e.get(ENV_COORDINATOR, ""),
             num_processes=int(e.get(ENV_NUM_PROCESSES, "1") or "1"),
             process_id=int(e.get(ENV_PROCESS_ID, "0") or "0"),
@@ -191,6 +236,32 @@ class JobRuntime:
             log_dir=e.get("LOG_DIR", ""),
             export_dir=e.get("EXPORT_DIR", ""),
         )
+        rt.local_devices = local_devices(e)
+        rt.local_rank = int(e.get(ENV_LOCAL_RANK, "0") or "0")
+        rt.launched = e.get(ENV_LOCAL_RANK) is not None
+        return rt
+
+    @property
+    def world_size(self) -> int:
+        """Ranks in the job: one a local device of every pod."""
+        return self.num_processes * self.local_devices
+
+    @property
+    def global_rank(self) -> int:
+        return self.process_id * self.local_devices + self.local_rank
+
+    def check_mesh(self) -> None:
+        """Raise when the controller's mesh ($KCTPU_MESH) and a pod of more
+        than one local device disagree on the world: no smaller (or
+        larger) mesh is built in its place."""
+        if self.local_devices <= 1 or not self.mesh:
+            return
+        want = math.prod(self.mesh.values())
+        if want != self.world_size:
+            raise ValueError(
+                f"$KCTPU_MESH {self.mesh} spans {want} devices, but "
+                f"{self.num_processes} process(es) x {self.local_devices} "
+                f"local devices make {self.world_size}")
 
     def merge_tf_args(self, job_name: str, task_index: int,
                       worker_hosts: str) -> None:
@@ -211,15 +282,17 @@ class JobRuntime:
 
     def initialize(self, device: DeviceLike = "cuda",
                    timeout_s: float = JOIN_TIMEOUT_S) -> None:
-        """Join the job's process group when it has more than one process;
-        a single process returns at once and starts no group.
+        """Join the job's process group when it has more than one rank, or
+        when this process is a rank of its pod's launcher; a single
+        process of its own returns at once and starts no group.
 
-        ``device`` is the device this process trains on (``nccl`` for
-        CUDA, ``gloo`` for the CPU); without CUDA it raises unless the CPU
-        is named.  A gang that does not form within ``timeout_s`` raises:
-        a process other than 0 waits that long for the coordinator to
-        answer, and the join itself waits that long for every process."""
-        if self._initialized or self.num_processes <= 1:
+        ``device`` is the device this rank trains on (``nccl`` for CUDA,
+        ``gloo`` for the CPU); without CUDA it raises unless the CPU is
+        named.  A gang that does not form within ``timeout_s`` raises: a
+        rank other than 0 waits that long for the coordinator to answer,
+        and the join itself waits that long for every rank."""
+        if self._initialized or (self.world_size <= 1
+                                 and not self.launched):
             self._initialized = True
             return
         dev = resolve_device(device)
@@ -228,7 +301,7 @@ class JobRuntime:
                              "host:port")
         # First heartbeat of the pod's life: alive and in rendezvous.
         reporter().beat(phase=PHASE_RENDEZVOUS)
-        if self.process_id == 0:
+        if self.global_rank == 0:
             self._drop_ready_file()
         else:
             with span("runtime/wait_coordinator",
@@ -237,7 +310,7 @@ class JobRuntime:
                 reached = self._wait_coordinator(timeout_s)
             if not reached:
                 raise TimeoutError(
-                    f"process {self.process_id}: coordinator "
+                    f"rank {self.global_rank}: coordinator "
                     f"{self.coordinator!r} not reachable within "
                     f"{timeout_s:g} s")
         with span("runtime/distributed_initialize",
@@ -249,20 +322,27 @@ class JobRuntime:
 
     def join_group(self, device: DeviceLike = "cuda",
                    timeout_s: float = JOIN_TIMEOUT_S) -> str:
-        """``init_process_group`` over this runtime's coordinator, size and
-        rank, whatever the size (a one-rank group too); returns the
-        backend.  Process 0 binds the TCP store at the coordinator's
-        address."""
+        """``init_process_group`` over this runtime's coordinator, world
+        and global rank, whatever the size (a one-rank group too); returns
+        the backend.  Global rank 0 binds the TCP store at the
+        coordinator's address.  On CUDA the rank binds its own card:
+        ``device``'s index, else its local rank's for a launched rank,
+        else the current card."""
         import torch.distributed as dist
 
         dev = resolve_device(device)
         backend = "nccl" if dev.type == "cuda" else "gloo"
         if dev.type == "cuda":
-            torch.cuda.set_device(dev.index if dev.index is not None
-                                  else torch.cuda.current_device())
+            if dev.index is not None:
+                card = dev.index
+            elif self.launched:
+                card = self.local_rank
+            else:
+                card = torch.cuda.current_device()
+            torch.cuda.set_device(card)
         dist.init_process_group(
             backend, init_method=f"tcp://{self.coordinator}",
-            world_size=self.num_processes, rank=self.process_id,
+            world_size=self.world_size, rank=self.global_rank,
             timeout=timedelta(seconds=timeout_s))
         return backend
 
@@ -329,4 +409,5 @@ class JobRuntime:
 
     @property
     def is_chief(self) -> bool:
-        return self.process_id == 0
+        """Global rank 0: process 0's first local rank."""
+        return self.global_rank == 0

@@ -96,12 +96,13 @@ class FitResult:
     loss: float                # the last step's
     accuracy: float            # on the whole (replicated) eval set
     elapsed_s: float           # batch staging + training, ending in a sync
-    process: int
+    process: int               # the pod (jax.process_index)
     processes: int
-    dp: int                    # data-parallel width (one device a process)
+    dp: int                    # data-parallel width (one device a rank)
     batch_size: int            # global, after rounding to dp
     model: torch.nn.Module
     saved_to: str = ""         # MODEL_DIR, if this process saved there
+    local_rank: int = 0        # the rank among its pod's local devices
 
 
 def _whole(x: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,7 @@
 import ast
 import importlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -59,7 +60,7 @@ SLICE_MODULES = ("workloads.serve", "ops.grouped_matmul", "ops.attention",
                  "parallel.mesh", "parallel.sharding",
                  "parallel.collectives", "parallel.ulysses",
                  "models.generate", "graft_entry", "obs.trace",
-                 "obs.metrics")
+                 "obs.metrics", "workloads.launch")
 
 
 def forbidden(name: str) -> bool:
@@ -169,6 +170,37 @@ def tiny():
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
+
+
+def test_pod_launcher_raises_without_cuda_and_starts_no_child(no_cuda):
+    """In a fresh interpreter, a pod of 2 local devices on the default
+    device: the launcher raises before it spawns a rank."""
+    code = (
+        "import json, subprocess\n"
+        "from unittest import mock\n"
+        "from kubeflow_controller_tpu_torch.workloads import launch\n"
+        "spawned = []\n"
+        "def popen(*a, **k):\n"
+        "    spawned.append(a)\n"
+        "    raise AssertionError('spawned a rank')\n"
+        "with mock.patch.object(subprocess, 'Popen', popen):\n"
+        "    try:\n"
+        "        launch.launch_pod('kubeflow_controller_tpu_torch.workloads."
+        "llama_pretrain', ['--steps', '1'])\n"
+        "        raised = ''\n"
+        "    except RuntimeError as e:\n"
+        "        raised = str(e)\n"
+        "print(json.dumps({'raised': raised, 'spawned': len(spawned)}))\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("KCTPU_", "JAX_"))}
+    env.update(KCTPU_LOCAL_DEVICES="2", JAX_NUM_PROCESSES="1",
+               TPU_ACCELERATOR_TYPE="h100-2")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert "device='cpu'" in out["raised"], out
+    assert out["spawned"] == 0
 
 
 def test_cpu_must_be_asked_for_by_name(no_cuda):

@@ -49,6 +49,30 @@ command with no gang.
     python3 tools/mesh_cards.py --fake-pg [--device-type cpu]
     python3 tools/mesh_cards.py --dryrun [--device-type cpu]
     python3 tools/mesh_cards.py --fake-pg --dryrun [--device-type cpu]
+    python3 tools/mesh_cards.py --pods [--device-type cpu]
+
+- ``--pods``: TPU-typed pods that run one rank a card through the pod's
+  launcher (``workloads/launch.py``), each run held against the
+  rank-a-process gang of the same mesh in the same call.  A pod is
+  ``python -m kubeflow_controller_tpu_torch.workloads.llama_pretrain
+  --device cuda --report`` with the env the controller gives it
+  (``chip_smoke.pod_env``, written out) and its cards in
+  ``CUDA_VISIBLE_DEVICES``; a rank of the gang is the same command with
+  ``--device cuda:<rank>`` and the Worker env.  Both sides run with
+  cuBLAS's deterministic workspace.  (a) one pod of 4 cards, (sp 4) ring:
+  ``examples/jobs/llama-sp.yaml``'s flags on one host, Llama-2-7B widths at
+  8 layers, B 1 x T 32768, 3 steps; (b) two pods of 2 cards
+  (``CUDA_VISIBLE_DEVICES`` 0,1 and 2,3) under (pp 2, fsdp 2), M 4, 8
+  layers, B 8 x T 4096, 3 steps, ``$KCTPU_MESH`` as the controller plans
+  it: ``examples/jobs/llama-pp.yaml``'s layout, one stage a pod.  Each
+  rank's losses must be bit-identical to the gang's rank of the same
+  global rank, every rank must sit on a card of its own (the cards' UUIDs),
+  and each rank's flash launches must equal the gang's and the prediction
+  (the ring's rank idx (idx + 1) x 2, idx + 1, idx + 1 a layer a step; a
+  stage's 3, 1, 1 a layer a microbatch).  Prints step ms p50, peak GB a
+  card and the first step's end after the spawn beside the gang's.  With
+  ``--device-type cpu``, a rehearsal: the tiny preset over gloo, pods of
+  ``$KCTPU_LOCAL_DEVICES`` ranks, launches not predicted.
 
 - ``--pp``: pipeline parallelism (1F1B, ``llama_pretrain --pp S
   --microbatches M``).  Llama-2-7B widths at 8 layers, global batch 8 x T
@@ -577,6 +601,141 @@ def generate_runs(args, tmp: Path) -> int:
     return 1 if failed else 0
 
 
+POD_RUNS = (
+    {"label": "a_one_pod_sp4_ring", "job": "llama-sp", "accel": "h100-4",
+     "cards": ("0,1,2,3",), "mesh": None,
+     "argv": ["--preset", "llama2-7b", "--n-layers", "8", "--batch-size",
+              "1", "--seq-len", "32768", "--steps", "3"],
+     "mesh_argv": ["--sp", "4", "--sp-attention", "ring", "--fsdp", "-1"]},
+    {"label": "b_two_pods_pp2_fsdp2", "job": "llama-pp", "accel": "h100-2",
+     "cards": ("0,1", "2,3"), "mesh": {"dp": 1, "fsdp": 2, "pp": 2},
+     "argv": ["--preset", "llama2-7b", "--n-layers", "8", "--batch-size",
+              "8", "--seq-len", "4096", "--steps", "3"],
+     "mesh_argv": ["--pp", "2", "--fsdp", "2", "--microbatches", "4"]},
+)
+POD_REHEARSAL_ARGV = ["--preset", "tiny", "--batch-size", "8", "--seq-len",
+                      "64", "--steps", "2"]
+PRETRAIN = "kubeflow_controller_tpu_torch.workloads.llama_pretrain"
+
+
+def pod_launches(run: dict, rank: int) -> dict:
+    """The flash launches ``run`` predicts for global rank ``rank``."""
+    argv = run["argv"] + run["mesh_argv"]
+    layers, steps = arg(argv, "--n-layers"), arg(argv, "--steps")
+    if "--sp" in argv:
+        return sp_launches("ring", rank % arg(argv, "--sp"), layers, steps)
+    S, M = arg(argv, "--pp"), arg(argv, "--microbatches")
+    return {k: v * (layers // S) * M * steps
+            for k, v in PP_FLASH_PER_LAYER.items()}
+
+
+def spawn_reports(cmds, timeout: float) -> tuple:
+    """Run ``(argv, env)`` processes at once; their exit codes, their
+    ``Report`` records by global rank, the spawn's wall clock."""
+    sys.path.insert(0, str(HERE))
+    import time
+
+    import chip_smoke as cs
+
+    t0 = time.time()
+    procs = [subprocess.Popen(argv, cwd=HERE, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv, env in cmds]
+    rcs, recs = [], []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        rcs.append(p.returncode)
+        recs += cs.reports(out + "\n" + err)
+        if p.returncode:
+            print(f"process failed (exit {p.returncode}):\n{out[-3000:]}\n"
+                  f"{err[-3000:]}", file=sys.stderr, flush=True)
+    return rcs, sorted(recs, key=lambda r: r["rank"]), t0
+
+
+def pod_side(label, rcs, recs, t0) -> dict:
+    steps = recs[0]["step_ms"] if recs else []
+    return {"side": label, "rcs": rcs,
+            "ranks": [{k: r[k] for k in ("rank", "process", "local_rank",
+                                         "device", "card", "backend",
+                                         "losses", "step_ms", "peak_mem_gb",
+                                         "launches")} for r in recs],
+            "step_ms_p50": statistics.median(steps) if steps else None,
+            "peak_mem_gb_max": max((r["peak_mem_gb"] or 0 for r in recs),
+                                   default=None),
+            "first_step_s": max((r["first_step_unix"] - t0 for r in recs),
+                                default=None)}
+
+
+def pods_main(args) -> int:
+    """The ``--pods`` runs (see the docstring)."""
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs
+
+    cpu = args.device_type == "cpu"
+    failed = False
+    for run_ in POD_RUNS:
+        argv = (POD_REHEARSAL_ARGV if cpu else run_["argv"]) + \
+            run_["mesh_argv"] + ["--report"]
+        cards = run_["cards"]
+        world = sum(len(c.split(",")) for c in cards)
+        base = {k: v for k, v in os.environ.items()
+                if not k.startswith(("KCTPU_", "JAX_", "MODEL_DIR"))}
+        base.update(PYTHONPATH=str(HERE), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        if cpu:
+            base["OMP_NUM_THREADS"] = "1"
+        port = free_port()
+        gang = [([sys.executable, "-m", PRETRAIN, *argv, "--device",
+                  "cpu" if cpu else f"cuda:{r}"],
+                 {**base, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                  "JAX_NUM_PROCESSES": str(world),
+                  "JAX_PROCESS_ID": str(r)}) for r in range(world)]
+        ranks = pod_side("rank_a_process", *spawn_reports(gang,
+                                                           args.timeout))
+        port = free_port()
+        pods = []
+        for i, c in enumerate(cards):
+            env = {**cs.pod_env(run_["job"], i, len(cards), run_["accel"],
+                                c, port, run_["mesh"]),
+                   "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+            if cpu:
+                env.pop("CUDA_VISIBLE_DEVICES")
+                env.update(KCTPU_LOCAL_DEVICES=str(len(c.split(","))),
+                           OMP_NUM_THREADS="1")
+            pods.append(([sys.executable, "-m", PRETRAIN, *argv, "--device",
+                          "cpu" if cpu else "cuda"], env))
+        launched = pod_side("pods", *spawn_reports(pods, args.timeout))
+        a, b = ranks["ranks"], launched["ranks"]
+        same = (len(a) == len(b) == world
+                and all(x["losses"] == y["losses"] for x, y in zip(a, b)))
+        cards_seen = [r["card"] for r in b]
+        distinct = cpu or len(set(cards_seen)) == world
+        want = [pod_launches(run_, r) for r in range(world)]
+        flash = [{k: r["launches"][k] for k in FLASH_KERNELS} for r in b]
+        exact = (flash == [{k: r["launches"][k] for k in FLASH_KERNELS}
+                           for r in a] and (cpu or flash == want))
+        ms = (launched["step_ms_p50"] / ranks["step_ms_p50"]
+              if launched["step_ms_p50"] and ranks["step_ms_p50"] else None)
+        print(json.dumps({
+            "pods": run_["label"], "cards": cards, "world": world,
+            "argv": argv, "losses_bit_identical": same,
+            "cards_distinct": distinct, "launches_exact": exact,
+            "flash_launches_predicted": None if cpu else want,
+            "step_ms_p50_pods_over_ranks": ms,
+            "first_step_s_pods_minus_ranks": (
+                launched["first_step_s"] - ranks["first_step_s"]
+                if launched["first_step_s"] is not None
+                and ranks["first_step_s"] is not None else None),
+            "rank_a_process": ranks, "launched": launched}), flush=True)
+        failed |= (any(ranks["rcs"]) or any(launched["rcs"]) or not same
+                   or not distinct or not exact)
+    return 1 if failed else 0
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -650,6 +809,9 @@ def main(argv=None) -> int:
                     help="graft_entry's dry run over the "
                          "cards; with --fake-pg, every config at 4 and 8 "
                          "ranks under the fake process group")
+    ap.add_argument("--pods", action="store_true",
+                    help="TPU-typed pods through the pod's launcher, one "
+                         "rank a card, against the rank-a-process gang")
     ap.add_argument("--preset", default="llama2-7b",
                     help="--generate's model: llama2-7b, or tiny for a "
                          "rehearsal")
@@ -682,6 +844,8 @@ def main(argv=None) -> int:
         return generate_child(args.generate_child)
     if args.generate and args.device_type == "cpu":
         return generate_main(args)
+    if args.pods and args.device_type == "cpu":
+        return pods_main(args)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -689,6 +853,8 @@ def main(argv=None) -> int:
     print(card[0], f"x {len(card)}", flush=True)
     if args.dryrun:
         return dryrun_main(args)
+    if args.pods:
+        return pods_main(args)
     if args.pp and args.sp:
         return pp_sp_main(args)
     if args.pp:
