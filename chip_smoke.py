@@ -9,7 +9,8 @@ resume a Llama-2-7B-width run from its checkpoint, train the vision TFJobs
 Ulysses attention at T 32768 over virtual ranks, generate from a KV cache
 at Mixtral-8x7B widths and on Llama-2-7B at all 32 layers, run each rank
 of a (pp 2, sp 2) pipeline alone, train as the one pod of a TPU-typed job
-through the pod's launcher, and check what comes out.
+through the pod's launcher on the card the port's inventory binds, and
+check what comes out.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -329,24 +330,34 @@ Phases, in order (any failure raises and exits non-zero):
    equal ``pp_sp_launches_per_layer`` of its sp index (the CPU test's
    counts) times its 2 layers and 2 microbatches.  The values come from
    the 4-card run (``tools/mesh_cards.py --pp --sp``).
-23. the pod path on one card (``workloads/launch.py``), in a child
-   process of this script (``--pod-phase``, with
-   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``): ``llama_pretrain.main`` at
-   Llama-2-7B widths, 2 layers, B 1 x T 4096, 3 steps, in a one-rank nccl
-   group in that process (flash launches counted from 0 just before and
-   read just after), then the same flags as a pod: a child ``python -m
+23. the pod path on one card (``workloads/launch.py``), its card bound
+   by the port's inventory (``cluster/gpu.py``), in a child process of
+   this script (``--pod-phase``, with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``):
+   ``topology.discover_host`` reads this host's cards (the visible ones
+   matched by UUID to ``nvidia-smi``'s list; their NVLink domains from
+   ``nvidia-smi topo -p2p n``), printed on one line with the card line
+   and the domains; a ``GPUInventory``
+   of ``carve(host, 1)`` admits the one pod of a one-host ``h100-1`` TPU
+   job (a stand-in pod with ``_wire_tpu_pod``'s annotations) through
+   ``offer`` and sets its ``CUDA_VISIBLE_DEVICES`` to the bound card's
+   UUID.  ``llama_pretrain.main`` at Llama-2-7B widths, 2 layers, B 1 x T
+   4096, 3 steps, runs in a one-rank nccl group on that card in that
+   process (flash launches counted from 0 just before and read just
+   after), then the same flags as the pod: a child ``python -m
    kubeflow_controller_tpu_torch.workloads.llama_pretrain --device cuda
-   --report`` with the env the controller gives the one pod of a one-host
-   ``h100-1`` TPU job (``pod_env``: ``JAX_NUM_PROCESSES`` 1,
-   ``TPU_ACCELERATOR_TYPE`` h100-1, the node agent's loopback coordinator)
-   and ``CUDA_VISIBLE_DEVICES`` of this card, so the contract's count of
-   cards is 1.  The pod's launcher must have started one rank, which
-   formed a one-rank nccl group on this card (its report: launched,
-   world 1, local 0/1, ``cuda:0``, this card's UUID; its mesh line "over 1
-   devices, process 0/1"); its flash launches, printed in its report,
-   must be exact (2, 1 and 1 a layer a step, as the in-process run's),
-   and its losses bit-identical to the in-process run's.  The pod's wall
-   seconds and its first step's end after the spawn are printed.
+   --report`` with the env the controller gives the pod (``pod_env``:
+   ``JAX_NUM_PROCESSES`` 1, ``TPU_ACCELERATOR_TYPE`` h100-1, the node
+   agent's loopback coordinator) and the cards the inventory set, so the
+   contract's count of cards is 1.  The pod's launcher must have started
+   one rank, which formed a one-rank nccl group on the bound card (its
+   report: launched, world 1, local 0/1, ``cuda:0``, the bound card's
+   UUID; its mesh line "over 1 devices, process 0/1"); its flash
+   launches, printed in its report, must be exact (2, 1 and 1 a layer a
+   step, as the in-process run's), and its losses bit-identical to the
+   in-process run's.  Then ``release_gang`` must free the card, a second
+   ``offer`` bind it again, and ``fail_slice`` return the pod's key and
+   withhold the card.  The pod's wall seconds and its first step's end
+   after the spawn are printed.
 24. The card's name and power limit, the ``kernels`` JSON line (launches
    from phase 10; each path's own counts beside them, phase 13's, the
    sequence-parallel paths ``ring_n4``, ``ring_n2`` and ``ulysses_n4``,
@@ -371,6 +382,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -380,6 +392,7 @@ import warnings
 from contextlib import contextmanager
 from dataclasses import dataclass, field, replace
 from pathlib import Path
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -395,6 +408,8 @@ from kubeflow_controller_tpu_torch.ops import grouped_matmul as gm
 from kubeflow_controller_tpu_torch.parallel.ring import attention_reference
 from kubeflow_controller_tpu_torch.models import mnist
 from kubeflow_controller_tpu_torch import graft_entry
+from kubeflow_controller_tpu_torch.cluster import gpu as gpu_inventory
+from kubeflow_controller_tpu_torch.cluster import topology
 from kubeflow_controller_tpu_torch.obs import trace
 from kubeflow_controller_tpu_torch.workloads import (
     cifar_allreduce,
@@ -2107,8 +2122,6 @@ def signed_off(out: str):
 
 
 def free_port() -> int:
-    import socket
-
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
@@ -3584,17 +3597,18 @@ POD_MODULE = "kubeflow_controller_tpu_torch.workloads.llama_pretrain"
 COORDINATOR_PORT = 8476         # TPUSpec's default coordinatorPort
 
 
-def pod_env(job: str, index: int, pods: int, accel: str, cards: str,
-            port: int, mesh=None) -> dict:
+def pod_env(job: str, index: int, pods: int, accel: str, port: int,
+            mesh=None) -> dict:
     """The env the controller gives pod ``index`` of a TPU-typed job of
     ``pods`` one-host slices of ``accel`` (``_wire_tpu_pod`` in the JAX
-    package's ``planner/materialize.py``, written out here), with the
-    node agent's loopback coordinator at ``port``, ``mesh`` as
-    ``$KCTPU_MESH``, and ``cards`` (``CUDA_VISIBLE_DEVICES``) as the pod's
-    cards."""
+    package's ``planner/materialize.py``), with the node agent's loopback
+    coordinator at ``port`` and ``mesh`` as ``$KCTPU_MESH``.  The pod's
+    cards are not here: the inventory sets them on the pod
+    (:func:`gang_pods`, :func:`admit`, :func:`container_env`)."""
     host = f"host-{index}.{job}--tpu"
     env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("KCTPU_", "JAX_", "TPU_", "MEGASCALE_"))}
+           if not k.startswith(("KCTPU_", "JAX_", "TPU_", "MEGASCALE_"))
+           and k != topology.ENV_VISIBLE_DEVICES}
     env.update({
         "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
         "JAX_NUM_PROCESSES": str(pods), "JAX_PROCESS_ID": str(index),
@@ -3603,11 +3617,67 @@ def pod_env(job: str, index: int, pods: int, accel: str, cards: str,
         "MEGASCALE_NUM_SLICES": str(pods), "MEGASCALE_SLICE_ID": str(index),
         "MEGASCALE_COORDINATOR_ADDRESS": f"{host}:{COORDINATOR_PORT}",
         "KCTPU_GANG_GENERATION": "0", "KCTPU_GANG_NAME": f"{job}-",
-        "CUDA_VISIBLE_DEVICES": cards,
         "PYTHONPATH": str(Path(__file__).resolve().parent)})
     if mesh:
         env["KCTPU_MESH"] = json.dumps(mesh, sort_keys=True)
     return env
+
+
+class StandInContainer:
+    """A pod's container as the inventory reads and stamps it: its env
+    (``set_env``, the reference's upsert) and its chip request."""
+
+    def __init__(self, chips: int):
+        self.env = []
+        chips_req = {gpu_inventory.RESOURCE_TPU: str(chips)}
+        self.resources = SimpleNamespace(requests=dict(chips_req),
+                                         limits=dict(chips_req))
+
+    def set_env(self, name: str, value: str) -> None:
+        for e in self.env:
+            if e.name == name:
+                e.value = value
+                return
+        self.env.append(SimpleNamespace(name=name, value=value))
+
+
+def gang_pods(job: str, pods: int, accel: str) -> list:
+    """Stand-ins for the pods of a TPU-typed job of ``pods`` one-host
+    slices of ``accel``, with the annotations ``_wire_tpu_pod`` gives
+    them (gang name ``<job>-``, as ``pod_env``'s ``$KCTPU_GANG_NAME``)."""
+    out = []
+    for i in range(pods):
+        out.append(SimpleNamespace(
+            metadata=SimpleNamespace(
+                name=f"{job}-tpu-{i}", namespace="default", annotations={
+                    gpu_inventory.ANNOTATION_GANG_NAME: f"{job}-",
+                    gpu_inventory.ANNOTATION_GANG_SIZE: str(pods),
+                    gpu_inventory.ANNOTATION_ACCELERATOR: accel,
+                    gpu_inventory.ANNOTATION_NUM_SLICES: str(pods),
+                    gpu_inventory.ANNOTATION_SLICE_INDEX: str(i)}),
+            spec=SimpleNamespace(containers=[StandInContainer(
+                gpu_inventory.slice_cards(accel))])))
+    return out
+
+
+def admit(inventory, pods: list) -> bool:
+    """Offer each pod of a gang, as the node agent's gate does, and once
+    more after the last member completed the gang: True iff every member
+    is admitted."""
+    return (all([inventory.offer(p) for p in pods])
+            or all(inventory.offer(p) for p in pods))
+
+
+def container_env(pod) -> dict:
+    return {e.name: e.value for e in pod.spec.containers[0].env}
+
+
+def host_record(host) -> dict:
+    """The discovered host as one JSON object, with the card line."""
+    return {"name": host.name, "card": card_line(), "family": host.family,
+            "cards": [{"index": c.index, "uuid": c.uuid, "pci": c.pci_bus_id}
+                      for c in host.cards],
+            "nvlink_domains": [list(d) for d in host.nvlink_domains]}
 
 
 def reports(text: str) -> list:
@@ -3618,13 +3688,24 @@ def reports(text: str) -> list:
     return sorted(recs, key=lambda r: r["rank"])
 
 
-def pod_phase_child(dev, seed: int) -> dict:
-    """Run in the child (``--pod-phase``): ``llama_pretrain.main`` at
-    ``POD``'s size in a one-rank nccl group in this process, then the
-    same flags as the one pod of a one-host ``h100-1`` TPU job: a child
+def pod_phase_child() -> dict:
+    """Run in the child (``--pod-phase``): bind the one pod of a one-host
+    ``h100-1`` TPU job to a card of this host's inventory, run
+    ``llama_pretrain.main`` at ``POD``'s size in a one-rank nccl group on
+    that card in this process, then the same flags as the pod: a child
     ``python -m ...llama_pretrain --device cuda --report`` with the pod's
-    env and this card alone visible.  Returns the record."""
-    card = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    env and the cards the inventory set on it.  Then release, bind again,
+    and fail the slice.  Returns the record."""
+    host = topology.discover_host(socket.gethostname())
+    print("pod: host " + json.dumps(host_record(host)), flush=True)
+    accel = f"{host.family}-1"
+    inventory = gpu_inventory.GPUInventory(gpu_inventory.carve(host, 1))
+    free = inventory.free_slice_count(accel)
+    [pod] = gang_pods("smoke-pod", 1, accel)
+    assert admit(inventory, [pod]), "no free card for the pod"
+    gang = pod.metadata.annotations[gpu_inventory.ANNOTATION_GANG_NAME]
+    [bound] = inventory.cards_of(gang, 0)
+    dev = torch.device("cuda", [c.uuid for c in host.cards].index(bound))
     counters = {name: (counter(name), "launches") for name in FLASH_KERNELS}
     rc, res, out, launches, peak_gb, world, backend = main_in_one_rank_group(
         dev, POD_ARGV, counters)
@@ -3636,20 +3717,36 @@ def pod_phase_child(dev, seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     uuid = llama_pretrain.card_id(dev)
+    env = {**pod_env("smoke-pod", 0, 1, accel, free_port()),
+           **container_env(pod)}
     t0 = time.time()
-    pod = subprocess.run(
+    run = subprocess.run(
         [sys.executable, "-m", POD_MODULE, *POD_ARGV, "--device", "cuda",
-         "--report"],
-        env=pod_env("smoke-pod", 0, 1, "h100-1", card, free_port()),
-        capture_output=True, text=True, timeout=600)
+         "--report"], env=env, capture_output=True, text=True, timeout=600)
     wall = time.time() - t0
-    for line in pod.stdout.splitlines():
+    for line in run.stdout.splitlines():
         print(f"pod: {line}", flush=True)
-    assert pod.returncode == 0, (pod.returncode, pod.stderr[-3000:])
-    [rep] = reports(pod.stdout)
+    assert run.returncode == 0, (run.returncode, run.stderr[-3000:])
+    [rep] = reports(run.stdout)
+    slice_name = inventory.gang_slice(gang)
+    inventory.release_gang(gang)
+    freed = inventory.free_slice_count(accel)
+    [again] = gang_pods("smoke-pod", 1, accel)
+    rebound = admit(inventory, [again])
+    failed = inventory.fail_slice(inventory.gang_slice(gang))
     return {"in_process": in_process, "pod": rep, "pod_stdout":
-            pod.stdout, "card": uuid, "pod_wall_s": wall,
-            "pod_first_step_s": rep["first_step_unix"] - t0}
+            run.stdout, "card": uuid, "pod_wall_s": wall,
+            "pod_first_step_s": rep["first_step_unix"] - t0,
+            "inventory": {
+                "host": host.name, "slices": len(inventory.slices),
+                "free_before": free, "bound_card": bound,
+                "visible_devices": env[topology.ENV_VISIBLE_DEVICES],
+                "slice": slice_name, "free_after_release": freed,
+                "rebound": rebound,
+                "rebound_cards": container_env(again)[
+                    topology.ENV_VISIBLE_DEVICES],
+                "failed": failed, "free_after_fail": (
+                    inventory.free_slice_count(accel))}}
 
 
 def pod_phase(seed: int) -> dict:
@@ -3664,7 +3761,7 @@ def pod_phase(seed: int) -> dict:
     assert res.returncode == 0, f"pod child exited {res.returncode}"
     rec = json.loads(out.read_text())
     out.unlink()
-    one, rep = rec["in_process"], rec["pod"]
+    one, rep, inv = rec["in_process"], rec["pod"], rec["inventory"]
     want = {"flash_fwd": 2 * POD["layers"] * POD["steps"],
             "flash_dq": POD["layers"] * POD["steps"],
             "flash_dkv": POD["layers"] * POD["steps"]}
@@ -3678,8 +3775,15 @@ def pod_phase(seed: int) -> dict:
         "in_process": one, "card": rec["card"],
         "losses_bit_identical": rep["losses"] == one["losses"],
         "pod_wall_s": rec["pod_wall_s"],
-        "pod_first_step_s": rec["pod_first_step_s"]}
+        "pod_first_step_s": rec["pod_first_step_s"], "inventory": inv}
     print("pod: " + json.dumps(summary), flush=True)
+    assert inv["visible_devices"] == inv["bound_card"], inv
+    assert rec["card"].split()[0].lower() == inv["bound_card"].lower(), \
+        (rec["card"], inv)
+    assert inv["free_after_release"] == inv["free_before"], inv
+    assert inv["rebound"] and inv["rebound_cards"] == inv["bound_card"], inv
+    assert inv["failed"] == ["default/smoke-pod-tpu-0"], inv
+    assert inv["free_after_fail"] == inv["free_before"] - 1, inv
     assert one["rc"] == 0 and one["backend"] == "nccl" and one["world"] == 1
     assert one["launches"] == want, (one["launches"], want)
     assert rep["launched"] and rep["backend"] == "nccl", rep
@@ -3792,8 +3896,7 @@ def main(argv=None) -> int:
                                                    args.seed)))
         return 0
     if args.pod_phase:
-        Path(args.pod_phase).write_text(json.dumps(pod_phase_child(
-            dev, args.seed)))
+        Path(args.pod_phase).write_text(json.dumps(pod_phase_child()))
         return 0
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)

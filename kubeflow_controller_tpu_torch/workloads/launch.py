@@ -20,10 +20,14 @@ L (:func:`pod_devices`):
   the contract.
 
 A pod asking for more cards than it sees raises, as does a mesh
-(``$KCTPU_MESH``) that is not the pods times L.  Each rank's env adds
-``$KCTPU_LOCAL_RANK``, ``$KCTPU_LOCAL_DEVICES`` (L), ``$KCTPU_RANK`` (its
-global rank, which its trace spans carry) and the launcher's pid; the
-ranks of a one-process pod meet at a TCP store on the loopback.
+(``$KCTPU_MESH``) that is not the pods times L, and, on ``cuda`` with no
+index, a pod of a card slice (``$TPU_ACCELERATOR_TYPE`` ``<family>-<n>``
+outside the TPU families, ``cluster/gpu.py``) that does not see exactly
+its n cards: no pod trains silently on every card of its host.  Each
+rank's env adds ``$KCTPU_LOCAL_RANK``, ``$KCTPU_LOCAL_DEVICES`` (L),
+``$KCTPU_RANK`` (its global rank, which its trace spans carry) and the
+launcher's pid; the ranks of a one-process pod meet at a TCP store on
+the loopback.
 
 - The ranks are spawned, never forked (an executed pod may be forked from
   a zygote that imported JAX, and a process that touched CUDA cannot fork
@@ -51,6 +55,8 @@ from typing import Dict, List, Mapping, Optional, Sequence
 
 import torch
 
+from ..cluster.gpu import slice_cards
+from ..cluster.topology import ENV_VISIBLE_DEVICES
 from ..device import ENV_LOCAL_DEVICES, ENV_LOCAL_RANK, DeviceLike, resolve_device
 from ..obs.trace import RANK_ENV
 from .runtime import (
@@ -69,16 +75,32 @@ PR_SET_PDEATHSIG = 1
 PACKAGE_ROOT = str(Path(__file__).resolve().parents[2])
 
 
+def check_slice_cards(env: Mapping[str, str]) -> None:
+    """A pod of a card slice must see exactly the slice's cards."""
+    accel = env.get(ENV_TPU_ACCELERATOR, "")
+    want = slice_cards(accel)
+    seen = torch.cuda.device_count()
+    if want and seen != want:
+        raise RuntimeError(
+            f"${ENV_TPU_ACCELERATOR}={accel} gives the pod {want} cards, "
+            f"but {seen} are visible (${ENV_VISIBLE_DEVICES}="
+            f"{env.get(ENV_VISIBLE_DEVICES, '<unset>')!r}): the inventory "
+            "sets the slice's cards")
+
+
 def pod_devices(device: DeviceLike = "cuda",
                 env: Optional[Mapping[str, str]] = None) -> int:
     """L for this process as its pod's launcher, or 0 when it is a rank
     of its own (see the module docstring).  Raises without CUDA unless
-    the CPU is named, and when the pod asks for cards it does not see."""
+    the CPU is named, when the pod asks for cards it does not see, and
+    when a card slice's pod does not see its slice's cards."""
     e = os.environ if env is None else env
     dev = resolve_device(device)
     if e.get(ENV_LOCAL_RANK) is not None:
         return 0
     raw = e.get(ENV_LOCAL_DEVICES, "")
+    if dev.type == "cuda" and dev.index is None:
+        check_slice_cards(e)
     if not raw:
         contract = e.get(ENV_NUM_PROCESSES) or e.get(ENV_TPU_ACCELERATOR)
         if dev.type != "cuda" or dev.index is not None or not contract:

@@ -25,6 +25,7 @@ import torch
 
 import kubeflow_controller_tpu_torch as port
 from kubeflow_controller_tpu_torch import bridge, device, graft_entry
+from kubeflow_controller_tpu_torch.cluster import topology
 from kubeflow_controller_tpu_torch.models import llama, mnist, vision
 from kubeflow_controller_tpu_torch.workloads import (
     cifar_allreduce,
@@ -60,7 +61,8 @@ SLICE_MODULES = ("workloads.serve", "ops.grouped_matmul", "ops.attention",
                  "parallel.mesh", "parallel.sharding",
                  "parallel.collectives", "parallel.ulysses",
                  "models.generate", "graft_entry", "obs.trace",
-                 "obs.metrics", "workloads.launch")
+                 "obs.metrics", "workloads.launch", "cluster.topology",
+                 "cluster.gpu")
 
 
 def forbidden(name: str) -> bool:
@@ -158,6 +160,7 @@ def tiny():
     lambda: cifar_allreduce.main(["--steps", "1"]),
     lambda: graft_entry.entry(),
     lambda: graft_entry.dryrun_multichip(2),
+    lambda: topology.discover_host("node-0"),
 ], ids=["resolve_device", "Llama", "llama_init", "init_paged_cache",
         "init_cache",
         "llama_from_jax", "LlamaBackend", "serve.main", "tokens_from_jax",
@@ -166,7 +169,8 @@ def tiny():
         "mnist_local.main", "mnist_dist.main", "JobRuntime.initialize",
         "synthetic_cifar", "synthetic_mnist_images", "FlaxMNISTCNN",
         "resnet18", "resnet50", "flax_mnist.main", "cifar_allreduce.main",
-        "graft_entry.entry", "graft_entry.dryrun_multichip"])
+        "graft_entry.entry", "graft_entry.dryrun_multichip",
+        "discover_host"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()

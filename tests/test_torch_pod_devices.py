@@ -9,8 +9,9 @@ unchanged controller, as the reference's one process drives every
   rank's global rank is ``process x 4 + local rank`` of a world of pods x 4
   and its device ``cuda:<local rank>``; ``$KCTPU_LOCAL_DEVICES`` wins; a
   ``$KCTPU_MESH`` that is not pods x L raises, as does asking for more
-  cards than are visible; every existing caller (a card named by index, the
-  CPU, no contract) stays its own one rank.
+  cards than are visible, and a card slice's pod (``h100-<n>``) that does
+  not see exactly its n cards; every existing caller (a card named by
+  index, the CPU, no contract) stays its own one rank.
 - (ii) One TPU pod of 4 local gloo devices under the ``Controller``,
   ``FakeKubelet(execute=True)`` and a ``TPUInventory`` of ``h100-*`` slices:
   ``llama_pretrain --sp 2 --fsdp 2`` (tiny) reaches ``Succeeded`` and prints
@@ -253,6 +254,29 @@ def test_mesh_product_must_be_pods_times_local_devices(four_cards):
         JobRuntime.from_env(renv).check_mesh()
     one = JobRuntime.from_env({**env, "KCTPU_MESH": json.dumps({"sp": 8})})
     one.check_mesh()        # one rank a process: build_mesh judges it
+
+
+@pytest.mark.parametrize("accel,cards,want", [
+    ("h100-2", 2, 2), ("h100-2", 4, "gives the pod 2 cards, but 4"),
+    ("h100-4", 2, "gives the pod 4 cards, but 2"), ("v5e-8", 4, 4)],
+    ids=["exact", "all_cards_of_the_host", "too_few", "tpu_family"])
+def test_a_card_slice_pod_sees_exactly_its_cards(monkeypatch, accel, cards,
+                                                  want):
+    """A pod of an ``h100-<n>`` slice on ``cuda`` must see its n cards
+    (the inventory's ``CUDA_VISIBLE_DEVICES``), never every card of its
+    host; a TPU family's count is the slice's, not the pod's."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    [env] = pod_envs(1)
+    env["TPU_ACCELERATOR_TYPE"] = accel
+    if isinstance(want, str):
+        for e in (env, {**env, "KCTPU_LOCAL_DEVICES": "1"}):
+            with pytest.raises(RuntimeError, match=want):
+                launch.pod_devices("cuda", e)
+    else:
+        assert launch.pod_devices("cuda", env) == want
+    assert launch.pod_devices("cuda:0", env) == 0     # names its card
+    assert launch.pod_devices("cpu", env) == 0
 
 
 def worker_pod_env(replicas=2):

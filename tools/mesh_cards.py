@@ -49,30 +49,58 @@ command with no gang.
     python3 tools/mesh_cards.py --fake-pg [--device-type cpu]
     python3 tools/mesh_cards.py --dryrun [--device-type cpu]
     python3 tools/mesh_cards.py --fake-pg --dryrun [--device-type cpu]
-    python3 tools/mesh_cards.py --pods [--device-type cpu]
+    python3 tools/mesh_cards.py --pods [--inventory] [--profile] [--device-type cpu]
+    python3 tools/mesh_cards.py --pods --carve [--device-type cpu]
 
 - ``--pods``: TPU-typed pods that run one rank a card through the pod's
-  launcher (``workloads/launch.py``), each run held against the
-  rank-a-process gang of the same mesh in the same call.  A pod is
-  ``python -m kubeflow_controller_tpu_torch.workloads.llama_pretrain
-  --device cuda --report`` with the env the controller gives it
-  (``chip_smoke.pod_env``, written out) and its cards in
-  ``CUDA_VISIBLE_DEVICES``; a rank of the gang is the same command with
-  ``--device cuda:<rank>`` and the Worker env.  Both sides run with
-  cuBLAS's deterministic workspace.  (a) one pod of 4 cards, (sp 4) ring:
-  ``examples/jobs/llama-sp.yaml``'s flags on one host, Llama-2-7B widths at
-  8 layers, B 1 x T 32768, 3 steps; (b) two pods of 2 cards
-  (``CUDA_VISIBLE_DEVICES`` 0,1 and 2,3) under (pp 2, fsdp 2), M 4, 8
-  layers, B 8 x T 4096, 3 steps, ``$KCTPU_MESH`` as the controller plans
-  it: ``examples/jobs/llama-pp.yaml``'s layout, one stage a pod.  Each
-  rank's losses must be bit-identical to the gang's rank of the same
-  global rank, every rank must sit on a card of its own (the cards' UUIDs),
-  and each rank's flash launches must equal the gang's and the prediction
-  (the ring's rank idx (idx + 1) x 2, idx + 1, idx + 1 a layer a step; a
-  stage's 3, 1, 1 a layer a microbatch).  Prints step ms p50, peak GB a
-  card and the first step's end after the spawn beside the gang's.  With
-  ``--device-type cpu``, a rehearsal: the tiny preset over gloo, pods of
-  ``$KCTPU_LOCAL_DEVICES`` ranks, launches not predicted.
+  launcher (``workloads/launch.py``), their cards bound by the port's
+  inventory, each run held against the rank-a-process gang of the same
+  mesh in the same call.  The host is ``topology.discover_host`` (printed
+  on a ``host`` line); a ``GPUInventory`` of ``carve(host, n)`` admits
+  each job's stand-in pods (``chip_smoke.gang_pods``) and sets each pod's
+  ``CUDA_VISIBLE_DEVICES`` to its slice's card UUIDs.  A pod is ``python
+  -m kubeflow_controller_tpu_torch.workloads.llama_pretrain --device cuda
+  --report`` with the env the controller gives it (``chip_smoke.pod_env``)
+  and the one the inventory set; a rank of the gang is the same command
+  with ``--device cuda:<rank>`` and the Worker env.  Both sides run with
+  cuBLAS's deterministic workspace.  (a) one ``h100-4`` pod (carve 4),
+  (sp 4) ring: ``examples/jobs/llama-sp.yaml``'s flags on one host,
+  Llama-2-7B widths at 8 layers, B 1 x T 32768, 3 steps; (b) two
+  ``h100-2`` pods (carve 2) under (pp 2, fsdp 2), M 4, 8 layers, B 8 x T
+  4096, 3 steps, ``$KCTPU_MESH`` as the controller plans it:
+  ``examples/jobs/llama-pp.yaml``'s layout, one stage a pod.  Each rank's
+  losses must be bit-identical to the gang's rank of the same global
+  rank, every rank must sit on a card of its own, the one the inventory
+  gave its local rank (the cards' UUIDs), and each rank's flash launches
+  must equal the gang's and the prediction (the ring's rank idx (idx +
+  1) x 2, idx + 1, idx + 1 a layer a step; a stage's 3, 1, 1 a layer a
+  microbatch).  Prints step ms p50, peak GB a card and the first step's
+  end after the spawn beside the gang's.  With ``--device-type cpu``, a
+  rehearsal: a declared 4-card host, the tiny preset over gloo, pods of
+  ``$KCTPU_LOCAL_DEVICES`` ranks, cards and launches not checked.
+- ``--pods --inventory``: also (c), two one-pod ``h100-2`` jobs bound at
+  once by one inventory of the host (carve 2), each at ``chip_smoke``'s
+  phase 23 flags (Llama-2-7B widths, 2 layers, T 4096), run alone on its
+  cards and then both at once: each job's losses at once bit-identical
+  to its own alone, four distinct cards, each rank on its bound card,
+  flash launches 2, 1 and 1 a layer a step a rank; a third ``h100-2``
+  gang offered while both hold the host must wait, and take the first
+  job's cards once it is released.
+- ``--pods --profile``: also (b) once more with ``--profile-dir`` on
+  both sides, and each rank's last step read from its trace: the window
+  of its last step's ms that ends at its last ``cudaDeviceSynchronize``,
+  and in it the device's compute ms (every kernel, copy and set but
+  nccl's), nccl's ms and the ms the device ran nothing.
+- ``--pods --carve``: the carve question alone, on (b)'s mesh: (pp 2,
+  fsdp 2), M 4, 8 layers, B 8 x T 4096, ``CARVE_STEPS`` steps, as one
+  ``h100-4`` pod (carve 4) and as two ``h100-2`` pods (carve 2), the
+  sides run in turn in ``CARVE_ORDER`` (A B B A A B, so a drift of the
+  host over the call falls on both).  A run's step ms is the largest
+  rank's p50 of its steps past the first; printed are two pods' median
+  run over one pod's, and two pods over one pod in each neighbouring
+  pair of runs of the two sides.  Every run's losses must
+  be bit-identical rank by rank to the first run's, each rank on its
+  bound card, flash launches as (b)'s.
 
 - ``--pp``: pipeline parallelism (1F1B, ``llama_pretrain --pp S
   --microbatches M``).  Llama-2-7B widths at 8 layers, global batch 8 x T
@@ -602,20 +630,29 @@ def generate_runs(args, tmp: Path) -> int:
 
 
 POD_RUNS = (
-    {"label": "a_one_pod_sp4_ring", "job": "llama-sp", "accel": "h100-4",
-     "cards": ("0,1,2,3",), "mesh": None,
+    {"label": "a_one_pod_sp4_ring", "job": "llama-sp", "cards": 4,
+     "pods": 1, "mesh": None,
      "argv": ["--preset", "llama2-7b", "--n-layers", "8", "--batch-size",
               "1", "--seq-len", "32768", "--steps", "3"],
      "mesh_argv": ["--sp", "4", "--sp-attention", "ring", "--fsdp", "-1"]},
-    {"label": "b_two_pods_pp2_fsdp2", "job": "llama-pp", "accel": "h100-2",
-     "cards": ("0,1", "2,3"), "mesh": {"dp": 1, "fsdp": 2, "pp": 2},
+    {"label": "b_two_pods_pp2_fsdp2", "job": "llama-pp", "cards": 2,
+     "pods": 2, "mesh": {"dp": 1, "fsdp": 2, "pp": 2},
      "argv": ["--preset", "llama2-7b", "--n-layers", "8", "--batch-size",
               "8", "--seq-len", "4096", "--steps", "3"],
      "mesh_argv": ["--pp", "2", "--fsdp", "2", "--microbatches", "4"]},
 )
 POD_REHEARSAL_ARGV = ["--preset", "tiny", "--batch-size", "8", "--seq-len",
                       "64", "--steps", "2"]
+# --carve: (b)'s mesh as one pod of 4 cards or two of 2, run in turn.
+CARVE_SIDES = {"one_pod": (4, 1), "two_pods": (2, 2)}      # cards, pods
+CARVE_ORDER = ("one_pod", "two_pods", "two_pods", "one_pod", "one_pod",
+               "two_pods")
+CARVE_STEPS = 10
+# --inventory: two one-pod jobs of this many cards each, at once.
+INVENTORY_JOBS = ("inv-x", "inv-y")
+INVENTORY_CARDS = 2
 PRETRAIN = "kubeflow_controller_tpu_torch.workloads.llama_pretrain"
+DETERMINISTIC = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
 
 
 def pod_launches(run: dict, rank: int) -> dict:
@@ -630,7 +667,7 @@ def pod_launches(run: dict, rank: int) -> dict:
 
 
 def spawn_reports(cmds, timeout: float) -> tuple:
-    """Run ``(argv, env)`` processes at once; their exit codes, their
+    """Run ``(argv, env)`` processes at once; their exit codes, each one's
     ``Report`` records by global rank, the spawn's wall clock."""
     sys.path.insert(0, str(HERE))
     import time
@@ -650,14 +687,16 @@ def spawn_reports(cmds, timeout: float) -> tuple:
             p.kill()
             out, err = p.communicate()
         rcs.append(p.returncode)
-        recs += cs.reports(out + "\n" + err)
+        recs.append(cs.reports(out + "\n" + err))
         if p.returncode:
             print(f"process failed (exit {p.returncode}):\n{out[-3000:]}\n"
                   f"{err[-3000:]}", file=sys.stderr, flush=True)
-    return rcs, sorted(recs, key=lambda r: r["rank"]), t0
+    return rcs, recs, t0
 
 
-def pod_side(label, rcs, recs, t0) -> dict:
+def pod_side(label, rcs, by_process, t0) -> dict:
+    recs = sorted((r for rs in by_process for r in rs),
+                  key=lambda r: r["rank"])
     steps = recs[0]["step_ms"] if recs else []
     return {"side": label, "rcs": rcs,
             "ranks": [{k: r[k] for k in ("rank", "process", "local_rank",
@@ -671,69 +710,316 @@ def pod_side(label, rcs, recs, t0) -> dict:
                                 default=None)}
 
 
+def pods_host(cpu: bool):
+    """This host's cards (``topology.discover_host``), or for the CPU
+    rehearsal a declared host of 4 cards in one NVLink domain."""
+    from kubeflow_controller_tpu_torch.cluster import topology
+
+    if cpu:
+        return topology.GPUHost(
+            "rehearsal", "h100", tuple(
+                topology.GPUCard(i, f"GPU-rehearsal-{i}", f"0:{i}")
+                for i in range(4)), ((0, 1, 2, 3),))
+    return topology.discover_host(socket.gethostname())
+
+
+def bound_pods(inventory, job: str, pods: int, accel: str, port: int,
+               mesh=None, cpu: bool = False) -> list:
+    """The env of each pod of a TPU-typed job of ``pods`` slices of
+    ``accel``, admitted by ``inventory`` (which sets the pod's
+    ``CUDA_VISIBLE_DEVICES``): ``chip_smoke.pod_env`` and the env the
+    inventory set on the pod, as the node agent merges them."""
+    import chip_smoke as cs
+    from kubeflow_controller_tpu_torch.cluster import gpu
+
+    stand_ins = cs.gang_pods(job, pods, accel)
+    if not cs.admit(inventory, stand_ins):
+        raise RuntimeError(f"{job}: no {pods} free {accel} slices")
+    out = []
+    for i, pod in enumerate(stand_ins):
+        env = {**cs.pod_env(job, i, pods, accel, port, mesh),
+               **cs.container_env(pod), **DETERMINISTIC}
+        if cpu:
+            env.update(KCTPU_LOCAL_DEVICES=str(gpu.slice_cards(accel)),
+                       OMP_NUM_THREADS="1")
+        out.append(env)
+    return out
+
+
+def cards_as_bound(by_process, envs) -> bool:
+    """Each rank of each pod sits on the card the inventory gave its
+    local rank: the ``l``-th UUID of its pod's ``CUDA_VISIBLE_DEVICES``."""
+    for recs, env in zip(by_process, envs):
+        bound = env["CUDA_VISIBLE_DEVICES"].lower().split(",")
+        if len(recs) != len(bound) or any(
+                r["card"].split()[0].lower() != bound[r["local_rank"]]
+                for r in recs):
+            return False
+    return True
+
+
+def step_profile(trace_path: Path, step_ms: float) -> dict:
+    """The last step of a ``--profile-dir`` trace: the window of
+    ``step_ms`` that ends with the last ``cudaDeviceSynchronize`` (each
+    step ends in one), and in it the device's compute ms (kernels, copies
+    and sets but nccl's), nccl's ms (which wait on the device for their
+    peer), the ms the device ran nothing, and the compute idle share."""
+    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    syncs = [e["ts"] + e["dur"] for e in events
+             if e.get("name") == "cudaDeviceSynchronize"]
+    device = [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    if not syncs or not device:
+        return {"wall_ms": step_ms, "device": None}
+    hi = max(syncs)
+    lo = hi - step_ms * 1e3
+    spans = sorted((max(lo, e["ts"]), min(hi, e["ts"] + e["dur"]),
+                    "nccl" in e["name"].lower()) for e in device
+                   if e["ts"] < hi and e["ts"] + e["dur"] > lo)
+    nccl = sum(b - a for a, b, is_nccl in spans if is_nccl) / 1e3
+    compute = sum(b - a for a, b, is_nccl in spans if not is_nccl) / 1e3
+    busy, end = 0.0, lo
+    for a, b, _ in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"wall_ms": step_ms, "compute_ms": compute, "nccl_ms": nccl,
+            "idle_ms": step_ms - busy / 1e3,
+            "compute_idle_share": 1 - compute / step_ms,
+            "device_ops": len(spans)}
+
+
+def pods_run(run_: dict, host, args, profile: bool = False) -> bool:
+    """One ``--pods`` run: the rank-a-process gang, then the pods the
+    inventory bound, on the same cards; prints one JSON line, returns
+    whether every check held.  ``profile``: both sides trace the loop
+    (``--profile-dir``) and each rank's last step is broken down."""
+    import tempfile
+
+    from kubeflow_controller_tpu_torch.cluster import gpu
+
+    cpu = args.device_type == "cpu"
+    argv = (POD_REHEARSAL_ARGV if cpu else run_["argv"]) + \
+        run_["mesh_argv"] + ["--report"]
+    world = run_["pods"] * run_["cards"]
+    tmp = tempfile.TemporaryDirectory(prefix="pods-profile-")
+    prof = Path(tmp.name)
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("KCTPU_", "JAX_", "MODEL_DIR"))}
+    base.update(PYTHONPATH=str(HERE), **DETERMINISTIC)
+    if cpu:
+        base["OMP_NUM_THREADS"] = "1"
+    port = free_port()
+    gang = [([sys.executable, "-m", PRETRAIN, *argv, "--device",
+              "cpu" if cpu else f"cuda:{r}",
+              *(["--profile-dir", str(prof / "gang" / f"rank-{r}")]
+                if profile else [])],
+             {**base, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+              "JAX_NUM_PROCESSES": str(world), "JAX_PROCESS_ID": str(r)})
+            for r in range(world)]
+    ranks = pod_side("rank_a_process", *spawn_reports(gang, args.timeout))
+    inventory = gpu.GPUInventory(gpu.carve(host, run_["cards"]))
+    envs = bound_pods(inventory, run_["job"], run_["pods"],
+                      f"{host.family}-{run_['cards']}", free_port(),
+                      run_["mesh"], cpu)
+    cmds = [([sys.executable, "-m", PRETRAIN, *argv, "--device",
+              "cpu" if cpu else "cuda",
+              *(["--profile-dir", str(prof / "pods")] if profile else [])],
+             env) for env in envs]
+    rcs, by_process, t0 = spawn_reports(cmds, args.timeout)
+    launched = pod_side("pods", rcs, by_process, t0)
+    a, b = ranks["ranks"], launched["ranks"]
+    same = (len(a) == len(b) == world
+            and all(x["losses"] == y["losses"] for x, y in zip(a, b)))
+    distinct = cpu or len({r["card"] for r in b}) == world
+    bound = cpu or cards_as_bound(by_process, envs)
+    want = [pod_launches(run_, r) for r in range(world)]
+    flash = [{k: r["launches"][k] for k in FLASH_KERNELS} for r in b]
+    exact = (flash == [{k: r["launches"][k] for k in FLASH_KERNELS}
+                       for r in a] and (cpu or flash == want))
+    ms = (launched["step_ms_p50"] / ranks["step_ms_p50"]
+          if launched["step_ms_p50"] and ranks["step_ms_p50"] else None)
+    rec = {
+        "pods": run_["label"] + ("_profiled" if profile else ""),
+        "slices": [inventory.placement_of(f"{run_['job']}-")],
+        "visible_devices": [env["CUDA_VISIBLE_DEVICES"] for env in envs],
+        "world": world, "argv": argv, "losses_bit_identical": same,
+        "cards_distinct": distinct, "cards_as_bound": bound,
+        "launches_exact": exact,
+        "flash_launches_predicted": None if cpu else want,
+        "step_ms_p50_pods_over_ranks": ms,
+        "first_step_s_pods_minus_ranks": (
+            launched["first_step_s"] - ranks["first_step_s"]
+            if launched["first_step_s"] is not None
+            and ranks["first_step_s"] is not None else None),
+        "rank_a_process": ranks, "launched": launched}
+    if profile:
+        rec["last_step_profile"] = {
+            side: [step_profile(prof / sub / f"rank-{r['rank']}" /
+                                "trace.json", r["step_ms"][-1])
+                   for r in recs["ranks"]]
+            for side, sub, recs in (("rank_a_process", "gang", ranks),
+                                    ("pods", "pods", launched))}
+    tmp.cleanup()
+    print(json.dumps(rec), flush=True)
+    return not (any(ranks["rcs"]) or any(launched["rcs"]) or not same
+                or not distinct or not bound or not exact)
+
+
+def inventory_run(host, args) -> bool:
+    """``--inventory``: two one-pod jobs of ``INVENTORY_CARDS`` cards bound
+    at once by one inventory of this host, each run alone on its cards,
+    then both at once; a third job's gang waits until one is released.
+    Prints one JSON line, returns whether every check held."""
+    import chip_smoke as cs
+    from kubeflow_controller_tpu_torch.cluster import gpu
+
+    cpu = args.device_type == "cpu"
+    argv = (POD_REHEARSAL_ARGV if cpu else cs.POD_ARGV) + ["--report"]
+    inventory = gpu.GPUInventory(gpu.carve(host, INVENTORY_CARDS))
+    accel = f"{host.family}-{INVENTORY_CARDS}"
+    envs = {job: bound_pods(inventory, job, 1, accel, free_port(),
+                            cpu=cpu)[0]
+            for job in INVENTORY_JOBS}
+    third = cs.gang_pods("inv-z", 1, accel)
+    held = not cs.admit(inventory, third)
+    cmd = [sys.executable, "-m", PRETRAIN, *argv, "--device",
+           "cpu" if cpu else "cuda"]
+    alone = {job: pod_side(job, *spawn_reports([(cmd, envs[job])],
+                                               args.timeout))
+             for job in INVENTORY_JOBS}
+    rcs, by_process, t0 = spawn_reports(
+        [(cmd, envs[job]) for job in INVENTORY_JOBS], args.timeout)
+    both = {job: pod_side(job, [rc], [recs], t0)
+            for job, rc, recs in zip(INVENTORY_JOBS, rcs, by_process)}
+    inventory.release_gang(f"{INVENTORY_JOBS[0]}-")
+    admitted_after = cs.admit(inventory, third)
+    cards = [r["card"] for recs in by_process for r in recs]
+    layers = arg(argv, "--n-layers") if "--n-layers" in argv else 0
+    steps = arg(argv, "--steps")
+    want = {"flash_fwd": 2 * layers * steps, "flash_dq": layers * steps,
+            "flash_dkv": layers * steps}
+    same = all(
+        [r["losses"] for r in alone[j]["ranks"]]
+        == [r["losses"] for r in both[j]["ranks"]]
+        and len(both[j]["ranks"]) == INVENTORY_CARDS
+        for j in INVENTORY_JOBS)
+    distinct = cpu or len(set(cards)) == len(INVENTORY_JOBS) * \
+        INVENTORY_CARDS
+    bound = cpu or cards_as_bound(by_process, list(envs.values()))
+    exact = cpu or all({k: r["launches"][k] for k in FLASH_KERNELS} == want
+                       for j in INVENTORY_JOBS for r in both[j]["ranks"])
+    third_cards = cs.container_env(third[0])["CUDA_VISIBLE_DEVICES"]
+    rec = {
+        "inventory": "c_two_jobs_one_host", "argv": argv,
+        "visible_devices": {j: e["CUDA_VISIBLE_DEVICES"]
+                            for j, e in envs.items()},
+        "third_held_while_both_bound": held,
+        "third_admitted_after_release": admitted_after,
+        "third_took_the_released_cards": (
+            third_cards == envs[INVENTORY_JOBS[0]]["CUDA_VISIBLE_DEVICES"]),
+        "losses_bit_identical_to_alone": same, "cards_distinct": distinct,
+        "cards_as_bound": bound, "launches_exact": exact,
+        "flash_launches_predicted": None if cpu else want,
+        "step_ms_p50_at_once_over_alone": {
+            j: (both[j]["step_ms_p50"] / alone[j]["step_ms_p50"]
+                if both[j]["step_ms_p50"] and alone[j]["step_ms_p50"]
+                else None) for j in INVENTORY_JOBS},
+        "alone": alone, "at_once": both}
+    print(json.dumps(rec), flush=True)
+    return not (any(rcs) or any(rc for s in alone.values() for rc in s["rcs"])
+                or not held or not admitted_after
+                or not rec["third_took_the_released_cards"] or not same
+                or not distinct or not bound or not exact)
+
+
+def carve_run(host, args) -> bool:
+    """``--carve``: (b)'s mesh as one pod of 4 cards and as two pods of 2,
+    in ``CARVE_ORDER``.  Prints one JSON line a run and one of the
+    comparison; returns whether every check held."""
+    from kubeflow_controller_tpu_torch.cluster import gpu
+
+    cpu = args.device_type == "cpu"
+    base = POD_REHEARSAL_ARGV if cpu else POD_RUNS[1]["argv"]
+    steps = base.index("--steps") + 1
+    run_ = {**POD_RUNS[1], "argv": base[:steps] + [str(CARVE_STEPS)]
+            + base[steps + 1:]}
+    argv = run_["argv"] + run_["mesh_argv"] + ["--report"]
+    world = 4
+    want = None if cpu else [pod_launches(run_, r) for r in range(world)]
+    runs, ok, first = [], True, None
+    for label in CARVE_ORDER:
+        cards, pods = CARVE_SIDES[label]
+        inventory = gpu.GPUInventory(gpu.carve(host, cards))
+        envs = bound_pods(inventory, run_["job"], pods,
+                          f"{host.family}-{cards}", free_port(),
+                          run_["mesh"], cpu)
+        cmds = [([sys.executable, "-m", PRETRAIN, *argv, "--device",
+                  "cpu" if cpu else "cuda"], env) for env in envs]
+        rcs, by_process, t0 = spawn_reports(cmds, args.timeout)
+        side = pod_side(label, rcs, by_process, t0)
+        ranks = side["ranks"]
+        losses = [r["losses"] for r in ranks]
+        first = losses if first is None else first
+        rec = {
+            "carve": label, "visible_devices": [e["CUDA_VISIBLE_DEVICES"]
+                                                for e in envs],
+            "rcs": rcs,
+            "step_ms_p50_past_first": [
+                statistics.median(r["step_ms"][1:]) for r in ranks],
+            "first_step_s": side["first_step_s"],
+            "peak_mem_gb_max": side["peak_mem_gb_max"],
+            "losses_bit_identical_to_first_run": (
+                len(ranks) == world and losses == first),
+            "cards_distinct": cpu or len({r["card"] for r in ranks}) == world,
+            "cards_as_bound": cpu or cards_as_bound(by_process, envs),
+            "launches_exact": cpu or [
+                {k: r["launches"][k] for k in FLASH_KERNELS}
+                for r in ranks] == want}
+        print(json.dumps(rec), flush=True)
+        ok &= not any(rcs) and all(rec[k] for k in (
+            "losses_bit_identical_to_first_run", "cards_distinct",
+            "cards_as_bound", "launches_exact"))
+        runs.append(rec)
+    for r in runs:
+        r["ms"] = max(r["step_ms_p50_past_first"])
+    ms = {label: [r["ms"] for r in runs if r["carve"] == label]
+          for label in CARVE_SIDES}
+    print(json.dumps({
+        "carve_compare": "two_pods_over_one_pod", "argv": argv,
+        "step_ms_by_run": ms,
+        "ratio_of_medians": (statistics.median(ms["two_pods"])
+                             / statistics.median(ms["one_pod"])),
+        "ratios_of_neighbours": [
+            (b["ms"] / a["ms"]) if b["carve"] == "two_pods"
+            else (a["ms"] / b["ms"])
+            for a, b in zip(runs, runs[1:]) if a["carve"] != b["carve"]],
+        "all_checks": ok}), flush=True)
+    return ok
+
+
 def pods_main(args) -> int:
-    """The ``--pods`` runs (see the docstring)."""
+    """The ``--pods`` runs, ``--inventory``'s and ``--profile``'s (see the
+    docstring)."""
     sys.path.insert(0, str(HERE))
     import chip_smoke as cs
 
-    cpu = args.device_type == "cpu"
-    failed = False
-    for run_ in POD_RUNS:
-        argv = (POD_REHEARSAL_ARGV if cpu else run_["argv"]) + \
-            run_["mesh_argv"] + ["--report"]
-        cards = run_["cards"]
-        world = sum(len(c.split(",")) for c in cards)
-        base = {k: v for k, v in os.environ.items()
-                if not k.startswith(("KCTPU_", "JAX_", "MODEL_DIR"))}
-        base.update(PYTHONPATH=str(HERE), CUBLAS_WORKSPACE_CONFIG=":4096:8")
-        if cpu:
-            base["OMP_NUM_THREADS"] = "1"
-        port = free_port()
-        gang = [([sys.executable, "-m", PRETRAIN, *argv, "--device",
-                  "cpu" if cpu else f"cuda:{r}"],
-                 {**base, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-                  "JAX_NUM_PROCESSES": str(world),
-                  "JAX_PROCESS_ID": str(r)}) for r in range(world)]
-        ranks = pod_side("rank_a_process", *spawn_reports(gang,
-                                                           args.timeout))
-        port = free_port()
-        pods = []
-        for i, c in enumerate(cards):
-            env = {**cs.pod_env(run_["job"], i, len(cards), run_["accel"],
-                                c, port, run_["mesh"]),
-                   "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
-            if cpu:
-                env.pop("CUDA_VISIBLE_DEVICES")
-                env.update(KCTPU_LOCAL_DEVICES=str(len(c.split(","))),
-                           OMP_NUM_THREADS="1")
-            pods.append(([sys.executable, "-m", PRETRAIN, *argv, "--device",
-                          "cpu" if cpu else "cuda"], env))
-        launched = pod_side("pods", *spawn_reports(pods, args.timeout))
-        a, b = ranks["ranks"], launched["ranks"]
-        same = (len(a) == len(b) == world
-                and all(x["losses"] == y["losses"] for x, y in zip(a, b)))
-        cards_seen = [r["card"] for r in b]
-        distinct = cpu or len(set(cards_seen)) == world
-        want = [pod_launches(run_, r) for r in range(world)]
-        flash = [{k: r["launches"][k] for k in FLASH_KERNELS} for r in b]
-        exact = (flash == [{k: r["launches"][k] for k in FLASH_KERNELS}
-                           for r in a] and (cpu or flash == want))
-        ms = (launched["step_ms_p50"] / ranks["step_ms_p50"]
-              if launched["step_ms_p50"] and ranks["step_ms_p50"] else None)
-        print(json.dumps({
-            "pods": run_["label"], "cards": cards, "world": world,
-            "argv": argv, "losses_bit_identical": same,
-            "cards_distinct": distinct, "launches_exact": exact,
-            "flash_launches_predicted": None if cpu else want,
-            "step_ms_p50_pods_over_ranks": ms,
-            "first_step_s_pods_minus_ranks": (
-                launched["first_step_s"] - ranks["first_step_s"]
-                if launched["first_step_s"] is not None
-                and ranks["first_step_s"] is not None else None),
-            "rank_a_process": ranks, "launched": launched}), flush=True)
-        failed |= (any(ranks["rcs"]) or any(launched["rcs"]) or not same
-                   or not distinct or not exact)
-    return 1 if failed else 0
+    host = pods_host(args.device_type == "cpu")
+    print("host " + json.dumps(
+        {"name": host.name, "family": host.family,
+         "cards": [[c.index, c.uuid, c.pci_bus_id] for c in host.cards],
+         "nvlink_domains": [list(d) for d in host.nvlink_domains],
+         **({} if args.device_type == "cpu" else {"card": cs.card_line()})}),
+        flush=True)
+    if args.carve:
+        return 0 if carve_run(host, args) else 1
+    ok = all([pods_run(run_, host, args) for run_ in POD_RUNS])
+    if args.inventory:
+        ok &= inventory_run(host, args)
+    if args.profile:
+        ok &= pods_run(POD_RUNS[1], host, args, profile=True)
+    return 0 if ok else 1
 
 
 def free_port() -> int:
@@ -811,7 +1097,17 @@ def main(argv=None) -> int:
                          "ranks under the fake process group")
     ap.add_argument("--pods", action="store_true",
                     help="TPU-typed pods through the pod's launcher, one "
-                         "rank a card, against the rank-a-process gang")
+                         "rank a card, their cards bound by the inventory, "
+                         "against the rank-a-process gang")
+    ap.add_argument("--inventory", action="store_true",
+                    help="with --pods: two one-pod h100-2 jobs bound at "
+                         "once on this host, run alone and together")
+    ap.add_argument("--profile", action="store_true",
+                    help="with --pods: run (b) again with every rank's "
+                         "last step profiled on both sides")
+    ap.add_argument("--carve", action="store_true",
+                    help="with --pods: only (b)'s mesh, as one h100-4 pod "
+                         "and as two h100-2 pods, run in turn")
     ap.add_argument("--preset", default="llama2-7b",
                     help="--generate's model: llama2-7b, or tiny for a "
                          "rehearsal")
