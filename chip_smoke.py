@@ -189,9 +189,11 @@ Phases, in order (any failure raises and exits non-zero):
    every launch counter must read 0 across it): ``mnist_local.main([])``
    and ``mnist_dist.main([])`` with no ``--device``, so on CUDA, at the
    reference's defaults (200 steps, global batch 100, 8192 train and 2048
-   eval examples); each must exit 0 with a finite final loss, and their
-   sign-off lines are printed.  Then both fits again on CUDA and on the
-   CPU from the same seed, f32 with TF32 off: every per-step loss within
+   eval examples; dist-mnist's default is the one-program scan fit, one
+   CUDA graph); each must exit 0 with a finite final loss, and their
+   sign-off lines are printed.  Then ``mnist_local``, dist-mnist's scan
+   fit and its ``--step-loop`` again on CUDA and on the CPU from the same
+   seed, f32 with TF32 off: every per-step loss within
    ``MNIST_LOSS_ATOL``.  Then a one-rank nccl group through
    ``JobRuntime.join_group``: one dist step through the flat
    ``all_reduce`` must leave the parameters bit-identical to the same step
@@ -224,7 +226,8 @@ Phases, in order (any failure raises and exits non-zero):
    per-step losses within ``RESNET_LOSS_RTOL`` relative, the CNN's within
    ``MNIST_LOSS_ATOL``.  Then one ResNet-50 step (batch 32, cuDNN
    deterministic) with no group and in a one-rank nccl group: state and
-   loss bit-identical, 2 x 53 + 1 collectives.
+   loss bit-identical, 2 x 53 + 1 collectives in the fit's CUDA graph
+   (issued while it is captured; the warm-up's are printed beside).
 18. sequence parallelism on one card (one card cannot hold an NCCL gang:
    the ring and Ulysses run over virtual ranks in this process, with the
    per-rank code of the gang's path, ``parallel/ring.py``,
@@ -301,7 +304,8 @@ Phases, in order (any failure raises and exits non-zero):
    job's trace context and dir (``$KCTPU_TRACE_CONTEXT``,
    ``$KCTPU_TRACE_DIR``) and a file-drop reporter, three child processes
    at once as the node agent starts them: ``llama_pretrain --preset tiny
-   --steps 2``, ``mnist_dist --steps 20`` and ``mnist_local --steps 20``
+   --steps 2``, ``mnist_dist --steps 20 --step-loop`` and ``mnist_local
+   --steps 20``
    on the card.  Their dumps (one event a span id, as the controller's
    merge keeps them) must be one tree under the context (every span of
    its trace, each parent a span of the dumps or the context's root
@@ -358,12 +362,27 @@ Phases, in order (any failure raises and exits non-zero):
    ``offer`` bind it again, and ``fail_slice`` return the pod's key and
    withhold the card.  The pod's wall seconds and its first step's end
    after the spawn are printed.
-24. The card's name and power limit, the ``kernels`` JSON line (launches
+24. the one-program fits (no hand-written kernel; every launch counter
+   must read 0): ``mnist_dist``'s default scan fit (200 steps, the
+   threefry data drawn in the graph), ``mnist_local``, ``flax_mnist`` and
+   ``cifar_allreduce`` (ResNet-18, width 16) at their defaults, each one
+   ``trainer.OneProgram``.  A profiler on from the capture's end to the
+   sync must see one ``cudaGraphLaunch`` and no kernel launch; Adam's
+   step count must read the fit's steps; each fit's capture s, replay ms,
+   µs a step and the same body's eager µs a step on the card (the graph
+   patched off), with the two runs' largest loss difference, are printed.
+   The threefry draw of the train and eval sets is timed alone (CUDA
+   events) beside the dist-mnist replay.  Then the scan fit (50 steps)
+   with no group and in a one-rank nccl group: the captured collectives
+   (n_params + 1 a step, 2 for the eval) give losses and parameters
+   bit-identical.
+25. The card's name and power limit, the ``kernels`` JSON line (launches
    from phase 10; each path's own counts beside them, phase 13's, the
    sequence-parallel paths ``ring_n4``, ``ring_n2`` and ``ulysses_n4``,
    ``generate``, phase 19a's, ``pp_dense`` and ``pp_moe``, phase 20's
    timed runs, ``pp_sp_ring`` and ``pp_sp_ulysses``, phase 22's four
-   ranks summed, and ``pod``, phase 23's pod, with the skip launches of ``gmm`` and ``tgmm``, and the
+   ranks summed, ``pod``, phase 23's pod, and ``one_program``, phase 24's
+   fits, with the skip launches of ``gmm`` and ``tgmm``, and the
    serve and generate runs' grouped launches by design; each flash entry's
    ``sp_block``: the block kernels of phase 18, SDPA's backward as the
    library time of dq and dkv), and the contract line ``{"ok": true,
@@ -421,6 +440,7 @@ from kubeflow_controller_tpu_torch.workloads import (
     progress,
 )
 from kubeflow_controller_tpu_torch.workloads.data import synthetic_tokens
+from kubeflow_controller_tpu_torch.workloads.launch import free_port
 from kubeflow_controller_tpu_torch.workloads.runtime import JobRuntime
 from kubeflow_controller_tpu_torch.workloads.serve import (
     LlamaBackend,
@@ -2121,12 +2141,6 @@ def signed_off(out: str):
     return float(loss), float(acc)
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def nccl_one_rank_check(dev):
     """One ``make_dist_step`` step with no group, then the same step (same
     init, same batch) in a one-rank nccl group formed by ``JobRuntime``:
@@ -2214,7 +2228,9 @@ def mnist_phase(dev):
     for name, fit in (
             ("mnist_local", lambda d: mnist_local.train(device=d)),
             ("mnist_dist", lambda d: mnist_dist.run_worker(
-                mnist_dist.parse_args(["--device", str(d)])))):
+                mnist_dist.parse_args(["--device", str(d)]))),
+            ("mnist_dist --step-loop", lambda d: mnist_dist.run_worker(
+                mnist_dist.parse_args(["--device", str(d), "--step-loop"])))):
         t0 = time.perf_counter()
         on_card = fit(dev)
         card_s = time.perf_counter() - t0
@@ -2398,11 +2414,14 @@ def nccl_vision_check(dev):
         rt = JobRuntime(coordinator=f"127.0.0.1:{free_port()}",
                         num_processes=1, process_id=0)
         backend = rt.join_group(dev, timeout_s=120)
-        calls = []
+        calls, warm = [], []
         real = dist.all_reduce
 
         def counted(tensor, *args, **kwargs):
-            calls.append(tensor.numel())
+            # The fit is one CUDA graph: the collectives it holds are the
+            # ones issued while it is captured (the warm-up's run before).
+            (calls if torch.cuda.is_current_stream_capturing()
+             else warm).append(tensor.numel())
             return real(tensor, *args, **kwargs)
 
         try:
@@ -2419,7 +2438,8 @@ def nccl_vision_check(dev):
     same = all(torch.equal(a[k], b[k]) for k in a)
     want = 2 * RESNET50_BN_LAYERS + 1
     print(f"vision nccl: backend {backend}, collectives a step {len(calls)} "
-          f"(2 x {RESNET50_BN_LAYERS} BatchNorm + 1 gradient), state "
+          f"in the graph (2 x {RESNET50_BN_LAYERS} BatchNorm + 1 gradient; "
+          f"{len(warm)} in the warm-up before the capture), state "
           f"bit-identical to no group: {same}, loss {grouped.loss!r} vs "
           f"{plain.loss!r}", flush=True)
     assert backend == "nccl" and len(calls) == want, (backend, len(calls))
@@ -3323,7 +3343,7 @@ def pp_phase(dev, seed: int, dense_step: dict) -> dict:
 
 TRACED_WORKLOADS = (
     ("llama_pretrain", ["--preset", "tiny", "--steps", "2"]),
-    ("mnist_dist", ["--steps", "20"]),
+    ("mnist_dist", ["--steps", "20", "--step-loop"]),
     ("mnist_local", ["--steps", "20"]),
 )
 # The spans the traced workloads dump, each this often (one process, so
@@ -3799,6 +3819,232 @@ def pod_phase(seed: int) -> dict:
     return got
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the one-program fits
+# ---------------------------------------------------------------------------
+
+# The fits that run as one CUDA graph on the card, each at its entry
+# point's defaults, with its steps and whether its optimizer is Adam(W).
+ONE_PROGRAM_FITS = (
+    ("mnist_dist", lambda: mnist_dist.run_worker(mnist_dist.parse_args([])),
+     200, True),
+    ("mnist_local", lambda: mnist_local.train(), 200, True),
+    ("flax_mnist", lambda: flax_mnist.run(flax_mnist.parse_args([])), 50,
+     True),
+    ("cifar_allreduce resnet18",
+     lambda: cifar_allreduce.run(cifar_allreduce.parse_args([])), 20, False),
+)
+# The runtime calls that launch one kernel.
+KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+@contextmanager
+def watched_programs(eager: bool = False):
+    """Every ``trainer.OneProgram`` made inside, listed, with the seconds
+    of its ``compile`` and ``run``; a profiler (CPU and CUDA activity) is
+    on from the end of the capture to the end of the run, so its events
+    are the fit's window.  ``eager`` runs each fit's body eagerly on the
+    card instead (the step loop a fit was before it was one graph)."""
+    from kubeflow_controller_tpu_torch.workloads import trainer
+
+    made = []
+    real_init = trainer.OneProgram.__init__
+    real_compile = trainer.OneProgram.compile
+    real_run = trainer.OneProgram.run
+
+    def init(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        self.times, self.prof = {}, None
+        made.append(self)
+
+    def compile_(self):
+        t0 = time.perf_counter()
+        out = real_compile(self)
+        self.times["compile_s"] = time.perf_counter() - t0
+        if not eager:
+            self.prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        return out
+
+    def run(self):
+        t0 = time.perf_counter()
+        try:
+            return real_run(self)
+        finally:
+            self.times["run_s"] = time.perf_counter() - t0
+            if self.prof is not None:
+                self.prof.__exit__(None, None, None)
+
+    patches = [mock.patch.object(trainer.OneProgram, "__init__", init),
+               mock.patch.object(trainer.OneProgram, "compile", compile_),
+               mock.patch.object(trainer.OneProgram, "run", run)]
+    if eager:
+        patches.append(mock.patch.object(trainer.OneProgram, "on_card",
+                                         property(lambda self: False)))
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        yield made
+
+
+def window_calls(prof) -> dict:
+    """Graph launches, kernel launches and the device's kernel time in a
+    profiled window."""
+    events = prof.events()
+    device_us = sum(e.device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"graph_launches": sum(e.name == "cudaGraphLaunch"
+                                  for e in events),
+            "kernel_launches": sum(e.name in KERNEL_LAUNCH_CALLS
+                                   for e in events),
+            "device_kernels": sum(e.device_type
+                                  == torch.autograd.DeviceType.CUDA
+                                  for e in events),
+            "device_ms": device_us / 1e3}
+
+
+def fit_losses(res) -> torch.Tensor:
+    return res.losses.detach().cpu()
+
+
+def nccl_scan_check(dev, steps: int = 50) -> dict:
+    """``mnist_dist``'s scan fit with no group, then in a one-rank nccl
+    group (``JobRuntime.join_group``): the captured ``all_reduce`` (one of
+    n_params + 1 floats a step, one of 2 for the eval) gives per-step
+    losses and parameters bit-identical to the run with no group."""
+    import torch.distributed as dist
+
+    argv = ["--steps", str(steps)]
+    assert not dist.is_initialized()
+    plain = mnist_dist.run_worker(mnist_dist.parse_args(argv))
+    rt = JobRuntime(coordinator=f"127.0.0.1:{free_port()}", num_processes=1,
+                    process_id=0)
+    backend = rt.join_group(dev, timeout_s=120)
+    captured, outside = [], []
+    real = dist.all_reduce
+
+    def counted(tensor, *args, **kwargs):
+        (captured if torch.cuda.is_current_stream_capturing()
+         else outside).append(tensor.numel())
+        return real(tensor, *args, **kwargs)
+
+    try:
+        with mock.patch.object(dist, "all_reduce", counted):
+            grouped = mnist_dist.run_worker(mnist_dist.parse_args(argv))
+        torch.cuda.synchronize()
+    finally:
+        rt.shutdown()
+    n_params = sum(p.numel() for p in grouped.model.parameters())
+    same_losses = torch.equal(fit_losses(plain), fit_losses(grouped))
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        plain.model.parameters(), grouped.model.parameters()))
+    rec = {"backend": backend, "steps": steps,
+           "captured_collectives": len(captured),
+           "sizes_ok": captured == [n_params + 1] * steps + [2],
+           "warmup_collectives": outside,
+           "losses_bit_identical": same_losses,
+           "params_bit_identical": same_params,
+           "accuracy": [plain.accuracy, grouped.accuracy]}
+    print("one-program nccl: " + json.dumps(rec), flush=True)
+    assert backend == "nccl" and rec["sizes_ok"], (backend, captured[:3])
+    assert same_losses and same_params
+    assert grouped.accuracy == plain.accuracy
+    assert not dist.is_initialized()
+    return rec
+
+
+def generator_ms(dev, n: int, reps: int = 5) -> dict:
+    """The threefry draw of ``n`` synthetic MNIST examples on the card:
+    as the fit runs it, one CUDA graph replayed (``graph_ms``), and
+    eagerly, each operation launched from the host (``eager_ms``); the
+    median of ``reps`` each (CUDA events)."""
+    from kubeflow_controller_tpu_torch.workloads import data
+
+    means = torch.from_numpy(np.array(data.mnist_teacher_means())).to(dev)
+    data.synthetic_mnist_traced(1, n, means, dev)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        data.synthetic_mnist_traced(1, n, means, dev)
+    out = {}
+    for mode, run in (("graph_ms", graph.replay), ("eager_ms", lambda:
+                      data.synthetic_mnist_traced(1, n, means, dev))):
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[mode] = statistics.median(times)
+    del graph
+    return out
+
+
+def one_program_phase(dev) -> dict:
+    """The one-program fits (phase 24 in the docstring).  Returns the
+    launch counters across them (all 0)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {name: getattr(at, name) for name in FLASH_KERNELS}
+    counters.update({name: getattr(gm, name) for name in GROUPED_KERNELS})
+    for c in counters.values():
+        c.launches = 0
+    recs = {}
+    for name, fit, steps, adam in ONE_PROGRAM_FITS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        with watched_programs() as made:
+            res = fit()
+        (prog,) = made
+        calls = window_calls(prog.prof)
+        losses = fit_losses(res)
+        with watched_programs(eager=True) as eager:
+            eager_res = fit()
+        (eager_prog,) = eager
+        eager_losses = fit_losses(eager_res)
+        rec = {"steps": steps, **calls,
+               "capture_s": prog.times["compile_s"],
+               "replay_ms": prog.times["run_s"] * 1e3,
+               "us_per_step": prog.times["run_s"] * 1e6 / steps,
+               "eager_us_per_step": eager_prog.times["run_s"] * 1e6 / steps,
+               "eager_vs_graph_max_abs": float(
+                   (losses - eager_losses).abs().max()),
+               "eager_vs_graph_first3_max_abs": float(
+                   (losses[:3] - eager_losses[:3]).abs().max()),
+               "final_loss": float(losses[-1])}
+        if adam:
+            counts = {float(s["step"]) for s in
+                      prog.optimizer.inner.state.values()}
+            rec["adam_steps"] = sorted(counts)
+        print(f"one-program {name}: " + json.dumps(rec), flush=True)
+        assert calls["graph_launches"] == 1, (name, calls)
+        assert calls["kernel_launches"] == 0, (name, calls)
+        assert losses.shape == (steps,) and torch.isfinite(losses).all()
+        if adam:
+            assert rec["adam_steps"] == [float(steps)], rec["adam_steps"]
+        recs[name] = rec
+        del res, eager_res, made, eager, prog, eager_prog
+    gen = {"train": generator_ms(dev, 81 * 100),
+           "eval": generator_ms(dev, 2048)}
+    gen["graph_share_of_replay"] = (
+        (gen["train"]["graph_ms"] + gen["eval"]["graph_ms"])
+        / recs["mnist_dist"]["replay_ms"])
+    print("one-program generator: " + json.dumps(gen), flush=True)
+    recs["generator"] = gen
+    recs["nccl"] = nccl_scan_check(dev)
+    launches = {name: c.launches for name, c in counters.items()}
+    assert not any(launches.values()), launches
+    return launches
+
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3948,6 +4194,7 @@ def main(argv=None) -> int:
     paths.update(pp_sp_phase(args.seed))
     paths["pod"] = pod_phase(args.seed)
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    paths["one_program"] = one_program_phase(dev)
     print(card_line())
     print(kernels_line(results, flash, paths, serve_designs,
                        generate_designs))

@@ -60,7 +60,6 @@ import contextlib
 import dataclasses
 import json
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -74,6 +73,7 @@ import torch
 
 from .device import DeviceLike, resolve_device
 from .models.llama import LlamaConfig, llama_forward, llama_init
+from .workloads.launch import free_port
 
 AXES = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 # The mesh axes no parameter may be gathered whole over.
@@ -528,12 +528,6 @@ def run_configs(n: int, dev: torch.device, steps: int = 1,
 # The ranks
 # ---------------------------------------------------------------------------
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def dryrun_multichip(n_devices: int, device: str = "cuda", *,
                      steps: int = 1, configs: Optional[Sequence[str]] = None,
                      timeout_s: float = DEFAULT_TIMEOUT_S) -> List[dict]:
@@ -550,7 +544,9 @@ def dryrun_multichip(n_devices: int, device: str = "cuda", *,
                            f"{n_devices} cards, found "
                            f"{torch.cuda.device_count()}")
     root = str(Path(__file__).resolve().parent.parent)
-    port = _free_port()
+    # Rank 0 binds the store's port itself, so the port is drawn below
+    # the ephemeral range (see free_port).
+    port = free_port()
     argv = [sys.executable, "-m", "kubeflow_controller_tpu_torch.graft_entry",
             "--rank-child", "--n", str(n_devices), "--device", dev.type,
             "--steps", str(steps)]

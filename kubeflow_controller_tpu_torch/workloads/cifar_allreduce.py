@@ -15,7 +15,8 @@ of it a step; the gang trains one model with SGD (momentum 0.9,
 ``optax.sgd``'s update), the BatchNorm moments over the global batch (one
 ``all_reduce`` per BatchNorm layer forward and one backward,
 ``models/vision.py``) and the gradients and the loss in one flat
-``all_reduce`` a step (``trainer.train_scan_stateful``): ResNet-18 makes
+``all_reduce`` a step (``trainer.train_scan_stateful``: one CUDA graph on
+the card, the collectives inside it): ResNet-18 makes
 2 x 20 + 1 = 41 collectives a step, ResNet-50 2 x 53 + 1 = 107, the CNN
 1.  The printed loss is the global batch's; accuracy is on the eval set
 every worker holds whole, with the running statistics.  ``--model cnn``

@@ -3,16 +3,18 @@
 
 The reference compiles its step program ahead of time (``aot_compile``)
 and tells the controller whether that compile was paid (``"compiled"``)
-or came from its cache (``"cache-hit"``).  Eager PyTorch compiles no step
-program; the port's one compile is the ``nvcc`` build of ``csrc/``
-(``ops/_build.py``), whose content-keyed library in ``build/`` is its
-cache.  The workloads that launch the kernels (``llama_pretrain``,
+or came from its cache (``"cache-hit"``).  The port compiles twice over:
+the ``nvcc`` build of ``csrc/`` (``ops/_build.py``), whose content-keyed
+library in ``build/`` is its cache, and on the card the capture of a
+one-program fit's CUDA graph (``trainer.train_scan_dist``), always
+``"compiled"``: a CUDA graph cannot be written to disk.  The workloads that launch the kernels (``llama_pretrain``,
 ``serve``) run that build up front through :func:`build_kernels`, which
 emits the reference's ``workload/compile`` trace span and compile metrics
 (:func:`observe_compile`) around it.
 
 Not ported: the XLA persistent cache and the serialized-executable layer,
-which have no meaning for a library built by ``nvcc``.
+which have no meaning for a library built by ``nvcc`` or for a CUDA
+graph.
 """
 
 from __future__ import annotations

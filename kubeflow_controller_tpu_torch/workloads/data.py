@@ -8,9 +8,10 @@ either; only the container differs (torch tensors on the caller's device
 here).  Seeds are ints: the reference also accepts a JAX PRNG key, which
 collapses to its counter word (``PRNGKey(1)`` is seed 1).
 
-Not ported: ``synthetic_mnist_traced``, which draws with threefry inside
-the JAX program.  The port stages data as the reference's ``--step-loop``
-path does, from :func:`synthetic_mnist_np`.
+:func:`synthetic_mnist_traced` is the other generator of the reference,
+the one its one-program fits run on the device: JAX's threefry draws
+(``utils/threefry.py``), on the caller's device, with no host sync, so a
+CUDA graph can hold it.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..utils import threefry
 from ..utils.rand import as_seed
 
 IMAGE_PIXELS = 28 * 28
@@ -84,6 +86,24 @@ def synthetic_mnist(seed: int, n: int, device: DeviceLike = "cuda"
     x, y = synthetic_mnist_np(seed, n)
     return (torch.from_numpy(np.array(x)).to(dev),
             torch.from_numpy(np.array(y, dtype=np.int64)).to(dev))
+
+
+def synthetic_mnist_traced(seed: int, n: int, means: torch.Tensor,
+                           device: DeviceLike = "cuda"
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's on-device twin of :func:`synthetic_mnist`: the same
+    frozen mixture (``means``, the [10, 784] teacher templates as a tensor
+    on ``device``, plus unit noise) drawn with JAX's threefry from
+    ``PRNGKey(seed & 0x7FFFFFFF)`` split into ``(kx, ky)``: ``y =
+    randint(ky, (n,), 0, 10)`` and ``x = means[y] + normal(kx, (n,
+    784))``.  x [n, 784] f32 and y [n] int32, as the reference returns
+    them.  Every operation runs on ``device`` without a host sync."""
+    dev = resolve_device(device)
+    kx, ky = threefry.split(threefry.prng_key(as_seed(seed) & 0x7FFFFFFF,
+                                              dev))
+    y = threefry.randint(ky, (n,), 0, NUM_CLASSES)
+    x = means[y] + threefry.normal(kx, (n, IMAGE_PIXELS))
+    return x, y.to(torch.int32)
 
 
 def synthetic_tokens(seed: int, n_seqs: int, seq_len: int, vocab: int,

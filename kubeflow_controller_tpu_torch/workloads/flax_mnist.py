@@ -13,7 +13,8 @@ nccl on CUDA) and trains ``FlaxMNISTCNN`` data-parallel, one device a
 process: every process draws the same seed-1 images, stacks the global
 batches (``batch_stack``) and trains on its rows ``[r * bs / n, (r + 1) *
 bs / n)`` of each, the gradients and the loss averaged in one
-``all_reduce`` a step (``trainer.train_scan``), with ``optax.adam(lr)``'s
+``all_reduce`` a step (``trainer.train_scan``: one CUDA graph on the
+card), with ``optax.adam(lr)``'s
 update (``trainer.adam``).  The global batch is rounded down to a multiple
 of the width.  With ``MODEL_DIR`` set the chief saves the trained model
 and optimizer there as step ``--steps``.

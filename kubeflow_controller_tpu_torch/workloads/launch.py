@@ -27,7 +27,8 @@ its n cards: no pod trains silently on every card of its host.  Each
 rank's env adds ``$KCTPU_LOCAL_RANK``, ``$KCTPU_LOCAL_DEVICES`` (L),
 ``$KCTPU_RANK`` (its global rank, which its trace spans carry) and the
 launcher's pid; the ranks of a one-process pod meet at a TCP store on
-the loopback.
+the loopback that the launcher holds open (:func:`host_store`) from
+before the first rank spawns until the last one exits.
 
 - The ranks are spawned, never forked (an executed pod may be forked from
   a zygote that imported JAX, and a process that touched CUDA cannot fork
@@ -44,12 +45,14 @@ from __future__ import annotations
 
 import ctypes
 import os
+import random
 import signal
 import socket
 import subprocess
 import sys
 import threading
 import time
+from datetime import timedelta
 from pathlib import Path
 from typing import Dict, List, Mapping, Optional, Sequence
 
@@ -62,7 +65,9 @@ from ..obs.trace import RANK_ENV
 from .runtime import (
     ENV_COORDINATOR,
     ENV_NUM_PROCESSES,
+    ENV_STORE_HOSTED,
     ENV_TPU_ACCELERATOR,
+    JOIN_TIMEOUT_S,
     JobRuntime,
 )
 
@@ -73,6 +78,7 @@ POLL_S = 0.05
 PR_SET_PDEATHSIG = 1
 # The directory that holds the port's package, first on the ranks' path.
 PACKAGE_ROOT = str(Path(__file__).resolve().parents[2])
+EPHEMERAL = Path("/proc/sys/net/ipv4/ip_local_port_range")
 
 
 def check_slice_cards(env: Mapping[str, str]) -> None:
@@ -121,17 +127,48 @@ def pod_devices(device: DeviceLike = "cuda",
 
 
 def free_port() -> int:
+    """A loopback port that binds now, drawn below the kernel's ephemeral
+    range, for a caller whose rank 0 binds it later.  The connections of
+    other process groups on the host take their local ports from that
+    range, and one of them could take a port found free there before rank
+    0 binds it (EADDRINUSE)."""
+    low = 32768
+    if EPHEMERAL.exists():
+        low = int(EPHEMERAL.read_text().split()[0])
+    rng = random.Random()
+    for _ in range(100):
+        port = rng.randrange(10000, low)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-def rank_envs(env: Mapping[str, str], n: int,
-              rt: JobRuntime) -> List[Dict[str, str]]:
+def host_store(timeout_s: float = JOIN_TIMEOUT_S):
+    """The TCP store a one-process pod's ranks meet at: opened here, by
+    the launcher, as master on a port the kernel picks (port 0), so no
+    port is free between a probe and a bind.  The ranks join it as
+    clients (``$KCTPU_STORE_HOSTED``); it lives until they exit."""
+    import torch.distributed as dist
+
+    return dist.TCPStore("127.0.0.1", 0, is_master=True,
+                         wait_for_workers=False,
+                         timeout=timedelta(seconds=timeout_s))
+
+
+def rank_envs(env: Mapping[str, str], n: int, rt: JobRuntime,
+              store_port: Optional[int]) -> List[Dict[str, str]]:
     """The env of each of the pod's ``n`` ranks: ``env`` with the local
     rank, L, the global rank, the launcher's pid and the package first on
-    ``PYTHONPATH``; a one-process pod's coordinator moves to a free
-    loopback port (its ranks' store)."""
+    ``PYTHONPATH``; a one-process pod's coordinator moves to the
+    launcher's store on the loopback (``store_port``, which the ranks join
+    as clients; None for a pod of a multi-process gang, whose ranks meet
+    at the controller's coordinator)."""
     base = dict(env)
     base.update({ENV_LOCAL_DEVICES: str(n),
                  ENV_LAUNCHER_PID: str(os.getpid()),
@@ -139,7 +176,11 @@ def rank_envs(env: Mapping[str, str], n: int,
                      [PACKAGE_ROOT] + ([base["PYTHONPATH"]]
                                        if base.get("PYTHONPATH") else []))})
     if rt.num_processes <= 1:
-        base[ENV_COORDINATOR] = f"127.0.0.1:{free_port()}"
+        if store_port is None:
+            raise ValueError("a one-process pod's ranks meet at its "
+                             "launcher's store: pass its port")
+        base[ENV_COORDINATOR] = f"127.0.0.1:{store_port}"
+        base[ENV_STORE_HOSTED] = "1"
     return [{**base, ENV_LOCAL_RANK: str(r),
              RANK_ENV: str(rt.process_id * n + r)} for r in range(n)]
 
@@ -269,4 +310,18 @@ def launch_pod(module: str, argv: Optional[Sequence[str]],
     rt.check_mesh()
     cmd = [sys.executable, "-m", module,
            *(sys.argv[1:] if argv is None else argv)]
-    return run_ranks(cmd, rank_envs(os.environ, n, rt))
+    return run_pod(cmd, os.environ, n, rt)
+
+
+def run_pod(cmd: Sequence[str], env: Mapping[str, str], n: int,
+            rt: JobRuntime) -> int:
+    """Run the pod's ``n`` ranks of ``cmd`` (:func:`run_ranks` over
+    :func:`rank_envs`); a one-process pod's ranks meet at the store this
+    launcher holds (:func:`host_store`), opened before the first rank
+    spawns and closed after the last one exits."""
+    store = host_store() if rt.num_processes <= 1 else None
+    try:
+        return run_ranks(cmd, rank_envs(
+            env, n, rt, store.port if store is not None else None))
+    finally:
+        del store

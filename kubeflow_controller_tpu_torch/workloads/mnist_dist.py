@@ -13,18 +13,34 @@ Roles, from the TF-contract args the planner injects:
   ``--worker_hosts``/``--task_index``), starts the gang guard, runs its
   numpy host setup on a thread overlapped with the rendezvous (serially
   under ``--no-overlap``), joins the process group (gloo on the CPU, nccl
-  on CUDA), trains one shared model with one flat all-reduce per step
-  (``trainer.make_dist_step``, driven per step with progress beats), and
-  evaluates on the whole eval set.  Each rank stages its columns
-  ``[r·bs/W, (r+1)·bs/W)`` of every global batch; the global batch is
-  rounded down to a multiple of the data-parallel width W.
+  on CUDA), trains one shared model with one flat all-reduce per step and
+  evaluates.  Each rank takes its columns ``[r·bs/W, (r+1)·bs/W)`` of
+  every global batch; the global batch is rounded down to a multiple of
+  the data-parallel width W.
 - a worker pod of several local devices (``launch.py``) runs one rank a
   device: W is every pod's devices, rank r = process x L + local rank (the
   batch splits by pod, then by local rank), the gang guard and the beats
   are local rank 0's, and local rank 0 prints the pod's "Worker i/n" line.
 
-Checkpoint/resume (``MODEL_DIR``), as in the reference's step loop: the
-latest readable step is restored before the first beat, which reads
+Two fit shapes, as in the reference:
+
+- **scan** (the default): the whole fit is one program a worker
+  (``trainer.train_scan_dist``): the data drawn on the device from JAX's
+  threefry (``data.synthetic_mnist_traced``: the train set seed 1, each
+  rank its columns of every batch; the eval set seed 2, each rank its
+  rows), the steps with their one flat ``all_reduce`` each, and the
+  sharded eval with one more.  On the card it is one CUDA graph, captured
+  once (the fit's ``workload/compile``) and replayed once, inside the
+  reference's ``trainer/fit`` span.  With ``MODEL_DIR`` it only saves its
+  final step and never restores, as the reference's scan fit.
+  ``--aot-cache`` is accepted and nothing is written there: a CUDA graph
+  cannot be serialised (``trainer/fit`` reads ``aot_cache="off"``).
+- **step loop** (``--step-loop`` or ``$WORKLOAD_STEP_LOOP``): the numpy
+  data staged from the host (``synthetic_mnist_np``) and one
+  ``trainer.make_dist_step`` step driven at a time with progress beats.
+
+Checkpoint/resume in the step loop (``MODEL_DIR``), as in the reference's:
+the latest readable step is restored before the first beat, which reads
 ``phase="restore"`` — or ``"reshard"`` when the width marker says the
 checkpoints were written by a gang of another width than this one
 (``rt.gang_width``) — and every later beat carries ``resumedFromStep``;
@@ -32,15 +48,12 @@ checkpoints were written by a gang of another width than this one
 are waited for before the sign-off, and the final step is saved (process
 0 writes, ``checkpoint.CheckpointManager``).
 
-The only fit shape is the reference's ``--step-loop`` one (its default,
-one compiled scan with data drawn by threefry in the program, has no
-eager counterpart), so ``--step-loop`` is accepted and changes nothing;
-``--aot-cache`` is accepted and ignored, as eager PyTorch compiles
-nothing (so there is no ``workload/compile`` span under the fit, where the
-reference's step loop has one).  The phases are the reference's trace
-spans, ``workload/rendezvous``, ``workload/init`` and ``workload/fit``
-(with ``workload/stage`` and, on a resume, ``workload/restore`` inside
-it), and the "Phase times" line reads them; the spans are dumped to
+The step loop compiles nothing, so it has no ``workload/compile`` span
+under its fit, where the reference's step loop has one.  The phases are
+the reference's trace spans, ``workload/rendezvous``, ``workload/init``
+and ``workload/fit`` (with ``trainer/fit`` inside it in the scan fit, and
+``workload/stage`` and, on a resume, ``workload/restore`` in the step
+loop), and the "Phase times" line reads them; the spans are dumped to
 ``$KCTPU_TRACE_DIR`` before the sign-off.
 """
 
@@ -76,20 +89,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "named)")
     p.add_argument("--aot-cache",
                    default=os.environ.get("WORKLOAD_AOT_CACHE", ""),
-                   help="accepted and ignored: nothing is compiled")
+                   help="accepted; nothing is written there (the scan fit's "
+                        "CUDA graph cannot be serialised)")
     p.add_argument("--step-loop", action="store_true",
                    default=bool(os.environ.get("WORKLOAD_STEP_LOOP")),
-                   help="accepted: the per-step loop is the only fit shape")
+                   help="per-step loop on host-staged data (real per-step "
+                        "progress beats, restore and periodic saves) "
+                        "instead of the one-program scan fit")
     p.add_argument("--checkpoint-every", type=int,
                    default=int(os.environ.get("KCTPU_CHECKPOINT_EVERY", "0")
                                or "0"),
-                   help="async checkpoint every N steps into MODEL_DIR "
-                        "(0 = only the final save)")
+                   help="step-loop mode: async checkpoint every N steps "
+                        "into MODEL_DIR (0 = only the final save)")
     p.add_argument("--step-sleep", type=float,
                    default=float(os.environ.get("KCTPU_STEP_SLEEP", "0")
                                  or "0"),
-                   help="host-side sleep per step (seconds): stretches the "
-                        "fit window so fault benches can kill mid-fit")
+                   help="step-loop mode: host-side sleep per step "
+                        "(seconds): stretches the fit window so fault "
+                        "benches can kill mid-fit")
     p.add_argument("--no-overlap", action="store_true",
                    default=bool(os.environ.get("KCTPU_NO_OVERLAP")),
                    help="serial baseline: run host setup after rendezvous "
@@ -115,20 +132,17 @@ class DistResult:
 
 
 def run_worker(args: argparse.Namespace) -> DistResult:
-    """A worker's whole run: rendezvous, fit, eval, then leave the gang
+    """A worker's whole run: rendezvous, fit (the one-program scan fit, or
+    the step loop under ``--step-loop``), eval, then leave the gang
     together.  (torch is imported here, so a parked PS never loads it.)"""
-    import numpy as np
-    import torch
     import torch.distributed as dist
 
     from ..device import rank_device
     from ..models import mnist as m
-    from ..obs.phases import PHASE_RESHARD, PHASE_RESTORE
     from ..obs.trace import span
     from ..recovery.rendezvous import guard_from_env
     from . import data as d
     from .checkpoint import CheckpointManager, is_writer
-    from .progress import reporter
     from .runtime import (
         HostSetup,
         JobRuntime,
@@ -136,11 +150,6 @@ def run_worker(args: argparse.Namespace) -> DistResult:
         process_count,
         process_index,
         world_size,
-    )
-    from .trainer import (
-        default_optimizer,
-        make_dist_step,
-        train_step_loop_dist,
     )
 
     t_start = time.perf_counter()
@@ -156,6 +165,8 @@ def run_worker(args: argparse.Namespace) -> DistResult:
 
     def host_setup():
         params = m.mlp_init(0)  # same seed -> same init everywhere
+        if not args.step_loop:
+            return params, None, None      # the scan fit draws on device
         return (params, d.synthetic_mnist_np(1, args.train_size),
                 d.synthetic_mnist_np(2, args.eval_size))
 
@@ -175,7 +186,107 @@ def run_worker(args: argparse.Namespace) -> DistResult:
         dp = pc
         bs = max(dp, args.batch_size - args.batch_size % dp)
         spe = max(1, args.train_size // bs)  # steps per epoch
+        eval_local = max(1, args.eval_size // dp)
 
+    fit = _fit_step_loop if args.step_loop else _fit_scan
+    fit_out = fit(args, rt, setup, dev, dp, proc, pod, bs, spe, eval_local)
+    losses, loss, acc, sp_fit, model, opt, start_step, mgr = fit_out
+    saved_to = ""
+    if rt.model_dir:
+        mgr = mgr or CheckpointManager(rt.model_dir)
+        # The final step (unless a resume at the finish line already has
+        # it), while the group still names the one writer.
+        if mgr.latest_step() != args.steps:
+            mgr.save(args.steps, model, opt)
+        saved_to = rt.model_dir if is_writer() else ""
+    times = {"rendezvous": sp_rdv.dur, "init": sp_init.dur,
+             "fit": sp_fit.dur, "total": time.perf_counter() - t_start}
+
+    if guard is not None:
+        # The done marker BEFORE the exit barrier, so a fast peer's
+        # silence is never mistaken for death.
+        guard.mark_done()
+    if pc > 1 or rt.launched:
+        # Leave together: process 0 hosts the store, and an early exit
+        # would fail a peer still finishing its eval.
+        try:
+            dist.barrier()
+        except RuntimeError:
+            pass  # best effort; exit skew is rare
+        rt.shutdown()
+    return DistResult(losses, loss, acc, pod, pods, dp, bs, times, str(dev),
+                      model, start_step, saved_to, rt.local_rank)
+
+
+def _fit_scan(args, rt, setup, dev, dp, proc, pod, bs, spe, eval_local):
+    """The one-program fit (the reference's default): the batches drawn on
+    the device from threefry (``synthetic_mnist_traced``: the train set is
+    ``spe * bs`` examples of seed 1, each rank taking its columns of every
+    batch; the eval set ``dp * eval_local`` examples of seed 2, each rank
+    its rows), the ``steps``-long loop with its one flat ``all_reduce`` a
+    step and the sharded eval, as ``trainer.train_scan_dist``: one CUDA
+    graph on the card.  No restore: with ``MODEL_DIR`` the fit only saves
+    its final step, as the reference's scan fit does."""
+    import numpy as np
+    import torch
+
+    from ..models import mnist as m
+    from ..obs.trace import span
+    from . import data as d
+    from .trainer import default_optimizer, train_scan_dist
+
+    local_bs = bs // dp
+    with span("workload/fit", process=pod, steps=args.steps) as sp_fit:
+        params, _, _ = setup.result()
+        model = m.MnistMLP(params, dev)
+        opt = default_optimizer(model.parameters(), args.lr)
+        # The templates go to the device before the fit: a host copy
+        # inside a capture would sync.
+        means = torch.from_numpy(np.array(d.mnist_teacher_means())).to(dev)
+
+        def local_batches(i):
+            x, y = d.synthetic_mnist_traced(1, spe * bs, means, dev)
+            cols = slice(i * local_bs, (i + 1) * local_bs)
+            return (x.reshape(spe, bs, m.IMAGE_PIXELS)[:, cols],
+                    y.reshape(spe, bs)[:, cols])
+
+        def eval_counts(i):
+            ex, ey = d.synthetic_mnist_traced(2, dp * eval_local, means, dev)
+            rows = slice(i * eval_local, (i + 1) * eval_local)
+            with torch.no_grad():
+                hits = model(ex[rows]).argmax(dim=-1) == ey[rows]
+            return hits.sum(), eval_local
+
+        out = train_scan_dist(lambda xb, yb: m.mlp_loss(model, xb, yb), opt,
+                              args.steps, local_batches, eval_counts,
+                              aot_cache=args.aot_cache,
+                              examples_per_step=bs)
+        loss, acc = float(out.loss), float(out.metric)
+    return out.losses, loss, acc, sp_fit, model, opt, 0, None
+
+
+def _fit_step_loop(args, rt, setup, dev, dp, proc, pod, bs, spe,
+                   eval_local):
+    """The step loop (``--step-loop``): host-staged data, a restore from
+    ``MODEL_DIR``, ``--checkpoint-every`` saves and ``--step-sleep``, one
+    ``make_dist_step`` step driven at a time."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ..models import mnist as m
+    from ..obs.phases import PHASE_RESHARD, PHASE_RESTORE
+    from ..obs.trace import span
+    from .checkpoint import CheckpointManager
+    from .progress import reporter
+    from .trainer import (
+        default_optimizer,
+        make_dist_step,
+        train_step_loop_dist,
+    )
+
+    del eval_local
+    pc = dp
     with span("workload/fit", process=pod, steps=args.steps,
               step_loop=True) as sp_fit:
         params, (x_np, y_np), (ex_np, ey_np) = setup.result()
@@ -238,31 +349,8 @@ def run_worker(args: argparse.Namespace) -> DistResult:
         ex = torch.from_numpy(np.array(ex_np)).to(dev)
         ey = torch.from_numpy(np.array(ey_np)).to(dev)
         acc = float(m.mlp_accuracy(model, ex, ey))
-    saved_to = ""
-    if mgr is not None:
-        # The final step (unless a resume at the finish line already has
-        # it), while the group still names the one writer.
-        if mgr.latest_step() != args.steps:
-            mgr.save(args.steps, model, opt)
-        saved_to = rt.model_dir if is_writer() else ""
-    times = {"rendezvous": sp_rdv.dur, "init": sp_init.dur,
-             "fit": sp_fit.dur, "total": time.perf_counter() - t_start}
-
-    if guard is not None:
-        # The done marker BEFORE the exit barrier, so a fast peer's
-        # silence is never mistaken for death.
-        guard.mark_done()
-    if pc > 1 or rt.launched:
-        # Leave together: process 0 hosts the store, and an early exit
-        # would fail a peer still finishing its eval.
-        try:
-            dist.barrier()
-        except RuntimeError:
-            pass  # best effort; exit skew is rare
-        rt.shutdown()
-    return DistResult(losses, float(losses[-1]), acc, pod, pods, dp, bs,
-                      times, str(dev), model, start_step, saved_to,
-                      rt.local_rank)
+    return (losses, float(losses[-1]), acc, sp_fit, model, opt, start_step,
+            mgr)
 
 
 def main(argv=None) -> int:

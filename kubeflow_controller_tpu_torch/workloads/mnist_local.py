@@ -7,8 +7,9 @@ workload.
 
 Same flags as the reference (``--device``, default ``cuda``, takes the
 place of ``--platform``) and the same sign-off lines ("Training elapsed
-time", "Final loss ...; eval accuracy ...").  The model trains eagerly, one
-step per stacked batch (``trainer.train_scan``), on the synthetic mixture
+time", "Final loss ...; eval accuracy ...").  The model trains one step
+per stacked batch (``trainer.train_scan``: one CUDA graph on the card,
+eagerly on the CPU), on the synthetic mixture
 (train seed 1, eval seed 2, init seed 0: the reference's ``PRNGKey``
 counters).  ``--target-accuracy`` makes a lower final accuracy exit 1.
 With ``MODEL_DIR`` set the trained model and optimizer are saved there as

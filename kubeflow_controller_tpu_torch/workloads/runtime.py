@@ -67,6 +67,9 @@ ENV_GANG_GENERATION = "KCTPU_GANG_GENERATION"
 # other processes stat-poll a file instead of dialing a port that cannot
 # answer yet.  Absent outside the single-node fake cluster.
 ENV_RENDEZVOUS_DIR = "KCTPU_RENDEZVOUS_DIR"
+# Set by a pod's launcher that holds its ranks' TCP store itself
+# (``launch.host_store``): every rank, rank 0 too, joins it as a client.
+ENV_STORE_HOSTED = "KCTPU_STORE_HOSTED"
 
 # How long a gang may take to form, and then how long a collective may
 # wait for a peer (jax.distributed.initialize's default is 300 s too).
@@ -212,6 +215,7 @@ class JobRuntime:
         self.local_devices = 1
         self.local_rank = 0
         self.launched = False
+        self.store_hosted = False
 
     @staticmethod
     def from_env(env: Optional[Dict[str, str]] = None) -> "JobRuntime":
@@ -239,6 +243,7 @@ class JobRuntime:
         rt.local_devices = local_devices(e)
         rt.local_rank = int(e.get(ENV_LOCAL_RANK, "0") or "0")
         rt.launched = e.get(ENV_LOCAL_RANK) is not None
+        rt.store_hosted = e.get(ENV_STORE_HOSTED) == "1"
         return rt
 
     @property
@@ -325,7 +330,8 @@ class JobRuntime:
         """``init_process_group`` over this runtime's coordinator, world
         and global rank, whatever the size (a one-rank group too); returns
         the backend.  Global rank 0 binds the TCP store at the
-        coordinator's address.  On CUDA the rank binds its own card:
+        coordinator's address, unless the pod's launcher holds it
+        (``$KCTPU_STORE_HOSTED``): then every rank joins as a client.  On CUDA the rank binds its own card:
         ``device``'s index, else its local rank's for a launched rank,
         else the current card."""
         import torch.distributed as dist
@@ -340,10 +346,19 @@ class JobRuntime:
             else:
                 card = torch.cuda.current_device()
             torch.cuda.set_device(card)
-        dist.init_process_group(
-            backend, init_method=f"tcp://{self.coordinator}",
-            world_size=self.world_size, rank=self.global_rank,
-            timeout=timedelta(seconds=timeout_s))
+        timeout = timedelta(seconds=timeout_s)
+        if self.store_hosted:
+            host, port = self._coordinator_addr()
+            store = dist.TCPStore(host, port, self.world_size,
+                                  is_master=False, timeout=timeout)
+            dist.init_process_group(backend, store=store,
+                                    world_size=self.world_size,
+                                    rank=self.global_rank, timeout=timeout)
+        else:
+            dist.init_process_group(
+                backend, init_method=f"tcp://{self.coordinator}",
+                world_size=self.world_size, rank=self.global_rank,
+                timeout=timeout)
         return backend
 
     def shutdown(self) -> None:

@@ -1,7 +1,8 @@
 """The training optimizers and loops — the port of ``default_optimizer``,
 ``optax.sgd``/``optax.adam``, ``batch_stack``, ``train_scan``,
-``train_scan_stateful``, ``make_dist_step`` and ``train_step_loop_dist``
-from ``kubeflow_controller_tpu/workloads/trainer.py``.
+``train_scan_stateful``, ``train_scan_dist``, ``make_dist_step`` and
+``train_step_loop_dist`` from
+``kubeflow_controller_tpu/workloads/trainer.py``.
 
 The reference chains ``optax.clip_by_global_norm(clip)`` and
 ``optax.adamw(lr, weight_decay=...)`` (``optax.adam`` without decay).  The
@@ -23,27 +24,31 @@ port keeps optax's arithmetic:
   :func:`sgd` is ``optax.sgd(lr, momentum)``: optax's trace ``m = g +
   momentum * m``, ``p -= lr * m`` is ``torch.optim.SGD`` with dampening 0.
 
-Gradients are clipped in place.
+Gradients are clipped in place, by a select on the device: the step never
+waits for the host, so a CUDA graph can hold it.
 
-The loops run eagerly, one step per batch: :func:`train_scan` and
-:func:`train_scan_stateful` are the counterparts of the reference's
-one-program scans, and :func:`make_dist_step` keeps its collective shape —
-every gradient and the loss ride ONE flat f32 ``all_reduce`` per step (the
-scans too, inside a process group).  :func:`train_step_loop_dist` resumes
-from a restored step and saves every ``checkpoint_every`` steps, inside
-the reference's ``workload/first_step`` and ``workload/fit`` trace spans,
-and publishes the run's :func:`record_step_telemetry` on the metrics
-registry.  The reference's ``trainer/fit`` span belongs to its
-one-program ``train_scan_dist``, which has no eager counterpart; the
+The reference's scans (:func:`train_scan`, :func:`train_scan_stateful`,
+:func:`train_scan_dist`) are each one compiled program; the port's are
+each one CUDA graph on the card, captured once and replayed once
+(:class:`OneProgram`), and run eagerly step by step on the CPU.
+:func:`make_dist_step` keeps the reference's collective shape — every
+gradient and the loss ride ONE flat f32 ``all_reduce`` per step (the scans
+too, inside a process group).  :func:`train_scan_dist` emits the
+reference's ``trainer/fit`` span, beats and telemetry around its one
+program, and its capture is the fit's ``workload/compile``; the
 reference's ``train_scan`` emits no span and no telemetry, and neither
-does the port's.
+does the port's.  :func:`train_step_loop_dist` drives one step at a time
+(the reference's ``--step-loop`` fit): it resumes from a restored step and
+saves every ``checkpoint_every`` steps, inside the ``workload/first_step``
+and ``workload/fit`` spans, and publishes :func:`record_step_telemetry`.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Iterable, List, Optional, Tuple
+from typing import (Any, Callable, Iterable, List, NamedTuple,
+                    Optional, Tuple)
 
 import torch
 
@@ -174,10 +179,15 @@ class Optimizer:
             with_grad = [p for p in self.params if p.grad is not None]
             grads = [p.grad for p in with_grad]
             norm = self._norm(with_grad)
-            if norm >= self.clip:  # one host sync per step
-                for g in grads:
-                    g = _local(g)
-                    g.div_(norm.to(g.dtype)).mul_(self.clip)
+            # (g / norm) * clip where the norm reaches the clip, else g / 1
+            # * 1 (exactly g): chosen on the device, so the step never
+            # waits for the host and a CUDA graph can hold it.
+            hit = norm >= self.clip
+            div = torch.where(hit, norm, 1.0)
+            mul = torch.where(hit, self.clip, 1.0)
+            for g in grads:
+                g = _local(g)
+                g.div_(div.to(g.dtype)).mul_(mul.to(g.dtype))
         self.inner.step()
         return norm
 
@@ -242,6 +252,118 @@ def _mean_over_group(params: List[torch.nn.Parameter],
     return flat[-1].clone()
 
 
+def _group_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed in place over the default group by one ``all_reduce``
+    when one is joined (a sum over one member is the value)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    return t
+
+
+def _tensors(tree: Any) -> List[torch.Tensor]:
+    """The tensors of a (nested) dict, list or tuple, or the tensor."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for item in tree for t in _tensors(item)]
+    return []
+
+
+def _make_capturable(optimizer: Optimizer) -> None:
+    """Let ``optimizer`` step inside a CUDA graph: its inner optimizer's
+    groups turn ``capturable`` (Adam and AdamW then keep their step count
+    on the device and compute the bias corrections there; SGD has nothing
+    on the host), and step counts made on the host move to the device."""
+    for group in optimizer.inner.param_groups:
+        if "capturable" in group:
+            group["capturable"] = True
+    for p, state in optimizer.inner.state.items():
+        step = state.get("step")
+        if isinstance(step, torch.Tensor) and step.device != p.device:
+            state["step"] = step.to(p.device, torch.float32)
+
+
+class OneProgram:
+    """A whole fit as one program, the counterpart of the reference's one
+    jitted scan.
+
+    On CUDA, :meth:`compile` captures ``body()`` once into a
+    ``torch.cuda.CUDAGraph`` and :meth:`run` replays it once (one launch),
+    then waits for it; the outputs are the tensors ``body`` returned at
+    capture, which the replay fills.  Before the capture, on the capture's
+    stream, ``warm()`` creates what a capture cannot (the cuBLAS and cuDNN
+    handles and workspaces, the NCCL communicator: one collective), and
+    every tensor in ``keep`` (the parameters, the model's state) is
+    copied back afterwards into its own storage, so the warm-up trains
+    nothing and the graph updates the same tensors.  ``optimizer`` is made
+    capturable (:func:`_make_capturable`); a state it creates at its first
+    step is created inside the graph, so the fit takes exactly its steps.
+    A capture or a replay that fails raises: nothing falls back to the
+    eager loop on the card.
+
+    On the CPU (named by the caller) there is no graph: :meth:`compile`
+    does nothing and :meth:`run` runs ``body()`` eagerly, step by step."""
+
+    def __init__(self, body: Callable[[], Any], device: torch.device, *,
+                 warm: Optional[Callable[[], None]] = None,
+                 keep: Iterable[torch.Tensor] = (),
+                 optimizer: Optional[Optimizer] = None):
+        self.body = body
+        self.device = torch.device(device)
+        self.warm = warm
+        self.keep = list(keep)
+        self.optimizer = optimizer
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Any = None
+
+    @property
+    def on_card(self) -> bool:
+        return self.device.type == "cuda"
+
+    def compile(self) -> float:
+        """Capture the fit (on CUDA); returns the seconds it took, warm-up
+        and graph instantiation included (0 on the CPU)."""
+        if not self.on_card:
+            return 0.0
+        t0 = time.perf_counter()
+        if self.optimizer is not None:
+            _make_capturable(self.optimizer)
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            saved = [t.detach().clone() for t in self.keep]
+            with torch.cuda.stream(stream):
+                if self.warm is not None:
+                    self.warm()
+                with torch.no_grad():
+                    for t, s in zip(self.keep, saved):
+                        t.copy_(s)
+            torch.cuda.current_stream().wait_stream(stream)
+            del saved
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                self.out = self.body()
+            self.graph = graph
+        return time.perf_counter() - t0
+
+    def run(self) -> Any:
+        """The fit: the graph's one replay, waited for (on CUDA), or
+        ``body()`` (on the CPU).  Returns the fit's outputs."""
+        if not self.on_card:
+            self.out = self.body()
+            return self.out
+        if self.graph is None:
+            raise RuntimeError("OneProgram.run before compile")
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+            torch.cuda.current_stream().synchronize()
+        return self.out
+
+
 def train_scan_stateful(
         loss_fn: Callable[[torch.Tensor, torch.Tensor, Any],
                           Tuple[torch.Tensor, Any]],
@@ -254,17 +376,35 @@ def train_scan_stateful(
     its rows of every global batch, and the gradients and the loss are
     averaged over the group in one flat ``all_reduce`` a step, as in
     :func:`make_dist_step` (``loss_fn`` is the mean over the process's
-    rows, so the average is the global batch's mean).  Returns
-    ``(state, losses)``: the last state and the per-step (global) losses
+    rows, so the average is the global batch's mean).  On CUDA the whole
+    loop is one CUDA graph, captured once and replayed once
+    (:class:`OneProgram`; the state's tensors and the parameters are kept
+    through the warm-up); on the CPU it runs eagerly.  Returns ``(state,
+    losses)``: the last state and the per-step (global) losses
     ``[steps]``, detached, on the batches' device."""
-    losses = []
-    for xb, yb in zip(xs, ys):
+    def body():
+        st = state
+        losses = []
+        for xb, yb in zip(xs, ys):
+            optimizer.zero_grad()
+            loss, st = loss_fn(xb, yb, st)
+            loss.backward()
+            losses.append(_mean_over_group(optimizer.params, loss))
+            optimizer.step()
+        return st, torch.stack(losses)
+
+    def warm():
         optimizer.zero_grad()
-        loss, state = loss_fn(xb, yb, state)
+        loss, _ = loss_fn(xs[0], ys[0], state)
         loss.backward()
-        losses.append(_mean_over_group(optimizer.params, loss))
-        optimizer.step()
-    return state, torch.stack(losses)
+        _mean_over_group(optimizer.params, loss)
+        optimizer.zero_grad()
+
+    prog = OneProgram(body, xs.device, warm=warm,
+                      keep=list(optimizer.params) + _tensors(state),
+                      optimizer=optimizer)
+    prog.compile()
+    return prog.run()
 
 
 def train_scan(loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
@@ -274,6 +414,116 @@ def train_scan(loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     losses ``[steps]``."""
     return train_scan_stateful(lambda xb, yb, st: (loss_fn(xb, yb), st),
                                optimizer, None, xs, ys)[1]
+
+
+class ScanFit(NamedTuple):
+    """What :func:`train_scan_dist` returns: the reference's ``(last_loss[,
+    metric])`` and the per-step losses, tensors on the device."""
+
+    loss: torch.Tensor                 # the last step's global mean
+    metric: Optional[torch.Tensor]     # sum(num) / sum(den), or None
+    losses: torch.Tensor               # [steps], global means
+
+
+def _as_f32(x, device: torch.device) -> torch.Tensor:
+    """``x`` as an f32 tensor on ``device``; a number is filled there (a
+    host copy would sync inside a capture)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
+def train_scan_dist(
+        loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+        optimizer: Optimizer, steps: int,
+        local_batches_fn: Callable[[int], Tuple[torch.Tensor, torch.Tensor]],
+        eval_counts_fn: Optional[Callable[[int], Tuple[Any, Any]]] = None,
+        aot_cache: Optional[str] = None,
+        examples_per_step: int = 0) -> ScanFit:
+    """Data-parallel training as ONE program with ONE collective a step —
+    the port of the reference's ``train_scan_dist``, over the default
+    process group, one rank a device (no group: one process, and no
+    collective runs, as a psum over one member does).
+
+    - ``local_batches_fn(rank) -> (xs, ys)`` builds this rank's columns of
+      every global batch on the device, ``[steps_per_epoch, local_bs,
+      ...]``; step ``t`` trains on batch ``t % steps_per_epoch``.
+    - Every gradient and the loss ride ONE flat f32 ``all_reduce`` a step,
+      divided by the world size (:func:`make_dist_step`).
+    - ``eval_counts_fn(rank) -> (num, den)`` is this rank's share of a
+      global ratio (correct and example counts); the pair rides one more
+      ``all_reduce`` and the ratio is the returned metric.
+
+    On CUDA the whole fit — the batches' generation, every step and the
+    eval — is one CUDA graph (:class:`OneProgram`).  The capture is the
+    fit's compile: it runs inside the reporter's ``compiling()`` window
+    and a ``workload/compile`` span (``what="fit"``, ``source="compiled"``)
+    and is observed by ``compile_cache.observe_compile``.  A CUDA graph
+    cannot be written to disk, so ``aot_cache`` is accepted and nothing is
+    stored there: the ``trainer/fit`` span reads ``aot_cache="off"``.  On
+    the CPU the same body runs eagerly, step by step, with no compile.
+
+    The run itself mirrors the reference's: a ``phase="fit"`` beat with
+    the compile source, a keepalive while the program runs, the
+    ``trainer/fit`` span (``steps``, ``aot_cache``, ``process``),
+    :func:`record_step_telemetry`, and a final beat at ``step=steps`` with
+    the loss and the throughput."""
+    import torch.distributed as dist
+
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    del aot_cache  # a CUDA graph is not serialisable
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    params = optimizer.params
+    device = params[0].device
+    step = make_dist_step(loss_fn, optimizer)
+
+    def body():
+        xs, ys = local_batches_fn(rank)
+        losses = torch.stack([step(xs, ys, t) for t in range(steps)])
+        metric = None
+        if eval_counts_fn is not None:
+            num, den = eval_counts_fn(rank)
+            nd = _group_sum(torch.stack([_as_f32(num, device),
+                                         _as_f32(den, device)]))
+            metric = nd[0] / nd[1]
+        return ScanFit(losses[-1], metric, losses)
+
+    def warm():
+        xs, ys = local_batches_fn(rank)
+        optimizer.zero_grad()
+        loss = loss_fn(xs[0], ys[0])
+        loss.backward()
+        _mean_over_group(params, loss)
+        optimizer.zero_grad()
+
+    prog = OneProgram(body, device, warm=warm, keep=params,
+                      optimizer=optimizer)
+    rep = reporter()
+    source = ""
+    if prog.on_card:
+        from .compile_cache import observe_compile
+
+        with rep.compiling(), span("workload/compile", what="fit") as sp:
+            seconds = prog.compile()
+            source = sp.args["source"] = "compiled"
+            sp.args["seconds"] = round(seconds, 4)
+        observe_compile(source, seconds)
+
+    rep.beat(phase=PHASE_FIT, compile_source=source)
+    rep.start_keepalive()
+    try:
+        with span("trainer/fit", steps=steps, aot_cache="off") as sp_fit:
+            out = prog.run()
+            sp_fit.args["process"] = process_index()
+    finally:
+        rep.stop_keepalive()
+    dur = sp_fit.dur or 0.0
+    record_step_telemetry(steps, dur, examples_per_step)
+    rep.beat(step=steps, loss=float(out.loss), phase=PHASE_FIT,
+             examples_per_sec=(steps * examples_per_step / dur
+                               if dur > 0 and examples_per_step else None))
+    return out
 
 
 def make_dist_step(loss_fn: Callable[[torch.Tensor, torch.Tensor],

@@ -42,8 +42,8 @@ def main(argv) -> int:
         n = launch.pod_devices("cpu")
         rt.local_devices = n
         rt.check_mesh()
-        return launch.run_ranks([sys.executable, __file__, *argv],
-                                launch.rank_envs(os.environ, n, rt))
+        return launch.run_pod([sys.executable, __file__, *argv],
+                              os.environ, n, rt)
     launch.bind_to_launcher()
     rt.initialize("cpu", timeout_s=60)
     mesh = build_mesh(MeshSpec(**rt.mesh), "cpu")

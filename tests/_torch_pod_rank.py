@@ -35,8 +35,8 @@ def main(argv) -> int:
     if not rt.launched:
         n = launch.pod_devices("cpu")
         rt.local_devices = n
-        return launch.run_ranks([sys.executable, __file__, *argv],
-                                launch.rank_envs(os.environ, n, rt))
+        return launch.run_pod([sys.executable, __file__, *argv],
+                              os.environ, n, rt)
     launch.bind_to_launcher()
     rt.initialize("cpu", timeout_s=60)
     print(f"joined {rt.global_rank}/{rt.world_size}", flush=True)

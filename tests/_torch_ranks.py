@@ -3,35 +3,16 @@
 ``tests/test_torch_gang.py``.  Shared by the mesh tests."""
 
 import os
-import random
-import socket
 import subprocess
 import sys
 from pathlib import Path
 
+# A local port drawn below the kernel's ephemeral range, for a gang whose
+# rank 0 binds it: the port's one copy of the rule.
+from kubeflow_controller_tpu_torch.workloads.launch import free_port  # noqa: F401
+
 REPO = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "_torch_mesh_worker.py"
-EPHEMERAL = Path("/proc/sys/net/ipv4/ip_local_port_range")
-
-
-def free_port() -> int:
-    """A local port that binds now, drawn below the kernel's ephemeral
-    range: the pair connections of other gangs running beside this one
-    take their ports from that range, and one of them could take a port
-    found free there before rank 0 binds it (EADDRINUSE)."""
-    low = int(EPHEMERAL.read_text().split()[0]) if EPHEMERAL.exists() else 32768
-    rng = random.Random()
-    for _ in range(100):
-        port = rng.randrange(10000, low)
-        with socket.socket() as s:
-            try:
-                s.bind(("127.0.0.1", port))
-            except OSError:
-                continue
-            return port
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def gang_env(world: int, rank: int, port: int, **extra):

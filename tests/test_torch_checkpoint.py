@@ -25,7 +25,6 @@ import copy
 import json
 import logging
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -46,6 +45,8 @@ from kubeflow_controller_tpu_torch.workloads.trainer import (
     make_dist_step,
     train_step_loop_dist,
 )
+
+from _torch_ranks import free_port
 
 torch.set_num_threads(1)
 
@@ -240,14 +241,9 @@ progress.ProgressReporter._publish = recording
 sys.exit(mnist_dist.main(sys.argv[2:]))
 """
 
+# The step loop: the fit that restores (and re-shards) from MODEL_DIR.
 GANG_ARGV = ["--device", "cpu", "--batch-size", "32", "--train-size", "256",
-             "--eval-size", "64"]
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+             "--eval-size", "64", "--step-loop"]
 
 
 def run_ranks(tmp_path, tag, n, steps, model_dir):
@@ -399,12 +395,42 @@ def test_mnist_local_saves_to_model_dir(tmp_path, monkeypatch, capsys,
         assert torch.equal(model.state_dict()[k], v), k
 
 
+def test_mnist_dist_scan_fit_saves_its_final_step_only(tmp_path, monkeypatch,
+                                                       capsys, clean_env):
+    """The default (scan) fit, as the reference's: ``MODEL_DIR`` gets the
+    final step and nothing else (``--checkpoint-every`` is the step
+    loop's), and a second run restores nothing: it trains from the init
+    and saves its own final step."""
+    monkeypatch.setenv("MODEL_DIR", str(tmp_path / "ck"))
+    argv = ["--device", "cpu", "--batch-size", "32", "--train-size", "256",
+            "--eval-size", "64", "--checkpoint-every", "3"]
+    assert mnist_dist.main([*argv, "--steps", "7"]) == 0
+    assert "Checkpoint saved to" in capsys.readouterr().out
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    assert mgr.all_steps() == [7] and mgr.read_width() is None
+    again = mnist_dist.run_worker(mnist_dist.parse_args(
+        [*argv, "--steps", "10"]))
+    monkeypatch.delenv("MODEL_DIR")
+    whole = mnist_dist.run_worker(mnist_dist.parse_args(
+        [*argv, "--steps", "10"]))
+    assert again.start_step == 0 and again.losses.shape == (10,)
+    assert torch.equal(again.losses, whole.losses)
+    assert mgr.all_steps() == [7, 10]
+    model = m.MnistMLP(m.mlp_init(0), "cpu")
+    opt = default_optimizer(model.parameters(), 5e-3)
+    _, _, step = mgr.restore(model, opt)
+    assert step == 10
+    for k, v in whole.model.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v), k
+
+
 @pytest.mark.parametrize("every", [0, 3], ids=["final", "every-3"])
 def test_mnist_dist_checkpoints_and_resumes(tmp_path, monkeypatch, capsys,
                                             clean_env, every):
     monkeypatch.setenv("MODEL_DIR", str(tmp_path / "ck"))
     argv = ["--device", "cpu", "--batch-size", "32", "--train-size", "256",
-            "--eval-size", "64", "--checkpoint-every", str(every)]
+            "--eval-size", "64", "--checkpoint-every", str(every),
+            "--step-loop"]
     assert mnist_dist.main([*argv, "--steps", "7"]) == 0
     assert "Checkpoint saved to" in capsys.readouterr().out
     mgr = CheckpointManager(str(tmp_path / "ck"))

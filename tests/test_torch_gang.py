@@ -49,6 +49,8 @@ from kubeflow_controller_tpu_torch.recovery import rendezvous as trdv
 from kubeflow_controller_tpu_torch.workloads import mnist_dist
 from kubeflow_controller_tpu_torch.workloads import runtime as truntime
 
+from _torch_ranks import free_port
+
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
@@ -56,12 +58,6 @@ STEP_LOSS_ATOL = 1e-4
 PARAM_ATOL = 5e-5
 LR = 5e-3
 GANG = {"steps": 30, "batch": 100, "train": 1024, "eval": 256}
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def subprocess_env(**extra):
@@ -332,10 +328,12 @@ np.savez(sys.argv[1], losses=res.losses.numpy(), sizes=np.array(sizes),
 
 
 def gang_argv():
+    """The step loop's flags: this gang is held against the reference's
+    step loop (the scan fit's gang: ``test_torch_scan_fit.py``)."""
     return ["--device", "cpu", "--steps", str(GANG["steps"]),
             "--batch-size", str(GANG["batch"]),
             "--train-size", str(GANG["train"]),
-            "--eval-size", str(GANG["eval"]), "--lr", str(LR)]
+            "--eval-size", str(GANG["eval"]), "--lr", str(LR), "--step-loop"]
 
 
 def run_gloo_gang(tmp_path, n=2):
@@ -420,15 +418,26 @@ def no_gang_env(monkeypatch):
 
 
 def test_one_process_trains_without_a_group(no_gang_env, capsys):
+    """The step loop (``--step-loop``) in one process: no group, the same
+    losses under ``--no-overlap``."""
+    one_process_without_a_group(capsys, ["--step-loop"])
+
+
+def test_one_process_scan_fit_without_a_group(no_gang_env, capsys):
+    """The default scan fit in one process, likewise."""
+    one_process_without_a_group(capsys, [])
+
+
+def one_process_without_a_group(capsys, fit):
     argv = ["--device", "cpu", "--steps", "12", "--batch-size", "64",
-            "--train-size", "256", "--eval-size", "128"]
+            "--train-size", "256", "--eval-size", "128", *fit]
     assert mnist_dist.main(argv) == 0
     out = capsys.readouterr().out
     assert "Worker 0/1 on cpu" in out and "Phase times: rendezvous=" in out
     assert "Training elapsed time:" in out
     overlap = mnist_dist.run_worker(mnist_dist.parse_args(argv))
     serial = mnist_dist.run_worker(mnist_dist.parse_args(
-        argv + ["--no-overlap", "--step-loop", "--aot-cache", "/unused"]))
+        argv + ["--no-overlap", "--aot-cache", "/unused"]))
     assert not torch.distributed.is_initialized()
     assert overlap.processes == 1 and overlap.losses.shape == (12,)
     assert overlap.losses.tolist() == serial.losses.tolist()
@@ -444,7 +453,8 @@ def test_mnist_dist_checkpoints_into_model_dir(no_gang_env, monkeypatch,
     ``--checkpoint-every`` alone, with no ``MODEL_DIR``, saves nothing, as
     in the reference."""
     small = ["--device", "cpu", "--steps", "11", "--batch-size", "32",
-             "--train-size", "256", "--eval-size", "64", *argv]
+             "--train-size", "256", "--eval-size", "64", "--step-loop",
+             *argv]
     assert mnist_dist.main(small) == 0
     assert "Checkpoint saved" not in capsys.readouterr().out
     monkeypatch.setenv("MODEL_DIR", str(tmp_path / "model"))
@@ -455,6 +465,27 @@ def test_mnist_dist_checkpoints_into_model_dir(no_gang_env, monkeypatch,
                    if n.isdigit())
     assert steps == ([5, 10, 11] if argv else [11])
     assert (tmp_path / "model" / "gang_width").read_text() == "1"
+
+
+def test_mnist_dist_scan_fit_checkpoints_into_model_dir(no_gang_env,
+                                                        monkeypatch, tmp_path,
+                                                        capsys):
+    """The default scan fit saves only its final step into ``MODEL_DIR``
+    (``--checkpoint-every`` is the step loop's) and writes no width
+    marker, as the reference's scan fit; without ``MODEL_DIR`` nothing."""
+    small = ["--device", "cpu", "--steps", "11", "--batch-size", "32",
+             "--train-size", "256", "--eval-size", "64",
+             "--checkpoint-every", "5"]
+    assert mnist_dist.main(small) == 0
+    assert "Checkpoint saved" not in capsys.readouterr().out
+    monkeypatch.setenv("MODEL_DIR", str(tmp_path / "model"))
+    assert mnist_dist.main(small) == 0
+    assert (f"Checkpoint saved to {tmp_path / 'model'}"
+            in capsys.readouterr().out)
+    steps = sorted(int(n) for n in os.listdir(tmp_path / "model")
+                   if n.isdigit())
+    assert steps == [11]
+    assert not (tmp_path / "model" / "gang_width").exists()
 
 
 def in_sigwait(pid: int) -> bool:

@@ -62,7 +62,7 @@ SLICE_MODULES = ("workloads.serve", "ops.grouped_matmul", "ops.attention",
                  "parallel.collectives", "parallel.ulysses",
                  "models.generate", "graft_entry", "obs.trace",
                  "obs.metrics", "workloads.launch", "cluster.topology",
-                 "cluster.gpu")
+                 "cluster.gpu", "utils.threefry")
 
 
 def forbidden(name: str) -> bool:

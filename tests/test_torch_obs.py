@@ -4,14 +4,15 @@ against the JAX package's, which the controller reads.
 
 - ``TraceContext`` encode/decode, ``for_job``, the sampling decision and
   ``Span.to_event`` give the reference's values, byte for byte.
-- A port workload process (dist-mnist over 2 gloo ranks, and
-  ``mnist_local``) under ``$KCTPU_TRACE_CONTEXT``/``$KCTPU_TRACE_DIR``
-  dumps spans that the JAX package's ``merge_trace_dir`` merges with the
-  controller's root span into one connected tree (no orphans, one trace
-  id), and the multiset of (span name, parent's name) equals that of the
-  JAX workload's run under the same env, except the reference's
-  ``workload/compile`` under the dist fit (its XLA compile of the step;
-  the port's MLP step compiles nothing).
+- A port workload process (dist-mnist over 2 gloo ranks, its step loop
+  and its default scan fit, and ``mnist_local``) under
+  ``$KCTPU_TRACE_CONTEXT``/``$KCTPU_TRACE_DIR`` dumps spans that the JAX
+  package's ``merge_trace_dir`` merges with the controller's root span
+  into one connected tree (no orphans, one trace id), and the multiset of
+  (span name, parent's name) equals that of the JAX workload's run under
+  the same env, except ``workload/compile`` (the reference's XLA compile
+  of the step; the port compiles only on the card, where the scan fit's
+  CUDA graph capture is its compile).
 - The port's serve replica (the ``ServeEngine`` behind its JSON-lines
   front end, a subprocess), routed to by the JAX package's gateway: every
   request is ``gw/route`` -> ``serve/request`` -> ``serve/queue_wait``,
@@ -146,8 +147,9 @@ def merged_pairs(trace_dir, ctx):
 
 @pytest.mark.parametrize("workload,n,jax_args,port_args", [
     ("mnist_dist", 2, ["--platform", "cpu", "--step-loop"],
-     ["--device", "cpu"]),
+     ["--device", "cpu", "--step-loop"]),
     ("mnist_local", 1, ["--platform", "cpu"], ["--device", "cpu"]),
+    ("mnist_dist", 2, ["--platform", "cpu"], ["--device", "cpu"]),
 ])
 def test_workload_dump_joins_the_job_tree_as_the_reference(
         tmp_path, workload, n, jax_args, port_args):

@@ -205,7 +205,7 @@ def test_pod_ranks_world_and_devices(four_cards, slices):
     for pid, env in enumerate(envs):
         assert env["TPU_ACCELERATOR_TYPE"] == "h100-4"
         assert launch.pod_devices("cuda", env) == 4
-        ranks = launch.rank_envs(env, 4, JobRuntime.from_env(env))
+        ranks = launch.rank_envs(env, 4, JobRuntime.from_env(env), 4321)
         for local, renv in enumerate(ranks):
             rt = JobRuntime.from_env(renv)
             assert (rt.process_id, rt.num_processes) == (pid, slices)
@@ -249,7 +249,8 @@ def test_mesh_product_must_be_pods_times_local_devices(four_cards):
     rt.local_devices = 2
     with pytest.raises(ValueError, match="spans 4 devices"):
         rt.check_mesh()
-    renv = launch.rank_envs({**env, "KCTPU_LOCAL_DEVICES": "2"}, 2, rt)[1]
+    renv = launch.rank_envs({**env, "KCTPU_LOCAL_DEVICES": "2"}, 2, rt,
+                            4321)[1]
     with pytest.raises(ValueError, match="spans 4 devices"):
         JobRuntime.from_env(renv).check_mesh()
     one = JobRuntime.from_env({**env, "KCTPU_MESH": json.dumps({"sp": 8})})

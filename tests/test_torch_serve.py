@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from _torch_ranks import free_port
 from test_torch_generate import MOE, numpy_params
 
 import kubeflow_controller_tpu.models.llama as jax_llama
@@ -323,18 +324,10 @@ def test_progress_drop_file_carries_serving_gauges(tmp_path):
                     "queueDepth": 2}
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def test_main_sigterm_drains_and_exits_zero():
     """``python -m kubeflow_controller_tpu_torch.workloads.serve``: serves
     JSON lines, and SIGTERM finishes the in-flight request, then exits 0."""
-    port = _free_port()
+    port = free_port()
     proc = subprocess.Popen(
         [sys.executable, "-m", "kubeflow_controller_tpu_torch.workloads.serve",
          "--synthetic", "--port", str(port), "--slots", "2"],

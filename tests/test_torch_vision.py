@@ -23,7 +23,6 @@
 """
 
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -42,6 +41,8 @@ from kubeflow_controller_tpu_torch import bridge
 from kubeflow_controller_tpu_torch.models import vision as tv
 from kubeflow_controller_tpu_torch.workloads import data as tdata
 from kubeflow_controller_tpu_torch.workloads import trainer as ttrainer
+
+from _torch_ranks import free_port
 
 torch.set_num_threads(1)
 
@@ -269,12 +270,6 @@ np.savez(sys.argv[1], losses=res.losses.numpy(), calls=np.array(calls),
          processes=res.processes, batch=res.batch_size,
          accuracy=res.accuracy)
 """
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def run_gloo_gang(tmp_path, module, variables, argv, n=2):
