@@ -55,6 +55,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device, torch_dtype
+from ..obs.trace import in_step_span, step_span
 from ..ops.attention import TILE, flash_attention, kernel_rule
 from ..parallel.mesh import (
     AXIS_DATA,
@@ -433,6 +434,7 @@ def _sp_size(mesh) -> int:
     return _axis_size(mesh, AXIS_SEQUENCE)
 
 
+@in_step_span("kctpu.cast")
 def _w(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A parameter as the product uses it, cast to ``dtype``.  A DTensor
     parameter is first gathered over fsdp (and dp): ZeRO-3's all-gather of
@@ -455,6 +457,7 @@ def _w(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 # Building blocks
 # ---------------------------------------------------------------------------
 
+@in_step_span("kctpu.norm")
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     rms = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
@@ -469,6 +472,7 @@ def rope_freqs(cfg: LlamaConfig, positions: torch.Tensor) -> torch.Tensor:
     return positions[:, None].float() * inv[None, :]
 
 
+@in_step_span("kctpu.rope")
 def rope_tables(cfg: LlamaConfig, positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos and sin of the RoPE angles of ``positions``, each [T, head_dim]
@@ -479,6 +483,7 @@ def rope_tables(cfg: LlamaConfig, positions: torch.Tensor
     return torch.cos(angles), torch.sin(angles)
 
 
+@in_step_span("kctpu.rope")
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
     """Rotate-half RoPE, x·cos + [-x2, x1]·sin in f32; x: [B, T, H, D],
@@ -489,6 +494,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return (xf * cos[None, :, None] + rot * sin[None, :, None]).to(x.dtype)
 
 
+@in_step_span("kctpu.ffn")
 def ffn_block(h: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig,
               rules: ShardingRules = DEFAULT_RULES,
               mesh=None) -> torch.Tensor:
@@ -513,6 +519,7 @@ def ffn_block(h: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig,
     return with_logical_constraint(out, ("batch", "seq", None), rules)
 
 
+@in_step_span("kctpu.ffn")
 def ffn_block_stats(h: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig,
                     mesh=None):
     """MoE FFN returning (y, router stats) — see ``moe.moe_ffn_stats``."""
@@ -561,6 +568,7 @@ QKV_AXES = ("batch", "seq", "heads", "head_dim")
 KV_AXES = ("batch", "seq", "kv_heads", "head_dim")
 
 
+@in_step_span("kctpu.attention")
 def _attention(q, k, v, causal: bool, cfg: Optional[LlamaConfig] = None,
                mesh=None, rules: ShardingRules = DEFAULT_RULES):
     """The reference's single-device and flash branches: the flash kernels
@@ -661,6 +669,7 @@ def _decoder_layer_fn(cfg: LlamaConfig,
     the parameters are DTensors, constrained at the reference's points."""
     dtype = torch_dtype(cfg.dtype)
 
+    @in_step_span("kctpu.layer")
     def layer(x, lp):
         h = rmsnorm(x, _w(lp.attn_norm, dtype), cfg.norm_eps)
         q = apply_rope(_heads(h, _w(lp.wq, dtype)), *rope)
@@ -812,15 +821,19 @@ def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     if return_hidden:
         out = x
     else:
-        out = _mm(x, _w(model.lm_head, dtype))
-        out = with_logical_constraint(out, ("batch", "seq", "vocab"),
-                                      rules).float()
+        with step_span("kctpu.head"):
+            out = with_logical_constraint(_mm(x, _w(model.lm_head, dtype)),
+                                          ("batch", "seq", "vocab"), rules)
+        with step_span("kctpu.loss"):
+            out = out.float()
     if return_aux:
-        return out, {key: torch.stack([a[key] for a in auxes]).mean()
-                     for key in auxes[0]}
+        with step_span("kctpu.loss"):
+            return out, {key: torch.stack([a[key] for a in auxes]).mean()
+                         for key in auxes[0]}
     return out
 
 
+@in_step_span("kctpu.embed")
 def _lookup(table, tokens, dtype, rules: ShardingRules):
     """The embedding of ``tokens`` in ``table``, in ``dtype``: a gather,
     or for staged (DTensor) tokens the vocab-parallel :func:`_embed` of
@@ -833,6 +846,7 @@ def _lookup(table, tokens, dtype, rules: ShardingRules):
     return with_logical_constraint(x.to(dtype), ("batch", "seq", None), rules)
 
 
+@in_step_span("kctpu.rope")
 def _rope(cfg: LlamaConfig, t: int, mesh, device):
     """The RoPE tables of positions [0, t): plain without ``mesh``, else
     as :func:`_shard_rope` places them."""
@@ -884,7 +898,8 @@ def llama_loss(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
         _refuse_pp(mesh)
         sub = model_mesh(mesh)
         if _sp_size(sub) > 1:
-            targets = _staged_targets(tokens, sub, rules)
+            with step_span("kctpu.loss"):
+                targets = _staged_targets(tokens, sub, rules)
         tokens = stage_tokens(tokens, sub, rules)
     if cfg.loss_chunks:
         out = llama_forward(model, tokens, cfg, mesh, rules,
@@ -897,11 +912,13 @@ def llama_loss(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
         logits, aux = out if cfg.n_experts else (out, None)
         ce = _dense_ce(logits, tokens, rules, targets)
     if cfg.n_experts:
-        return (ce + cfg.moe_aux_coef * aux["aux_loss"]
-                + cfg.moe_z_coef * aux["z_loss"])
+        with step_span("kctpu.loss"):
+            return (ce + cfg.moe_aux_coef * aux["aux_loss"]
+                    + cfg.moe_z_coef * aux["z_loss"])
     return ce
 
 
+@in_step_span("kctpu.loss")
 def _dense_ce(logits: torch.Tensor, tokens: torch.Tensor,
               rules: ShardingRules, targets=None) -> torch.Tensor:
     """Next-token CE of whole ``logits`` [B, T, vocab] f32: the mean over
@@ -938,6 +955,7 @@ def _staged_targets(tokens, mesh, rules: ShardingRules):
     return tuple(stage_tokens(x, mesh, rules) for x in _shifted(tokens))
 
 
+@in_step_span("kctpu.loss")
 def _chunked_ce(h: torch.Tensor, lm_head: torch.Tensor, tokens: torch.Tensor,
                 cfg: LlamaConfig, rules: ShardingRules = DEFAULT_RULES,
                 targets=None) -> torch.Tensor:
@@ -949,7 +967,9 @@ def _chunked_ce(h: torch.Tensor, lm_head: torch.Tensor, tokens: torch.Tensor,
 
     ``targets``: (targets, weight) staged by :func:`_staged_targets` when
     sp shards T; then each shard chunks its own slice ([B, sp, T/sp]
-    views, the shards on dim 1), and T/sp must divide by the chunks."""
+    views, the shards on dim 1), and T/sp must divide by the chunks.
+    Each chunk opens the head's and the loss's spans again, so that its
+    re-run in the backward is theirs."""
     b, t, _ = h.shape
     n = cfg.loss_chunks
     sp = 1 if targets is None else _sp_size(h.device_mesh)
@@ -965,11 +985,13 @@ def _chunked_ce(h: torch.Tensor, lm_head: torch.Tensor, tokens: torch.Tensor,
                           for x in (h, tgt, weight))
         lead = ("batch", "seq")
 
+    @in_step_span("kctpu.loss")
     def chunk(xc, w, tc, wc):
-        xc = with_logical_constraint(xc, (*lead, None, None), rules)
-        logits = _mm(xc, w).float()
-        logits = with_logical_constraint(logits, (*lead, None, "vocab"),
-                                         rules)
+        with step_span("kctpu.head"):
+            xc = with_logical_constraint(xc, (*lead, None, None), rules)
+            logits = _mm(xc, w)
+        logits = with_logical_constraint(logits.float(),
+                                         (*lead, None, "vocab"), rules)
         # The vocab dim gathered, so the softmax runs over whole rows.
         logits = with_logical_constraint(logits, (*lead, None, None), rules)
         lse = torch.logsumexp(logits, dim=-1)
@@ -1025,14 +1047,15 @@ def _stage_fn(cfg: LlamaConfig, rope, sub, rules: ShardingRules,
         for lp in stage:
             x, aux = layer_fn(x, lp)
             auxes.append(aux)
-        if extra == "stats":
-            return x, {k: sum((a[k] for a in auxes[1:]), auxes[0][k])
-                       for k in auxes[0]}
-        if extra != "penalty":
+        if not extra:
             return x
-        pens = [cfg.moe_aux_coef * a["aux_loss"] + cfg.moe_z_coef * a["z_loss"]
-                for a in auxes]
-        return x, sum(pens[1:], pens[0]) / cfg.n_layers
+        with step_span("kctpu.loss"):
+            if extra == "stats":
+                return x, {k: sum((a[k] for a in auxes[1:]), auxes[0][k])
+                           for k in auxes[0]}
+            pens = [cfg.moe_aux_coef * a["aux_loss"]
+                    + cfg.moe_z_coef * a["z_loss"] for a in auxes]
+            return x, sum(pens[1:], pens[0]) / cfg.n_layers
 
     return stage_fn
 
@@ -1096,8 +1119,11 @@ def llama_forward_pp(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     x = torch.cat(list(out), dim=0)
     dtype = torch_dtype(cfg.dtype)
     x = rmsnorm(x, _w(model.final_norm, dtype), cfg.norm_eps)
-    logits = with_logical_constraint(_mm(x, _w(model.lm_head, dtype)),
-                                     ("batch", "seq", "vocab"), rules).float()
+    with step_span("kctpu.head"):
+        logits = with_logical_constraint(_mm(x, _w(model.lm_head, dtype)),
+                                         ("batch", "seq", "vocab"), rules)
+    with step_span("kctpu.loss"):
+        logits = logits.float()
     if return_aux:
         denom = cfg.n_layers * n_microbatches
         return logits, {k: v / denom for k, v in sums.items()}
@@ -1120,9 +1146,12 @@ def _microbatch_ce(cfg: LlamaConfig, rules: ShardingRules):
         if cfg.loss_chunks:
             ce = _chunked_ce(h, lm_head, tokens_m, cfg, rules, targets)
         else:
-            logits = with_logical_constraint(_mm(h, _w(lm_head, dtype)),
-                                             ("batch", "seq", "vocab"),
-                                             rules).float()
+            with step_span("kctpu.head"):
+                logits = with_logical_constraint(
+                    _mm(h, _w(lm_head, dtype)), ("batch", "seq", "vocab"),
+                    rules)
+            with step_span("kctpu.loss"):
+                logits = logits.float()
             ce = _dense_ce(logits, tokens_m, rules, targets)
         # A replicated DTensor scalar as a plain one (``to_local`` is
         # differentiable): the schedule adds it to plain sums.

@@ -77,6 +77,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.nn import functional as F
 
+from ..obs.trace import in_step_span, step_span
 from ..ops.grouped_matmul import gmm, gmm_swiglu
 from ..parallel.sharding import grad_placed
 from .remat import checkpoint_name
@@ -96,6 +97,7 @@ def router_topk(logits: torch.Tensor,
     return torch.softmax(vals[..., :k], dim=-1), idx[..., :k]
 
 
+@in_step_span("kctpu.moe.route")
 def _route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
     """Router logits in the activation dtype, then f32 (as the reference
     rounds them), and the top-k choice."""
@@ -193,23 +195,28 @@ def moe_ffn_stats(x: torch.Tensor, router_w: torch.Tensor,
         return _moe_ffn_mesh(x, router_w, w_gate, w_up, w_down, top_k,
                              capacity_factor, capacity, dispatch, block_m)
     dispatch = _resolve_dispatch(dispatch, x, w_gate)
-    n_experts = router_w.shape[-1]
     logits, probs, idx = _route(x, router_w, top_k)
     y, keep = _dispatch_ffn(x, probs, idx, w_gate, w_up, w_down, dispatch,
                             capacity_factor, capacity, block_m)
+    return y, _router_stats(logits, idx, keep)
+
+
+@in_step_span("kctpu.moe.route")
+def _router_stats(logits: torch.Tensor, idx: torch.Tensor,
+                  keep: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    n_experts = logits.shape[-1]
     assign = F.one_hot(idx, n_experts).float()                  # [B,T,k,E]
     f = assign.mean(dim=(0, 1, 2))
     p = torch.softmax(logits, dim=-1).mean(dim=(0, 1))
     if keep is None:
-        overflow = torch.zeros((), device=x.device)
+        overflow = torch.zeros((), device=logits.device)
     else:
         overflow = (1.0 - keep.sum() / assign.sum().clamp_min(1.0)).detach()
-    stats: Dict[str, torch.Tensor] = {
+    return {
         "aux_loss": n_experts * torch.sum(f * p),
         "z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
         "overflow_frac": overflow,
     }
-    return y, stats
 
 
 def _dispatch_ffn(x, probs, idx, w_gate, w_up, w_down, dispatch: str,
@@ -225,7 +232,8 @@ def _dispatch_ffn(x, probs, idx, w_gate, w_up, w_down, dispatch: str,
     n_experts = wg.shape[0]
     capacity = _capacity(idx.shape[1], idx.shape[2], n_experts,
                          capacity_factor, capacity)
-    pos_flat, pos, keep = _capacity_positions(idx, n_experts, capacity)
+    with step_span("kctpu.moe.dispatch"):
+        pos_flat, pos, keep = _capacity_positions(idx, n_experts, capacity)
     if dispatch == "scatter":
         y = _scatter_ffn(x, probs, idx, pos_flat, capacity, wg, wu, wd)
     else:
@@ -258,6 +266,7 @@ def _capacity_positions(idx: torch.Tensor, n_experts: int, capacity: int,
     return pos_flat, pos, keep
 
 
+@in_step_span("kctpu.moe.experts")
 def _expert_ffn(xe, w_gate, w_up, w_down) -> torch.Tensor:
     """xe [B, E, C, D] -> [B, E, C, D], each expert's SwiGLU."""
     with checkpoint_name("ffn_gate"):
@@ -272,18 +281,19 @@ def _expert_ffn(xe, w_gate, w_up, w_down) -> torch.Tensor:
 def _einsum_ffn(x, probs, pos, keep, capacity, w_gate, w_up, w_down):
     """One-hot dispatch and combine over [B, T, E, C]."""
     dtype = x.dtype
-    keep_e = keep.sum(dim=2)                                    # [B,T,E] 0/1
-    pos_e = (keep * pos).sum(dim=2).long()                      # [B,T,E]
-    prob_e = torch.einsum("btk,btke->bte", probs, keep)
-    pos_oh = F.one_hot(pos_e, capacity).float()                 # [B,T,E,C]
-    disp = keep_e[..., None] * pos_oh
-    combine = prob_e[..., None] * pos_oh
-    disp, combine = disp.to(dtype), combine.to(dtype)
-    with checkpoint_name("moe_x"):
-        xe = torch.einsum("btec,btd->becd", disp, x)
+    with step_span("kctpu.moe.dispatch"):
+        keep_e = keep.sum(dim=2)                                # [B,T,E] 0/1
+        pos_e = (keep * pos).sum(dim=2).long()                  # [B,T,E]
+        pos_oh = F.one_hot(pos_e, capacity).float()             # [B,T,E,C]
+        disp = (keep_e[..., None] * pos_oh).to(dtype)
+        with checkpoint_name("moe_x"):
+            xe = torch.einsum("btec,btd->becd", disp, x)
     ye = _expert_ffn(xe, w_gate, w_up, w_down)
-    with checkpoint_name("moe_y"):
-        return torch.einsum("btec,becd->btd", combine, ye)
+    with step_span("kctpu.moe.combine"):
+        prob_e = torch.einsum("btk,btke->bte", probs, keep)
+        combine = (prob_e[..., None] * pos_oh).to(dtype)
+        with checkpoint_name("moe_y"):
+            return torch.einsum("btec,becd->btd", combine, ye)
 
 
 def _scatter_ffn(x, probs, idx, pos_flat, capacity, w_gate, w_up, w_down,
@@ -295,22 +305,25 @@ def _scatter_ffn(x, probs, idx, pos_flat, capacity, w_gate, w_up, w_down,
     k = idx.shape[-1]
     n_experts = w_gate.shape[0]
     slots = n_experts * capacity
-    slot_g = idx.reshape(b, t * k)
-    slot_pos = pos_flat.gather(-1, slot_g[..., None])[..., 0].long()
-    slot_e = slot_g - first_expert
-    slot_keep = (slot_pos < capacity) & (slot_e >= 0) & (slot_e < n_experts)
-    # Flat buffer row e * C + pos; dropped slots aim at the extra row
-    # ``slots``, which is cut off.
-    target = torch.where(slot_keep, slot_e * capacity + slot_pos, slots)
-    rows = target[..., None].expand(b, t * k, d)
-    xe = x.new_zeros((b, slots + 1, d)).scatter_add(
-        1, rows, x.repeat_interleave(k, dim=1))[:, :slots]
+    with step_span("kctpu.moe.dispatch"):
+        slot_g = idx.reshape(b, t * k)
+        slot_pos = pos_flat.gather(-1, slot_g[..., None])[..., 0].long()
+        slot_e = slot_g - first_expert
+        slot_keep = ((slot_pos < capacity) & (slot_e >= 0)
+                     & (slot_e < n_experts))
+        # Flat buffer row e * C + pos; dropped slots aim at the extra row
+        # ``slots``, which is cut off.
+        target = torch.where(slot_keep, slot_e * capacity + slot_pos, slots)
+        rows = target[..., None].expand(b, t * k, d)
+        xe = x.new_zeros((b, slots + 1, d)).scatter_add(
+            1, rows, x.repeat_interleave(k, dim=1))[:, :slots]
     ye = _expert_ffn(xe.reshape(b, n_experts, capacity, d), w_gate, w_up,
                      w_down).reshape(b, slots, d)
-    y_slot = ye.gather(1, rows.clamp(max=slots - 1))
-    y_slot = torch.where(slot_keep[..., None], y_slot, 0)
-    return torch.einsum("btk,btkd->btd", probs.to(x.dtype),
-                        y_slot.reshape(b, t, k, d))
+    with step_span("kctpu.moe.combine"):
+        y_slot = ye.gather(1, rows.clamp(max=slots - 1))
+        y_slot = torch.where(slot_keep[..., None], y_slot, 0)
+        return torch.einsum("btk,btkd->btd", probs.to(x.dtype),
+                            y_slot.reshape(b, t, k, d))
 
 
 @dataclass
@@ -447,24 +460,27 @@ def _grouped_ffn(x, probs, idx, w_gate, w_up, w_down, block_m: int = 256,
     and the output holds the local experts' share only."""
     b, t, d = x.shape
     k = idx.shape[-1]
-    lay = grouped_layout(idx, w_gate.shape[0], block_m, first_expert)
+    with step_span("kctpu.moe.dispatch"):
+        lay = grouped_layout(idx, w_gate.shape[0], block_m, first_expert)
+        x_pad = _dispatch_rows(x.reshape(b * t, d), lay.inv_src,
+                               lay.dest.reshape(b * t, k))
     te, bm, vt = lay.tile_experts, lay.bm, lay.valid_tiles
-    x_pad = _dispatch_rows(x.reshape(b * t, d), lay.inv_src,
-                           lay.dest.reshape(b * t, k))
-    if vt is None:
-        with checkpoint_name("ffn_up"):
-            hh = gmm_swiglu(x_pad, w_gate, w_up, te, bm)
-    else:
-        with checkpoint_name("ffn_gate"):
-            gate = gmm(x_pad, w_gate, te, bm, vt)
-        with checkpoint_name("ffn_up"):
-            up = gmm(x_pad, w_up, te, bm, vt)
-        hh = F.silu(gate) * up
-    with checkpoint_name("ffn_down"):
-        y_pad = gmm(hh, w_down, te, bm, vt)
-    y_slot = _combine_rows(y_pad, lay.dest, lay.inv_pos)        # [N, D]
-    return torch.einsum("btk,btkd->btd", probs.to(x.dtype),
-                        y_slot.reshape(b, t, k, d))
+    with step_span("kctpu.moe.experts"):
+        if vt is None:
+            with checkpoint_name("ffn_up"):
+                hh = gmm_swiglu(x_pad, w_gate, w_up, te, bm)
+        else:
+            with checkpoint_name("ffn_gate"):
+                gate = gmm(x_pad, w_gate, te, bm, vt)
+            with checkpoint_name("ffn_up"):
+                up = gmm(x_pad, w_up, te, bm, vt)
+            hh = F.silu(gate) * up
+        with checkpoint_name("ffn_down"):
+            y_pad = gmm(hh, w_down, te, bm, vt)
+    with step_span("kctpu.moe.combine"):
+        y_slot = _combine_rows(y_pad, lay.dest, lay.inv_pos)    # [N, D]
+        return torch.einsum("btk,btkd->btd", probs.to(x.dtype),
+                            y_slot.reshape(b, t, k, d))
 
 
 # ---------------------------------------------------------------------------
@@ -583,6 +599,7 @@ def _sp_offsets(idx: torch.Tensor, n_experts: int, group):
     return sum(below, torch.zeros_like(counts))
 
 
+@in_step_span("kctpu.moe.route")
 def _route_sums(x, router_w, *, top_k: int, capacity: int, seq_group=None):
     """One shard's routing, and its sums of the router statistics:
     ``(probs, idx, Σ assign [E], Σ softmax [E], Σ lse², Σ keep)`` (keep:
@@ -609,8 +626,9 @@ def _experts_local(x, probs, idx, w_gate, w_up, w_down, *, dispatch: str,
     wg, wu, wd = w_gate.to(dtype), w_up.to(dtype), w_down.to(dtype)
     if dispatch == "grouped":
         return _grouped_ffn(x, probs, idx, wg, wu, wd, block_m, first_expert)
-    pos_flat, pos, keep = _capacity_positions(
-        idx, n_experts, capacity, _sp_offsets(idx, n_experts, seq_group))
+    with step_span("kctpu.moe.dispatch"):
+        pos_flat, pos, keep = _capacity_positions(
+            idx, n_experts, capacity, _sp_offsets(idx, n_experts, seq_group))
     if dispatch == "scatter":
         return _scatter_ffn(x, probs, idx, pos_flat, capacity, wg, wu, wd,
                             first_expert)

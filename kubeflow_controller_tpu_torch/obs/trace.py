@@ -25,11 +25,66 @@ with :func:`dump_to_env_dir` at the end of its ``main`` (a process that
 leaves through ``os._exit`` skips ``atexit``), and at exit otherwise.  The
 merge, the causal-tree walk and the timeline render are the controller's
 and are not copied.
+
+The training step's spans are another kind: :func:`step_span` opens a
+``torch.profiler`` range around each part of the step, only while a
+profiler records.  Such a range shares the clock of the profiler's device
+trace, so each kernel, and each idle gap of the device, is put down to the
+span that launched it.  They never enter the :class:`Tracer`, whose ring
+and wall clock hold the controller's per-phase spans (``workload/fit``,
+...).  A trace with them: ``python -m
+kubeflow_controller_tpu_torch.workloads.llama_pretrain --profile-dir DIR
+...`` (``DIR/trace.json``), or ``torch.profiler.profile`` around
+``llama_pretrain.train_step``.  The spans:
+
+====================  ====================================================
+``kctpu.step``        ``train_step``: loss, backward, clip, AdamW,
+                      ``zero_grad``
+``kctpu.embed``       the embedding lookup
+``kctpu.layer``       a decoder layer; its q/k/v/o projections and
+                      residual adds are its own
+``kctpu.norm``        each RMSNorm (attention, MLP, final)
+``kctpu.rope``        the RoPE tables and both rotations
+``kctpu.attention``   the GQA repeats and flash (or the plain path; ring
+                      and Ulysses under sp)
+``kctpu.ffn``         the dense SwiGLU FFN, or the MoE around the four
+                      below
+``kctpu.moe.route``   router logits, top-k, the balancing and z statistics
+``kctpu.moe.dispatch``  the grouped layout and the row gather (the
+                      capacity dispatches' positions and buffers)
+``kctpu.moe.experts``  the expert products (``gmm_swiglu``, ``gmm``; the
+                      einsum experts)
+``kctpu.moe.combine``  the gather back and the weighted sum
+``kctpu.cast``        each weight's cast to the activation dtype (and a
+                      DTensor weight's gather)
+``kctpu.head``        the ``lm_head`` product
+``kctpu.loss``        the logits' f32 upcast, log-softmax or chunked CE,
+                      the router terms
+``kctpu.optimizer``   ``trainer.Optimizer.step``: the clip, then AdamW
+``kctpu.clip``        the global norm and the scaling of every gradient
+====================  ====================================================
+
+The innermost span open when a kernel is launched owns it.  Remat
+(``models/remat.py``) re-runs a layer inside the backward, and its spans
+open again there.  A backward kernel is launched inside an
+``autograd::engine::evaluate_function`` range, whose ``sequence_nr`` and
+``fwd_thread_id`` name the forward op that made its node; that op's span
+is the kernel's owner.  ``python3 -m portbench.spans --workload NAME
+--seed N`` runs a benchmark cell's traced steps and prints the device ms
+each span owns in each pass (forward, remat, backward, optimizer).
+
+``models/generate.py`` decodes through the same building blocks, so a
+profile of decode holds the ``norm``, ``rope``, ``cast`` and ``ffn``
+(and MoE) spans too, each a range the profiler records.  With no
+profiler recording, and while a CUDA graph is being captured, a span site
+reads one flag and returns a shared ``nullcontext``: nothing is recorded
+and no op is dispatched.
 """
 
 from __future__ import annotations
 
 import atexit
+import functools
 import hashlib
 import json
 import os
@@ -37,9 +92,12 @@ import threading
 import time
 import uuid
 from collections import deque
-from contextlib import contextmanager
+from contextlib import AbstractContextManager, contextmanager, nullcontext
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, TypeVar
+
+import torch
+from torch.autograd import profiler as _profiler
 
 TRACE_DIR_ENV = "KCTPU_TRACE_DIR"
 #: Cross-process causal context (``TraceContext.encode()`` string),
@@ -366,6 +424,42 @@ def dump_to_env_dir(tracer: Optional[Tracer] = None) -> Optional[str]:
         return path
     except OSError:
         return None  # tracing never fails the workload
+
+
+# The one context every step span returns while no profiler records.
+_NO_SPAN = nullcontext()
+
+
+def step_span(name: str) -> AbstractContextManager:
+    """A ``torch.profiler`` range ``name`` around a part of the training
+    step while a profiler records, outside CUDA-graph capture; else one
+    shared ``nullcontext``, which costs a flag read where a bare
+    ``record_function`` costs a dispatched op.  The range holds no
+    tensor."""
+    if not _profiler._is_profiler_enabled or (
+            torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing()):
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+_Fn = TypeVar("_Fn", bound=Callable[..., Any])
+
+
+def in_step_span(name: str) -> Callable[[_Fn], _Fn]:
+    """Decorator: every call of the function under :func:`step_span`
+    ``name``.  With no profiler recording the call goes straight through,
+    without entering a context: decode runs these building blocks a few
+    hundred times a token."""
+    def wrap(fn: _Fn) -> _Fn:
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            if not _profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with step_span(name):
+                return fn(*args, **kwargs)
+        return spanned  # type: ignore[return-value]
+    return wrap
 
 
 def _atexit_dump() -> None:  # pragma: no cover - runs in subprocesses

@@ -11,7 +11,11 @@ time", "Final loss ...; throughput ... tokens/s").  Each step is
 ``llama_loss`` -> backward -> clip by global norm -> AdamW, on synthetic
 bigram tokens (``data.synthetic_tokens``, seed 1: the reference's
 ``PRNGKey(1)``).  The loop itself is :func:`train`, which takes a
-``LlamaConfig``, so a caller can drive it at a cut depth.
+``LlamaConfig``, so a caller can drive it at a cut depth; one step on the
+caller's own batch is :func:`train_step`.  ``--profile-dir`` writes a
+``torch.profiler`` trace of the steps, in which the model's spans
+(``kctpu.attention``, ``kctpu.ffn``, ..., listed in ``obs/trace.py``) name
+the code that launched each kernel.
 
 Checkpoint/resume (``MODEL_DIR``, as in the reference): :func:`train`
 restores the latest readable step of the model and its optimizer and
@@ -113,13 +117,14 @@ from ..models.llama import (
 )
 from ..parallel.mesh import MeshSpec, build_mesh, data_parallel_size
 from ..obs.phases import PHASE_FIT, PHASE_RESTORE
+from ..obs.trace import step_span
 from .checkpoint import CheckpointManager
 from .compile_cache import build_kernels
 from .data import synthetic_tokens
 from .launch import launch_pod
 from .progress import reporter
 from .runtime import JobRuntime, global_rank, world_size
-from .trainer import BEAT_INTERVAL_S, default_optimizer
+from .trainer import BEAT_INTERVAL_S, Optimizer, default_optimizer
 
 
 @dataclass
@@ -143,6 +148,24 @@ class TrainResult:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def train_step(model: Llama, opt: Optimizer, tokens: torch.Tensor,
+               cfg: LlamaConfig, mesh=None) -> float:
+    """One step on the caller's batch ``tokens`` [B, T]: ``llama_loss``
+    (over ``mesh``, a model mesh, when given), its backward, the clip and
+    AdamW of ``opt``, ``zero_grad``; returns the loss (the global batch's
+    under a mesh), which waits for the device.  Under the ``kctpu.step``
+    span, which a profiler's trace shows with the model's spans inside
+    (``obs/trace.py:step_span``)."""
+    with step_span("kctpu.step"):
+        loss = llama_loss(model, tokens, cfg, mesh)
+        loss.backward()
+        if mesh is not None:
+            loss = loss.to_local()          # replicated: the global mean
+        opt.step()
+        opt.zero_grad()
+        return float(loss.detach())
 
 
 def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
@@ -218,15 +241,11 @@ def train(cfg: LlamaConfig, *, steps: int, batch_size: int, seq_len: int,
     def step(i: int) -> float:
         lo = (i * bs) % max(1, tokens_all.shape[0] - bs + 1)
         tokens = tokens_all[lo:lo + bs]
-        if pp > 1:
-            loss, _ = llama_loss_and_grads_pp(
-                model, tokens, cfg, full_mesh, n_microbatches=microbatches,
-                n_stages=pp)
-        else:
-            loss = llama_loss(model, tokens, cfg, mesh)
-            loss.backward()
-            if mesh is not None:
-                loss = loss.to_local()      # replicated: the global mean
+        if pp == 1:
+            return train_step(model, opt, tokens, cfg, mesh)
+        loss, _ = llama_loss_and_grads_pp(
+            model, tokens, cfg, full_mesh, n_microbatches=microbatches,
+            n_stages=pp)
         opt.step()
         opt.zero_grad()
         return float(loss.detach())

@@ -54,7 +54,7 @@ import torch
 
 from ..obs.metrics import REGISTRY
 from ..obs.phases import PHASE_FIT
-from ..obs.trace import span
+from ..obs.trace import span, step_span
 from .progress import reporter
 from .runtime import process_index
 
@@ -173,22 +173,29 @@ class Optimizer:
     def step(self) -> Optional[torch.Tensor]:
         """Clip every ``.grad`` by the global norm (when ``clip``), then the
         inner update; returns the norm before clipping (None without
-        clipping)."""
+        clipping).  The clip runs under the ``kctpu.clip`` span, both
+        under ``kctpu.optimizer``."""
         norm = None
-        if self.clip:
-            with_grad = [p for p in self.params if p.grad is not None]
-            grads = [p.grad for p in with_grad]
-            norm = self._norm(with_grad)
-            # (g / norm) * clip where the norm reaches the clip, else g / 1
-            # * 1 (exactly g): chosen on the device, so the step never
-            # waits for the host and a CUDA graph can hold it.
-            hit = norm >= self.clip
-            div = torch.where(hit, norm, 1.0)
-            mul = torch.where(hit, self.clip, 1.0)
-            for g in grads:
-                g = _local(g)
-                g.div_(div.to(g.dtype)).mul_(mul.to(g.dtype))
-        self.inner.step()
+        with step_span("kctpu.optimizer"):
+            if self.clip:
+                with step_span("kctpu.clip"):
+                    norm = self._clip()
+            self.inner.step()
+        return norm
+
+    def _clip(self) -> torch.Tensor:
+        with_grad = [p for p in self.params if p.grad is not None]
+        grads = [p.grad for p in with_grad]
+        norm = self._norm(with_grad)
+        # (g / norm) * clip where the norm reaches the clip, else g / 1 * 1
+        # (exactly g): chosen on the device, so the step never waits for
+        # the host and a CUDA graph can hold it.
+        hit = norm >= self.clip
+        div = torch.where(hit, norm, 1.0)
+        mul = torch.where(hit, self.clip, 1.0)
+        for g in grads:
+            g = _local(g)
+            g.div_(div.to(g.dtype)).mul_(mul.to(g.dtype))
         return norm
 
     def zero_grad(self) -> None:
