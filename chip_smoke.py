@@ -362,8 +362,10 @@ Phases, in order (any failure raises and exits non-zero):
    ``offer`` bind it again, and ``fail_slice`` return the pod's key and
    withhold the card.  The pod's wall seconds and its first step's end
    after the spawn are printed.
-24. the one-program fits (no hand-written kernel; every launch counter
-   must read 0): ``mnist_dist``'s default scan fit (200 steps, the
+24. the one-program fits (no flash or grouped kernel: their launch
+   counters must read 0; the fits of ``default_optimizer``, dist-mnist's
+   and ``mnist_local``'s, capture one AdamW launch a parameter tensor a
+   step, the others none): ``mnist_dist``'s default scan fit (200 steps, the
    threefry data drawn in the graph), ``mnist_local``, ``flax_mnist`` and
    ``cifar_allreduce`` (ResNet-18, width 16) at their defaults, each one
    ``trainer.OneProgram``.  A profiler on from the capture's end to the
@@ -376,7 +378,19 @@ Phases, in order (any failure raises and exits non-zero):
    with no group and in a one-rank nccl group: the captured collectives
    (n_params + 1 a step, 2 for the eval) give losses and parameters
    bit-identical.
-25. The card's name and power limit, the ``kernels`` JSON line (launches
+25. the one-pass AdamW kernel (``csrc/adamw.cu``, ``ops/adamw.py``) over
+   the benchmark's two parameter sets, f32 (``ADAMW_SETS``: Mistral-7B at
+   8 layers, 2.013 B parameters; Mixtral-8x7B at 2 layers, 3.164 B): the
+   largest tensor's step against the plain version's (``ADAMW_REL_TOL``
+   of the largest value); the update timed as the kernel (one launch a
+   tensor, the clip's scale folded in), its plain version, torch's fused
+   AdamW (the library yardstick, which the port never calls) and the
+   chain it replaced (torch's foreach AdamW), each beside the bound (28 B
+   a parameter at 3.35 TB/s); and the whole optimizer layer
+   (``Optimizer.step``: the clip and the update) new against old, with
+   the memory each adds at its peak.  The forms share one set of
+   parameters, gradients and moments.
+26. The card's name and power limit, the ``kernels`` JSON line (launches
    from phase 10; each path's own counts beside them, phase 13's, the
    sequence-parallel paths ``ring_n4``, ``ring_n2`` and ``ulysses_n4``,
    ``generate``, phase 19a's, ``pp_dense`` and ``pp_moe``, phase 20's
@@ -422,6 +436,7 @@ from kubeflow_controller_tpu_torch.models import moe
 from kubeflow_controller_tpu_torch.models.generate import init_paged_cache, paged_prefill
 from kubeflow_controller_tpu_torch.models.llama import LlamaConfig, llama_init, llama_loss
 from kubeflow_controller_tpu_torch.ops import _build
+from kubeflow_controller_tpu_torch.ops import adamw
 from kubeflow_controller_tpu_torch.ops import attention as at
 from kubeflow_controller_tpu_torch.ops import grouped_matmul as gm
 from kubeflow_controller_tpu_torch.parallel.ring import attention_reference
@@ -438,6 +453,7 @@ from kubeflow_controller_tpu_torch.workloads import (
     mnist_dist,
     mnist_local,
     progress,
+    trainer,
 )
 from kubeflow_controller_tpu_torch.workloads.data import synthetic_tokens
 from kubeflow_controller_tpu_torch.workloads.launch import free_port
@@ -462,6 +478,7 @@ SOURCE = "kubeflow_controller_tpu_torch/csrc/grouped_matmul.cu"
 REF_FILE = "kubeflow_controller_tpu/ops/grouped_matmul.py"
 FLASH_SOURCE = "kubeflow_controller_tpu_torch/csrc/flash_attention.cu"
 FLASH_REF = "kubeflow_controller_tpu/ops/attention.py"
+ADAMW_SOURCE = "kubeflow_controller_tpu_torch/csrc/adamw.cu"
 FLASH_ROW_TOL = 1e-2               # per row: ||kernel - plain|| / ||plain||
 ROW_FLOOR = 1e-2                   # of the RMS row norm, the denominator's floor
 FLASH_OUTS = ("o", "dq", "dk", "dv")
@@ -569,7 +586,7 @@ WMMA_KERNELS = ("tgmm_kernel",)
 # Mangled: <length><identifier>I<template args>... (or E and the
 # parameters, for a kernel that is not a template).
 KERNEL_NAME = re.compile(r"\d((?:t?gmm|gmm_swiglu|flash_fwd|flash_dq|"
-                         r"flash_dkv)_(?:wgmma_|swapab_)?kernel)([IE])")
+                         r"flash_dkv|adamw)_(?:wgmma_|swapab_)?kernel)([IE])")
 
 
 def hgmma_counts(sass: str) -> dict:
@@ -599,8 +616,11 @@ def ptxas_report(log: str) -> dict:
             m = KERNEL_NAME.search(line)
             name = None
             if m:
-                args = re.findall(r"L[ib](\d+)E",
-                                  line[m.end():].split("EE")[0] + "E") \
+                spec = line[m.end():].split("EE")[0] + "E"
+                # Literal arguments (<128>, <16, true, false>), else one
+                # type (adamw_kernel<float> mangles as IfE).
+                args = (re.findall(r"L[ib](\d+)E", spec)
+                        or re.findall(r"^\d*(\w+?)E$", spec)) \
                     if m.group(2) == "I" else []
                 name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
                 report[name] = [None, None, None]
@@ -4000,9 +4020,11 @@ def one_program_phase(dev) -> dict:
     for name, fit, steps, adam in ONE_PROGRAM_FITS:
         gc.collect()
         torch.cuda.empty_cache()
+        adamw_before = adamw.adamw_step.launches
         with watched_programs() as made:
             res = fit()
         (prog,) = made
+        adamw_launches = adamw.adamw_step.launches - adamw_before
         calls = window_calls(prog.prof)
         losses = fit_losses(res)
         with watched_programs(eager=True) as eager:
@@ -4018,7 +4040,9 @@ def one_program_phase(dev) -> dict:
                    (losses - eager_losses).abs().max()),
                "eager_vs_graph_first3_max_abs": float(
                    (losses[:3] - eager_losses[:3]).abs().max()),
-               "final_loss": float(losses[-1])}
+               "final_loss": float(losses[-1]),
+               "adamw_launches": adamw_launches}
+        fused = isinstance(prog.optimizer.inner, trainer.FusedAdamW)
         if adam:
             counts = {float(s["step"]) for s in
                       prog.optimizer.inner.state.values()}
@@ -4029,6 +4053,8 @@ def one_program_phase(dev) -> dict:
         assert losses.shape == (steps,) and torch.isfinite(losses).all()
         if adam:
             assert rec["adam_steps"] == [float(steps)], rec["adam_steps"]
+        assert adamw_launches == (steps * len(prog.optimizer.params)
+                                  if fused else 0), (name, adamw_launches)
         recs[name] = rec
         del res, eager_res, made, eager, prog, eager_prog
     gen = {"train": generator_ms(dev, 81 * 100),
@@ -4045,6 +4071,126 @@ def one_program_phase(dev) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the one-pass AdamW kernel over the benchmark's parameter sets
+# ---------------------------------------------------------------------------
+
+def mistral_7b(n_layers: int = 8) -> LlamaConfig:
+    """mistralai/Mistral-7B-v0.3 widths (vocab 32768, 8 kv heads,
+    intermediate 14336, rope theta 1e6) on ``llama2_7b``'s training
+    settings; depth cut to ``n_layers`` of 32."""
+    return replace(llama2_7b(n_layers), vocab_size=32768, n_kv_heads=8,
+                   intermediate=14336, rope_theta=1e6)
+
+
+ADAMW_SETS = {"mistral7b_l8": lambda: mistral_7b(8),
+              "mixtral8x7b_l2": lambda: mixtral_8x7b_train(2)}
+ADAMW_HYPER = {"lr": 3e-4, "betas": (0.9, 0.999), "eps": 1e-8,
+               "weight_decay": 0.1}
+ADAMW_BYTES = 28          # f32 p, g, m, v read; p, m, v written
+# The kernel against its plain version, both f32 in registers: fmas the
+# compiler contracts where the plain version rounds, a few roundings.
+ADAMW_REL_TOL = 8 * torch.finfo(torch.float32).eps
+
+
+def adamw_largest_check(params, opt, scale) -> float:
+    """One step of the largest tensor by the kernel and by the plain
+    version from the same state: the largest gap over the largest value,
+    the worst of p, m and v."""
+    p = max(params, key=lambda t: t.numel())
+    st = opt.inner.state[p]
+    want = [t.detach().clone() for t in (p, st["exp_avg"], st["exp_avg_sq"])]
+    step = float(st["step"]) + 1
+    adamw.adamw_step(p.detach(), p.grad, st["exp_avg"], st["exp_avg_sq"],
+                     **ADAMW_HYPER, step=step, grad_scale=scale)
+    adamw.adamw_step_plain(want[0], p.grad, want[1], want[2], **ADAMW_HYPER,
+                           step=step, grad_scale=scale)
+    got = (p.detach(), st["exp_avg"], st["exp_avg_sq"])
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(got, want)]
+    del want
+    return max(errs)
+
+
+def added_peak_gb(fn) -> float:
+    """What ``fn`` allocates beyond what is held, at its peak, GB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def adamw_set(name: str, cfg: LlamaConfig, dev) -> dict:
+    shapes = [tuple(p.shape)
+              for p in llama_mod.Llama(cfg, "meta").parameters()]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = []
+    for shape in shapes:
+        p = torch.nn.Parameter(
+            torch.randn(shape, generator=gen, device=dev) * 0.02)
+        p.grad = torch.randn(shape, generator=gen, device=dev) * 1e-3
+        params.append(p)
+    n = sum(p.numel() for p in params)
+    new = trainer.default_optimizer(params, ADAMW_HYPER["lr"],
+                                    weight_decay=ADAMW_HYPER["weight_decay"])
+    before = adamw.adamw_step.launches
+    new.step()                      # makes the moments, which all share
+    launches = adamw.adamw_step.launches - before
+    _, scale = new._clip()
+    states = [new.inner.state[p] for p in params]
+    rel_err = adamw_largest_check(params, new, scale)
+
+    def kernel():
+        new.inner.step(grad_scale=scale)
+
+    def plain():
+        with torch.no_grad():
+            for p, st in zip(params, states):
+                adamw.adamw_step_plain(p, p.grad, st["exp_avg"],
+                                       st["exp_avg_sq"], **ADAMW_HYPER,
+                                       step=2.0, grad_scale=scale)
+
+    def shared(opt, step):
+        for p, st in zip(params, states):
+            opt.state[p] = {"step": step.clone(), "exp_avg": st["exp_avg"],
+                            "exp_avg_sq": st["exp_avg_sq"]}
+        return opt
+
+    library = shared(torch.optim.AdamW(params, fused=True, **ADAMW_HYPER),
+                     torch.ones((), device=dev))
+    chain = shared(torch.optim.AdamW(params, foreach=True, **ADAMW_HYPER),
+                   torch.ones(()))
+    old = trainer.Optimizer(params, lambda ps: chain, clip=1.0)
+    t_bound, by = bound(ADAMW_BYTES * n, 0)
+    rec = {"params": n, "tensors": len(params), "launches": launches,
+           "bound_ms": t_bound, "bound_by": by, "max_rel_err": rel_err,
+           "tol": ADAMW_REL_TOL,
+           "ms": time_ms(kernel, 5), "plain_ms": time_ms(plain, 2, 1),
+           "library_ms": time_ms(library.step, 5),
+           "chain_ms": time_ms(chain.step, 5),
+           "layer_ms": time_ms(new.step, 5),
+           "layer_old_ms": time_ms(old.step, 5),
+           "layer_added_peak_gb": added_peak_gb(new.step),
+           "layer_old_added_peak_gb": added_peak_gb(old.step)}
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    print(f"adamw {name} ({n} f32 parameters in {len(params)} tensors): "
+          + json.dumps(rec), flush=True)
+    assert launches == len(params), (launches, len(params))
+    assert rel_err <= ADAMW_REL_TOL, (rel_err, ADAMW_REL_TOL)
+    del params, new, old, chain, library, states, scale
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def adamw_phase(dev) -> dict:
+    """Phase 25: each of ``ADAMW_SETS`` in turn (see the docstring)."""
+    return {name: adamw_set(name, make(), dev)
+            for name, make in ADAMW_SETS.items()}
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4053,7 +4199,8 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def kernels_line(results, flash, paths, serve_designs, generate_designs):
+def kernels_line(results, flash, paths, serve_designs, generate_designs,
+                 adamw_sets):
     """One entry per kernel; ``launches`` is the MoE train run's (the
     path that launches all six) and the grouped kernels' top-level times
     are at its layout; ``launches_by_path`` gives each path's own run
@@ -4114,6 +4261,11 @@ def kernels_line(results, flash, paths, serve_designs, generate_designs):
         })
     for name in FLASH_KERNELS:
         entries.append({**common(name, FLASH_SOURCE), **flash[name]})
+    entries.append({"name": "adamw", "route": "cuda", "source": ADAMW_SOURCE,
+                    "replaces": "none (optax's clip + adamw, which XLA "
+                                "fuses); torch's foreach AdamW chain",
+                    "shape": "mixtral8x7b_l2",
+                    **adamw_sets["mixtral8x7b_l2"], **adamw_sets})
     return json.dumps({"kernels": entries})
 
 
@@ -4195,9 +4347,10 @@ def main(argv=None) -> int:
     paths["pod"] = pod_phase(args.seed)
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     paths["one_program"] = one_program_phase(dev)
+    adamw_sets = adamw_phase(dev)
     print(card_line())
     print(kernels_line(results, flash, paths, serve_designs,
-                       generate_designs))
+                       generate_designs, adamw_sets))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

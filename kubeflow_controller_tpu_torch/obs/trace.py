@@ -61,7 +61,8 @@ kubeflow_controller_tpu_torch.workloads.llama_pretrain --profile-dir DIR
 ``kctpu.loss``        the logits' f32 upcast, log-softmax or chunked CE,
                       the router terms
 ``kctpu.optimizer``   ``trainer.Optimizer.step``: the clip, then AdamW
-``kctpu.clip``        the global norm and the scaling of every gradient
+``kctpu.clip``        the global norm and its scale (and, off the fused
+                      AdamW path, the scaling of every gradient)
 ====================  ====================================================
 
 The innermost span open when a kernel is launched owns it.  Remat

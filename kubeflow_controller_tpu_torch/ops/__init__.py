@@ -7,6 +7,9 @@ version.
 - ``attention`` — ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` (CUDA C++,
   ``csrc/flash_attention.cu``) behind the differentiable
   ``flash_attention``.
+- ``adamw`` — ``adamw_step``, AdamW's update with the clip's scale folded
+  in, one pass a parameter tensor (CUDA C++, ``csrc/adamw.cu``), which
+  ``workloads/trainer.py:FusedAdamW`` launches.
 - ``_build`` — compiles ``csrc/*.cu`` with ``nvcc`` at first use and loads
   the result with ``ctypes``.
 

@@ -47,9 +47,10 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C entry points and their signatures (pointers and the stream as void*,
-# sizes and flags as int, scales as float; the return value is a
-# cudaError_t code).
+# sizes and flags as int, scales as float or double; the return value is
+# a cudaError_t code).
 _SIGNATURES = {
     # lhs, rhs, tile_experts, valid_tiles (or NULL), out, M, K, N, bm,
     # n_experts, transpose_rhs, stream
@@ -72,6 +73,10 @@ _SIGNATURES = {
     "kctpu_flash_dq": ([_P] * 7 + [_I] * 4 + [_F, _I, _P], _I),
     # q, k, v, do, lse, delta, dk, dv, B, H, T, D, scale, causal, stream
     "kctpu_flash_dkv": ([_P] * 8 + [_I] * 4 + [_F, _I, _P], _I),
+    # p, g, m, v, n, bf16, lr, beta1, beta2, eps, weight_decay, step,
+    # device_step (or NULL), div (or NULL), mul (or NULL), stream
+    "kctpu_adamw": ([_P] * 4 + [ctypes.c_longlong, _I] + [_D] * 6 + [_P] * 4,
+                    _I),
     "kctpu_error_string": ([_I], ctypes.c_char_p),
 }
 

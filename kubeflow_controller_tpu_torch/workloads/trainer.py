@@ -24,8 +24,12 @@ port keeps optax's arithmetic:
   :func:`sgd` is ``optax.sgd(lr, momentum)``: optax's trace ``m = g +
   momentum * m``, ``p -= lr * m`` is ``torch.optim.SGD`` with dampening 0.
 
-Gradients are clipped in place, by a select on the device: the step never
-waits for the host, so a CUDA graph can hold it.
+The clip's scale is chosen by a select on the device: the step never
+waits for the host, so a CUDA graph can hold it.  :func:`default_optimizer`
+builds :class:`FusedAdamW`: on CUDA parameters the clip hands its scale to
+the one-pass AdamW kernel (``ops/adamw.py``), which applies it in
+registers and leaves ``.grad`` unclipped; every other inner optimizer, and
+every CPU run, clips ``.grad`` in place and then steps.
 
 The reference's scans (:func:`train_scan`, :func:`train_scan_stateful`,
 :func:`train_scan_dist`) are each one compiled program; the port's are
@@ -55,6 +59,7 @@ import torch
 from ..obs.metrics import REGISTRY
 from ..obs.phases import PHASE_FIT
 from ..obs.trace import span, step_span
+from ..ops.adamw import adamw_step
 from .progress import reporter
 from .runtime import process_index
 
@@ -126,10 +131,86 @@ def _local(x: torch.Tensor) -> torch.Tensor:
     return x.to_local() if isinstance(x, DTensor) else x
 
 
+GradScale = Tuple[torch.Tensor, torch.Tensor]
+
+
+class FusedAdamW(torch.optim.AdamW):
+    """``torch.optim.AdamW`` whose step, for parameters on CUDA, is one
+    launch of the one-pass AdamW kernel a parameter tensor
+    (``ops/adamw.py``), with the clip's ``grad_scale = (div, mul)``, when
+    given, applied to each gradient in registers: ``.grad`` is read and
+    left unclipped.  The ``param_groups``, the ``state[p]`` keys (``step``,
+    ``exp_avg``, ``exp_avg_sq``) and the ``state_dict`` are AdamW's, so a
+    checkpoint loads into either class.  A capturable group keeps its step
+    count on the device, where the kernel reads it, so a CUDA graph can
+    hold the step.  A DTensor steps its local shard (the update is
+    elementwise).  CPU parameters take AdamW's own step, and no
+    ``grad_scale``.  Raises on amsgrad, maximize and differentiable groups
+    of CUDA parameters."""
+
+    @torch.no_grad()
+    def step(self, closure=None, grad_scale: Optional[GradScale] = None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        on_card = [p.device.type == "cuda" for group in self.param_groups
+                   for p in group["params"] if p.grad is not None]
+        if not any(on_card):
+            if grad_scale is not None:
+                raise ValueError("grad_scale is taken for CUDA parameters")
+            super().step()
+            return loss
+        if not all(on_card):
+            raise ValueError("FusedAdamW steps CUDA or CPU parameters, not "
+                             "both")
+        for group in self.param_groups:
+            self._step_group(group, grad_scale)
+        return loss
+
+    def _step_group(self, group: dict,
+                    grad_scale: Optional[GradScale]) -> None:
+        for key in ("amsgrad", "maximize", "differentiable"):
+            if group[key]:
+                raise ValueError(f"FusedAdamW does not take {key}=True")
+        capturable = group["capturable"]
+        if not capturable and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a step inside a CUDA graph needs capturable "
+                               "groups")
+        params = [p for p in group["params"] if p.grad is not None]
+        if not params:
+            return
+        states = [self._state(p, capturable) for p in params]
+        torch._foreach_add_([st["step"] for st in states], 1)
+        for p, st in zip(params, states):
+            adamw_step(_local(p), _local(p.grad), _local(st["exp_avg"]),
+                       _local(st["exp_avg_sq"]), lr=group["lr"],
+                       betas=group["betas"], eps=group["eps"],
+                       weight_decay=group["weight_decay"],
+                       step=0.0 if capturable else float(st["step"]),
+                       device_step=st["step"] if capturable else None,
+                       grad_scale=grad_scale)
+
+    def _state(self, p: torch.Tensor, capturable: bool) -> dict:
+        """``state[p]``, made as AdamW makes it on a first step."""
+        state = self.state[p]
+        if not state:
+            state["step"] = (
+                torch.zeros((), dtype=torch.float32, device=p.device)
+                if capturable else torch.tensor(0.0, dtype=torch.float32))
+            state["exp_avg"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+        return state
+
+
 class Optimizer:
     """A ``torch.optim`` optimizer (``inner``) over a fixed list of
     parameters, with optax's ``clip_by_global_norm`` in front when
-    ``clip`` is set: :meth:`step` clips their ``.grad``, then steps."""
+    ``clip`` is set: :meth:`step` clips their ``.grad``, then steps.  When
+    ``inner`` is a :class:`FusedAdamW` on CUDA parameters the clip's scale
+    goes to its step instead, and ``.grad`` is left unclipped."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  make: Callable[[List[torch.nn.Parameter]],
@@ -171,19 +252,27 @@ class Optimizer:
         return total.sqrt()
 
     def step(self) -> Optional[torch.Tensor]:
-        """Clip every ``.grad`` by the global norm (when ``clip``), then the
-        inner update; returns the norm before clipping (None without
-        clipping).  The clip runs under the ``kctpu.clip`` span, both
-        under ``kctpu.optimizer``."""
-        norm = None
+        """Clip by the global norm (when ``clip``), then the inner update;
+        returns the norm before clipping (None without clipping).  The
+        clip runs under the ``kctpu.clip`` span, both under
+        ``kctpu.optimizer``.  With a :class:`FusedAdamW` on CUDA
+        parameters the clip computes the norm and its scale, and the
+        update applies the scale: ``.grad`` is left as the backward made
+        it."""
+        norm = scale = None
         with step_span("kctpu.optimizer"):
             if self.clip:
                 with step_span("kctpu.clip"):
-                    norm = self._clip()
-            self.inner.step()
+                    norm, scale = self._clip()
+            if scale is None:
+                self.inner.step()
+            else:
+                self.inner.step(grad_scale=scale)
         return norm
 
-    def _clip(self) -> torch.Tensor:
+    def _clip(self) -> Tuple[torch.Tensor, Optional[GradScale]]:
+        """The norm, and the scale ``(div, mul)`` for a :class:`FusedAdamW`
+        on CUDA parameters to apply (None: ``.grad`` clipped here)."""
         with_grad = [p for p in self.params if p.grad is not None]
         grads = [p.grad for p in with_grad]
         norm = self._norm(with_grad)
@@ -193,10 +282,13 @@ class Optimizer:
         hit = norm >= self.clip
         div = torch.where(hit, norm, 1.0)
         mul = torch.where(hit, self.clip, 1.0)
+        if (isinstance(self.inner, FusedAdamW)
+                and all(g.device.type == "cuda" for g in grads)):
+            return norm, (div, mul)
         for g in grads:
             g = _local(g)
             g.div_(div.to(g.dtype)).mul_(mul.to(g.dtype))
-        return norm
+        return norm, None
 
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
@@ -207,8 +299,9 @@ def default_optimizer(params: Iterable[torch.nn.Parameter], lr: float, *,
                       weight_decay: float = 0.0) -> Optimizer:
     """Clip by global norm (when ``clip``), then AdamW (Adam when
     ``weight_decay`` is 0, as ``optax.adam`` equals ``adamw`` without
-    decay)."""
-    return Optimizer(params, lambda ps: torch.optim.AdamW(
+    decay): :class:`FusedAdamW`, one kernel pass a parameter tensor on
+    CUDA with the clip's scale folded in."""
+    return Optimizer(params, lambda ps: FusedAdamW(
         ps, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay),
         clip=clip)
 

@@ -198,6 +198,24 @@ def test_ptxas_report_names_each_kernel_with_its_template_arguments():
         "tgmm_wgmma_kernel": [154, 0, 0]}
 
 
+def test_ptxas_report_names_the_adamw_kernel_by_its_type():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__3c6fd4a8"
+        "_8_adamw_cu_1b2a3c4d12adamw_kernelIfEEvPT_PKS1_S2_S2_xiNS_4ArgsE' "
+        "for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__3c6fd4a8"
+        "_8_adamw_cu_1b2a3c4d12adamw_kernelI13__nv_bfloat16EEvPT_PKS2_S3_S3_"
+        "xiNS_4ArgsE' for 'sm_90a'",
+        "    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 48 registers, used 0 barriers",
+    ])
+    assert chip_smoke.ptxas_report(log) == {
+        "adamw_kernel<f>": [40, 0, 0],
+        "adamw_kernel<__nv_bfloat16>": [48, 4, 4]}
+
+
 @pytest.mark.parametrize("name", PROFILE_NAMES)
 def test_profile_groups_file_each_kernel(name):
     group = next(g for g, match in chip_smoke.KERNEL_GROUPS if match(name))

@@ -14,7 +14,9 @@ package, from JAX parameters bridged into the port.
   Tolerance: loss within 1e-5 relative, each gradient within 1e-4 of its
   max |grad|.
 - one ``default_optimizer`` step against optax on the same gradients,
-  clipping on and off: parameters within 1e-6.
+  clipping on and off: parameters within 1e-6; and the one-pass AdamW's
+  arithmetic (``adamw_step_plain`` with the clip's pair) against optax
+  over one and three steps, clipping on and off, within 1e-6.
 - ``synthetic_tokens`` byte-equal across the packages.
 - three steps of the pretrain loop from one bridged init, dense and MoE
   (grouped): each step's loss within 1e-4 of the JAX loop's.
@@ -45,6 +47,7 @@ from kubeflow_controller_tpu.workloads.runtime import JobRuntime as JaxJobRuntim
 from kubeflow_controller_tpu.workloads.trainer import default_optimizer as jax_default_optimizer
 from kubeflow_controller_tpu_torch import bridge
 from kubeflow_controller_tpu_torch.models import llama as tllama
+from kubeflow_controller_tpu_torch.ops.adamw import adamw_step_plain
 from kubeflow_controller_tpu_torch.workloads import data as tdata
 from kubeflow_controller_tpu_torch.workloads import llama_pretrain as tpre
 from kubeflow_controller_tpu_torch.workloads import runtime as truntime
@@ -170,6 +173,51 @@ def test_one_optimizer_step_matches_optax(grad_scale):
     assert abs(float(got_norm) - norm) <= 1e-5 * norm
     for k, p in tparams.items():
         assert np.max(np.abs(p.detach().numpy() - want[k])) <= 1e-6, k
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+@pytest.mark.parametrize("grad_scale", [0.01, 10.0],
+                         ids=["under-clip", "clipped"])
+def test_adamw_step_plain_matches_optax(grad_scale, steps):
+    """The one-pass AdamW's arithmetic (``ops/adamw.py:adamw_step_plain``,
+    the order the CUDA kernel follows), with the clip's ``(div, mul)``
+    applied inside the update as ``Optimizer._clip`` forms them, against
+    optax's ``clip_by_global_norm`` + ``adamw`` on the same gradients:
+    parameters within 1e-6 after each step."""
+    rng = np.random.default_rng(1)
+    shapes = {"a": (8, 16), "b": (16,), "c": (4, 4, 4)}
+    want = {k: rng.standard_normal(s).astype(np.float32)
+            for k, s in shapes.items()}
+    opt = jax_default_optimizer(3e-4, weight_decay=0.1)
+    state = opt.init(want)
+
+    tparams = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+               for k, v in want.items()}
+    clip = ttrainer.default_optimizer(tparams.values(), 3e-4,
+                                      weight_decay=0.1)
+    moments = {k: (torch.zeros(s), torch.zeros(s)) for k, s in shapes.items()}
+    for step in range(1, steps + 1):
+        grads = {k: (rng.standard_normal(s) * grad_scale).astype(np.float32)
+                 for k, s in shapes.items()}
+        updates, state = opt.update(grads, state, want)
+        want = numpy_tree(optax.apply_updates(want, updates))
+
+        for k, p in tparams.items():
+            p.grad = torch.from_numpy(grads[k].copy())
+        norm = clip._norm(list(tparams.values()))
+        hit = norm >= clip.clip
+        assert bool(hit) == (grad_scale > 1)
+        pair = (torch.where(hit, norm, 1.0), torch.where(hit, clip.clip, 1.0))
+        with torch.no_grad():
+            for k, p in tparams.items():
+                m, v = moments[k]
+                adamw_step_plain(p, p.grad, m, v, lr=3e-4,
+                                 betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=0.1, step=step,
+                                 grad_scale=pair)
+        for k, p in tparams.items():
+            err = np.max(np.abs(p.detach().numpy() - want[k]))
+            assert err <= 1e-6, (k, step, err)
 
 
 @pytest.mark.parametrize("seed", [1, 7])
