@@ -1,7 +1,8 @@
 """mfu (%): the traced steps' model FLOPs over their time at the cards'
-peak: 6 x the matrix parameters each token uses plus causal attention
-(``roofline.model_flops_per_token``; recomputation not counted), over the
-traced window x the bf16 peak x the cards."""
+peak: each token's FLOPs as the configuration's architecture counts them
+(``roofline.model_flops_per_token``; for the decoders 6 x the matrix
+parameters each token uses plus causal attention; recomputation not
+counted), over the traced window x the bf16 peak x the cards."""
 
 from portbench import roofline
 

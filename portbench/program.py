@@ -14,19 +14,20 @@ the model holds exactly the weights the seed drew, with no copy.
 
 from __future__ import annotations
 
+import importlib
+import pkgutil
 from contextlib import nullcontext
 from typing import Dict, List
 
 import torch
 from torch import nn
 
+from kubeflow_controller_tpu_torch import ops
 from kubeflow_controller_tpu_torch.models.llama import (
     Llama,
     LlamaConfig,
     llama_loss,
 )
-from kubeflow_controller_tpu_torch.ops import attention
-from kubeflow_controller_tpu_torch.ops import grouped_matmul as gm
 from kubeflow_controller_tpu_torch.workloads.compile_cache import (
     build_kernels,
 )
@@ -38,13 +39,21 @@ __all__ = ["Program", "build_kernels", "launch_counts"]
 
 
 def launch_counts() -> Dict[str, int]:
-    """The kernel wrappers' launch counters (process totals)."""
-    return {"flash_fwd": attention.flash_fwd.launches,
-            "flash_dq": attention.flash_dq.launches,
-            "flash_dkv": attention.flash_dkv.launches,
-            "gmm": gm.gmm.launches, "gmm_skip": gm.gmm.skip_launches,
-            "gmm_swiglu": gm.gmm_swiglu.launches,
-            "tgmm": gm.tgmm.launches, "tgmm_skip": gm.tgmm.skip_launches}
+    """Every kernel wrapper's launch counters (process totals): each
+    function of a module of ``kubeflow_controller_tpu_torch.ops`` that
+    counts its launches in ``launches``, under its name, and those that
+    skip tiles in ``skip_launches``, under ``<name>_skip``."""
+    counts: Dict[str, int] = {}
+    for info in pkgutil.iter_modules(ops.__path__):
+        mod = importlib.import_module(f"{ops.__name__}.{info.name}")
+        for name, fn in vars(mod).items():
+            if getattr(fn, "__module__", None) != mod.__name__ or \
+                    not isinstance(getattr(fn, "launches", None), int):
+                continue
+            counts[name] = fn.launches
+            if isinstance(getattr(fn, "skip_launches", None), int):
+                counts[f"{name}_skip"] = fn.skip_launches
+    return counts
 
 
 class Program:

@@ -3,10 +3,13 @@ shapes, and the peaks they are held against.
 
 Every count here is what the layer's mathematics needs for its inputs,
 whatever a kernel does again: each input byte read once and each output
-byte written once, the causal half of the score matrix, and the rows that
-tokens really route (no padding).  A kernel that recomputes, repeats the
-kv heads or pads rows is measured against the same work, so a share of the
-roofline can only rise when a kernel does less redundant work.
+byte written once, the score pairs the causal mask (and a window) keeps,
+and the rows that tokens really route (no padding).  A kernel that
+recomputes, repeats the kv heads or pads rows is measured against the same
+work, so a share of the roofline can only rise when a kernel does less
+redundant work.  The model's own counts (its matrix parameters, its
+attention layers, its experts) come from its architecture module
+(``archs/<model_type>.py``).
 
 A call's least time is ``max(flops / peak FLOP/s, bytes / peak bytes/s)``
 (:func:`least_seconds`).
@@ -14,7 +17,9 @@ A call's least time is ``max(flops / peak FLOP/s, bytes / peak bytes/s)``
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
+
+from . import archs
 
 # Published dense peaks (NVIDIA's data sheet, H100 SXM, bf16 without
 # sparsity; HBM3 bandwidth), at the card's full 700 W limit.
@@ -40,41 +45,51 @@ def least_seconds(flops: float, nbytes: float, peak: Tuple[float, float]
 # ---------------------------------------------------------------------------
 # Flash attention: q [B, T, H, D]; k, v [B, T, KV, D]; bf16; lse f32.
 # One "product" is one [T, D] x [D, T] (or [T, T] x [T, D]) matrix product
-# per (batch, head), halved under the causal mask.
+# per (batch, head) over the score pairs the mask keeps: T² / 2 a head under
+# the causal mask, and under a causal window of W < T keys (``window``)
+# T² / 2 - (T - W)² / 2.
 # ---------------------------------------------------------------------------
 
-def _product_flops(b: int, t: int, h: int, d: int, causal: bool) -> float:
+def _product_flops(b: int, t: int, h: int, d: int, causal: bool,
+                   window: Optional[int] = None) -> float:
     full = 2.0 * b * h * t * t * d
-    return full / 2 if causal else full
+    if not causal:
+        if window is not None:
+            raise ValueError("a window is counted under the causal mask")
+        return full
+    if window is None or window >= t:
+        return full / 2
+    return (full - 2.0 * b * h * (t - window) ** 2 * d) / 2
 
 
-def flash_fwd(b: int, t: int, h: int, kv: int, d: int, causal: bool = True
-              ) -> Tuple[float, float]:
+def flash_fwd(b: int, t: int, h: int, kv: int, d: int, causal: bool = True,
+              window: Optional[int] = None) -> Tuple[float, float]:
     """(FLOPs, bytes) of the forward: S = QKᵀ and O = PV; reads q, k, v,
     writes o and the row statistics."""
-    flops = 2 * _product_flops(b, t, h, d, causal)
+    flops = 2 * _product_flops(b, t, h, d, causal, window)
     nbytes = (2 * b * t * h * d + 2 * b * t * kv * d) * BF16 + b * h * t * F32
     return flops, nbytes
 
 
-def flash_dkv(b: int, t: int, h: int, kv: int, d: int, causal: bool = True
-              ) -> Tuple[float, float]:
+def flash_dkv(b: int, t: int, h: int, kv: int, d: int, causal: bool = True,
+              window: Optional[int] = None) -> Tuple[float, float]:
     """(FLOPs, bytes) of the backward but for dQ: S recomputed (the forward
     keeps no [T, T] matrix), dP = dO Vᵀ, dV = Pᵀ dO, dK = dSᵀ Q; reads q, k,
     v, do, lse and delta once for the whole backward, writes dk, dv."""
-    flops = 4 * _product_flops(b, t, h, d, causal)
+    flops = 4 * _product_flops(b, t, h, d, causal, window)
     nbytes = ((2 * b * t * h * d + 4 * b * t * kv * d) * BF16
               + 2 * b * h * t * F32)
     return flops, nbytes
 
 
-def flash_dq(b: int, t: int, h: int, kv: int, d: int, causal: bool = True
-             ) -> Tuple[float, float]:
+def flash_dq(b: int, t: int, h: int, kv: int, d: int, causal: bool = True,
+             window: Optional[int] = None) -> Tuple[float, float]:
     """(FLOPs, bytes) of dQ = dS K given the dS that :func:`flash_dkv`
     forms: one product, and dq written.  :func:`flash_dkv` plus this is the
     whole backward's need (five products), which a fused backward also
     does."""
-    return _product_flops(b, t, h, d, causal), b * t * h * d * BF16
+    return (_product_flops(b, t, h, d, causal, window),
+            b * t * h * d * BF16)
 
 
 # ---------------------------------------------------------------------------
@@ -119,28 +134,13 @@ def tgmm(rows: int, d: int, f: int, experts: int) -> Tuple[float, float]:
 # ---------------------------------------------------------------------------
 
 def matmul_params_per_token(conf: dict) -> int:
-    """Parameters in the matrix products each token passes through: the
-    attention projections, the FFN (for a MoE layer the router and top-k of
-    the experts), and the output head; the embedding lookup is not a
-    product."""
-    d = conf["hidden_size"]
-    h, kv = conf["num_attention_heads"], conf["num_key_value_heads"]
-    hd = conf.get("head_dim") or d // h
-    f = conf["intermediate_size"]
-    attn = d * h * hd + 2 * d * kv * hd + h * hd * d
-    experts = conf.get("num_local_experts", 0)
-    if experts:
-        ffn = conf["num_experts_per_tok"] * 3 * d * f + d * experts
-    else:
-        ffn = 3 * d * f
-    return conf["num_hidden_layers"] * (attn + ffn) + d * conf["vocab_size"]
+    """Parameters in the matrix products each token passes through, as the
+    configuration's architecture counts them (``archs/<model_type>.py``)."""
+    return archs.of(conf).matmul_params_per_token(conf)
 
 
 def model_flops_per_token(conf: dict, seq_len: int) -> float:
-    """6 x the matrix parameters a token uses (forward and backward), plus
-    causal attention's 6 · L · T · (H · head_dim); recomputation is not
-    counted."""
-    h = conf["num_attention_heads"]
-    hd = conf.get("head_dim") or conf["hidden_size"] // h
-    attn = 6.0 * conf["num_hidden_layers"] * seq_len * h * hd
-    return 6.0 * matmul_params_per_token(conf) + attn
+    """The model FLOPs a token of a ``seq_len`` row costs in a training
+    step (forward and backward; recomputation not counted), as the
+    configuration's architecture counts them."""
+    return archs.of(conf).model_flops_per_token(conf, seq_len)

@@ -42,6 +42,8 @@ from importlib import util as import_util  # noqa: E402
 from pathlib import Path  # noqa: E402
 from typing import Dict, List, Optional, Tuple  # noqa: E402
 
+from . import archs  # noqa: E402
+
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 CACHE = ROOT / ".portbench_cache"
@@ -65,7 +67,10 @@ class Cell:
 
 
 def load_cell(name: str, root: Path = ROOT) -> Cell:
-    """The cell ``name`` of ``root/BENCHMARK.json`` and its files."""
+    """The cell ``name`` of ``root/BENCHMARK.json`` and its files, all
+    under ``root``; the configuration records the benchmark directory it
+    came from, whose ``archs/`` holds its architecture."""
+    bench_dir = root / BENCH.relative_to(ROOT)
     bench = json.loads((root / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -78,12 +83,15 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
         raise ValueError(f"{name}: the harness runs a cell on one card, not "
                          f"{cell['chips']}")
     config = next(c for c in bench["configs"] if c["name"] == cell["config"])
+    conf = json.loads((root / config["file"]).read_text())
+    conf[archs.BENCH_KEY] = str(bench_dir)
     return Cell(
         workload=cell,
-        conf=json.loads((root / config["file"]).read_text()),
-        mix=json.loads((BENCH / "mixes" / f"{cell['traffic']}.json")
+        conf=conf,
+        mix=json.loads((bench_dir / "mixes" / f"{cell['traffic']}.json")
                        .read_text()),
-        limits=json.loads((BENCH / "limits" / f"{name}.json").read_text()),
+        limits=json.loads((bench_dir / "limits" / f"{name}.json")
+                          .read_text()),
         end_to_end=[m for m in bench["end_to_end"]
                     if name in m.get("workloads", [name])],
         per_layer=[m for m in bench["per_layer"]
@@ -108,7 +116,8 @@ def reader(metric: str):
 class Ctx:
     """What a per-layer reader reads: the configuration and mix, the
     reduced trace of ``steps`` traced steps, the launch counters' growth
-    over them and the process's peak device memory."""
+    over them, the process's peak device memory and the traced steps'
+    device time by the port's ``kctpu.*`` spans."""
     conf: dict
     mix: dict
     chips: int
@@ -116,6 +125,7 @@ class Ctx:
     reduced: object            # trace.Reduced
     launches: Dict[str, int]
     peak_bytes: int
+    spans: object = None       # spans.SpanTimes
 
     @property
     def tokens_per_step(self) -> int:
@@ -223,10 +233,10 @@ def _window(prog, batches, first: int, seconds: float, dev):
 
 def _traced(prog, batches, first: int, steps: int, dev):
     """``steps`` steps under the profiler: (the reduced trace, the launch
-    counters' growth, non-finite losses)."""
+    counters' growth, non-finite losses, the device time by span)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from . import program, trace
+    from . import program, spans, trace
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if dev.type == "cuda" else [])
@@ -240,7 +250,8 @@ def _traced(prog, batches, first: int, steps: int, dev):
                                                    spans=True))
     after = program.launch_counts()
     return (trace.from_profiler(prof, steps),
-            {k: after[k] - before[k] for k in after}, bad)
+            {k: after[k] - before[k] for k in after}, bad,
+            spans.from_profiler(prof, steps))
 
 
 def _percentile(xs: List[float], q: float) -> float:
@@ -288,8 +299,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     extra: Dict[str, object] = {}
     side_window: Dict[str, float] = {}
     if trace:
-        reduced, launches, bad = _traced(prog, batches, first,
-                                         mix["trace_steps"], dev)
+        reduced, launches, bad, span_times = _traced(
+            prog, batches, first, mix["trace_steps"], dev)
         attempted = mix["trace_steps"]
     else:
         times, window_s, bad = _window(prog, batches, first, seconds, dev)
@@ -308,7 +319,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         metrics = {}
     else:
         metrics = _per_layer(cell, Ctx(conf, mix, chips, kind, reduced,
-                                       launches, peak))
+                                       launches, peak, span_times))
         extra = {"busy_s": reduced.busy_s, "window_s": reduced.window_s}
     del prog
     free(dev)

@@ -1,6 +1,7 @@
 """Every file the benchmark finds by name is there and loads: the cells of
 ``BENCHMARK.json``, their configurations, mixes, limits and per-layer
-readers; and each configuration's port keys are its published keys."""
+readers; and each configuration's port keys are its published keys, as
+its architecture (``archs/<model_type>.py``) pairs them."""
 
 import json
 import math
@@ -8,7 +9,7 @@ import re
 
 import pytest
 
-from portbench import check, reference, run
+from portbench import archs, check, reference, run
 
 BENCH = json.loads((run.ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -76,14 +77,6 @@ def test_per_layer_metrics_have_readers_and_one_layer_name():
                            "kernels", "device"}
 
 
-PORT_KEYS = {"vocab_size": "vocab_size", "dim": "hidden_size",
-             "n_layers": "num_hidden_layers", "n_heads": "num_attention_heads",
-             "n_kv_heads": "num_key_value_heads",
-             "intermediate": "intermediate_size",
-             "max_seq_len": "max_position_embeddings",
-             "rope_theta": "rope_theta", "norm_eps": "rms_norm_eps"}
-
-
 @pytest.mark.parametrize("config", BENCH["configs"],
                          ids=[c["name"] for c in BENCH["configs"]])
 def test_config_is_its_published_keys(config):
@@ -91,18 +84,11 @@ def test_config_is_its_published_keys(config):
     assert conf["source"] == config["source"]
     assert conf["reduced"] == config["reduced"]
     assert set(conf["published"]) == set(config["reduced"])
-    port = conf["port"]
-    for mine, published in PORT_KEYS.items():
-        assert port[mine] == conf[published], mine
-    hd = conf.get("head_dim",
-                  conf["hidden_size"] // conf["num_attention_heads"])
-    assert port["dim"] // port["n_heads"] == hd
-    if conf.get("num_local_experts"):
-        assert port["n_experts"] == conf["num_local_experts"]
-        assert port["moe_top_k"] == conf["num_experts_per_tok"]
-        assert port["moe_aux_coef"] == conf["router_aux_loss_coef"] == \
-            conf["training"]["router_aux_loss_coef"]
-        assert port["moe_z_coef"] == conf["training"]["router_z_loss_coef"]
-        assert port["moe_dispatch"] == "grouped"
+    # The port's head width is its ``head_dim`` or, without one,
+    # ``dim // n_heads`` (``LlamaConfig.head_dim``).
+    port = {"head_dim": conf["port"]["dim"] // conf["port"]["n_heads"],
+            **conf["port"]}
+    for mine, published in archs.of(conf).port_keys(conf):
+        assert port[mine] == published, mine
     assert port["dtype"] == "bfloat16" and port["param_dtype"] == "float32"
     assert math.isclose(conf["training"]["lr"], 3e-4)

@@ -8,7 +8,7 @@ from portbench import tokens, weights
 
 from ._tiny import TINY
 
-CONF = dict(TINY, num_hidden_layers=2)
+CONF = dict(TINY, model_type="mistral", num_hidden_layers=2)
 
 
 @pytest.mark.parametrize("seed", [0, 7, 2 ** 31 + 5, 2 ** 40, -3])

@@ -6,25 +6,26 @@ The buffer is cut into chunks of ``CHUNK`` values; chunk ``i`` is one
 ``(seed, i)``, so a few large calls make the weights, and any chunk's
 initial values can be drawn again alone (:func:`initial_chunk`), which is
 how a parameter's change is measured without keeping a copy.  Each leaf
-is then scaled as the port's ``llama_init`` scales it: 0.02, the residual
-projections 0.02 / sqrt(2 L), the norms' scales set to one.
+is then scaled by the scale its architecture gives it (a norm's, 0.0, set
+to one).
 
 Leaves are named and shaped as the port's module tree names them (the
-reference takes the same names), in the tree's order.
+reference takes the same names), in the tree's order, as the
+configuration's architecture lists them (``archs/<model_type>.py``).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, Tuple
 
 import torch
 
+from . import archs
 from .tokens import seed_words
 
 CHUNK = 1 << 28          # values a draw (1 GiB of float32)
-INIT_STD = 0.02
 
 
 @dataclass(frozen=True)
@@ -54,37 +55,15 @@ class Layout:
 
 
 def layout(conf: dict) -> Layout:
-    """The leaves of ``conf`` (the configuration file's published keys)."""
-    d, v = conf["hidden_size"], conf["vocab_size"]
-    h, kv = conf["num_attention_heads"], conf["num_key_value_heads"]
-    hd = conf.get("head_dim") or d // h
-    f, n_layers = conf["intermediate_size"], conf["num_hidden_layers"]
-    e = conf.get("num_local_experts", 0)
-    resid = INIT_STD / math.sqrt(2 * n_layers)
-    spec: List[Tuple[str, Tuple[int, ...], float]] = [
-        ("embed", (v, d), INIT_STD)]
-    for i in range(n_layers):
-        p = f"layers.{i}."
-        spec += [(p + "attn_norm", (d,), 0.0),
-                 (p + "wq", (d, h, hd), INIT_STD),
-                 (p + "wk", (d, kv, hd), INIT_STD),
-                 (p + "wv", (d, kv, hd), INIT_STD),
-                 (p + "wo", (h, hd, d), resid),
-                 (p + "mlp_norm", (d,), 0.0)]
-        if e:
-            spec += [(p + "router", (d, e), INIT_STD),
-                     (p + "w_gate", (e, d, f), INIT_STD),
-                     (p + "w_up", (e, d, f), INIT_STD),
-                     (p + "w_down", (e, f, d), resid)]
-        else:
-            spec += [(p + "w_gate", (d, f), INIT_STD),
-                     (p + "w_up", (d, f), INIT_STD),
-                     (p + "w_down", (f, d), resid)]
-    spec += [("final_norm", (d,), 0.0), ("lm_head", (d, v), INIT_STD)]
+    """The leaves of ``conf`` as its architecture lists them
+    (``archs/<model_type>.py``'s ``leaves``), laid end to end."""
     leaves, off = [], 0
-    for name, shape, scale in spec:
-        leaves.append(Leaf(name, shape, off, scale))
+    for name, shape, scale in archs.of(conf).leaves(conf):
+        leaves.append(Leaf(name, tuple(shape), off, scale))
         off += math.prod(shape)
+    if "embed" not in {lf.name for lf in leaves}:
+        raise ValueError(f"{conf['model_type']}: no leaf 'embed' among the "
+                         "leaves (the check reads its rows)")
     return Layout(tuple(leaves), off)
 
 
