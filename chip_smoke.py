@@ -390,7 +390,31 @@ Phases, in order (any failure raises and exits non-zero):
    (``Optimizer.step``: the clip and the update) new against old, with
    the memory each adds at its peak.  The forms share one set of
    parameters, gradients and moments.
-26. The card's name and power limit, the ``kernels`` JSON line (launches
+26. the causal window in the flash kernels (``window_flash_phase``;
+   alone after the build: ``python3 -c "import torch, chip_smoke as cs;
+   cs.build_phase(); print(cs.window_flash_phase(torch.device('cuda',
+   0), 0))"``): the three kernels with a window against their plain
+   versions as phase 4 holds them, at Trinity-Mini's shape (``WINDOW_SHAPE``:
+   B 4, T 8192, H 32, D 128, W 2048) and small shapes (W not a multiple
+   of a tile, T = 64 mod 128, W 2, D 64); a window of T or more is the
+   causal call, bit for bit, and launches no skip; each kernel timed with
+   the window and without at ``WINDOW_SHAPE``, beside the windowed call's
+   bound.
+27. one card's share of Trinity-Mini's MoE layer (``afmoe_phase``; alone
+   after the build: ``python3 -c "import torch, chip_smoke as cs;
+   cs.build_phase(); print(cs.afmoe_phase(torch.device('cuda', 0),
+   0))"``), at the benchmark's trinitymini shapes (``AFMOE_SHARE``: B 4 x
+   T 8192, 2048 -> 1024, 64 of 128 experts held): the routing from
+   ``moe._route_sigmoid`` over 128 experts, top 8, and the layout from
+   ``grouped_layout`` with ``first_expert`` 0; the gate, up and down
+   ``gmm`` and both ``tgmm`` shapes under ``valid_tiles`` against their
+   plain versions as phase 3's skip cases hold them, each timed beside
+   its bound; ``biased_moe_ffn`` against a plain per-expert loop on the
+   same routing; and one MoE layer of the model (windowed) forward and
+   backward, its launches (``AFMOE_LAUNCHES_PER_LAYER``, skip forms
+   included) read from counters zeroed just before, and its expert bias
+   stepped once by the bias rate.
+28. The card's name and power limit, the ``kernels`` JSON line (launches
    from phase 10; each path's own counts beside them, phase 13's, the
    sequence-parallel paths ``ring_n4``, ``ring_n2`` and ``ulysses_n4``,
    ``generate``, phase 19a's, ``pp_dense`` and ``pp_moe``, phase 20's
@@ -502,6 +526,18 @@ RESUME_DISK_BYTES = 20e9        # two 2-layer steps (~8 GB each) and room
 TRAIN_GRAD_RTOL = 5e-2
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 FLASH_SHAPE = (4, 4096, 32, 128)    # the pretrain shape: B, T, H, D
+WINDOW_SHAPE = (4, 8192, 32, 128, 2048)   # Trinity-Mini's: B, T, H, D, W
+# One card's share of Trinity-Mini's MoE layer (64 of 128 experts held,
+# sigmoid top 8) at B 4 x T 8192: the benchmark's trinitymini cell.
+AFMOE_SHARE = {"batch": 4, "seq_len": 8192, "experts": 128, "held": 64}
+# One afmoe MoE layer's launches a step under remat "full": gate, up and
+# down gmm in the forward, again in the re-run, and the three dlhs gmms;
+# the three weight gradients; flash on a windowed layer (fwd + re-run).
+AFMOE_LAUNCHES_PER_LAYER = {"gmm_swiglu": 0, "gmm": 9, "gmm_skip": 9,
+                            "tgmm": 3, "tgmm_skip": 3, "flash_fwd": 2,
+                            "flash_fwd_skip": 2, "flash_dq": 1,
+                            "flash_dq_skip": 1, "flash_dkv": 1,
+                            "flash_dkv_skip": 1}
 MANY_HEADS = (1024, 64, 66, 64)     # B * H = 67584, past the old 65535
 MANY_HEADS_SLICES = (0, 993, 1023)  # from batch 993 on, every head >= 65536
 PLAIN_HEADS = 8                     # heads per plain-version call
@@ -1200,13 +1236,13 @@ def flash_bounds(b, h, t, d):
             "flash_dkv": (6 * tile + 2 * row, 4 * 2 * d * pairs)}
 
 
-def flash_run(q, k, v, do, causal=True):
+def flash_run(q, k, v, do, causal=True, window=None):
     """The three kernels as the backward chains them."""
-    o, lse = at.flash_fwd(q, k, v, causal)
+    o, lse = at.flash_fwd(q, k, v, causal, window=window)
     delta = torch.einsum("bthd,bthd->bht", do.float(), o.float()).reshape(
         -1, q.shape[1]).contiguous()
-    dq = at.flash_dq(q, k, v, do, lse, delta, causal)
-    dk, dv = at.flash_dkv(q, k, v, do, lse, delta, causal)
+    dq = at.flash_dq(q, k, v, do, lse, delta, causal, window=window)
+    dk, dv = at.flash_dkv(q, k, v, do, lse, delta, causal, window=window)
     torch.cuda.synchronize()
     return {"o": o, "lse": lse, "delta": delta, "dq": dq, "dk": dk, "dv": dv}
 
@@ -1252,14 +1288,15 @@ def negative_controls(got, ref):
             f"the flash check passed a wrong output: {name}")
 
 
-def flash_check(name, q, k, v, do, causal=True, chunk=8, controls=False):
+def flash_check(name, q, k, v, do, causal=True, chunk=8, controls=False,
+                window=None):
     """Kernels against plain versions on the same inputs (lse and delta
     are the kernels', as in training), ``chunk`` heads at a time to bound
     the plain versions' f32 [B, H, T, T] scores.  Every query row of o and
     dq and every key row of dk and dv must agree within ``FLASH_ROW_TOL``
     (:func:`row_rel_err`).  Returns (max abs errors, max row errors)."""
     b, _, h, _ = q.shape
-    out = flash_run(q, k, v, do, causal)
+    out = flash_run(q, k, v, do, causal, window)
     err = {key: 0.0 for key in ("lse", *FLASH_OUTS)}
     rel = {key: 0.0 for key in FLASH_OUTS}
     worst = {}
@@ -1269,12 +1306,13 @@ def flash_check(name, q, k, v, do, causal=True, chunk=8, controls=False):
             rows = slice(bi * h + h0, bi * h + min(h0 + chunk, h))
             qs, ks, vs, dos = (x[sl] for x in (q, k, v, do))
             lse, delta = out["lse"][rows], out["delta"][rows]
-            o_p, lse_p = at.flash_fwd_plain(qs, ks, vs, causal)
+            o_p, lse_p = at.flash_fwd_plain(qs, ks, vs, causal,
+                                            window=window)
             ref = {"o": o_p, "lse": lse_p,
                    "dq": at.flash_dq_plain(qs, ks, vs, dos, lse, delta,
-                                           causal)}
-            ref["dk"], ref["dv"] = at.flash_dkv_plain(qs, ks, vs, dos, lse,
-                                                      delta, causal)
+                                           causal, window=window)}
+            ref["dk"], ref["dv"] = at.flash_dkv_plain(
+                qs, ks, vs, dos, lse, delta, causal, window=window)
             got = {key: out[key][rows] if key == "lse" else out[key][sl]
                    for key in ref}
             for key, r in ref.items():
@@ -4185,6 +4223,200 @@ def adamw_set(name: str, cfg: LlamaConfig, dev) -> dict:
     return rec
 
 
+def window_bounds(b, h, t, d, w):
+    """:func:`flash_bounds` over the pairs a causal window of ``w`` keys
+    keeps: t (t + 1) / 2 less the (t - w)(t - w + 1) / 2 it hides."""
+    full = flash_bounds(b, h, t, d)
+    keep = (t * (t + 1) - (t - w) * (t - w + 1)) / (t * (t + 1))
+    return {name: (nbytes, flops * keep)
+            for name, (nbytes, flops) in full.items()}
+
+
+def window_flash_phase(dev, seed: int) -> dict:
+    """Phase 26 (see the docstring).  Returns each kernel's windowed and
+    windowless ms at ``WINDOW_SHAPE``, their ratio and the windowed
+    call's bound."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    b, t, h, d, w = WINDOW_SHAPE
+    for name, shape, win in (("window[100,d128]", (1, 512, 2, 128), 100),
+                             ("window[64,d128,T320]", (2, 320, 2, 128), 64),
+                             ("window[2,d64]", (1, 512, 4, 64), 2),
+                             ("window[130,d64,T192]", (1, 192, 3, 64), 130)):
+        flash_check(name, *(rnd(*shape) for _ in range(4)), window=win)
+    q, k, v, do = (rnd(1, 256, 2, 128) for _ in range(4))
+    skips = [fn.skip_launches for fn in (at.flash_fwd, at.flash_dq,
+                                         at.flash_dkv)]
+    wide, causal = flash_run(q, k, v, do, window=300), flash_run(q, k, v, do)
+    for key in ("o", "lse", "dq", "dk", "dv"):
+        assert torch.equal(wide[key], causal[key]), f"window >= T: {key}"
+    assert skips == [fn.skip_launches for fn in (at.flash_fwd, at.flash_dq,
+                                                 at.flash_dkv)]
+    del q, k, v, do, wide, causal
+
+    q, k, v, do = (rnd(b, t, h, d) for _ in range(4))
+    print(f"window: B={b} T={t} H={h} D={d} W={w} causal bf16", flush=True)
+    err, rel = flash_check("window[trinity]", q, k, v, do, window=w,
+                           chunk=PLAIN_HEADS)
+    rec = {}
+    for win in (w, None):
+        out = flash_run(q, k, v, do, window=win)
+        lse, delta = out["lse"], out["delta"]
+        del out
+        fns = {"flash_fwd": lambda: at.flash_fwd(q, k, v, window=win),
+               "flash_dq": lambda: at.flash_dq(q, k, v, do, lse, delta,
+                                               window=win),
+               "flash_dkv": lambda: at.flash_dkv(q, k, v, do, lse, delta,
+                                                 window=win)}
+        for name, fn in fns.items():
+            rec.setdefault(name, {})["window_ms" if win else "causal_ms"] = \
+                time_ms(fn, 10)
+        del lse, delta
+    bounds = window_bounds(b, h, t, d, w)
+    for name, r in rec.items():
+        r["ratio"] = r["window_ms"] / r["causal_ms"]
+        r["bound_ms"], r["bound_by"] = bound(*bounds[name])
+        r["max_row_rel_err"] = max(rel[key] for key in {
+            "flash_fwd": ("o",), "flash_dq": ("dq",),
+            "flash_dkv": ("dk", "dv")}[name])
+    print("window_flash " + json.dumps(rec), flush=True)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return rec
+
+
+def trinity_mini_share(n_layers: int = 1) -> LlamaConfig:
+    """arcee-ai/Trinity-Mini config.json widths (hidden 2048, 32 x 128
+    query heads, 4 kv heads, a 2048-key window on three layers of four,
+    experts of SwiGLU 1024 with one shared, sigmoid top 8, route scale
+    2.826, bias rate 0.001, vocab 200,192) as one card's share: the first
+    64 of 128 experts held, half the vocabulary, ``n_layers`` MoE layers
+    (no leading dense layer), trained as the benchmark's trinitymini cell
+    trains it (f32 parameters, bf16 activations, remat "full", the CE in
+    8 chunks)."""
+    return LlamaConfig(
+        vocab_size=100096, dim=2048, n_layers=n_layers, n_heads=32,
+        n_kv_heads=4, head_width=128, intermediate=6144,
+        max_seq_len=131072, rope_theta=1e4, norm_eps=1e-5,
+        dtype="bfloat16", param_dtype="float32", remat=True,
+        remat_policy="full", block="afmoe", window=2048, global_every=4,
+        n_experts=AFMOE_SHARE["experts"], experts_held=AFMOE_SHARE["held"],
+        moe_top_k=8, expert_intermediate=1024, shared_experts=1,
+        route_scale=2.826, bias_rate=1e-3, moe_dispatch="grouped",
+        moe_aux_coef=0.0, moe_z_coef=0.0, loss_chunks=8)
+
+
+def share_plain(x, weights, idx, w_gate, w_up, w_down):
+    """The held experts' part of a MoE layer, plainly: for each held
+    expert, its SwiGLU on the f32 rows of the tokens that chose it, times
+    their routing weights, added into those tokens' rows (f32)."""
+    d = x.shape[-1]
+    xf = x.reshape(-1, d).float()
+    k = idx.shape[-1]
+    flat, w = idx.reshape(-1, k), weights.reshape(-1, k).float()
+    out = torch.zeros_like(xf)
+    for e in range(w_gate.shape[0]):
+        tok, slot = (flat == e).nonzero(as_tuple=True)
+        rows = xf[tok]
+        h = torch.nn.functional.silu(rows @ w_gate[e].float()) * (
+            rows @ w_up[e].float())
+        out.index_add_(0, tok, w[tok, slot, None] * (h @ w_down[e].float()))
+    return out
+
+
+def afmoe_phase(dev, seed: int) -> dict:
+    """Phase 27 (see the docstring).  Returns the share's layout, the
+    grouped kernels' records at it, the layer's error against the plain
+    share and one MoE layer's launches a step."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 27)
+    cfg = trinity_mini_share()
+    b, t = AFMOE_SHARE["batch"], AFMOE_SHARE["seq_len"]
+    e, held, k = cfg.n_experts, cfg.experts_held, cfg.moe_top_k
+    d, f = cfg.dim, cfg.expert_intermediate
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(torch.bfloat16)
+
+    x = rnd(b, t, d)
+    router = rnd(d, e, scale=0.02)
+    bias = torch.zeros(e, device=dev)
+    weights, idx = moe._route_sigmoid(x, router, bias, k, cfg.route_scale,
+                                      0.0)
+    lay = moe.grouped_layout(idx, held, 256, first_expert=0)
+    counts = np.bincount(idx.reshape(-1).cpu().numpy(), minlength=e)
+    layout = {"M": lay.m, "bm": lay.bm, "tiles": lay.m // lay.bm,
+              "valid_tiles": int(lay.valid_tiles.item()),
+              "held_rows": int(counts[:held].sum()),
+              "slots": b * t * k, "held_rows_min": int(counts[:held].min()),
+              "held_rows_max": int(counts[:held].max())}
+    print(f"afmoe share (B{b} x T{t}, {held} of {e} held, top {k}): "
+          + json.dumps(layout), flush=True)
+    wg, wu = rnd(held, d, f, scale=0.02), rnd(held, d, f, scale=0.02)
+    wd = rnd(held, f, d, scale=0.02)
+    res = {"gmm": {}, "tgmm": {}}
+    for name, w_all in (("afmoe_gate", wg), ("afmoe_up", wu),
+                        ("afmoe_down", wd)):
+        skip_case(res, name, lay.tile_experts, lay.valid_tiles, lay.m,
+                  lay.bm, counts[:held], w_all, gen)
+
+    # The share end to end (route, layout, dispatch, the skip kernels,
+    # combine) against the plain per-expert loop on the same routing.
+    y = moe.biased_moe_ffn(x, router, wg, wu, wd, bias, top_k=k,
+                           route_scale=cfg.route_scale)
+    ref = share_plain(x, weights, idx, wg, wu, wd)
+    err = check_rel("biased_moe_ffn[afmoe share]", y.reshape(-1, d), ref,
+                    torch.arange(b * t, device=dev), KERNEL_REL_TOL)
+    del y, ref, x, wg, wu, wd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # One MoE layer (windowed, layer 0) forward and backward through the
+    # model's path, its launches read from counters zeroed just before.
+    model = llama_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                       dev, requires_grad=True)
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
+                           device=dev)
+    lp = model.layers[0]
+    skipping = [counter(n) for n in ("gmm", "tgmm") + FLASH_KERNELS]
+    zero_counters()
+    for fn in skipping:
+        fn.skip_launches = 0
+    loss = llama_loss(model, tokens, cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    launches.update({f"{n}_skip": counter(n).skip_launches
+                     for n in ("gmm", "tgmm") + FLASH_KERNELS})
+    steps = (lp.expert_bias / cfg.bias_rate).round()
+    rec = {"layout": layout, "share_max_abs_err": err, "launches": launches,
+           "loss": float(loss.detach()),
+           "bias_steps": sorted(set(steps.tolist())),
+           "bias_off_grid": (lp.expert_bias - steps * cfg.bias_rate
+                             ).abs().max().item(),
+           **{f"{kernel}[{name}]": {key: r[key] for key in (
+               "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+               "max_abs_err")}
+              for kernel, recs in res.items() for name, r in recs.items()}}
+    print("afmoe " + json.dumps(rec), flush=True)
+    assert launches == AFMOE_LAUNCHES_PER_LAYER, (
+        f"afmoe layer launches {launches}")
+    assert math.isfinite(rec["loss"])
+    # The bias stepped once: every expert by one rate, up or down (or not
+    # at all where its count is the mean).
+    assert set(rec["bias_steps"]) <= {-1.0, 0.0, 1.0} and \
+        rec["bias_steps"] != [0.0], f"bias steps {rec['bias_steps']}"
+    assert rec["bias_off_grid"] < 1e-9
+    del model, loss, tokens, lp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def adamw_phase(dev) -> dict:
     """Phase 25: each of ``ADAMW_SETS`` in turn (see the docstring)."""
     return {name: adamw_set(name, make(), dev)
@@ -4348,6 +4580,8 @@ def main(argv=None) -> int:
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     paths["one_program"] = one_program_phase(dev)
     adamw_sets = adamw_phase(dev)
+    window_flash_phase(dev, args.seed)
+    afmoe_phase(dev, args.seed)
     print(card_line())
     print(kernels_line(results, flash, paths, serve_designs,
                        generate_designs, adamw_sets))

@@ -76,6 +76,14 @@
 //   back; tools/setmaxnreg_probe.py) and read lse and delta a column group
 //   at a time.
 //
+// A causal window of W keys (query i sees keys i - W < j <= i; `window` 0
+// for none) is the template flag WIN, so the windowless kernels compile as
+// they did.  The forward and dQ start each q block's key stages at the
+// first stage its first row sees; dKV ends each key block's q stages at
+// the last stage that sees its last key.  Stages wholly outside a
+// warpgroup's rows' windows take part in the ring without work (dQ, dKV),
+// and only the stages on the window's edge are masked, as the diagonal is.
+//
 // Both backward kernels run each stage in turn within a warpgroup (scores,
 // elementwise, products, one wait each).  Issuing a stage's last products
 // back to back with the next stage's scores measured slower: ptxas
@@ -130,6 +138,12 @@ __device__ __forceinline__ HeadBlock head_block(int per_head, int H) {
   hb.b = hb.bh / H;
   hb.h = hb.bh - hb.b * H;
   return hb;
+}
+
+// The first block of `blk` keys that row `row` sees under a causal window
+// of `window` keys: the block of key row - window + 1, or block 0.
+__device__ __forceinline__ int first_block(int row, int window, int blk) {
+  return row - window + 1 > 0 ? (row - window + 1) / blk : 0;
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -214,13 +228,14 @@ struct FwdShape {
 // head counted from the last, so the longest causal rows go first);
 // consumer warpgroup c owns rows q0 + 64c + [0, 64).  Maps: q, k, v as
 // [B][T][H * D] with a box of {64, 128, 1}.
-template <int D>
+template <int D, bool WIN>
 __global__ void __launch_bounds__(FW_THREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v,
                            bf16* __restrict__ o, float* __restrict__ lse,
-                           int H, int T, float scale, int causal) {
+                           int H, int T, float scale, int causal,
+                           int window) {
   using S = FwdShape<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_smem(smem_raw);
@@ -250,15 +265,17 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
       const int qb = n_qb - 1 - hb.i;
       const int q0 = qb * FW_BQ, b = hb.b, col = hb.h * D;
       const int n_kb = causal ? qb + 1 : (T + FW_BKV - 1) / FW_BKV;
+      const int j0 = WIN ? first_block(q0, window, FW_BKV) : 0;
       hopper::mbar_arrive_expect_tx(q_full, S::TILE);
 #pragma unroll
       for (int i = 0; i < D / 64; ++i)
         hopper::tma_load_3d(smem + i * FW_BOX, &map_q, q_full, col + 64 * i,
                             q0, b);
-      for (int j = 0; j < n_kb; ++j) {
-        const int s = j % FW_STAGES;
-        if (j >= FW_STAGES)
-          hopper::mbar_wait(&empty[s], ((j / FW_STAGES) + 1) & 1);
+      for (int j = j0; j < n_kb; ++j) {
+        const int u = j - j0;  // the stage's place in the ring
+        const int s = u % FW_STAGES;
+        if (u >= FW_STAGES)
+          hopper::mbar_wait(&empty[s], ((u / FW_STAGES) + 1) & 1);
         uint8_t* kt = smem + S::KV + 2 * s * S::TILE;
         uint8_t* vt = kt + S::TILE;
         hopper::mbar_arrive_expect_tx(&k_full[s], S::TILE);
@@ -282,6 +299,7 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
   const int qb = n_qb - 1 - hb.i;
   const int q0 = qb * FW_BQ, b = hb.b, h = hb.h, bh = hb.bh;
   const int n_kb = causal ? qb + 1 : (T + FW_BKV - 1) / FW_BKV;
+  const int j0 = WIN ? first_block(q0, window, FW_BKV) : 0;
   const int c = wg - 1;
   const int t = tid % 128, w = t / 32, l = t % 32;
   const int row_lo = q0 + 64 * c + 16 * w + l / 4;  // and row_lo + 8
@@ -298,9 +316,10 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
   float lsum[2] = {0.0f, 0.0f};  // this lane's share of the row sums
 
   hopper::mbar_wait(q_full, 0);
-  for (int j = 0; j < n_kb; ++j) {
-    const int s = j % FW_STAGES;
-    const uint32_t ph = (j / FW_STAGES) & 1;
+  for (int j = j0; j < n_kb; ++j) {
+    const int u = j - j0;
+    const int s = u % FW_STAGES;
+    const uint32_t ph = (u / FW_STAGES) & 1;
     const uint8_t* kt = smem + S::KV + 2 * s * S::TILE;
     const uint8_t* vt = kt + S::TILE;
     const int k0 = j * FW_BKV;
@@ -319,9 +338,13 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
     hopper::fence_regs(sc);
 
     // Scale after the product; mask only a block that reaches past this
-    // warpgroup's first row (the diagonal) or past T.
-    const bool masked =
+    // warpgroup's first row (the diagonal) or past T, or with a window one
+    // that reaches below its last row's first key.  A row whose first stage
+    // lies wholly below its window sums exp(0) there; the next stage's
+    // correction exp(NEG_INF - max) clears it, as its own keys come later.
+    bool masked =
         (causal && k0 + FW_BKV - 1 > q0 + 64 * c) || k0 + FW_BKV > T;
+    if constexpr (WIN) masked = masked || k0 <= q0 + 64 * c + 63 - window;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < FW_BKV / 2; ++i) {
@@ -329,7 +352,9 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
       if (masked) {
         const int key = k0 + 8 * (i / 4) + 2 * (l % 4) + (i & 1);
         const int row = row_lo + 8 * ((i / 2) & 1);
-        if ((causal && key > row) || key >= T) x = NEG_INF;
+        bool hide = (causal && key > row) || key >= T;
+        if constexpr (WIN) hide = hide || key <= row - window;
+        if (hide) x = NEG_INF;
       }
       sc[i] = x;
       mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], x);
@@ -418,7 +443,7 @@ struct DqShape {
 // head counted from the last (the longest causal rows first); consumer
 // warpgroup c owns rows q0 + 64c + [0, 64).  Maps: q and do with a box of
 // {64, 128, 1}, k and v with {64, 64, 1}, all [B][T][H * D].
-template <int D>
+template <int D, bool WIN>
 __global__ void __launch_bounds__(BW_THREADS, 1)
     flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
@@ -427,7 +452,7 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           bf16* __restrict__ dq, int H, int T, float scale,
-                          int causal) {
+                          int causal, int window) {
   using S = DqShape<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_smem(smem_raw);
@@ -447,11 +472,13 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   }
   __syncthreads();
 
-  // The block's q rows [q0, q0 + 128) and its K/V stages: every key up to
-  // its last row (causal), else all.
-  auto rows = [&](const HeadBlock& hb, int& q0, int& n_kb) {
+  // The block's q rows [q0, q0 + 128) and its K/V stages j0 .. n_kb - 1:
+  // every key up to its last row (causal), else all; with a window, from
+  // the first key its first row sees.
+  auto rows = [&](const HeadBlock& hb, int& q0, int& j0, int& n_kb) {
     const int qb = (T + BW_BLOCK - 1) / BW_BLOCK - 1 - hb.i;
     q0 = qb * BW_BLOCK;
+    j0 = WIN ? first_block(q0, window, BW_STEP) : 0;
     n_kb = causal ? min(2 * qb + 2, T / BW_STEP) : T / BW_STEP;
   };
   const int n_qb = (T + BW_BLOCK - 1) / BW_BLOCK;
@@ -460,8 +487,8 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
     hopper::setmaxnreg_dec<PRODUCER_REGS>();
     if (tid == BW_CONSUMERS) {
       const HeadBlock hb = head_block(n_qb, H);
-      int q0, n_kb;
-      rows(hb, q0, n_kb);
+      int q0, j0, n_kb;
+      rows(hb, q0, j0, n_kb);
       const int b = hb.b, col = hb.h * D;
       hopper::mbar_arrive_expect_tx(qo_full, 2 * S::QT);
 #pragma unroll
@@ -471,10 +498,11 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
         hopper::tma_load_3d(smem + S::DO + i * FW_BOX, &map_do, qo_full,
                             col + 64 * i, q0, b);
       }
-      for (int j = 0; j < n_kb; ++j) {
-        const int s = j % DQ_STAGES;
-        if (j >= DQ_STAGES)
-          hopper::mbar_wait(&empty[s], ((j / DQ_STAGES) + 1) & 1);
+      for (int j = j0; j < n_kb; ++j) {
+        const int u = j - j0;  // the stage's place in the ring
+        const int s = u % DQ_STAGES;
+        if (u >= DQ_STAGES)
+          hopper::mbar_wait(&empty[s], ((u / DQ_STAGES) + 1) & 1);
         uint8_t* kt = smem + S::KV + 2 * s * S::KT;
         uint8_t* vt = kt + S::KT;
         hopper::mbar_arrive_expect_tx(&full[s], 2 * S::KT);
@@ -490,15 +518,16 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   } else {
     hopper::setmaxnreg_inc<CONSUMER_REGS>();
     const HeadBlock hb = head_block(n_qb, H);
-    int q0, n_kb;
-    rows(hb, q0, n_kb);
+    int q0, j0, n_kb;
+    rows(hb, q0, j0, n_kb);
     const int c = tid / 128;
     const int t = tid % 128, w = t / 32, l = t % 32;
     const int r0 = q0 + 64 * c;               // this warpgroup's first row
     const int row_lo = r0 + 16 * w + l / 4;   // and row_lo + 8
     // Rows past T (T % 128 == 64, the last block's second half) have no
     // work; causal stages past the diagonal (keys all after the last row)
-    // have none either.  Both still take part in the ring.
+    // have none either, nor, with a window, stages wholly below the first
+    // key of this warpgroup's last row.  All still take part in the ring.
     const bool active = r0 < T;
     const int last = causal ? r0 / BW_STEP : n_kb - 1;
     const uint64_t q_desc = hopper::desc_b128(smem + S::Q + c * 64 * 128, 16,
@@ -520,14 +549,15 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
     float sc[32], dp[32];  // S, dP of the stage in hand: [64 rows][64 keys]
     uint32_t da[4][4];     // its dS, rounded: the A operand of dQ += dS K
 
+    // Key stage j is the ring's stage j - j0.
     auto stage = [&](int j) {
-      return smem + S::KV + 2 * (j % DQ_STAGES) * S::KT;
+      return smem + S::KV + 2 * ((j - j0) % DQ_STAGES) * S::KT;
     };
     auto wait_full = [&](int j) {
-      hopper::mbar_wait(&full[j % DQ_STAGES], (j / DQ_STAGES) & 1);
+      hopper::mbar_wait(&full[(j - j0) % DQ_STAGES], ((j - j0) / DQ_STAGES) & 1);
     };
     auto release = [&](int j) {
-      if (t == 0) hopper::mbar_arrive(&empty[j % DQ_STAGES]);
+      if (t == 0) hopper::mbar_arrive(&empty[(j - j0) % DQ_STAGES]);
     };
     // S = Q K^T and dP = dO V^T of stage j, issued and committed.
     auto issue_scores = [&](int j) {
@@ -554,7 +584,8 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
       hopper::fence_regs(sc);
       hopper::fence_regs(dp);
       const int k0 = j * BW_STEP;
-      const bool masked = causal && k0 + BW_STEP - 1 > r0;
+      bool masked = causal && k0 + BW_STEP - 1 > r0;
+      if constexpr (WIN) masked = masked || k0 <= r0 + BW_STEP - 1 - window;
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
 #pragma unroll
@@ -565,8 +596,10 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
           for (int e = 0; e < 2; ++e) {
             const int i = 8 * ks + 2 * q + e;
             float x = sc[i] * scale;
-            if (masked && k0 + 8 * (i / 4) + 2 * (l % 4) + e > row_lo + 8 * r)
-              x = NEG_INF;
+            const int key = k0 + 8 * (i / 4) + 2 * (l % 4) + e;
+            bool hide = key > row_lo + 8 * r;
+            if constexpr (WIN) hide = hide || key <= row_lo + 8 * r - window;
+            if (masked && hide) x = NEG_INF;
             const float p = __expf(x - lse_r[r]);
             ds[e] = p * (dp[i] - dl_r[r]);
           }
@@ -590,9 +623,18 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
       for (int ks = 0; ks < 4; ++ks) hopper::fence_regs(da[ks]);
     };
 
-    const int n_work = active ? last + 1 : 0;  // stages 0 .. n_work - 1
+    // Stages w0 .. n_work - 1 have work for this warpgroup.
+    const int n_work = active ? last + 1 : 0;
+    int w0 = 0;
+    if constexpr (WIN)
+      w0 = active ? max(j0, first_block(r0, window, BW_STEP))
+                  : j0;
     hopper::mbar_wait(qo_full, 0);
-    for (int j = 0; j < n_work; ++j) {
+    for (int j = j0; j < w0; ++j) {
+      wait_full(j);
+      release(j);
+    }
+    for (int j = w0; j < n_work; ++j) {
       wait_full(j);
       issue_scores(j);
       hopper::wgmma_wait<0>();
@@ -601,7 +643,7 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
       retire();
       release(j);
     }
-    for (int j = n_work; j < n_kb; ++j) {
+    for (int j = max(n_work, w0); j < n_kb; ++j) {
       wait_full(j);
       release(j);
     }
@@ -633,7 +675,7 @@ struct DkvShape {
 // counted from the first (under causal the low keys see the most q rows);
 // consumer warpgroup c owns keys k0 + 64c + [0, 64).  Maps: k and v with a
 // box of {64, 128, 1}, q and do with {64, 64, 1}, all [B][T][H * D].
-template <int D>
+template <int D, bool WIN>
 __global__ void __launch_bounds__(BW_THREADS, 1)
     flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
@@ -642,7 +684,8 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            bf16* __restrict__ dk, bf16* __restrict__ dv,
-                           int H, int T, float scale, int causal) {
+                           int H, int T, float scale, int causal,
+                           int window) {
   using S = DkvShape<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_smem(smem_raw);
@@ -662,10 +705,14 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   }
   __syncthreads();
 
-  // The block's keys [k0, k0 + 128) and its first Q/dO stage: every q row
-  // from its first key on (causal), else all.
+  // The block's keys [k0, k0 + 128) and its Q/dO stages first .. end - 1:
+  // every q row from its first key on (causal), else all; with a window, up
+  // to the last row that sees its last key.
   const int n_kb = (T + BW_BLOCK - 1) / BW_BLOCK;
   const int n_qs = T / BW_STEP;
+  auto q_end = [&](int key_last) {
+    return WIN ? min(n_qs, (key_last + window - 1) / BW_STEP + 1) : n_qs;
+  };
 
   if (tid >= BW_CONSUMERS) {
     hopper::setmaxnreg_dec<PRODUCER_REGS>();
@@ -673,6 +720,7 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
       const HeadBlock hb = head_block(n_kb, H);
       const int k0 = hb.i * BW_BLOCK, b = hb.b, col = hb.h * D;
       const int first = causal ? k0 / BW_STEP : 0;
+      const int end = q_end(k0 + BW_BLOCK - 1);
       const float* lse_j = lse + static_cast<int64_t>(hb.bh) * T;
       const float* dl_j = delta + static_cast<int64_t>(hb.bh) * T;
       hopper::mbar_arrive_expect_tx(kv_full, 2 * S::KT);
@@ -683,7 +731,7 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
         hopper::tma_load_3d(smem + S::V + i * FW_BOX, &map_v, kv_full,
                             col + 64 * i, k0, b);
       }
-      for (int j = first; j < n_qs; ++j) {
+      for (int j = first; j < end; ++j) {
         const int u = j - first;
         const int s = u % DKV_STAGES;
         if (u >= DKV_STAGES)
@@ -708,13 +756,16 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
     const HeadBlock hb = head_block(n_kb, H);
     const int k0 = hb.i * BW_BLOCK;
     const int first = causal ? k0 / BW_STEP : 0;
+    const int end = q_end(k0 + BW_BLOCK - 1);
     const int c = tid / 128;
     const int t = tid % 128, w = t / 32, l = t % 32;
     const int kc = k0 + 64 * c;               // this warpgroup's first key
     const int key_lo = kc + 16 * w + l / 4;   // and key_lo + 8
     // Keys past T (T % 128 == 64, the last block's second half) have no
     // work; causal stages before the diagonal (q rows all before the first
-    // key) have none either.  Both still take part in the ring.
+    // key) have none either, nor, with a window, stages wholly past the
+    // last row that sees this warpgroup's last key.  All still take part
+    // in the ring.
     const bool active = kc < T;
     const int first_c = causal ? kc / BW_STEP : 0;
     const uint64_t k_desc = hopper::desc_b128(smem + S::K + c * 64 * 128, 16,
@@ -772,7 +823,8 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
       const float* s_lse = reinterpret_cast<const float*>(stage(u) + 2 * S::QT);
       const float* s_dl = s_lse + 64;
       const int q0 = (first + u) * BW_STEP;
-      const bool masked = causal && q0 < kc + BW_STEP - 1;
+      bool masked = causal && q0 < kc + BW_STEP - 1;
+      if constexpr (WIN) masked = masked || q0 + BW_STEP - 1 >= kc + window;
 #pragma unroll
       for (int jc = 0; jc < 8; ++jc) {
         const int qc = 8 * jc + 2 * (l % 4);
@@ -785,6 +837,10 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
           if (masked) {
             if (key_lo + 8 * r > q0 + qc) x0 = NEG_INF;
             if (key_lo + 8 * r > q0 + qc + 1) x1 = NEG_INF;
+            if constexpr (WIN) {
+              if (q0 + qc - (key_lo + 8 * r) >= window) x0 = NEG_INF;
+              if (q0 + qc + 1 - (key_lo + 8 * r) >= window) x1 = NEG_INF;
+            }
           }
           const float p0 = __expf(x0 - lq.x), p1 = __expf(x1 - lq.y);
           pa[jc / 2][2 * (jc % 2) + r] = pack_bf16(p0, p1);
@@ -819,22 +875,28 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
       }
     };
 
-    // Ring stages 0 .. u0 - 1 have no work for this warpgroup, u0 .. n - 1
-    // do (none if its keys lie past T).
-    const int n = n_qs - first;
+    // Ring stages 0 .. u0 - 1 have no work for this warpgroup, u0 .. u1 - 1
+    // do (none if its keys lie past T), u1 .. n - 1 none.
+    const int n = end - first;
     const int u0 = active ? first_c - first : n;
+    int u1 = n;
+    if constexpr (WIN) u1 = active ? q_end(kc + BW_STEP - 1) - first : n;
     hopper::mbar_wait(kv_full, 0);
     for (int u = 0; u < u0; ++u) {
       wait_full(u);
       release(u);
     }
-    for (int u = u0; u < n; ++u) {
+    for (int u = u0; u < u1; ++u) {
       wait_full(u);
       issue_scores(u);
       hopper::wgmma_wait<0>();
       make_p_ds(u);
       issue_dkv(u);
       retire();
+      release(u);
+    }
+    for (int u = u1; u < n; ++u) {
+      wait_full(u);
       release(u);
     }
 
@@ -851,9 +913,11 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
 // Launchers
 // ---------------------------------------------------------------------------
 
-bool bad_args(int B, int H, int T, int D) {
+// A window (keys i - window < j <= i for query i; 0 for none) is taken
+// under the causal mask only.
+bool bad_args(int B, int H, int T, int D, int causal, int window) {
   return B <= 0 || H <= 0 || T <= 0 || T % T_GRAIN != 0 ||
-         (D != 64 && D != 128);
+         (D != 64 && D != 128) || window < 0 || (window > 0 && !causal);
 }
 
 // Blocks of a grid of `per_head` blocks for each of B * H heads, or -1 if
@@ -888,7 +952,8 @@ int launch_1d(Kernel kernel, int64_t blocks, int threads, int smem,
 
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-        int B, int H, int T, float scale, int causal, void* stream) {
+        int B, int H, int T, float scale, int causal, int window,
+        void* stream) {
   if (hopper::encode_tiled() == nullptr)
     return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap map_q, map_k, map_v;
@@ -896,17 +961,18 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
       !head_map(&map_k, k, B, H, T, D, FW_BKV) ||
       !head_map(&map_v, v, B, H, T, D, FW_BKV))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_1d(flash_fwd_wgmma_kernel<D>,
+  return launch_1d(window ? flash_fwd_wgmma_kernel<D, true>
+                          : flash_fwd_wgmma_kernel<D, false>,
                    grid_blocks(B, H, (T + FW_BQ - 1) / FW_BQ), FW_THREADS,
                    FwdShape<D>::SMEM, stream, map_q, map_k, map_v,
                    static_cast<bf16*>(o), static_cast<float*>(lse), H, T,
-                   scale, causal);
+                   scale, causal, window);
 }
 
 template <int D>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dq_out, int B, int H, int T,
-       float scale, int causal, void* stream) {
+       float scale, int causal, int window, void* stream) {
   if (hopper::encode_tiled() == nullptr)
     return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap map_q, map_k, map_v, map_do;
@@ -915,18 +981,19 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
       !head_map(&map_v, v, B, H, T, D, BW_STEP) ||
       !head_map(&map_do, dout, B, H, T, D, BW_BLOCK))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_1d(flash_dq_wgmma_kernel<D>,
+  return launch_1d(window ? flash_dq_wgmma_kernel<D, true>
+                          : flash_dq_wgmma_kernel<D, false>,
                    grid_blocks(B, H, (T + BW_BLOCK - 1) / BW_BLOCK),
                    BW_THREADS, DqShape<D>::SMEM, stream, map_q, map_k, map_v,
                    map_do, static_cast<const float*>(lse),
                    static_cast<const float*>(delta),
-                   static_cast<bf16*>(dq_out), H, T, scale, causal);
+                   static_cast<bf16*>(dq_out), H, T, scale, causal, window);
 }
 
 template <int D>
 int dkv(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dk, void* dv, int B, int H,
-        int T, float scale, int causal, void* stream) {
+        int T, float scale, int causal, int window, void* stream) {
   if (hopper::encode_tiled() == nullptr)
     return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap map_q, map_k, map_v, map_do;
@@ -935,12 +1002,13 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
       !head_map(&map_v, v, B, H, T, D, BW_BLOCK) ||
       !head_map(&map_do, dout, B, H, T, D, BW_STEP))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_1d(flash_dkv_wgmma_kernel<D>,
+  return launch_1d(window ? flash_dkv_wgmma_kernel<D, true>
+                          : flash_dkv_wgmma_kernel<D, false>,
                    grid_blocks(B, H, (T + BW_BLOCK - 1) / BW_BLOCK),
                    BW_THREADS, DkvShape<D>::SMEM, stream, map_q, map_k, map_v,
                    map_do, static_cast<const float*>(lse),
                    static_cast<const float*>(delta), static_cast<bf16*>(dk),
-                   static_cast<bf16*>(dv), H, T, scale, causal);
+                   static_cast<bf16*>(dv), H, T, scale, causal, window);
 }
 
 }  // namespace
@@ -950,34 +1018,39 @@ extern "C" {
 // o, lse = attention(q, k, v).  Returns a cudaError_t code.
 int kctpu_flash_fwd(const void* q, const void* k, const void* v, void* o,
                     void* lse, int B, int H, int T, int D, float scale,
-                    int causal, void* stream) {
-  if (bad_args(B, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
-  return D == 64 ? fwd<64>(q, k, v, o, lse, B, H, T, scale, causal, stream)
-                 : fwd<128>(q, k, v, o, lse, B, H, T, scale, causal, stream);
+                    int causal, int window, void* stream) {
+  if (bad_args(B, H, T, D, causal, window))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return D == 64 ? fwd<64>(q, k, v, o, lse, B, H, T, scale, causal, window,
+                           stream)
+                 : fwd<128>(q, k, v, o, lse, B, H, T, scale, causal, window,
+                            stream);
 }
 
 // dq from (q, k, v, do, lse, delta = rowsum(do * o)).
 int kctpu_flash_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq_out, int B, int H, int T, int D, float scale,
-                   int causal, void* stream) {
-  if (bad_args(B, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
+                   int causal, int window, void* stream) {
+  if (bad_args(B, H, T, D, causal, window))
+    return static_cast<int>(cudaErrorInvalidValue);
   return D == 64 ? dq<64>(q, k, v, dout, lse, delta, dq_out, B, H, T, scale,
-                          causal, stream)
+                          causal, window, stream)
                  : dq<128>(q, k, v, dout, lse, delta, dq_out, B, H, T, scale,
-                           causal, stream);
+                           causal, window, stream);
 }
 
 // dk, dv from the same inputs.
 int kctpu_flash_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, int B, int H, int T, int D,
-                    float scale, int causal, void* stream) {
-  if (bad_args(B, H, T, D)) return static_cast<int>(cudaErrorInvalidValue);
+                    float scale, int causal, int window, void* stream) {
+  if (bad_args(B, H, T, D, causal, window))
+    return static_cast<int>(cudaErrorInvalidValue);
   return D == 64 ? dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, T, scale,
-                           causal, stream)
+                           causal, window, stream)
                  : dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, T,
-                            scale, causal, stream);
+                            scale, causal, window, stream);
 }
 
 }  // extern "C"

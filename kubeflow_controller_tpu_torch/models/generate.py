@@ -80,6 +80,7 @@ from .llama import (
     apply_rope,
     ffn_block,
     model_mesh,
+    one_card_only,
     rmsnorm,
     rope_tables,
     stage_tokens,
@@ -130,7 +131,9 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
     """The zeroed contiguous cache: ``k``/``v`` ``[L, B, S, kvH, D]`` in
     ``cfg.dtype``, or with ``quantize`` int8 with f32 ``k_scale``/
     ``v_scale`` ``[L, B, S, kvH]``.  With ``mesh``, DTensors placed by
-    :func:`cache_placements`, each process allocating its shard only."""
+    :func:`cache_placements`, each process allocating its shard only.
+    Serving takes the "llama" block only (``llama.one_card_only``)."""
+    one_card_only(cfg, "serving and generation")
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     if quantize:
@@ -176,6 +179,7 @@ def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def init_paged_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
                      device: DeviceLike = "cuda") -> Cache:
     """The physical row pool shared by every slot (page 0 = scratch)."""
+    one_card_only(cfg, "serving and generation")
     dev = resolve_device(device)
     shape = (cfg.n_layers, num_pages * page_size, cfg.n_kv_heads,
              cfg.head_dim)

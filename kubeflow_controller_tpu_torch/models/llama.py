@@ -80,15 +80,46 @@ from ..parallel.sharding import (
     with_logical_constraint,
 )
 from ..parallel.ulysses import ulysses_attention_local
-from .moe import moe_ffn, moe_ffn_stats
+from .moe import biased_moe_ffn, moe_ffn, moe_ffn_stats
 from .remat import checkpoint_name, remat
+
+
+BLOCKS = ("llama", "afmoe")
 
 
 @dataclass(frozen=True)
 class LlamaConfig:
-    """A copy of the reference's ``LlamaConfig``: same fields, same
-    defaults, so one set of keyword arguments builds either package's
-    config."""
+    """The reference's ``LlamaConfig`` fields, with the same defaults, so one
+    set of those keyword arguments builds either package's config; then
+    fields of the port's own (after ``sp_attention``), whose defaults leave
+    a config as the reference's fields make it:
+
+    - ``block``: the layer's equations.  "llama": pre-norm, RoPE on every
+      layer.  "afmoe" (AFMoE, Trinity): the embedding scaled by
+      sqrt(dim); per-head RMSNorm of q and k; a sigmoid gate (``a @
+      attn_gate``) on the attention output; RoPE on the windowed layers
+      only; an RMSNorm after each sublayer as well as before it; and a MoE
+      layer routes by sigmoid score: the top k of sigmoid(logits) + an
+      expert bias, the weights the chosen scores normalised and times
+      ``route_scale``, the bias stepped by ``bias_rate`` after each step's
+      backward (aux-loss-free balancing, no router loss;
+      ``models/moe.py:biased_moe_ffn``).  "llama" routes by softmax
+      (Mixtral).
+    - ``head_width``: the head width, 0 for ``dim // n_heads``
+      (:attr:`head_dim` reads the width in use).
+    - ``window``, ``global_every``: a causal window of ``window`` keys on
+      every layer but each ``global_every``-th (layers ``global_every - 1,
+      2 global_every - 1, ...``); 0: no window / every layer windowed.
+    - ``dense_layers``: in a MoE config, the leading layers that keep the
+      dense FFN (``intermediate`` wide).
+    - ``expert_intermediate``: the routed and shared experts' width, 0 for
+      ``intermediate``; ``shared_experts``: shared experts beside the
+      routed ones (one SwiGLU ``shared_experts`` times as wide).
+    - ``experts_held``: the experts this card holds, the first of
+      ``n_experts`` that the router scores (0: all of them).
+
+    The pp, sp and mesh paths and serving take none of the port's own
+    fields but ``head_width`` (:func:`one_card_only`)."""
 
     vocab_size: int = 32000
     dim: int = 4096
@@ -112,10 +143,31 @@ class LlamaConfig:
     loss_chunks: int = 0
     attention: str = "auto"
     sp_attention: str = "ring"
+    block: str = "llama"
+    head_width: int = 0
+    window: int = 0
+    global_every: int = 0
+    dense_layers: int = 0
+    expert_intermediate: int = 0
+    shared_experts: int = 0
+    route_scale: float = 1.0
+    bias_rate: float = 0.0
+    experts_held: int = 0
+
+    def __post_init__(self):
+        if self.block not in BLOCKS:
+            raise ValueError(f"unknown block {self.block!r}; one of {BLOCKS}")
+        if not 0 <= self.experts_held <= self.n_experts:
+            raise ValueError(f"experts_held {self.experts_held} is not "
+                             f"within n_experts {self.n_experts}")
+        if self.block == "afmoe" and self.n_experts and \
+                self.moe_dispatch != "grouped":
+            raise ValueError("the afmoe block's sigmoid routing runs the "
+                             f"grouped dispatch, not {self.moe_dispatch!r}")
 
     @property
     def head_dim(self) -> int:
-        return self.dim // self.n_heads
+        return self.head_width or self.dim // self.n_heads
 
     @staticmethod
     def llama2_7b() -> "LlamaConfig":
@@ -141,26 +193,52 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 
 class LlamaLayer(nn.Module):
-    """One decoder layer's parameters, named as the JAX pytree's
-    ``params["layers"]`` keys (without the leading layer axis)."""
+    """Layer ``index``'s parameters, named as the JAX pytree's
+    ``params["layers"]`` keys (without the leading layer axis), then the
+    port's own: an "afmoe" block's q/k norms (``q_norm``, ``k_norm``
+    [head_dim]), output gate (``attn_gate`` [D, H, head_dim]) and norms
+    after each sublayer (``post_attn_norm``, ``post_mlp_norm``); a MoE
+    layer's shared expert (``shared_gate``, ``shared_up``, ``shared_down``)
+    and, in an "afmoe" block, its ``expert_bias`` [n_experts] f32, a
+    buffer.  ``window`` is the layer's causal window (None: global) and
+    ``moe`` whether it routes."""
 
     def __init__(self, cfg: LlamaConfig, device: torch.device,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, index: int = 0):
         super().__init__()
         d, hd, nh, nkv = cfg.dim, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
         f = cfg.intermediate
+        g = cfg.global_every
+        global_layer = bool(g) and index % g == g - 1
+        self.window = None if global_layer or not cfg.window else cfg.window
+        self.moe = bool(cfg.n_experts) and index >= cfg.dense_layers
         self.attn_norm = _param((d,), dtype, device)
         self.wq = _param((d, nh, hd), dtype, device)
         self.wk = _param((d, nkv, hd), dtype, device)
         self.wv = _param((d, nkv, hd), dtype, device)
         self.wo = _param((nh, hd, d), dtype, device)
         self.mlp_norm = _param((d,), dtype, device)
-        if cfg.n_experts:
-            e = cfg.n_experts
-            self.router = _param((d, e), dtype, device)
+        if cfg.block == "afmoe":
+            self.q_norm = _param((hd,), dtype, device)
+            self.k_norm = _param((hd,), dtype, device)
+            self.attn_gate = _param((d, nh, hd), dtype, device)
+            self.post_attn_norm = _param((d,), dtype, device)
+            self.post_mlp_norm = _param((d,), dtype, device)
+        if self.moe:
+            e = cfg.experts_held or cfg.n_experts
+            f = cfg.expert_intermediate or f
+            self.router = _param((d, cfg.n_experts), dtype, device)
             self.w_gate = _param((e, d, f), dtype, device)
             self.w_up = _param((e, d, f), dtype, device)
             self.w_down = _param((e, f, d), dtype, device)
+            if cfg.shared_experts:
+                fs = f * cfg.shared_experts
+                self.shared_gate = _param((d, fs), dtype, device)
+                self.shared_up = _param((d, fs), dtype, device)
+                self.shared_down = _param((fs, d), dtype, device)
+            if cfg.block == "afmoe":
+                self.register_buffer("expert_bias", torch.zeros(
+                    cfg.n_experts, dtype=torch.float32, device=device))
         else:
             self.w_gate = _param((d, f), dtype, device)
             self.w_up = _param((d, f), dtype, device)
@@ -199,9 +277,9 @@ class Llama(nn.Module):
         self.embed = _param((cfg.vocab_size, cfg.dim), dtype, dev)
         if layers is None:
             self.layers = nn.ModuleList(
-                LlamaLayer(cfg, dev, dtype) for _ in range(cfg.n_layers))
+                LlamaLayer(cfg, dev, dtype, i) for i in range(cfg.n_layers))
         else:
-            self.layers = StageLayers({i: LlamaLayer(cfg, dev, dtype)
+            self.layers = StageLayers({i: LlamaLayer(cfg, dev, dtype, i)
                                        for i in layers})
         self.final_norm = _param((cfg.dim,), dtype, dev)
         self.lm_head = _param((cfg.dim, cfg.vocab_size), dtype, dev)
@@ -228,7 +306,9 @@ def llama_init(cfg: LlamaConfig, generator: torch.Generator,
     alive at a time.  On a mesh with a pp axis above 1 the module holds
     this process's stage's layers only (:func:`stage_layers`); the other
     layers' values are drawn and dropped, so that every stage draws what
-    the whole model would."""
+    the whole model would.  An "afmoe" layer draws its own leaves after
+    those (norms one, the gate and shared expert 0.02, the shared down
+    projection by depth); an expert bias starts at zero."""
     resid_scale = 0.02 / (2 * cfg.n_layers) ** 0.5
     if mesh is None:
         model = Llama(cfg, device, requires_grad)
@@ -243,6 +323,7 @@ def llama_init(cfg: LlamaConfig, generator: torch.Generator,
         def ones_(p: nn.Parameter) -> None:
             p.fill_(1.0)
     else:
+        one_card_only(cfg, "the sharded init")
         own = stage_layers(cfg, mesh)
         model = Llama(cfg, "meta", requires_grad, layers=own)
         dev = resolve_device(device)
@@ -252,7 +333,7 @@ def llama_init(cfg: LlamaConfig, generator: torch.Generator,
         layers = (list(model.layers) if own is None else [
             model.layers.get_submodule(str(i)) if i in own
             else LlamaLayer(cfg, torch.device("meta"),
-                            torch_dtype(cfg.param_dtype))
+                            torch_dtype(cfg.param_dtype), i)
             for i in range(cfg.n_layers)])
 
         def _shard(p: nn.Parameter, full: torch.Tensor) -> None:
@@ -278,11 +359,20 @@ def llama_init(cfg: LlamaConfig, generator: torch.Generator,
         for p in (lp.wq, lp.wk, lp.wv):
             normal_(p)
         normal_(lp.wo, resid_scale)
-        if cfg.n_experts:
+        if lp.moe:
             normal_(lp.router)
         normal_(lp.w_gate)
         normal_(lp.w_up)
         normal_(lp.w_down, resid_scale)
+        if cfg.block == "afmoe":
+            for p in (lp.q_norm, lp.k_norm, lp.post_attn_norm,
+                      lp.post_mlp_norm):
+                ones_(p)
+            normal_(lp.attn_gate)
+        if lp.moe and cfg.shared_experts:
+            normal_(lp.shared_gate)
+            normal_(lp.shared_up)
+            normal_(lp.shared_down, resid_scale)
     ones_(model.final_norm)
     normal_(model.lm_head)
     return model
@@ -386,6 +476,24 @@ def _refuse_pp(mesh) -> None:
                          "llama_loss_and_grads_pp")
 
 
+# The port's own fields that only the single-card training path takes, with
+# the values that leave a config as the reference's fields make it.
+ONE_CARD_FIELDS = (("block", "llama"), ("window", 0), ("dense_layers", 0),
+                   ("shared_experts", 0), ("experts_held", 0))
+
+
+def one_card_only(cfg: LlamaConfig, path: str) -> None:
+    """Refuse, naming the field, a config that ``path`` (the pp, sp or
+    mesh paths, serving) does not take: one with any of
+    :data:`ONE_CARD_FIELDS` set."""
+    for name, plain in ONE_CARD_FIELDS:
+        if getattr(cfg, name) != plain:
+            raise ValueError(f"{path} does not take {name}="
+                             f"{getattr(cfg, name)!r}: only the single-card "
+                             "training path (llama_loss without a mesh) "
+                             "does")
+
+
 def _placements(model: Llama, sub, rules: ShardingRules) -> dict:
     """``id(parameter) -> (owner module, attribute, sub, placements)`` for
     every parameter of ``model``, placed by ``llama_param_logical_axes``
@@ -421,6 +529,7 @@ def shard_llama(model: Llama, mesh, rules: ShardingRules = DEFAULT_RULES
     whole model.)"""
     from torch.distributed.tensor import distribute_tensor
 
+    one_card_only(model.cfg, "shard_llama")
     for module, name, sub, placements in _placements(
             model, model_mesh(mesh), rules).values():
         p = getattr(module, name)
@@ -500,14 +609,32 @@ def ffn_block(h: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig,
               mesh=None) -> torch.Tensor:
     """SwiGLU FFN or MoE on [B, T, D] activations (DTensors under a
     mesh: tp shards the mlp dim, the down projection's partial sums meet
-    in one all-reduce; MoE runs per shard, ``models/moe.py``)."""
+    in one all-reduce; MoE runs per shard, ``models/moe.py``).  In an
+    "afmoe" block a MoE layer is :func:`moe.biased_moe_ffn` on the
+    experts this card holds, plus its shared expert."""
     dtype = h.dtype
-    if cfg.n_experts:
+    if lp.moe and cfg.block == "afmoe":
+        y = biased_moe_ffn(h, *_moe_weights(lp, dtype),
+                           _expert_bias(lp, h.device), top_k=cfg.moe_top_k,
+                           route_scale=cfg.route_scale,
+                           bias_rate=cfg.bias_rate)
+        if cfg.shared_experts:
+            y = _swiglu(h, lp.shared_gate, lp.shared_up, lp.shared_down,
+                        rules) + y
+        return y
+    if lp.moe:
         return moe_ffn(h, *_moe_weights(lp, dtype), top_k=cfg.moe_top_k,
                        capacity_factor=cfg.capacity_factor,
                        dispatch=cfg.moe_dispatch, mesh=mesh)
-    w_gate, w_up = _w(lp.w_gate, dtype), _w(lp.w_up, dtype)
-    w_down = _w(lp.w_down, dtype)
+    return _swiglu(h, lp.w_gate, lp.w_up, lp.w_down, rules)
+
+
+def _swiglu(h: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+            w_down: torch.Tensor, rules: ShardingRules) -> torch.Tensor:
+    """The dense SwiGLU FFN ``(silu(h Wg) * (h Wu)) Wd`` through ``_mm``."""
+    dtype = h.dtype
+    w_gate, w_up = _w(w_gate, dtype), _w(w_up, dtype)
+    w_down = _w(w_down, dtype)
     with checkpoint_name("ffn_gate"):
         gate = _mm(h, w_gate)
     with checkpoint_name("ffn_up"):
@@ -534,6 +661,15 @@ def _moe_weights(lp: LlamaLayer, dtype: torch.dtype):
     gathered over dp and fsdp, still sharded over ep and tp)."""
     return tuple(_w(p, dtype) for p in (lp.router, lp.w_gate, lp.w_up,
                                         lp.w_down))
+
+
+def _expert_bias(lp: LlamaLayer, device: torch.device) -> torch.Tensor:
+    """The layer's expert bias.  A model built on the meta device whose
+    parameters are set afterwards (as the benchmark builds it) has none
+    yet: its bias starts at zero here, on ``device``."""
+    if lp.expert_bias.is_meta:
+        lp.expert_bias = torch.zeros_like(lp.expert_bias, device=device)
+    return lp.expert_bias
 
 
 # ---------------------------------------------------------------------------
@@ -570,7 +706,8 @@ KV_AXES = ("batch", "seq", "kv_heads", "head_dim")
 
 @in_step_span("kctpu.attention")
 def _attention(q, k, v, causal: bool, cfg: Optional[LlamaConfig] = None,
-               mesh=None, rules: ShardingRules = DEFAULT_RULES):
+               mesh=None, rules: ShardingRules = DEFAULT_RULES,
+               window: Optional[int] = None):
     """The reference's single-device and flash branches: the flash kernels
     where they apply (``_flash_path``), else the f32 reference attention.
     k and v carry the kv heads; GQA repeats them to the query heads.
@@ -580,9 +717,12 @@ def _attention(q, k, v, causal: bool, cfg: Optional[LlamaConfig] = None,
     shard the batch, tp the heads (q's heads and the kv heads alike, so a
     shard's query heads read its own kv heads: H/tp = repeats * KV/tp).
     An sp axis above 1 shards T, and each shard runs ring or Ulysses
-    attention over the mesh's sp group (:func:`_sp_attention`)."""
+    attention over the mesh's sp group (:func:`_sp_attention`).
+
+    ``window``: a causal window of that many keys (single card only)."""
     if mesh is None:
-        return _local_attention(q, k, v, causal=causal, cfg=cfg)
+        return _local_attention(q, k, v, causal=causal, cfg=cfg,
+                                window=window)
     from functools import partial
 
     from torch.distributed.tensor.experimental import local_map
@@ -631,16 +771,18 @@ def _sp_attention(q, k, v, *, group, causal: bool,
 
 
 def _local_attention(q, k, v, *, causal: bool,
-                     cfg: Optional[LlamaConfig]) -> torch.Tensor:
+                     cfg: Optional[LlamaConfig],
+                     window: Optional[int] = None) -> torch.Tensor:
     k, v = _repeat_kv(q, k, v)
     if cfg is not None and cfg.attention in ("auto", "flash"):
-        out = _flash_path(q, k, v, causal, cfg)
+        out = _flash_path(q, k, v, causal, cfg, window)
         if out is not None:
             return out
-    return attention_reference(q, k, v, causal=causal)
+    return attention_reference(q, k, v, causal=causal, window=window)
 
 
-def _flash_path(q, k, v, causal: bool, cfg: LlamaConfig):
+def _flash_path(q, k, v, causal: bool, cfg: LlamaConfig,
+                window: Optional[int] = None):
     """``flash_attention`` when applicable, or None for the plain path.
 
     "auto" applies it on CUDA at T >= ``FLASH_AUTO_MIN_T``; "flash" forces
@@ -654,7 +796,7 @@ def _flash_path(q, k, v, causal: bool, cfg: LlamaConfig):
         if cfg.attention == "flash":
             _warn_flash_fallback(t, q.dtype, q.shape[-1])
         return None
-    return flash_attention(q, k, v, causal=causal)
+    return flash_attention(q, k, v, causal=causal, window=window)
 
 
 # ---------------------------------------------------------------------------
@@ -665,8 +807,12 @@ def _decoder_layer_fn(cfg: LlamaConfig,
                       rope: Tuple[torch.Tensor, torch.Tensor], mesh=None,
                       rules: ShardingRules = DEFAULT_RULES):
     """One decoder layer as ``(x, lp) -> (x, aux)`` where ``aux`` is the
-    layer's MoE router stats (zeros for dense layers).  Under a mesh x and
-    the parameters are DTensors, constrained at the reference's points."""
+    layer's MoE router stats (zeros for dense layers; empty for the
+    "afmoe" block, :func:`_afmoe_layer_fn`, which trains no router loss).
+    Under a mesh x and the parameters are DTensors, constrained at the
+    reference's points."""
+    if cfg.block == "afmoe":
+        return _afmoe_layer_fn(cfg, rope)
     dtype = torch_dtype(cfg.dtype)
 
     @in_step_span("kctpu.layer")
@@ -675,14 +821,14 @@ def _decoder_layer_fn(cfg: LlamaConfig,
         q = apply_rope(_heads(h, _w(lp.wq, dtype)), *rope)
         k = apply_rope(_heads(h, _w(lp.wk, dtype)), *rope)
         v = _heads(h, _w(lp.wv, dtype))
-        attn = _attention(q, k, v, True, cfg, mesh, rules)
+        attn = _attention(q, k, v, True, cfg, mesh, rules, lp.window)
         wo = _w(lp.wo, dtype)
         with checkpoint_name("attn_proj"):
             proj = _mm(attn.flatten(2), wo.flatten(0, 1))
         x = x + with_logical_constraint(proj, ("batch", "seq", None), rules)
 
         h = rmsnorm(x, _w(lp.mlp_norm, dtype), cfg.norm_eps)
-        if cfg.n_experts:
+        if lp.moe and router_losses(cfg):
             ff, aux = ffn_block_stats(h, lp, cfg, mesh)
         else:
             ff = ffn_block(h, lp, cfg, rules)
@@ -690,6 +836,43 @@ def _decoder_layer_fn(cfg: LlamaConfig,
             aux = {"aux_loss": zero, "z_loss": zero, "overflow_frac": zero}
         x = with_logical_constraint(x + ff, ("batch", "seq", None), rules)
         return x, aux
+
+    return layer
+
+
+def _afmoe_layer_fn(cfg: LlamaConfig,
+                    rope: Tuple[torch.Tensor, torch.Tensor]):
+    """An "afmoe" layer as ``(x, lp) -> (x, {})`` (AFMoE's decoder layer,
+    ``portbench/archs/afmoe.py`` writes out its equations):
+
+        a = norm(x); q, k, v, g = a Wq, a Wk, a Wv, a Wg
+        q, k = norm_q(q), norm_k(k) per head; RoPE on both (windowed layers)
+        x = x + norm_post(((attention(q, k, v) * sigmoid(g)) Wo)
+        x = x + norm_post_mlp(FFN(norm_mlp(x)))
+
+    with the FFN dense or, on a MoE layer, the shared expert plus the
+    routed experts this card holds (:func:`ffn_block`)."""
+    dtype = torch_dtype(cfg.dtype)
+    eps = cfg.norm_eps
+
+    @in_step_span("kctpu.layer")
+    def layer(x, lp):
+        h = rmsnorm(x, _w(lp.attn_norm, dtype), eps)
+        q = rmsnorm(_heads(h, _w(lp.wq, dtype)), _w(lp.q_norm, dtype), eps)
+        k = rmsnorm(_heads(h, _w(lp.wk, dtype)), _w(lp.k_norm, dtype), eps)
+        v = _heads(h, _w(lp.wv, dtype))
+        gate = _mm(h, _w(lp.attn_gate, dtype).flatten(1))
+        if lp.window:
+            q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+        attn = _attention(q, k, v, True, cfg, window=lp.window).flatten(2)
+        with step_span("kctpu.attention"):
+            attn = attn * torch.sigmoid(gate)
+        with checkpoint_name("attn_proj"):
+            proj = _mm(attn, _w(lp.wo, dtype).flatten(0, 1))
+        x = x + rmsnorm(proj, _w(lp.post_attn_norm, dtype), eps)
+        h = rmsnorm(x, _w(lp.mlp_norm, dtype), eps)
+        ff = ffn_block(h, lp, cfg)
+        return x + rmsnorm(ff, _w(lp.post_mlp_norm, dtype), eps), {}
 
     return layer
 
@@ -808,9 +991,13 @@ def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     dtype = torch_dtype(cfg.dtype)
     if mesh is not None:
         _refuse_pp(mesh)
+        one_card_only(cfg, "the mesh path")
         mesh = model_mesh(mesh)
         tokens = stage_tokens(tokens, mesh, rules)
     x = _lookup(model.embed, tokens, dtype, rules)
+    if cfg.block == "afmoe":
+        with step_span("kctpu.embed"):
+            x = x * math.sqrt(cfg.dim)
     rope = _rope(cfg, tokens.shape[1], mesh, x.device)
     layer_fn = _maybe_remat(_decoder_layer_fn(cfg, rope, mesh, rules), cfg)
     auxes = []
@@ -879,11 +1066,19 @@ def _vocab_whole(logits: torch.Tensor, rules: ShardingRules
     return with_logical_constraint(logits, ("batch", "seq", None), rules)
 
 
+def router_losses(cfg: LlamaConfig) -> bool:
+    """Whether the config trains the router's balancing and z losses:
+    softmax routing ("llama") does; the "afmoe" block's sigmoid routing
+    balances by its expert bias."""
+    return bool(cfg.n_experts) and cfg.block == "llama"
+
+
 def llama_loss(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
                mesh=None, rules: ShardingRules = DEFAULT_RULES
                ) -> torch.Tensor:
     """Next-token cross-entropy, mean over all positions; for MoE configs
-    plus the router losses weighted by ``moe_aux_coef``/``moe_z_coef``.
+    of the "llama" block plus the router losses weighted by
+    ``moe_aux_coef``/``moe_z_coef`` (:func:`router_losses`).
     With ``cfg.loss_chunks > 0`` the CE is computed chunk by chunk without
     materialising the full [B, T, vocab] f32 logits.  Under ``mesh`` the
     loss is a replicated DTensor scalar: the mean over the global batch.
@@ -894,8 +1089,10 @@ def llama_loss(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     shard's CE is local: slicing seq-sharded logits at ``[:, :-1]`` would
     gather the whole [B, T, vocab] f32 logits on every process."""
     aux, targets = None, None
+    stats = router_losses(cfg)
     if mesh is not None:
         _refuse_pp(mesh)
+        one_card_only(cfg, "the mesh path")
         sub = model_mesh(mesh)
         if _sp_size(sub) > 1:
             with step_span("kctpu.loss"):
@@ -903,15 +1100,15 @@ def llama_loss(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
         tokens = stage_tokens(tokens, sub, rules)
     if cfg.loss_chunks:
         out = llama_forward(model, tokens, cfg, mesh, rules,
-                            return_aux=bool(cfg.n_experts), return_hidden=True)
-        h, aux = out if cfg.n_experts else (out, None)
+                            return_aux=stats, return_hidden=True)
+        h, aux = out if stats else (out, None)
         ce = _chunked_ce(h, model.lm_head, tokens, cfg, rules, targets)
     else:
         out = llama_forward(model, tokens, cfg, mesh, rules,
-                            return_aux=bool(cfg.n_experts))
-        logits, aux = out if cfg.n_experts else (out, None)
+                            return_aux=stats)
+        logits, aux = out if stats else (out, None)
         ce = _dense_ce(logits, tokens, rules, targets)
-    if cfg.n_experts:
+    if stats:
         with step_span("kctpu.loss"):
             return (ce + cfg.moe_aux_coef * aux["aux_loss"]
                     + cfg.moe_z_coef * aux["z_loss"])
@@ -1022,6 +1219,7 @@ def _pipeline(model: Llama, cfg: LlamaConfig, mesh, n_stages):
     above 1, ring or Ulysses attention over the stage's own sp group
     (:func:`_sp_attention`), where the reference's XLA gathers T; each
     rank keeps and hands off its T/sp shard of every activation."""
+    one_card_only(cfg, "the pipeline")
     from ..parallel.pipeline import GroupPipe, Lockstep, split_stages
 
     sub = None if mesh is None else model_mesh(mesh)

@@ -59,6 +59,22 @@ output is a ``Partial`` sum over ep and tp, and one redistribution to
 ``Replicate`` (an all-reduce whose backward passes the gradient through)
 closes the layer, where the reference calls ``psum``.
 
+Sigmoid routing (:func:`biased_moe_ffn`, AFMoE's router, the port's own):
+each expert's score is sigmoid(logit); the top k of score + an expert
+bias (f32, the layer's ``expert_bias`` buffer) are chosen, ties to the
+lower expert; their weights are the chosen scores over their sum, times a
+route scale.  The weights multiply the experts' outputs.  After the
+step's backward has passed the layer, the bias steps by ``bias_rate`` ·
+sign(mean count - count) for each expert, the counts being the routing
+slots the step's tokens gave it (aux-loss-free balancing): the top-k is an
+autograd function (:class:`_BiasedTopK`) whose backward makes the update,
+so it runs once a step, after remat's re-run of the layer has routed with
+the same bias, and on the device.  The router scores every expert, and
+the layer may hold only the first of them (one card's share under
+expert parallelism): the held experts run through the ep-shard layout
+(:func:`grouped_layout` with ``first_expert`` 0) and the skip kernels, and
+the others' slots add nothing, as on the card that holds no exchange.
+
 Differences from the reference (ROADMAP.md, faults queue): the reference's
 fallback rule is the TPU tiling grain (D or F not multiples of 128, B·T·k
 not a multiple of the dtype's sublane tile), and under a mesh the Mosaic
@@ -104,6 +120,73 @@ def _route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
     logits = (x @ router_w.to(x.dtype)).float()
     probs, idx = router_topk(logits, top_k)
     return logits, probs, idx
+
+
+class _BiasedTopK(torch.autograd.Function):
+    """``(scores, idx)``: ``scores`` [..., E] passed through, and the
+    indices [..., k] of the top k of ``scores + bias`` (ties to the lower
+    expert, as :func:`router_topk`).  The backward passes the scores'
+    gradient through and steps ``bias`` in place by ``rate`` · sign(mean
+    count - count) from the counts of the forward's slots."""
+
+    @staticmethod
+    def forward(ctx, scores, bias, k: int, rate: float):
+        idx = torch.sort(scores + bias, dim=-1, descending=True,
+                         stable=True)[1][..., :k]
+        flat = idx.reshape(-1)
+        counts = torch.zeros_like(bias).index_add_(
+            0, flat, torch.ones_like(flat, dtype=bias.dtype))
+        ctx.save_for_backward(counts)
+        ctx.bias, ctx.rate = bias, rate
+        ctx.mark_non_differentiable(idx)
+        return scores.clone(), idx
+
+    @staticmethod
+    def backward(ctx, d_scores, _):
+        (counts,) = ctx.saved_tensors
+        with torch.no_grad():
+            ctx.bias.add_(torch.sign(counts.mean() - counts), alpha=ctx.rate)
+        return d_scores, None, None, None
+
+
+@in_step_span("kctpu.moe.route")
+def _route_sigmoid(x: torch.Tensor, router_w: torch.Tensor,
+                   bias: torch.Tensor, top_k: int, route_scale: float,
+                   bias_rate: float):
+    """Router logits in the activation dtype, then f32; sigmoid scores,
+    the biased top-k (:class:`_BiasedTopK`) and the chosen scores
+    normalised and scaled: ``(weights [..., k] f32, idx [..., k])``."""
+    scores = torch.sigmoid((x @ router_w.to(x.dtype)).float())
+    scores, idx = _BiasedTopK.apply(scores, bias, top_k, bias_rate)
+    chosen = scores.gather(-1, idx)
+    return chosen / (chosen.sum(dim=-1, keepdim=True) + 1e-20) * \
+        route_scale, idx
+
+
+def biased_moe_ffn(x: torch.Tensor, router_w: torch.Tensor,
+                   w_gate: torch.Tensor, w_up: torch.Tensor,
+                   w_down: torch.Tensor, bias: torch.Tensor, *,
+                   top_k: int, route_scale: float = 1.0,
+                   bias_rate: float = 0.0, first_expert: int = 0
+                   ) -> torch.Tensor:
+    """x [B, T, D] through sigmoid-routed experts: ``router_w`` [D, E]
+    scores all E experts, ``w_gate``/``w_up`` [E_h, D, F] and ``w_down``
+    [E_h, F, D] are E_h of them from ``first_expert`` (E_h < E: one card's
+    share, run through the shard layout and the skip kernels; the other
+    experts' slots add nothing).  ``bias`` [E] f32 steps after the
+    backward (:class:`_BiasedTopK`).  Dropless, through the grouped
+    kernels only: no fallback to a capacity dispatch."""
+    why = None if x.device.type == "cpu" else grouped_kernel_rule(x, w_gate)
+    if why is not None:
+        raise ValueError(f"sigmoid routing runs the grouped kernels, which "
+                         f"cannot run under {why}")
+    weights, idx = _route_sigmoid(x, router_w, bias, top_k, route_scale,
+                                  bias_rate)
+    dtype = x.dtype
+    share = w_gate.shape[0] < router_w.shape[-1]
+    return _grouped_ffn(x, weights, idx, w_gate.to(dtype), w_up.to(dtype),
+                        w_down.to(dtype),
+                        first_expert=first_expert if share else None)
 
 
 def grouped_kernel_rule(x: torch.Tensor, w_gate: torch.Tensor

@@ -40,16 +40,23 @@ kubeflow_controller_tpu_torch.workloads.llama_pretrain --profile-dir DIR
 ====================  ====================================================
 ``kctpu.step``        ``train_step``: loss, backward, clip, AdamW,
                       ``zero_grad``
-``kctpu.embed``       the embedding lookup
+``kctpu.embed``       the embedding lookup (and the "afmoe" block's
+                      sqrt(dim) scale)
 ``kctpu.layer``       a decoder layer; its q/k/v/o projections and
-                      residual adds are its own
-``kctpu.norm``        each RMSNorm (attention, MLP, final)
+                      residual adds are its own (and the "afmoe" block's
+                      gate product)
+``kctpu.norm``        each RMSNorm (attention, MLP, final; the "afmoe"
+                      block's per-head q/k norms and its norms after each
+                      sublayer)
 ``kctpu.rope``        the RoPE tables and both rotations
-``kctpu.attention``   the GQA repeats and flash (or the plain path; ring
-                      and Ulysses under sp)
+``kctpu.attention``   the GQA repeats and flash, windowed or not (or the
+                      plain path; ring and Ulysses under sp), and the
+                      "afmoe" gate's sigmoid-multiply
 ``kctpu.ffn``         the dense SwiGLU FFN, or the MoE around the four
-                      below
-``kctpu.moe.route``   router logits, top-k, the balancing and z statistics
+                      below (and a MoE layer's shared expert)
+``kctpu.moe.route``   router logits, top-k, the balancing and z statistics;
+                      sigmoid routing's scores, biased top-k, counts and
+                      (in the backward) the bias update
 ``kctpu.moe.dispatch``  the grouped layout and the row gather (the
                       capacity dispatches' positions and buffers)
 ``kctpu.moe.experts``  the expert products (``gmm_swiglu``, ``gmm``; the

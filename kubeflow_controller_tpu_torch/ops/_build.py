@@ -67,12 +67,13 @@ _SIGNATURES = {
     "kctpu_tgmm": ([_P] * 5 + [_I] * 5 + [_P], _I),
     # the same arguments as kctpu_tgmm
     "kctpu_tgmm_wgmma": ([_P] * 5 + [_I] * 5 + [_P], _I),
-    # q, k, v, o, lse, B, H, T, D, scale, causal, stream
-    "kctpu_flash_fwd": ([_P] * 5 + [_I] * 4 + [_F, _I, _P], _I),
-    # q, k, v, do, lse, delta, dq, B, H, T, D, scale, causal, stream
-    "kctpu_flash_dq": ([_P] * 7 + [_I] * 4 + [_F, _I, _P], _I),
-    # q, k, v, do, lse, delta, dk, dv, B, H, T, D, scale, causal, stream
-    "kctpu_flash_dkv": ([_P] * 8 + [_I] * 4 + [_F, _I, _P], _I),
+    # q, k, v, o, lse, B, H, T, D, scale, causal, window, stream
+    "kctpu_flash_fwd": ([_P] * 5 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # q, k, v, do, lse, delta, dq, B, H, T, D, scale, causal, window, stream
+    "kctpu_flash_dq": ([_P] * 7 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # q, k, v, do, lse, delta, dk, dv, B, H, T, D, scale, causal, window,
+    # stream
+    "kctpu_flash_dkv": ([_P] * 8 + [_I] * 4 + [_F, _I, _I, _P], _I),
     # p, g, m, v, n, bf16, lr, beta1, beta2, eps, weight_decay, step,
     # device_step (or NULL), div (or NULL), mul (or NULL), stream
     "kctpu_adamw": ([_P] * 4 + [ctypes.c_longlong, _I] + [_D] * 6 + [_P] * 4,

@@ -9,6 +9,11 @@ places of the three Pallas kernels:
 - ``flash_dq(q, k, v, do, lse, delta) -> dq``: ports ``_dq_kernel``.
 - ``flash_dkv(q, k, v, do, lse, delta) -> (dk, dv)``: ports ``_dkv_kernel``.
 
+Each takes ``window``: a causal window of W keys (query i sees keys
+i - W < j <= i), whose key tiles outside it the kernels skip (a window of
+T or more is plain causal).  A windowed launch is counted in the wrapper's
+``skip_launches`` as well as in ``launches``.
+
 ``flash_attention`` puts them behind a ``torch.autograd.Function``, as the
 reference's ``_flash_bh`` custom VJP does: the forward keeps (q, k, v, o,
 lse); the backward computes ``delta = rowsum(dO * O)`` in f32 with plain
@@ -52,17 +57,35 @@ def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
     return float(q.shape[-1] ** -0.5 if scale is None else scale)
 
 
+def _window(q: torch.Tensor, causal: bool, window: Optional[int]) -> int:
+    """The window the kernels take: 0 for none (None, or W >= T, which
+    hides nothing the causal mask shows), else W; a window is causal and at
+    least one key."""
+    if window is None:
+        return 0
+    if window < 1 or not causal:
+        raise ValueError(f"a window is a causal window of at least one key; "
+                         f"got window={window}, causal={causal}")
+    return 0 if window >= q.shape[1] else int(window)
+
+
 # ---------------------------------------------------------------------------
 # Plain versions (f32 math over the whole [B, H, T, T] score matrix)
 # ---------------------------------------------------------------------------
 
-def _scores(q, k, causal: bool, scale: float) -> torch.Tensor:
-    """f32 [B, H, Tq, Tk] scaled scores, masked with NEG_INF."""
+def _scores(q, k, causal: bool, scale: float,
+            window: Optional[int] = None) -> torch.Tensor:
+    """f32 [B, H, Tq, Tk] scaled scores, masked with NEG_INF: keys after the
+    query (causal) and, with ``window``, keys ``window`` or more before
+    it."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         tq, tk = q.shape[1], k.shape[1]
-        mask = (torch.arange(tq, device=q.device)[:, None]
-                < torch.arange(tk, device=q.device)[None, :])
+        ahead = (torch.arange(tq, device=q.device)[:, None]
+                 - torch.arange(tk, device=q.device)[None, :])
+        mask = ahead < 0
+        if window:
+            mask = mask | (ahead >= window)
         s = s.masked_fill(mask, NEG_INF)
     return s
 
@@ -73,11 +96,12 @@ def _rows(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
 
 
 def flash_fwd_plain(q, k, v, causal: bool = True,
-                    scale: Optional[float] = None):
+                    scale: Optional[float] = None,
+                    window: Optional[int] = None):
     """(o [B, T, H, D] in q's dtype, lse [B*H, T] f32)."""
     scale = _scale(q, scale)
     b, t, h, _ = q.shape
-    s = _scores(q, k, causal, scale)
+    s = _scores(q, k, causal, scale, _window(q, causal, window))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -86,27 +110,30 @@ def flash_fwd_plain(q, k, v, causal: bool = True,
     return o.to(q.dtype), lse
 
 
-def _p_ds(q, k, v, do, lse, delta, causal, scale):
+def _p_ds(q, k, v, do, lse, delta, causal, scale, window):
     """The recomputed probabilities and their gradient, f32 [B, H, T, T]."""
     b, _, h, _ = q.shape
-    p = torch.exp(_scores(q, k, causal, scale) - _rows(lse, b, h))
+    p = torch.exp(_scores(q, k, causal, scale, _window(q, causal, window))
+                  - _rows(lse, b, h))
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     return p, p * (dp - _rows(delta, b, h))
 
 
 def flash_dq_plain(q, k, v, do, lse, delta, causal: bool = True,
-                   scale: Optional[float] = None) -> torch.Tensor:
+                   scale: Optional[float] = None,
+                   window: Optional[int] = None) -> torch.Tensor:
     """dq [B, T, H, D] in q's dtype: ``scale * ds @ k``."""
     scale = _scale(q, scale)
-    _, ds = _p_ds(q, k, v, do, lse, delta, causal, scale)
+    _, ds = _p_ds(q, k, v, do, lse, delta, causal, scale, window)
     return (scale * torch.einsum("bhqk,bkhd->bqhd", ds, k.float())).to(q.dtype)
 
 
 def flash_dkv_plain(q, k, v, do, lse, delta, causal: bool = True,
-                    scale: Optional[float] = None):
+                    scale: Optional[float] = None,
+                    window: Optional[int] = None):
     """(dk, dv) [B, T, H, D]: ``scale * dsᵀ @ q`` and ``pᵀ @ do``."""
     scale = _scale(q, scale)
-    p, ds = _p_ds(q, k, v, do, lse, delta, causal, scale)
+    p, ds = _p_ds(q, k, v, do, lse, delta, causal, scale, window)
     dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -166,26 +193,31 @@ def _stats(q, lse, delta):
             ("delta", delta, torch.float32, (b * h, t)))
 
 
-def flash_fwd(q, k, v, causal: bool = True, scale: Optional[float] = None
+def flash_fwd(q, k, v, causal: bool = True, scale: Optional[float] = None,
+              window: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention forward: (o [B, T, H, D], lse [B*H, T] f32)."""
     scale = _scale(q, scale)
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, causal, scale)
+        return flash_fwd_plain(q, k, v, causal, scale, window)
     _check(q, k, v)
+    window = _window(q, causal, window)
     b, t, h, d = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
     lib = _build.library()
     code = lib.lib.kctpu_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                    o.data_ptr(), lse.data_ptr(), b, h, t, d,
-                                   scale, int(causal), _build.stream(q))
+                                   scale, int(causal), window,
+                                   _build.stream(q))
     lib.check(code, "flash_fwd")
     flash_fwd.launches += 1
+    flash_fwd.skip_launches += bool(window)
     return o, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.skip_launches = 0
 
 
 # The forward kernel as one dispatcher op, so that a selective-checkpoint
@@ -196,51 +228,59 @@ flash_fwd.launches = 0
 @torch.library.custom_op("kctpu::flash_fwd", mutates_args=(),
                          device_types="cuda")
 def flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
-                 scale: float) -> Tuple[Tensor, Tensor]:
-    return flash_fwd(q, k, v, causal, scale)
+                 scale: float, window: Optional[int] = None
+                 ) -> Tuple[Tensor, Tensor]:
+    return flash_fwd(q, k, v, causal, scale, window)
 
 
 @flash_fwd_op.register_kernel("cpu")
-def _(q, k, v, causal, scale):
-    return flash_fwd_plain(q, k, v, causal, scale)
+def _(q, k, v, causal, scale, window=None):
+    return flash_fwd_plain(q, k, v, causal, scale, window)
 
 
 @flash_fwd_op.register_fake
-def _(q, k, v, causal, scale):
+def _(q, k, v, causal, scale, window=None):
     b, t, h, _ = q.shape
     return torch.empty_like(q), q.new_empty((b * h, t), dtype=torch.float32)
 
 
 def flash_dq(q, k, v, do, lse, delta, causal: bool = True,
-             scale: Optional[float] = None) -> torch.Tensor:
+             scale: Optional[float] = None,
+             window: Optional[int] = None) -> torch.Tensor:
     """dq of attention, from the forward's lse and ``delta = rowsum(do*o)``."""
     scale = _scale(q, scale)
     if q.device.type == "cpu":
-        return flash_dq_plain(q, k, v, do, lse, delta, causal, scale)
+        return flash_dq_plain(q, k, v, do, lse, delta, causal, scale, window)
     _check(q, k, v, ("do", do, q.dtype, q.shape), *_stats(q, lse, delta))
+    window = _window(q, causal, window)
     b, t, h, d = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lib = _build.library()
     code = lib.lib.kctpu_flash_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   do.data_ptr(), lse.data_ptr(),
                                   delta.data_ptr(), dq.data_ptr(), b, h, t, d,
-                                  scale, int(causal), _build.stream(q))
+                                  scale, int(causal), window,
+                                  _build.stream(q))
     lib.check(code, "flash_dq")
     flash_dq.launches += 1
+    flash_dq.skip_launches += bool(window)
     return dq
 
 
 flash_dq.launches = 0
+flash_dq.skip_launches = 0
 
 
 def flash_dkv(q, k, v, do, lse, delta, causal: bool = True,
-              scale: Optional[float] = None
+              scale: Optional[float] = None, window: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) of attention, from the same inputs as :func:`flash_dq`."""
     scale = _scale(q, scale)
     if q.device.type == "cpu":
-        return flash_dkv_plain(q, k, v, do, lse, delta, causal, scale)
+        return flash_dkv_plain(q, k, v, do, lse, delta, causal, scale,
+                               window)
     _check(q, k, v, ("do", do, q.dtype, q.shape), *_stats(q, lse, delta))
+    window = _window(q, causal, window)
     b, t, h, d = q.shape
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -249,13 +289,15 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool = True,
                                    do.data_ptr(), lse.data_ptr(),
                                    delta.data_ptr(), dk.data_ptr(),
                                    dv.data_ptr(), b, h, t, d, scale,
-                                   int(causal), _build.stream(q))
+                                   int(causal), window, _build.stream(q))
     lib.check(code, "flash_dkv")
     flash_dkv.launches += 1
+    flash_dkv.skip_launches += bool(window)
     return dk, dv
 
 
 flash_dkv.launches = 0
+flash_dkv.skip_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -266,11 +308,12 @@ class _FlashAttention(torch.autograd.Function):
     """The reference's ``_flash_bh`` custom VJP, on ``[B, T, H, D]``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
+    def forward(ctx, q, k, v, causal: bool, scale: float,
+                window: Optional[int]):
         q, k, v = (x.contiguous() for x in (q, k, v))
-        o, lse = flash_fwd_op(q, k, v, causal, scale)
+        o, lse = flash_fwd_op(q, k, v, causal, scale, window)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
         return o
 
     @staticmethod
@@ -280,16 +323,19 @@ class _FlashAttention(torch.autograd.Function):
         b, t, h, _ = q.shape
         delta = torch.einsum("bthd,bthd->bht", do.float(), o.float())
         delta = delta.reshape(b * h, t).contiguous()
-        dq = flash_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
-        dk, dv = flash_dkv(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+        dq = flash_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale,
+                      ctx.window)
+        dk, dv = flash_dkv(q, k, v, do, lse, delta, ctx.causal, ctx.scale,
+                           ctx.window)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """q/k/v: [B, T, H, D] -> [B, T, H, D].  Differentiable.
+                    causal: bool = True, scale: Optional[float] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q/k/v: [B, T, H, D] -> [B, T, H, D].  Differentiable; ``window``: a
+    causal window of that many keys.
 
     CUDA tensors run the three kernels (and must meet :func:`kernel_rule`);
     CPU tensors run the plain versions at any shape."""
-    return _FlashAttention.apply(q, k, v, causal, _scale(q, scale))
+    return _FlashAttention.apply(q, k, v, causal, _scale(q, scale), window)

@@ -63,19 +63,24 @@ F32 = torch.float32
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        window: Optional[int] = None) -> torch.Tensor:
     """Naive O(T²) attention in f32 — the numerics oracle.
 
     q/k/v: [B, T, H, D] -> [B, T, H, D] in q's dtype.  Scores are the
     products of the inputs accumulated in f32 (the reference's
-    ``preferred_element_type``); masked scores are ``NEG_INF``."""
+    ``preferred_element_type``); masked scores are ``NEG_INF``.  With
+    ``window`` (causal only) query i sees keys i - window < j <= i."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         tq, tk = q.shape[1], k.shape[1]
-        hidden = (torch.arange(tq, device=q.device)[:, None]
-                  < torch.arange(tk, device=q.device)[None, :])
+        ahead = (torch.arange(tq, device=q.device)[:, None]
+                 - torch.arange(tk, device=q.device)[None, :])
+        hidden = ahead < 0
+        if window:
+            hidden = hidden | (ahead >= window)
         s = s.masked_fill(hidden, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())

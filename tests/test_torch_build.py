@@ -433,8 +433,8 @@ def test_flash_fwd_passes_the_same_arguments_at_every_accepted_shape(
     assert lse.shape == (b * h, t) and lse.dtype == torch.float32
     [(name, args)] = recorder.calls
     assert name == "kctpu_flash_fwd"
-    assert len(args) == 12
-    assert args[5:] == (b, h, t, d, d ** -0.5, int(causal), 7)
+    assert len(args) == len(_build._SIGNATURES[name][0]) == 13
+    assert args[5:] == (b, h, t, d, d ** -0.5, int(causal), 0, 7)
 
 
 def stats(b, t, h):
@@ -454,8 +454,8 @@ def test_flash_dq_passes_the_same_arguments_at_every_accepted_shape(
     assert dq.shape == q.shape and dq.dtype == torch.bfloat16
     [(name, args)] = recorder.calls
     assert name == "kctpu_flash_dq"
-    assert len(args) == len(_build._SIGNATURES[name][0]) == 14
-    assert args[7:] == (b, h, t, d, d ** -0.5, int(causal), 7)
+    assert len(args) == len(_build._SIGNATURES[name][0]) == 15
+    assert args[7:] == (b, h, t, d, d ** -0.5, int(causal), 0, 7)
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
@@ -471,8 +471,8 @@ def test_flash_dkv_passes_the_same_arguments_at_every_accepted_shape(
     assert dk.dtype == dv.dtype == torch.bfloat16
     [(name, args)] = recorder.calls
     assert name == "kctpu_flash_dkv"
-    assert len(args) == len(_build._SIGNATURES[name][0]) == 15
-    assert args[8:] == (b, h, t, d, d ** -0.5, int(causal), 7)
+    assert len(args) == len(_build._SIGNATURES[name][0]) == 16
+    assert args[8:] == (b, h, t, d, d ** -0.5, int(causal), 0, 7)
 
 
 # B·H at and past 65536, which the C entries once refused (B·H was the

@@ -3,7 +3,10 @@ and ``portbench/spans.py``'s attribution of the step's work to them.
 
 On ``LlamaConfig.tiny`` (attention "flash": the kernels' plain versions),
 dense and with 4 experts on the grouped dispatch, under remat "full" and
-one named policy, steps of ``llama_pretrain.train_step``:
+one named policy, and an "afmoe" block (a dense then a MoE layer, a
+windowed then a global one, sigmoid routing over 8 experts with 4 held
+and a shared expert) under "full", steps of
+``llama_pretrain.train_step``:
 
 - under ``torch.profiler`` every span opens, in the forward and again in
   the remat re-run;
@@ -43,6 +46,12 @@ CASES = {
     "dense-dots": (dict(), "dots"),
     "moe-full": (dict(n_experts=4, moe_dispatch="grouped"), "full"),
     "moe-moe": (dict(n_experts=4, moe_dispatch="grouped"), "moe"),
+    "afmoe-full": (dict(block="afmoe", head_width=32, window=16,
+                        global_every=2, dense_layers=1, n_experts=8,
+                        experts_held=4, moe_top_k=2, moe_dispatch="grouped",
+                        expert_intermediate=32, shared_experts=1,
+                        route_scale=2.826,
+                        bias_rate=1e-3), "full"),
 }
 # The re-run of a layer under each policy: every span of the layer opens
 # again (a policy keeps some outputs, never a span).
