@@ -414,7 +414,20 @@ Phases, in order (any failure raises and exits non-zero):
    backward, its launches (``AFMOE_LAUNCHES_PER_LAYER``, skip forms
    included) read from counters zeroed just before, and its expert bias
    stepped once by the bias rate.
-28. The card's name and power limit, the ``kernels`` JSON line (launches
+28. the MoE layer's grouped layout (``moe_layout_phase``; alone after the
+   build: ``python3 -c "import torch, chip_smoke as cs; cs.build_phase();
+   print(cs.moe_layout_phase(torch.device('cuda', 0), 0))"``): the
+   layout kernel (``ops/moe_layout.py``) against its plain version,
+   element by element on every map, at Mixtral-8x7B's layout (B 2 x T
+   4096, top 2 of 8, bm 256) and at one card's share of Trinity-Mini
+   (``AFMOE_SHARE``, sigmoid top 8, 64 held, from expert 0 and from 64);
+   each timed beside the plain version and its byte bound (the indices
+   read twice, ``dest``, ``inv_src`` and ``inv_pos`` written); then one
+   windowed MoE layer of Trinity-Mini forward and backward, whose
+   launches (``AFMOE_LAUNCHES_PER_LAYER``) hold two layouts (the forward
+   and remat's re-run) beside the grouped kernels' unchanged counts, with
+   the plain version refused and no torch scan kernel in its trace.
+29. The card's name and power limit, the ``kernels`` JSON line (launches
    from phase 10; each path's own counts beside them, phase 13's, the
    sequence-parallel paths ``ring_n4``, ``ring_n2`` and ``ulysses_n4``,
    ``generate``, phase 19a's, ``pp_dense`` and ``pp_moe``, phase 20's
@@ -463,6 +476,7 @@ from kubeflow_controller_tpu_torch.ops import _build
 from kubeflow_controller_tpu_torch.ops import adamw
 from kubeflow_controller_tpu_torch.ops import attention as at
 from kubeflow_controller_tpu_torch.ops import grouped_matmul as gm
+from kubeflow_controller_tpu_torch.ops import moe_layout as ml
 from kubeflow_controller_tpu_torch.parallel.ring import attention_reference
 from kubeflow_controller_tpu_torch.models import mnist
 from kubeflow_controller_tpu_torch import graft_entry
@@ -532,8 +546,10 @@ WINDOW_SHAPE = (4, 8192, 32, 128, 2048)   # Trinity-Mini's: B, T, H, D, W
 AFMOE_SHARE = {"batch": 4, "seq_len": 8192, "experts": 128, "held": 64}
 # One afmoe MoE layer's launches a step under remat "full": gate, up and
 # down gmm in the forward, again in the re-run, and the three dlhs gmms;
-# the three weight gradients; flash on a windowed layer (fwd + re-run).
-AFMOE_LAUNCHES_PER_LAYER = {"gmm_swiglu": 0, "gmm": 9, "gmm_skip": 9,
+# the three weight gradients; flash on a windowed layer (fwd + re-run);
+# the grouped layout, built in the forward and again in the re-run.
+AFMOE_LAUNCHES_PER_LAYER = {"moe_layout": 2, "gmm_swiglu": 0, "gmm": 9,
+                            "gmm_skip": 9,
                             "tgmm": 3, "tgmm_skip": 3, "flash_fwd": 2,
                             "flash_fwd_skip": 2, "flash_dq": 1,
                             "flash_dq_skip": 1, "flash_dkv": 1,
@@ -622,7 +638,8 @@ WMMA_KERNELS = ("tgmm_kernel",)
 # Mangled: <length><identifier>I<template args>... (or E and the
 # parameters, for a kernel that is not a template).
 KERNEL_NAME = re.compile(r"\d((?:t?gmm|gmm_swiglu|flash_fwd|flash_dq|"
-                         r"flash_dkv|adamw)_(?:wgmma_|swapab_)?kernel)([IE])")
+                         r"flash_dkv|adamw|moe_layout_scan_(?:count|offsets|"
+                         r"place))_(?:wgmma_|swapab_)?kernel)([IE])")
 
 
 def hgmma_counts(sass: str) -> dict:
@@ -4377,21 +4394,8 @@ def afmoe_phase(dev, seed: int) -> dict:
 
     # One MoE layer (windowed, layer 0) forward and backward through the
     # model's path, its launches read from counters zeroed just before.
-    model = llama_init(cfg, torch.Generator(device=dev).manual_seed(seed),
-                       dev, requires_grad=True)
-    tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
-                           device=dev)
+    model, loss, launches = afmoe_layer_step(cfg, dev, seed, gen)
     lp = model.layers[0]
-    skipping = [counter(n) for n in ("gmm", "tgmm") + FLASH_KERNELS]
-    zero_counters()
-    for fn in skipping:
-        fn.skip_launches = 0
-    loss = llama_loss(model, tokens, cfg)
-    loss.backward()
-    torch.cuda.synchronize()
-    launches = read_counters()
-    launches.update({f"{n}_skip": counter(n).skip_launches
-                     for n in ("gmm", "tgmm") + FLASH_KERNELS})
     steps = (lp.expert_bias / cfg.bias_rate).round()
     rec = {"layout": layout, "share_max_abs_err": err, "launches": launches,
            "loss": float(loss.detach()),
@@ -4411,10 +4415,125 @@ def afmoe_phase(dev, seed: int) -> dict:
     assert set(rec["bias_steps"]) <= {-1.0, 0.0, 1.0} and \
         rec["bias_steps"] != [0.0], f"bias steps {rec['bias_steps']}"
     assert rec["bias_off_grid"] < 1e-9
-    del model, loss, tokens, lp
+    del model, loss, lp
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+def afmoe_layer_step(cfg: LlamaConfig, dev, seed: int, gen):
+    """One step (forward and backward) of the model ``cfg`` builds from
+    ``seed`` on a batch of ``AFMOE_SHARE``'s shape; returns the model, the
+    loss and the launches of the step by wrapper (the grouped layout, the
+    grouped and flash kernels, their skip forms), from counters zeroed
+    just before."""
+    model = llama_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                       dev, requires_grad=True)
+    tokens = torch.randint(0, cfg.vocab_size, (AFMOE_SHARE["batch"],
+                                               AFMOE_SHARE["seq_len"]),
+                           generator=gen, device=dev)
+    skipping = [counter(n) for n in ("gmm", "tgmm") + FLASH_KERNELS]
+    zero_counters()
+    for fn in skipping:
+        fn.skip_launches = 0
+    layouts = ml.moe_layout.launches
+    loss = llama_loss(model, tokens, cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = {"moe_layout": ml.moe_layout.launches - layouts,
+                **read_counters()}
+    launches.update({f"{n}_skip": counter(n).skip_launches
+                     for n in ("gmm", "tgmm") + FLASH_KERNELS})
+    return model, loss, launches
+
+
+def layout_bytes(n_slots: int, m: int, bm: int) -> int:
+    """The layout's least traffic: the int64 indices read twice, ``dest``
+    written (int64 a slot), ``inv_src`` and ``inv_pos`` written (int64 a
+    row each), ``tile_experts`` written (int32 a tile)."""
+    return 8 * n_slots * 2 + 8 * n_slots + 16 * m + 4 * (m // bm)
+
+
+def layout_case_record(name: str, idx, n_experts: int, first=None) -> dict:
+    """The layout kernel against its plain version at ``idx``: every map
+    equal, dtype and all, one launch counted a call; the kernels' device
+    time a call (the profiler's), a call back to back (CUDA events, the
+    host's enqueue included where it is the longer) and the plain
+    version's, beside the byte bound."""
+    n_slots = idx.numel()
+    bm = 256
+    while n_slots % bm:
+        bm //= 2
+    before = ml.moe_layout.launches
+    got = ml.moe_layout(idx, n_experts, bm, first)
+    torch.cuda.synchronize()
+    assert ml.moe_layout.launches == before + 1, name
+    want = ml.moe_layout_plain(idx, n_experts, bm, first)
+    for key, a, b in zip(("dest", "tile_experts", "inv_src", "inv_pos",
+                          "valid_tiles"), got, want):
+        assert (a is None) == (b is None), f"{name}: {key}"
+        assert a is None or (a.dtype == b.dtype and torch.equal(a, b)), (
+            f"{name}: {key} differs from the plain version")
+    m = got[2].numel()
+    prof = profile_calls(f"moe_layout[{name}]", lambda: ml.moe_layout(
+        idx, n_experts, bm, first), 20)
+    rec = {"slots": n_slots, "groups": n_experts + (first is not None),
+           "bm": bm, "M": m, "ms": prof["device_busy_ms"],
+           "kernels_per_call": prof["kernel_launches"],
+           "call_ms": time_ms(lambda: ml.moe_layout(idx, n_experts, bm,
+                                                    first), 50),
+           "plain_ms": time_ms(lambda: ml.moe_layout_plain(
+               idx, n_experts, bm, first), 3, warmup=1)}
+    rec["bound_ms"], rec["bound_by"] = bound(layout_bytes(n_slots, m, bm), 0)
+    rec["plain_over_kernel"] = rec["plain_ms"] / rec["ms"]
+    return rec
+
+
+def moe_layout_phase(dev, seed: int) -> dict:
+    """Phase 28 (see the docstring).  Returns each layout's record and one
+    Trinity-Mini MoE layer's launches a step."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 28)
+    b, t = MOE_TRAIN["batch"], MOE_TRAIN["seq_len"]
+    logits = torch.randn((b, t, 8), generator=gen, device=dev)
+    res = {"mixtral": layout_case_record(
+        "mixtral", moe.router_topk(logits, 2)[1], 8)}
+    cfg = trinity_mini_share()
+    x = torch.randn((AFMOE_SHARE["batch"], AFMOE_SHARE["seq_len"], cfg.dim),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    router = (torch.randn((cfg.dim, cfg.n_experts), generator=gen,
+                          device=dev) * 0.02).to(torch.bfloat16)
+    with torch.no_grad():
+        _, idx = moe._route_sigmoid(
+            x, router, torch.zeros(cfg.n_experts, device=dev),
+            cfg.moe_top_k, cfg.route_scale, 0.0)
+    del x, router
+    for first in (0, cfg.experts_held):
+        res[f"trinity_share_from_{first}"] = layout_case_record(
+            f"trinity share from {first}", idx, cfg.experts_held, first)
+    print("moe_layout " + json.dumps(res), flush=True)
+    del idx
+    torch.cuda.empty_cache()
+    from torch.profiler import ProfilerActivity, profile
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the layout's plain version ran on the card")
+
+    with mock.patch.object(ml, "moe_layout_plain", refuse), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model, loss, launches = afmoe_layer_step(cfg, dev, seed, gen)
+    scans = sorted({e.key[:90] for e in prof.key_averages()
+                    if "tensor_kernel_scan" in e.key})
+    res["afmoe_layer_launches"] = launches
+    print("moe_layout layer " + json.dumps(launches) + f"; torch scan "
+          f"kernels: {scans}", flush=True)
+    assert launches == AFMOE_LAUNCHES_PER_LAYER, (
+        f"afmoe layer launches {launches}")
+    assert not scans, f"a torch scan ran in the layer step: {scans}"
+    assert math.isfinite(float(loss.detach()))
+    del model, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def adamw_phase(dev) -> dict:
@@ -4582,6 +4701,7 @@ def main(argv=None) -> int:
     adamw_sets = adamw_phase(dev)
     window_flash_phase(dev, args.seed)
     afmoe_phase(dev, args.seed)
+    moe_layout_phase(dev, args.seed)
     print(card_line())
     print(kernels_line(results, flash, paths, serve_designs,
                        generate_designs, adamw_sets))

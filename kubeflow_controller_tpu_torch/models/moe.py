@@ -19,14 +19,18 @@ the reference:
   gate/up/SwiGLU, then the down-projection) and gathered back, weighted by
   the router probabilities.
 
-The grouped layout is built exactly as the reference builds it, sort-free:
-each slot's rank inside its expert is an exclusive cumsum over the one-hot
-assignment, expert regions start at ``bm``-aligned padded offsets, tile
-owners come from ``searchsorted(..., side="right")`` clamped to E - 1, and
-pad rows read a sentinel zero row.  All of it stays on the device: no host
-sync per layer.  The two row gathers (dispatch and combine) are bijections
-plus the sentinel, so their backward is a gather through the inverse maps
-(``_DispatchRows``/``_CombineRows``), never a scatter-add.
+The grouped layout is the reference's, sort-free: each slot's rank inside
+its expert is the number of earlier slots that went to it (the reference's
+exclusive cumsum over the one-hot assignment), expert regions start at
+``bm``-aligned padded offsets, tile owners come from ``searchsorted(...,
+side="right")`` clamped to E - 1, and pad rows read a sentinel zero row.
+On the card one hand-written pass computes the ranks and every map from
+them (``ops/moe_layout.py`` → ``csrc/moe_layout.cu``, three launches); on
+the CPU its plain version takes the cumsum.  All of it stays on the
+device: no host sync per layer.  The two row gathers (dispatch and
+combine) are bijections plus the sentinel, so their backward is a gather
+through the inverse maps (``_DispatchRows``/``_CombineRows``), never a
+scatter-add.
 
 Grouped dispatch on a device other than the CPU obeys the CUDA kernels'
 rule (:func:`grouped_kernel_rule`: bf16 activations, D and F multiples of
@@ -95,6 +99,7 @@ from torch.nn import functional as F
 
 from ..obs.trace import in_step_span, step_span
 from ..ops.grouped_matmul import gmm, gmm_swiglu
+from ..ops.moe_layout import moe_layout
 from ..parallel.sharding import grad_placed
 from .remat import checkpoint_name
 
@@ -441,45 +446,18 @@ def grouped_layout(idx: torch.Tensor, n_experts: int, block_m: int = 256,
     first_expert + n_experts - 1`` are local, every other slot goes to a
     sentinel group after theirs, whose rows read the zero row; ``m`` is
     n_slots + (n_experts + 1) * bm, the worst case; and ``valid_tiles``
-    is the sentinel group's first tile.  All on the device."""
-    k = idx.shape[-1]
+    is the sentinel group's first tile.  All on the device: the ranks and
+    maps come from ``ops/moe_layout.py:moe_layout`` (the kernel on the
+    card, the one-hot cumsum on the CPU); ``bm`` and ``m`` are set here."""
     n_slots = idx.numel()
-    n_tok = n_slots // k
-    dev = idx.device
     bm = block_m
     while n_slots % bm:
         bm //= 2
-    slot_expert = idx.reshape(n_slots)
-    groups, local = n_experts, None
-    if first_expert is not None:
-        local = ((slot_expert >= first_expert)
-                 & (slot_expert < first_expert + n_experts))
-        slot_expert = torch.where(local, slot_expert - first_expert,
-                                  n_experts)
-        groups += 1
-    onehot = F.one_hot(slot_expert, groups)                     # [N, groups]
-    pos = onehot.cumsum(dim=0) - onehot                         # exclusive
-    rank = pos.gather(1, slot_expert[:, None])[:, 0]
-    counts = onehot.sum(dim=0)
-    padded = (counts + bm - 1) // bm * bm
-    pad_offsets = padded.cumsum(dim=0) - padded
-    m = n_slots + groups * bm
-    dest = pad_offsets[slot_expert] + rank
-    ends = pad_offsets + padded
-    tile_starts = torch.arange(m // bm, device=dev) * bm
-    tile_experts = torch.searchsorted(ends, tile_starts, right=True)
-    tile_experts = tile_experts.clamp_(max=n_experts - 1).to(torch.int32)
-    slot_ids = torch.arange(n_slots, device=dev)
-    src, valid_tiles = slot_ids // k, None
-    if local is not None:
-        src = torch.where(local, src, n_tok)
-        valid_tiles = (ends[n_experts - 1:n_experts] // bm).to(torch.int32)
-    inv_src = torch.full((m,), n_tok, dtype=torch.long, device=dev)
-    inv_src[dest] = src
-    inv_pos = torch.full((m,), n_slots, dtype=torch.long, device=dev)
-    inv_pos[dest] = slot_ids
-    return GroupedLayout(bm, m, dest, tile_experts, inv_src, inv_pos,
-                         valid_tiles)
+    groups = n_experts + (first_expert is not None)
+    dest, tile_experts, inv_src, inv_pos, valid_tiles = moe_layout(
+        idx, n_experts, bm, first_expert)
+    return GroupedLayout(bm, n_slots + groups * bm, dest, tile_experts,
+                         inv_src, inv_pos, valid_tiles)
 
 
 def _with_zero_row(h: torch.Tensor) -> torch.Tensor:

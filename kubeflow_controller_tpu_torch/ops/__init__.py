@@ -10,6 +10,9 @@ version.
 - ``adamw`` — ``adamw_step``, AdamW's update with the clip's scale folded
   in, one pass a parameter tensor (CUDA C++, ``csrc/adamw.cu``), which
   ``workloads/trainer.py:FusedAdamW`` launches.
+- ``moe_layout`` — the MoE layer's grouped row layout, each routing slot's
+  rank inside its expert and the maps built from it (CUDA C++,
+  ``csrc/moe_layout.cu``), which ``models/moe.py:grouped_layout`` calls.
 - ``_build`` — compiles ``csrc/*.cu`` with ``nvcc`` at first use and loads
   the result with ``ctypes``.
 

@@ -78,6 +78,10 @@ _SIGNATURES = {
     # device_step (or NULL), div (or NULL), mul (or NULL), stream
     "kctpu_adamw": ([_P] * 4 + [ctypes.c_longlong, _I] + [_D] * 6 + [_P] * 4,
                     _I),
+    # idx, workspace, dest, tile_experts, inv_src, inv_pos, valid_tiles (or
+    # NULL), n, k, n_experts, first_expert, bm, stream
+    "kctpu_moe_layout": ([_P] * 7 + [_I] * 3 + [ctypes.c_longlong, _I, _P],
+                         _I),
     "kctpu_error_string": ([_I], ctypes.c_char_p),
 }
 

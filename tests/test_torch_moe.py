@@ -7,7 +7,9 @@ multiples of 128, B*T*k a multiple of the f32 sublane tile, so it takes
 the grouped path, not its einsum fallback; the gradient cases turn that
 fallback's warning into an error to prove it).  The layout check captures
 what JAX's ``_grouped_ffn`` hands its kernels (``tile_experts``) and its
-combine (the destination rows) by wrapping those two callees.
+combine (the destination rows) by wrapping those two callees.  On the same
+routings the layout's plain version (``ops/moe_layout.py``) equals a stable
+sort of the slots, unsharded and as a first and a middle shard.
 
 Tolerance: f32; max |port - jax| <= 1e-5 * max |jax|, for values and
 gradients.  Layout indices must be equal exactly.
@@ -24,6 +26,8 @@ import torch
 import kubeflow_controller_tpu.models.moe as jax_moe
 import kubeflow_controller_tpu.ops.grouped_matmul as jax_gm
 from kubeflow_controller_tpu_torch.models import moe
+from kubeflow_controller_tpu_torch.ops import moe_layout as ml
+from test_torch_moe_layout import FIELDS, assert_same, sorted_layout
 
 torch.set_num_threads(2)
 
@@ -106,6 +110,23 @@ def test_layout_equals_jax_exactly(routed, monkeypatch):
                                   seen["tile_experts"])
     assert lay.tile_experts.dtype == torch.int32
     np.testing.assert_array_equal(lay.dest.numpy(), seen["dest"])
+
+
+@pytest.mark.parametrize("held,first", [(4, None), (2, 0), (2, 1)],
+                         ids=["unsharded", "first_shard", "middle_shard"])
+def test_plain_layout_is_the_sorted_layout(routed, held, first):
+    """The plain version (the reference's one-hot cumsum, which the CPU
+    runs) against a stable sort of the slots, on the reference's routings,
+    unsharded and as a first and a middle shard of two experts; and
+    ``grouped_layout`` hands it on unchanged."""
+    x, w, block_m = routed
+    _, _, idx = moe._route(torch.from_numpy(x), torch.from_numpy(w[0]), 2)
+    lay = moe.grouped_layout(idx, held, block_m, first)
+    want = sorted_layout(idx.numpy(), held, lay.bm, first)
+    plain = ml.moe_layout_plain(idx, held, lay.bm, first)
+    assert_same(plain, want, dtypes=False)
+    assert_same([getattr(lay, f) for f in FIELDS], plain)
+    assert lay.m == idx.numel() + (held + (first is not None)) * lay.bm
 
 
 def test_grouped_ffn_matches_jax_grouped_and_reference(routed, monkeypatch):
