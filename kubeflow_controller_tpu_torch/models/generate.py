@@ -72,13 +72,13 @@ from .llama import (
     QKV_AXES,
     Llama,
     LlamaConfig,
-    LlamaLayer,
     _embed,
-    _heads,
     _mm,
+    _post_attention,
+    _pre_attention,
+    _repeat_kv,
     _w,
     apply_rope,
-    ffn_block,
     model_mesh,
     one_card_only,
     rmsnorm,
@@ -190,42 +190,16 @@ def init_paged_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
 
 def _cache_attention_dense(q: torch.Tensor, kk: torch.Tensor,
                            vv: torch.Tensor, mask: torch.Tensor):
-    """Full-S masked read.  q [B,T,H,D]; kk/vv [B,S,H,D] (kv heads already
-    repeated).  Scores in f32 (the reference's preferred_element_type),
-    V read in f32, output cast back to q's dtype."""
+    """Full-S masked read.  q [B,T,H,D]; kk/vv [B,S,kvH,D], the kv heads
+    repeated to q's (GQA).  Scores in f32 (the reference's
+    preferred_element_type), V read in f32, output cast back to q's
+    dtype."""
+    kk, vv = _repeat_kv(q, kk, vv)
     d = q.shape[-1]
     s = torch.einsum("bthd,bshd->bhts", q.float(), kk.float()) * d ** -0.5
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhts,bshd->bthd", p, vv.float()).to(q.dtype)
-
-
-def _qkv(x: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig):
-    """The attention block's norm and q/k/v projections (DTensors under a
-    mesh: the heads sharded over tp)."""
-    dtype = x.dtype
-    h = rmsnorm(x, _w(lp.attn_norm, dtype), cfg.norm_eps)
-    return tuple(_heads(h, _w(w, dtype)) for w in (lp.wq, lp.wk, lp.wv))
-
-
-def _finish_layer(x: torch.Tensor, attn: torch.Tensor, lp: LlamaLayer,
-                  cfg: LlamaConfig, rules: ShardingRules = DEFAULT_RULES,
-                  mesh=None) -> torch.Tensor:
-    """Output projection + residual, then the FFN block + residual.  Under
-    a mesh the projection's partial sums over tp meet in the constraint,
-    and the MoE runs per shard (``ffn_block(mesh=)``)."""
-    dtype = x.dtype
-    proj = _mm(attn.flatten(2), _w(lp.wo, dtype).flatten(0, 1))
-    x = x + with_logical_constraint(proj, _ACT, rules)
-    h = rmsnorm(x, _w(lp.mlp_norm, dtype), cfg.norm_eps)
-    return with_logical_constraint(x + ffn_block(h, lp, cfg, rules, mesh),
-                                   _ACT, rules)
-
-
-def _repeat_kv(t: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """GQA: expand kv heads (axis 2) to query heads."""
-    repeats = cfg.n_heads // cfg.n_kv_heads
-    return t.repeat_interleave(repeats, dim=2) if repeats > 1 else t
 
 
 def _last_logits(model: Llama, x: torch.Tensor, plen: int,
@@ -253,14 +227,11 @@ def paged_prefill(model: Llama, tokens: torch.Tensor, cache: Cache,
     rope = rope_tables(cfg, positions)
     mask = (positions[None, :] <= positions[:, None])[None, None, :, :]
     for li, lp in enumerate(model.layers):
-        q, k, v = _qkv(x, lp, cfg)
-        q = apply_rope(q, *rope)
-        k = apply_rope(k, *rope)  # written pre-rotated
+        q, k, v, gate = _pre_attention(x, lp, cfg, rope)  # k pre-rotated
         cache["k"][li].index_copy_(0, rows, k[0].to(cache["k"].dtype))
         cache["v"][li].index_copy_(0, rows, v[0].to(cache["v"].dtype))
-        attn = _cache_attention_dense(q, _repeat_kv(k, cfg),
-                                      _repeat_kv(v, cfg), mask)
-        x = _finish_layer(x, attn, lp, cfg)
+        attn = _cache_attention_dense(q, k, v, mask)
+        x, _ = _post_attention(x, attn, gate, lp, cfg)
     return _last_logits(model, x, plen, cfg), cache
 
 
@@ -303,16 +274,13 @@ def paged_extend(model: Llama, tokens: torch.Tensor, cache: Cache,
     mask = (torch.arange(s, device=tokens.device)[None, :]
             <= q_pos[:, None])[None, None, :, :]
     for li, lp in enumerate(model.layers):
-        q, k, v = _qkv(x, lp, cfg)
-        q = apply_rope(q, *rope)
-        k = apply_rope(k, *rope)
+        q, k, v, gate = _pre_attention(x, lp, cfg, rope)
         cache["k"][li].index_copy_(0, write_rows, k[0].to(cache["k"].dtype))
         cache["v"][li].index_copy_(0, write_rows, v[0].to(cache["v"].dtype))
         kk = cache["k"][li][read_rows][None].to(dtype)      # [1,S,kvH,hd]
         vv = cache["v"][li][read_rows][None].to(dtype)
-        attn = _cache_attention_dense(q, _repeat_kv(kk, cfg),
-                                      _repeat_kv(vv, cfg), mask)
-        x = _finish_layer(x, attn, lp, cfg)
+        attn = _cache_attention_dense(q, kk, vv, mask)
+        x, _ = _post_attention(x, attn, gate, lp, cfg)
     return _last_logits(model, x, plen, cfg), cache
 
 
@@ -345,7 +313,7 @@ def paged_decode_step(model: Llama, tokens: torch.Tensor, cache: Cache,
     # Position j of slot b is live iff j <= positions[b].
     live = torch.arange(s, device=dev)[None, :] <= positions[:, None]
     for li, lp in enumerate(model.layers):
-        q, k, v = _qkv(x, lp, cfg)
+        q, k, v, gate = _pre_attention(x, lp, cfg, None)
         # Each slot at its own position: the batch is apply_rope's T axis.
         q = apply_rope(q.transpose(0, 1), *rope).transpose(0, 1)  # [B,1,H,hd]
         k = apply_rope(k.transpose(0, 1), *rope)[0]           # [B,kvH,hd]
@@ -354,10 +322,8 @@ def paged_decode_step(model: Llama, tokens: torch.Tensor, cache: Cache,
                                    v[:, 0].to(cache["v"].dtype))
         kk = cache["k"][li][read_rows].to(dtype)              # [B,S,kvH,hd]
         vv = cache["v"][li][read_rows].to(dtype)
-        attn = _cache_attention_dense(q, _repeat_kv(kk, cfg),
-                                      _repeat_kv(vv, cfg),
-                                      live[:, None, None, :])
-        x = _finish_layer(x, attn, lp, cfg)
+        attn = _cache_attention_dense(q, kk, vv, live[:, None, None, :])
+        x, _ = _post_attention(x, attn, gate, lp, cfg)
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
     logits = torch.einsum("btd,dv->btv", x, model.lm_head.to(dtype))
     return logits[:, 0].float(), cache
@@ -467,8 +433,7 @@ def _blocked_rows(qg, kb, vb, live, n, block, ks, vs) -> torch.Tensor:
 
 def _attend(q, k, v, kc, vc, ks=None, vs=None, *, layer: int,
             start_pos: int, rope: Tuple[torch.Tensor, torch.Tensor],
-            block: int, mask: torch.Tensor,
-            cfg: LlamaConfig) -> torch.Tensor:
+            block: int, mask: torch.Tensor) -> torch.Tensor:
     """One layer's cache write and read, on plain tensors (a shard's,
     under a mesh): RoPE on q and k (``rope``: ``rope_tables``), k and
     v (int8 rows and their scales when ``ks`` is given) written in place
@@ -492,8 +457,7 @@ def _attend(q, k, v, kc, vc, ks=None, vs=None, *, layer: int,
     else:
         kk = (kk.float() * ks[layer][..., None]).to(q.dtype)
         vv = (vv.float() * vs[layer][..., None]).to(q.dtype)
-    return _cache_attention_dense(q, _repeat_kv(kk, cfg), _repeat_kv(vv, cfg),
-                                  mask)
+    return _cache_attention_dense(q, kk, vv, mask)
 
 
 def _decode_table(model: Llama, cfg: LlamaConfig,
@@ -531,7 +495,7 @@ def _forward(model: Llama, table: torch.Tensor, tokens: torch.Tensor,
     attend = partial(_attend, start_pos=start_pos,
                      rope=rope_tables(cfg, torch.arange(
                          start_pos, start_pos + t, device=dev)),
-                     block=block if blocked else 0, mask=mask, cfg=cfg)
+                     block=block if blocked else 0, mask=mask)
     if sub is None:
         x = table[tokens.long()]
     else:
@@ -543,7 +507,7 @@ def _forward(model: Llama, table: torch.Tensor, tokens: torch.Tensor,
         kp = placements_for(KV_AXES, sub, rules)
         cp = [list(c.placements) for c in kv]
     for li, lp in enumerate(model.layers):
-        q, k, v = _qkv(x, lp, cfg)
+        q, k, v, gate = _pre_attention(x, lp, cfg, None)
         if sub is None:
             attn = attend(q, k, v, *kv, layer=li)
         else:
@@ -555,7 +519,7 @@ def _forward(model: Llama, table: torch.Tensor, tokens: torch.Tensor,
                 with_logical_constraint(q, QKV_AXES, rules),
                 with_logical_constraint(k, KV_AXES, rules),
                 with_logical_constraint(v, KV_AXES, rules), *kv)
-        x = _finish_layer(x, attn, lp, cfg, rules, sub)
+        x, _ = _post_attention(x, attn, gate, lp, cfg, rules, sub)
     x = rmsnorm(x, _w(model.final_norm, dtype), cfg.norm_eps)
     logits = _mm(x, _w(model.lm_head, dtype))
     logits = with_logical_constraint(logits, ("batch", "seq", "vocab"), rules)

@@ -113,10 +113,10 @@ class LlamaConfig:
     - ``dense_layers``: in a MoE config, the leading layers that keep the
       dense FFN (``intermediate`` wide).
     - ``expert_intermediate``: the routed and shared experts' width, 0 for
-      ``intermediate``; ``shared_experts``: shared experts beside the
-      routed ones (one SwiGLU ``shared_experts`` times as wide).
-    - ``experts_held``: the experts this card holds, the first of
-      ``n_experts`` that the router scores (0: all of them).
+      ``intermediate``; ``shared_experts`` ("afmoe" only): shared experts
+      beside the routed ones (one SwiGLU ``shared_experts`` times as wide).
+    - ``experts_held`` ("afmoe" only): the experts this card holds, the
+      first of ``n_experts`` that the router scores (0: all of them).
 
     The pp, sp and mesh paths and serving take none of the port's own
     fields but ``head_width`` (:func:`one_card_only`)."""
@@ -164,6 +164,13 @@ class LlamaConfig:
                 self.moe_dispatch != "grouped":
             raise ValueError("the afmoe block's sigmoid routing runs the "
                              f"grouped dispatch, not {self.moe_dispatch!r}")
+        if self.block == "llama":
+            for name in ("shared_experts", "experts_held"):
+                if getattr(self, name):
+                    raise ValueError(
+                        f"the llama block takes no {name} "
+                        f"({name}={getattr(self, name)!r}): only the afmoe "
+                        "block's sigmoid routing does")
 
     @property
     def head_dim(self) -> int:
@@ -195,13 +202,17 @@ def _param(shape, dtype, device) -> nn.Parameter:
 class LlamaLayer(nn.Module):
     """Layer ``index``'s parameters, named as the JAX pytree's
     ``params["layers"]`` keys (without the leading layer axis), then the
-    port's own: an "afmoe" block's q/k norms (``q_norm``, ``k_norm``
-    [head_dim]), output gate (``attn_gate`` [D, H, head_dim]) and norms
-    after each sublayer (``post_attn_norm``, ``post_mlp_norm``); a MoE
-    layer's shared expert (``shared_gate``, ``shared_up``, ``shared_down``)
-    and, in an "afmoe" block, its ``expert_bias`` [n_experts] f32, a
-    buffer.  ``window`` is the layer's causal window (None: global) and
-    ``moe`` whether it routes."""
+    port's own, and what the layer is, decided here from the block and
+    ``index``: the forward reads these, never the block.  ``window``: its
+    causal window (None: global); ``rope``: q and k are rotated;
+    ``qk_norm``: q/k norms (``q_norm``, ``k_norm`` [head_dim]);
+    ``gated``: an output gate (``attn_gate`` [D, H, head_dim]);
+    ``post_norm``: norms after each sublayer (``post_attn_norm``,
+    ``post_mlp_norm``); ``moe``: it routes; ``biased``: by sigmoid score
+    and ``expert_bias`` [n_experts] f32, a buffer (else by softmax);
+    ``shared``: a shared expert (``shared_gate``, ``shared_up``,
+    ``shared_down``); ``stats``: it reports the softmax router's stats to
+    the loss (zeros where dense)."""
 
     def __init__(self, cfg: LlamaConfig, device: torch.device,
                  dtype: torch.dtype, index: int = 0):
@@ -209,19 +220,27 @@ class LlamaLayer(nn.Module):
         d, hd, nh, nkv = cfg.dim, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
         f = cfg.intermediate
         g = cfg.global_every
+        afmoe = cfg.block == "afmoe"
         global_layer = bool(g) and index % g == g - 1
         self.window = None if global_layer or not cfg.window else cfg.window
+        self.rope = not afmoe or self.window is not None
+        self.qk_norm = self.gated = self.post_norm = afmoe
         self.moe = bool(cfg.n_experts) and index >= cfg.dense_layers
+        self.biased = self.moe and afmoe
+        self.shared = self.moe and bool(cfg.shared_experts)
+        self.stats = not afmoe
         self.attn_norm = _param((d,), dtype, device)
         self.wq = _param((d, nh, hd), dtype, device)
         self.wk = _param((d, nkv, hd), dtype, device)
         self.wv = _param((d, nkv, hd), dtype, device)
         self.wo = _param((nh, hd, d), dtype, device)
         self.mlp_norm = _param((d,), dtype, device)
-        if cfg.block == "afmoe":
+        if self.qk_norm:
             self.q_norm = _param((hd,), dtype, device)
             self.k_norm = _param((hd,), dtype, device)
+        if self.gated:
             self.attn_gate = _param((d, nh, hd), dtype, device)
+        if self.post_norm:
             self.post_attn_norm = _param((d,), dtype, device)
             self.post_mlp_norm = _param((d,), dtype, device)
         if self.moe:
@@ -231,12 +250,12 @@ class LlamaLayer(nn.Module):
             self.w_gate = _param((e, d, f), dtype, device)
             self.w_up = _param((e, d, f), dtype, device)
             self.w_down = _param((e, f, d), dtype, device)
-            if cfg.shared_experts:
+            if self.shared:
                 fs = f * cfg.shared_experts
                 self.shared_gate = _param((d, fs), dtype, device)
                 self.shared_up = _param((d, fs), dtype, device)
                 self.shared_down = _param((fs, d), dtype, device)
-            if cfg.block == "afmoe":
+            if self.biased:
                 self.register_buffer("expert_bias", torch.zeros(
                     cfg.n_experts, dtype=torch.float32, device=device))
         else:
@@ -266,7 +285,8 @@ class Llama(nn.Module):
     """The parameter tree: ``embed``, ``layers``, ``final_norm``,
     ``lm_head`` — the JAX pytree's top-level keys.  ``layers``: the global
     indices of the layers this process holds (a pipeline stage's,
-    :class:`StageLayers`), or all of them."""
+    :class:`StageLayers`), or all of them.  ``embed_scale``: the factor
+    on the embedding, sqrt(dim) in an "afmoe" block, else None."""
 
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = "cuda",
                  requires_grad: bool = False, layers=None):
@@ -274,6 +294,8 @@ class Llama(nn.Module):
         dev = resolve_device(device)
         dtype = torch_dtype(cfg.param_dtype)
         self.cfg = cfg
+        self.embed_scale = (math.sqrt(cfg.dim) if cfg.block == "afmoe"
+                            else None)
         self.embed = _param((cfg.vocab_size, cfg.dim), dtype, dev)
         if layers is None:
             self.layers = nn.ModuleList(
@@ -306,9 +328,9 @@ def llama_init(cfg: LlamaConfig, generator: torch.Generator,
     alive at a time.  On a mesh with a pp axis above 1 the module holds
     this process's stage's layers only (:func:`stage_layers`); the other
     layers' values are drawn and dropped, so that every stage draws what
-    the whole model would.  An "afmoe" layer draws its own leaves after
-    those (norms one, the gate and shared expert 0.02, the shared down
-    projection by depth); an expert bias starts at zero."""
+    the whole model would.  A layer's own leaves come after those (norms
+    one, the gate and shared expert 0.02, the shared down projection by
+    depth); an expert bias starts at zero."""
     resid_scale = 0.02 / (2 * cfg.n_layers) ** 0.5
     if mesh is None:
         model = Llama(cfg, device, requires_grad)
@@ -364,12 +386,15 @@ def llama_init(cfg: LlamaConfig, generator: torch.Generator,
         normal_(lp.w_gate)
         normal_(lp.w_up)
         normal_(lp.w_down, resid_scale)
-        if cfg.block == "afmoe":
-            for p in (lp.q_norm, lp.k_norm, lp.post_attn_norm,
-                      lp.post_mlp_norm):
-                ones_(p)
+        if lp.qk_norm:
+            ones_(lp.q_norm)
+            ones_(lp.k_norm)
+        if lp.post_norm:
+            ones_(lp.post_attn_norm)
+            ones_(lp.post_mlp_norm)
+        if lp.gated:
             normal_(lp.attn_gate)
-        if lp.moe and cfg.shared_experts:
+        if lp.shared:
             normal_(lp.shared_gate)
             normal_(lp.shared_up)
             normal_(lp.shared_down, resid_scale)
@@ -477,9 +502,9 @@ def _refuse_pp(mesh) -> None:
 
 
 # The port's own fields that only the single-card training path takes, with
-# the values that leave a config as the reference's fields make it.
-ONE_CARD_FIELDS = (("block", "llama"), ("window", 0), ("dense_layers", 0),
-                   ("shared_experts", 0), ("experts_held", 0))
+# the values that leave a config as the reference's fields make it (the
+# block's ``shared_experts`` and ``experts_held`` come with the block).
+ONE_CARD_FIELDS = (("block", "llama"), ("window", 0), ("dense_layers", 0))
 
 
 def one_card_only(cfg: LlamaConfig, path: str) -> None:
@@ -609,24 +634,27 @@ def ffn_block(h: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig,
               mesh=None) -> torch.Tensor:
     """SwiGLU FFN or MoE on [B, T, D] activations (DTensors under a
     mesh: tp shards the mlp dim, the down projection's partial sums meet
-    in one all-reduce; MoE runs per shard, ``models/moe.py``).  In an
-    "afmoe" block a MoE layer is :func:`moe.biased_moe_ffn` on the
-    experts this card holds, plus its shared expert."""
+    in one all-reduce; MoE runs per shard, ``models/moe.py``).  A MoE
+    layer routes as it was built: by sigmoid score and expert bias
+    (:func:`moe.biased_moe_ffn`, on the experts this card holds) or by
+    softmax (:func:`moe.moe_ffn`); its shared expert, where it holds one,
+    is added."""
     dtype = h.dtype
-    if lp.moe and cfg.block == "afmoe":
+    if not lp.moe:
+        return _swiglu(h, lp.w_gate, lp.w_up, lp.w_down, rules)
+    if lp.biased:
         y = biased_moe_ffn(h, *_moe_weights(lp, dtype),
                            _expert_bias(lp, h.device), top_k=cfg.moe_top_k,
                            route_scale=cfg.route_scale,
                            bias_rate=cfg.bias_rate)
-        if cfg.shared_experts:
-            y = _swiglu(h, lp.shared_gate, lp.shared_up, lp.shared_down,
-                        rules) + y
-        return y
-    if lp.moe:
-        return moe_ffn(h, *_moe_weights(lp, dtype), top_k=cfg.moe_top_k,
-                       capacity_factor=cfg.capacity_factor,
-                       dispatch=cfg.moe_dispatch, mesh=mesh)
-    return _swiglu(h, lp.w_gate, lp.w_up, lp.w_down, rules)
+    else:
+        y = moe_ffn(h, *_moe_weights(lp, dtype), top_k=cfg.moe_top_k,
+                    capacity_factor=cfg.capacity_factor,
+                    dispatch=cfg.moe_dispatch, mesh=mesh)
+    if lp.shared:
+        y = _swiglu(h, lp.shared_gate, lp.shared_up, lp.shared_down,
+                    rules) + y
+    return y
 
 
 def _swiglu(h: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -806,75 +834,88 @@ def _flash_path(q, k, v, causal: bool, cfg: LlamaConfig,
 def _decoder_layer_fn(cfg: LlamaConfig,
                       rope: Tuple[torch.Tensor, torch.Tensor], mesh=None,
                       rules: ShardingRules = DEFAULT_RULES):
-    """One decoder layer as ``(x, lp) -> (x, aux)`` where ``aux`` is the
-    layer's MoE router stats (zeros for dense layers; empty for the
-    "afmoe" block, :func:`_afmoe_layer_fn`, which trains no router loss).
-    Under a mesh x and the parameters are DTensors, constrained at the
-    reference's points."""
-    if cfg.block == "afmoe":
-        return _afmoe_layer_fn(cfg, rope)
-    dtype = torch_dtype(cfg.dtype)
+    """One decoder layer as ``(x, lp) -> (x, aux)``, :func:`_pre_attention`
+    (RoPE where the layer takes it), :func:`_attention` (the layer's
+    window) and :func:`_post_attention`; with the "afmoe" block's parts
+    in brackets (``portbench/archs/afmoe.py`` writes out its equations):
+
+        a = norm(x); q, k, v, [g] = a Wq, a Wk, a Wv, [a Wg]
+        [q, k = norm_q(q), norm_k(k) per head]; RoPE on q, k [if windowed]
+        x = x + [norm_post]((attention(q, k, v) [* sigmoid(g)]) Wo)
+        x = x + [norm_post_mlp](FFN(norm_mlp(x)))
+
+    ``aux`` is the layer's router stats (zeros for dense layers; empty
+    where no router loss is trained).  Under a mesh x and the parameters
+    are DTensors, constrained at the reference's points."""
 
     @in_step_span("kctpu.layer")
     def layer(x, lp):
-        h = rmsnorm(x, _w(lp.attn_norm, dtype), cfg.norm_eps)
-        q = apply_rope(_heads(h, _w(lp.wq, dtype)), *rope)
-        k = apply_rope(_heads(h, _w(lp.wk, dtype)), *rope)
-        v = _heads(h, _w(lp.wv, dtype))
+        q, k, v, gate = _pre_attention(x, lp, cfg, rope)
         attn = _attention(q, k, v, True, cfg, mesh, rules, lp.window)
-        wo = _w(lp.wo, dtype)
-        with checkpoint_name("attn_proj"):
-            proj = _mm(attn.flatten(2), wo.flatten(0, 1))
-        x = x + with_logical_constraint(proj, ("batch", "seq", None), rules)
-
-        h = rmsnorm(x, _w(lp.mlp_norm, dtype), cfg.norm_eps)
-        if lp.moe and router_losses(cfg):
-            ff, aux = ffn_block_stats(h, lp, cfg, mesh)
-        else:
-            ff = ffn_block(h, lp, cfg, rules)
-            zero = torch.zeros((), device=x.device)
-            aux = {"aux_loss": zero, "z_loss": zero, "overflow_frac": zero}
-        x = with_logical_constraint(x + ff, ("batch", "seq", None), rules)
-        return x, aux
+        return _post_attention(x, attn, gate, lp, cfg, rules, mesh,
+                               stats=True)
 
     return layer
 
 
-def _afmoe_layer_fn(cfg: LlamaConfig,
-                    rope: Tuple[torch.Tensor, torch.Tensor]):
-    """An "afmoe" layer as ``(x, lp) -> (x, {})`` (AFMoE's decoder layer,
-    ``portbench/archs/afmoe.py`` writes out its equations):
+def _pre_attention(x: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig,
+                   rope: Optional[Tuple[torch.Tensor, torch.Tensor]]):
+    """``(q, k, v, gate)`` from [B, T, D] ``x``: the norm; q's
+    projection, its norm and RoPE (by ``rope``, :func:`rope_tables`),
+    each where the layer takes it, then k's, v's; the gate's projection
+    (else None).  q/k/v are [B, T, heads, head_dim], DTensors under a
+    mesh.  ``rope`` None: unrotated, for decoding's own positions."""
+    dtype, eps = x.dtype, cfg.norm_eps
+    h = rmsnorm(x, _w(lp.attn_norm, dtype), eps)
 
-        a = norm(x); q, k, v, g = a Wq, a Wk, a Wv, a Wg
-        q, k = norm_q(q), norm_k(k) per head; RoPE on both (windowed layers)
-        x = x + norm_post(((attention(q, k, v) * sigmoid(g)) Wo)
-        x = x + norm_post_mlp(FFN(norm_mlp(x)))
+    def heads(w, norm):
+        t = _heads(h, _w(w, dtype))
+        if lp.qk_norm:
+            t = rmsnorm(t, _w(getattr(lp, norm), dtype), eps)
+        return apply_rope(t, *rope) if rope is not None and lp.rope else t
 
-    with the FFN dense or, on a MoE layer, the shared expert plus the
-    routed experts this card holds (:func:`ffn_block`)."""
-    dtype = torch_dtype(cfg.dtype)
-    eps = cfg.norm_eps
+    q, k = heads(lp.wq, "q_norm"), heads(lp.wk, "k_norm")
+    v = _heads(h, _w(lp.wv, dtype))
+    gate = _mm(h, _w(lp.attn_gate, dtype).flatten(1)) if lp.gated else None
+    return q, k, v, gate
 
-    @in_step_span("kctpu.layer")
-    def layer(x, lp):
-        h = rmsnorm(x, _w(lp.attn_norm, dtype), eps)
-        q = rmsnorm(_heads(h, _w(lp.wq, dtype)), _w(lp.q_norm, dtype), eps)
-        k = rmsnorm(_heads(h, _w(lp.wk, dtype)), _w(lp.k_norm, dtype), eps)
-        v = _heads(h, _w(lp.wv, dtype))
-        gate = _mm(h, _w(lp.attn_gate, dtype).flatten(1))
-        if lp.window:
-            q, k = apply_rope(q, *rope), apply_rope(k, *rope)
-        attn = _attention(q, k, v, True, cfg, window=lp.window).flatten(2)
+
+def _post_attention(x: torch.Tensor, attn: torch.Tensor,
+                    gate: Optional[torch.Tensor], lp: LlamaLayer,
+                    cfg: LlamaConfig, rules: ShardingRules = DEFAULT_RULES,
+                    mesh=None, *, stats: bool = False):
+    """``(x, aux)`` from the residual ``x`` and ``attn`` [B, T, H,
+    head_dim]: the gate, the output projection, its norm, the residual;
+    the MLP norm, the FFN, its norm, the residual (gate and sublayer norms
+    where the layer has them).  Under a mesh the partial sums over tp meet
+    in the constraints.  ``aux``: with ``stats`` (training), the router's
+    stats of a layer that reports them (``lp.stats``, zeros where dense),
+    else empty."""
+    dtype, eps = x.dtype, cfg.norm_eps
+    if lp.gated:
+        attn = attn.flatten(2)
         with step_span("kctpu.attention"):
             attn = attn * torch.sigmoid(gate)
-        with checkpoint_name("attn_proj"):
-            proj = _mm(attn, _w(lp.wo, dtype).flatten(0, 1))
-        x = x + rmsnorm(proj, _w(lp.post_attn_norm, dtype), eps)
-        h = rmsnorm(x, _w(lp.mlp_norm, dtype), eps)
-        ff = ffn_block(h, lp, cfg)
-        return x + rmsnorm(ff, _w(lp.post_mlp_norm, dtype), eps), {}
+    wo = _w(lp.wo, dtype)
+    with checkpoint_name("attn_proj"):    # and the flatten's copy, if any
+        proj = _mm(attn.flatten(2), wo.flatten(0, 1))
+    proj = with_logical_constraint(proj, ("batch", "seq", None), rules)
+    if lp.post_norm:
+        proj = rmsnorm(proj, _w(lp.post_attn_norm, dtype), eps)
+    x = x + proj
 
-    return layer
+    h = rmsnorm(x, _w(lp.mlp_norm, dtype), eps)
+    aux = {}
+    if stats and lp.stats and lp.moe:
+        ff, aux = ffn_block_stats(h, lp, cfg, mesh)
+    else:
+        ff = ffn_block(h, lp, cfg, rules, mesh)
+        if stats and lp.stats:
+            zero = torch.zeros((), device=x.device)
+            aux = {"aux_loss": zero, "z_loss": zero, "overflow_frac": zero}
+    if lp.post_norm:
+        ff = rmsnorm(ff, _w(lp.post_mlp_norm, dtype), eps)
+    return with_logical_constraint(x + ff, ("batch", "seq", None), rules), aux
 
 
 def _heads(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -995,9 +1036,9 @@ def llama_forward(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
         mesh = model_mesh(mesh)
         tokens = stage_tokens(tokens, mesh, rules)
     x = _lookup(model.embed, tokens, dtype, rules)
-    if cfg.block == "afmoe":
+    if model.embed_scale:
         with step_span("kctpu.embed"):
-            x = x * math.sqrt(cfg.dim)
+            x = x * model.embed_scale
     rope = _rope(cfg, tokens.shape[1], mesh, x.device)
     layer_fn = _maybe_remat(_decoder_layer_fn(cfg, rope, mesh, rules), cfg)
     auxes = []
@@ -1066,18 +1107,18 @@ def _vocab_whole(logits: torch.Tensor, rules: ShardingRules
     return with_logical_constraint(logits, ("batch", "seq", None), rules)
 
 
-def router_losses(cfg: LlamaConfig) -> bool:
-    """Whether the config trains the router's balancing and z losses:
-    softmax routing ("llama") does; the "afmoe" block's sigmoid routing
-    balances by its expert bias."""
-    return bool(cfg.n_experts) and cfg.block == "llama"
+def router_losses(model: Llama) -> bool:
+    """Whether the model trains the router's balancing and z losses: a
+    layer routed by softmax does (``stats``); sigmoid routing balances by
+    its expert bias."""
+    return any(lp.moe and lp.stats for lp in model.layers)
 
 
 def llama_loss(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
                mesh=None, rules: ShardingRules = DEFAULT_RULES
                ) -> torch.Tensor:
-    """Next-token cross-entropy, mean over all positions; for MoE configs
-    of the "llama" block plus the router losses weighted by
+    """Next-token cross-entropy, mean over all positions; for a model
+    routed by softmax plus the router losses weighted by
     ``moe_aux_coef``/``moe_z_coef`` (:func:`router_losses`).
     With ``cfg.loss_chunks > 0`` the CE is computed chunk by chunk without
     materialising the full [B, T, vocab] f32 logits.  Under ``mesh`` the
@@ -1089,7 +1130,7 @@ def llama_loss(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
     shard's CE is local: slicing seq-sharded logits at ``[:, :-1]`` would
     gather the whole [B, T, vocab] f32 logits on every process."""
     aux, targets = None, None
-    stats = router_losses(cfg)
+    stats = router_losses(model)
     if mesh is not None:
         _refuse_pp(mesh)
         one_card_only(cfg, "the mesh path")

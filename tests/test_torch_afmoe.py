@@ -14,7 +14,8 @@ training path, held to the benchmark's plain reference
   shape too;
 - the Mistral and Mixtral configurations build the leaves and the loss
   they built before the block existed;
-- the paths that do not take the block refuse it by name.
+- the paths that do not take the block refuse it by name, and the
+  "llama" block refuses the fields of the block's share.
 """
 
 import copy
@@ -382,6 +383,15 @@ def test_the_other_paths_refuse_the_block_by_name():
     with pytest.raises(ValueError, match="window=12"):
         tgen.init_paged_cache(tllama.LlamaConfig.tiny(window=12), 4, 8,
                               device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [("shared_experts", 1),
+                                         ("experts_held", 2)])
+def test_the_llama_block_refuses_the_share_fields(field, value):
+    # The softmax router's FFN would build a shared expert no forward
+    # reads, or route over experts the layer does not hold.
+    with pytest.raises(ValueError, match=f"{field}={value}"):
+        tllama.LlamaConfig.tiny(n_experts=4, **{field: value})
 
 
 def test_llama_pretrain_trains_the_block():
