@@ -126,7 +126,11 @@ Phases, in order (any failure raises and exits non-zero):
    attention "auto", B 4 x T 4096 synthetic tokens, 5 steps of AdamW (lr
    3e-4, weight decay 0.1, clip 1.0).  The flash launch counters are zeroed
    just before and read just after: flash_fwd must have launched 2 x 8 x 5
-   times (forward and remat recompute), flash_dq and flash_dkv 8 x 5.
+   times (forward and remat recompute), flash_dq and flash_dkv 8 x 5;
+   ``norm_rope_fwd`` (2 x 4 x 8 + 1) x 5 (each layer's two sublayer norms
+   and q's and k's rotation, forward and recompute, and the final norm)
+   and ``norm_rope_bwd`` (4 x 8 + 1) x 5, with the norm's and the
+   rotation's plain versions patched to raise (``norm_plain_raise``).
    Every loss finite, the last below the first.  Prints step ms p50,
    tokens/s, peak memory, then steps 6 and 7 of the same loop (same
    optimizer state and tokens), the seventh under the profiler (kernel
@@ -139,8 +143,9 @@ Phases, in order (any failure raises and exits non-zero):
    dispatch), B 2 x T 4096, 5 steps as phase 8.  Launch counts exact: per
    layer per step ``gmm_swiglu`` 2 (forward, recompute), ``gmm`` 5 (down
    forward and recompute, down dlhs, the two SwiGLU dlhs), ``tgmm`` 3,
-   ``flash_fwd`` 2, ``flash_dq`` and ``flash_dkv`` 1.  Peak memory under 80
-   GB; the profiled seventh step as in phase 8.
+   ``flash_fwd`` 2, ``flash_dq`` and ``flash_dkv`` 1; the norm's kernels
+   and plain versions as in phase 8.  Peak memory under 80 GB; the
+   profiled seventh step as in phase 8.
 11. remat policies at full width: ``llama_pretrain.train`` on the dense
    model of phase 8 (8 layers, B 4 x T 4096, seed 0: ``llama_pretrain.
    main``'s init) for 3 steps under each of "full", "dots", "ffn", "gateup"
@@ -159,8 +164,10 @@ Phases, in order (any failure raises and exits non-zero):
    --fsdp 1 --tp 1``) inside a one-rank nccl group formed by
    ``JobRuntime.join_group``, so on a real ``DeviceMesh`` with DTensor
    parameters and activations and the flash kernels per shard through
-   ``local_map``.  It must print the mesh line; the flash launches must be
-   exact (2 x 8 x 3 forward, 8 x 3 each backward); its per-step losses must
+   ``local_map``, the norms and rotations on each DTensor's local shard.
+   It must print the mesh line; the flash launches must be exact (2 x 8 x
+   3 forward, 8 x 3 each backward), the norm's as in phase 8 (its plain
+   versions raise); its per-step losses must
    be within 1e-5 relative of phase 11's "full" run on the same init and
    tokens (the largest difference is printed); step ms p50 and peak memory
    are printed beside that run's.
@@ -174,7 +181,8 @@ Phases, in order (any failure raises and exits non-zero):
    ``gmm`` calls under ``valid_tiles``).  No fallback warning; launches
    exact, per layer per step: the skip forms of ``gmm`` 9 (gate, up and
    down, forward and recompute, and the three dlhs) and ``tgmm`` 3, and
-   no other grouped launch (``gmm_swiglu`` 0), flash as phase 10 (the
+   no other grouped launch (``gmm_swiglu`` 0), the norm's kernels as in
+   phase 12, flash as phase 10 (the
    counts ``tests/test_torch_moe_mesh.py`` holds the CPU to against the
    reference's jaxpr under its mesh); per-step losses within 1e-3
    relative of phase 10's first three (the mesh runs gate and up as two
@@ -287,7 +295,7 @@ Phases, in order (any failure raises and exits non-zero):
    microbatches=)`` on virtual stages in this process
    (``parallel/pipeline.py:Lockstep``; the 1F1B schedule of
    ``models/llama.py:llama_loss_and_grads_pp``), every kernel's plain
-   version patched to raise.  20a: Llama-2-7B widths, 8 layers, B 4 x T
+   version patched to raise (the norm's and the rotation's too).  20a: Llama-2-7B widths, 8 layers, B 4 x T
    4096, (pp 4) x 2 layers, M 4: one 1F1B step against ``llama_loss`` +
    backward on the same init and batch (loss within 1e-3 relative, every
    gradient within 5e-2 relative norm), its launches exact
@@ -412,8 +420,10 @@ Phases, in order (any failure raises and exits non-zero):
    its bound; ``biased_moe_ffn`` against a plain per-expert loop on the
    same routing; and one MoE layer of the model (windowed) forward and
    backward, its launches (``AFMOE_LAUNCHES_PER_LAYER``, skip forms
-   included) read from counters zeroed just before, and its expert bias
-   stepped once by the bias rate.
+   included, and the norm's kernels with the one-layer model's final
+   norm: 2 x 6 + 1 forward, 6 + 1 backward) read from counters zeroed just
+   before, the norm's plain versions refused, and its expert bias stepped
+   once by the bias rate.
 28. the MoE layer's grouped layout (``moe_layout_phase``; alone after the
    build: ``python3 -c "import torch, chip_smoke as cs; cs.build_phase();
    print(cs.moe_layout_phase(torch.device('cuda', 0), 0))"``): the
@@ -427,7 +437,30 @@ Phases, in order (any failure raises and exits non-zero):
    launches (``AFMOE_LAUNCHES_PER_LAYER``) hold two layouts (the forward
    and remat's re-run) beside the grouped kernels' unchanged counts, with
    the plain version refused and no torch scan kernel in its trace.
-29. The card's name and power limit, the ``kernels`` JSON line (launches
+29. RMSNorm and RoPE as one pass (``norm_rope_phase``; alone after the
+   build: ``python3 -c "import torch, chip_smoke as cs; cs.build_phase();
+   print(cs.norm_rope_phase(torch.device('cuda', 0), 0))"``): the kernels
+   of ``ops/norm_rope.py`` against ``norm_rope_plain`` and
+   ``norm_rope_bwd_plain`` at the benchmark's shapes (``NORM_ROPE_CASES``:
+   Trinity-Mini's q and k, norm then rotation, and its hidden rows;
+   Mistral-7B's hidden rows and its q and k, rotation alone) and at small
+   ones (rows that fill no block, a row of 24, of 1000, of 6144 and of
+   8192, a 2048-wide rotation, and decode's q and k, [B 8, 1, H, 128]
+   seen as [1, 8, H, 128] with each slot's table row at its own random
+   position below ``DECODE_MAX_POS``): the rotation alone forward and
+   backward bit for bit; with the norm, each row of y and dx within 2**-6 of the
+   row's largest plain value (the mean's sum is taken in another order,
+   which moves rstd by a few f32 ulps and a value by at most a rounding
+   step at each of its bf16 roundings), rstd within 1e-5, the scale's
+   gradient within 2**-7 of its largest value (one bf16 rounding of two
+   f32 sums in different orders); dx and ds the same bits over two runs;
+   dx and ds against autograd through the plain composition (bf16
+   roundings at every cast) within 5e-2 of their largest value.  Each benchmark
+   shape timed: the forward and the backward beside their byte bounds
+   (x read and y written once, rstd, the tables; x, dy read and dx written
+   once), and the plain composition's forward and its forward and
+   backward under autograd.
+30. The card's name and power limit, the ``kernels`` JSON line (launches
    from phase 10; each path's own counts beside them, phase 13's, the
    sequence-parallel paths ``ring_n4``, ``ring_n2`` and ``ulysses_n4``,
    ``generate``, phase 19a's, ``pp_dense`` and ``pp_moe``, phase 20's
@@ -436,7 +469,9 @@ Phases, in order (any failure raises and exits non-zero):
    fits, with the skip launches of ``gmm`` and ``tgmm``, and the
    serve and generate runs' grouped launches by design; each flash entry's
    ``sp_block``: the block kernels of phase 18, SDPA's backward as the
-   library time of dq and dkv), and the contract line ``{"ok": true,
+   library time of dq and dkv; ``norm_rope``: phase 29's ms, byte bound
+   and plain ms forward plus backward, and the train paths' launches),
+   and the contract line ``{"ok": true,
    "device": {...}}`` last.
 """
 
@@ -477,6 +512,7 @@ from kubeflow_controller_tpu_torch.ops import adamw
 from kubeflow_controller_tpu_torch.ops import attention as at
 from kubeflow_controller_tpu_torch.ops import grouped_matmul as gm
 from kubeflow_controller_tpu_torch.ops import moe_layout as ml
+from kubeflow_controller_tpu_torch.ops import norm_rope as nr
 from kubeflow_controller_tpu_torch.parallel.ring import attention_reference
 from kubeflow_controller_tpu_torch.models import mnist
 from kubeflow_controller_tpu_torch import graft_entry
@@ -517,6 +553,7 @@ REF_FILE = "kubeflow_controller_tpu/ops/grouped_matmul.py"
 FLASH_SOURCE = "kubeflow_controller_tpu_torch/csrc/flash_attention.cu"
 FLASH_REF = "kubeflow_controller_tpu/ops/attention.py"
 ADAMW_SOURCE = "kubeflow_controller_tpu_torch/csrc/adamw.cu"
+NORM_SOURCE = "kubeflow_controller_tpu_torch/csrc/norm_rope.cu"
 FLASH_ROW_TOL = 1e-2               # per row: ||kernel - plain|| / ||plain||
 ROW_FLOOR = 1e-2                   # of the RMS row norm, the denominator's floor
 FLASH_OUTS = ("o", "dq", "dk", "dv")
@@ -548,12 +585,16 @@ AFMOE_SHARE = {"batch": 4, "seq_len": 8192, "experts": 128, "held": 64}
 # down gmm in the forward, again in the re-run, and the three dlhs gmms;
 # the three weight gradients; flash on a windowed layer (fwd + re-run);
 # the grouped layout, built in the forward and again in the re-run.
+# The norm's kernels: the layer's six calls (four sublayer norms, q's and
+# k's norm then rotation) twice forward and once backward, and the one-layer
+# model's final norm once each way.
 AFMOE_LAUNCHES_PER_LAYER = {"moe_layout": 2, "gmm_swiglu": 0, "gmm": 9,
                             "gmm_skip": 9,
                             "tgmm": 3, "tgmm_skip": 3, "flash_fwd": 2,
                             "flash_fwd_skip": 2, "flash_dq": 1,
                             "flash_dq_skip": 1, "flash_dkv": 1,
-                            "flash_dkv_skip": 1}
+                            "flash_dkv_skip": 1, "norm_rope_fwd": 13,
+                            "norm_rope_bwd": 7}
 MANY_HEADS = (1024, 64, 66, 64)     # B * H = 67584, past the old 65535
 MANY_HEADS_SLICES = (0, 993, 1023)  # from batch 993 on, every head >= 65536
 PLAIN_HEADS = 8                     # heads per plain-version call
@@ -639,7 +680,8 @@ WMMA_KERNELS = ("tgmm_kernel",)
 # parameters, for a kernel that is not a template).
 KERNEL_NAME = re.compile(r"\d((?:t?gmm|gmm_swiglu|flash_fwd|flash_dq|"
                          r"flash_dkv|adamw|moe_layout_scan_(?:count|offsets|"
-                         r"place))_(?:wgmma_|swapab_)?kernel)([IE])")
+                         r"place)|norm_rope_(?:fwd|bwd)|norm_scale_grad)_"
+                         r"(?:wgmma_|swapab_)?kernel)([IE])")
 
 
 def hgmma_counts(sass: str) -> dict:
@@ -1888,27 +1930,60 @@ def moe_train_check_phase(cfg: LlamaConfig, dev, seed: int,
 
 def counter(name: str):
     """The wrapper whose ``launches`` counts kernel ``name``."""
+    if name.startswith("norm_rope"):
+        return getattr(nr, name)
     return getattr(at, name) if name.startswith("flash") else getattr(gm,
                                                                       name)
+
+
+# Norm and rotation calls a layer of the llama block makes: the two
+# sublayer norms, q's and k's rotation.
+NORM_CALLS_PER_LAYER = 4
+NORM_KERNELS = ("norm_rope_fwd", "norm_rope_bwd")
+NORM_PLAIN = ("rmsnorm_plain", "rope_plain", "norm_rope_plain",
+              "norm_rope_bwd_plain")
+
+
+def norm_rope_want(calls: int, layers: int, steps: int) -> dict:
+    """``norm_rope_fwd`` and ``norm_rope_bwd`` launches over ``steps``
+    training steps under remat "full" of ``layers`` layers of ``calls``
+    norm and rotation calls each: each call forward twice (the forward and
+    the re-run) and backward once, the final norm once each way."""
+    return {"norm_rope_fwd": (2 * calls * layers + 1) * steps,
+            "norm_rope_bwd": (calls * layers + 1) * steps}
+
+
+@contextmanager
+def norm_plain_raise():
+    """The norm's and the rotation's plain versions raise while this is
+    open: on the card every call is the kernels'."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain norm or rotation ran on the card")
+    with contextlib.ExitStack() as stack:
+        for name in NORM_PLAIN:
+            stack.enter_context(mock.patch.object(nr, name, refuse))
+        yield
 
 
 def train_run(label: str, cfg: LlamaConfig, dev, seed: int, steps: int,
               batch: int, seq_len: int, want: dict):
     """``llama_pretrain.train`` of ``cfg`` for ``steps`` AdamW steps (lr
     3e-4, weight decay 0.1, clip 1.0) with the launch counters of ``want``
-    zeroed just before and read just after: each must equal its ``want``.
-    Every loss finite, the last below the first.  Then steps ``steps + 1``
-    and ``steps + 2`` of the same loop (same optimizer state and tokens),
-    the second under the profiler.  Returns the printed record."""
+    zeroed just before and read just after: each must equal its ``want``;
+    the norm's and the rotation's plain versions raise throughout.  Every
+    loss finite, the last below the first.  Then steps ``steps + 1`` and
+    ``steps + 2`` of the same loop (same optimizer state and tokens), the
+    second under the profiler.  Returns the printed record."""
     counters = {name: counter(name) for name in want}
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
-    res = llama_pretrain.train(cfg, steps=steps, batch_size=batch,
-                               seq_len=seq_len, lr=3e-4, device=dev,
-                               seed=seed)
+    with norm_plain_raise():
+        res = llama_pretrain.train(cfg, steps=steps, batch_size=batch,
+                                   seq_len=seq_len, lr=3e-4, device=dev,
+                                   seed=seed)
     launches = {name: c.launches for name, c in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     p50 = statistics.median(res.step_s)
@@ -1926,7 +2001,8 @@ def train_run(label: str, cfg: LlamaConfig, dev, seed: int, steps: int,
     assert peak_gb < 80, f"peak {peak_gb} GB"
 
     more = iter(range(steps, steps + 2))
-    profile_calls(f"{label} step", lambda: res.step(next(more)), 1)
+    with norm_plain_raise():
+        profile_calls(f"{label} step", lambda: res.step(next(more)), 1)
     del res
     gc.collect()
     torch.cuda.empty_cache()
@@ -1936,10 +2012,12 @@ def train_run(label: str, cfg: LlamaConfig, dev, seed: int, steps: int,
 def train_phase(dev, seed: int, steps: int = 5, batch: int = 4,
                 seq_len: int = 4096):
     """The dense Llama-2-7B-width model at 8 layers: flash_fwd twice per
-    layer per step (forward and remat recompute), dq and dkv once."""
+    layer per step (forward and remat recompute), dq and dkv once; the
+    norm's kernels as :func:`norm_rope_want` counts them."""
     cfg = llama2_7b(n_layers=8)
     want = {name: n * cfg.n_layers * steps for name, n in (
         ("flash_fwd", 2), ("flash_dq", 1), ("flash_dkv", 1))}
+    want.update(norm_rope_want(NORM_CALLS_PER_LAYER, cfg.n_layers, steps))
     return train_run("train", cfg, dev, seed, steps, batch, seq_len, want)
 
 
@@ -1947,9 +2025,11 @@ def moe_train_phase(cfg: LlamaConfig, dev, seed: int, steps: int = 5,
                     batch: int = MOE_TRAIN["batch"],
                     seq_len: int = MOE_TRAIN["seq_len"]):
     """The Mixtral-width MoE model: ``MOE_LAUNCHES_PER_LAYER`` launches per
-    layer per step of each grouped-matmul and flash kernel."""
+    layer per step of each grouped-matmul and flash kernel; the norm's
+    kernels as :func:`norm_rope_want` counts them."""
     want = {name: n * cfg.n_layers * steps
             for name, n in MOE_LAUNCHES_PER_LAYER.items()}
+    want.update(norm_rope_want(NORM_CALLS_PER_LAYER, cfg.n_layers, steps))
     return train_run("moe train", cfg, dev, seed, steps, batch, seq_len, want)
 
 
@@ -2086,9 +2166,11 @@ def mesh_phase(dev, plain: dict) -> dict:
     record with the launches."""
     from torch.distributed.tensor import DTensor
 
-    counters = {name: (counter(name), "launches") for name in FLASH_KERNELS}
-    rc, res, out, launches, peak_gb, world, backend = main_in_one_rank_group(
-        dev, MESH_ARGV, counters)
+    counters = {name: (counter(name), "launches")
+                for name in FLASH_KERNELS + NORM_KERNELS}
+    with norm_plain_raise():
+        rc, res, out, launches, peak_gb, world, backend = (
+            main_in_one_rank_group(dev, MESH_ARGV, counters))
     for line in out.splitlines():
         print(f"mesh: {line}", flush=True)
     sharded = all(isinstance(p, DTensor) for p in res.model.parameters())
@@ -2111,7 +2193,8 @@ def mesh_phase(dev, plain: dict) -> dict:
     assert sharded
     want = {"flash_fwd": 2 * MESH_LAYERS * REMAT_STEPS,
             "flash_dq": MESH_LAYERS * REMAT_STEPS,
-            "flash_dkv": MESH_LAYERS * REMAT_STEPS}
+            "flash_dkv": MESH_LAYERS * REMAT_STEPS,
+            **norm_rope_want(NORM_CALLS_PER_LAYER, MESH_LAYERS, REMAT_STEPS)}
     assert launches == want, (launches, want)
     assert len(rel) == REMAT_STEPS and max(rel) <= MESH_LOSS_RTOL, rel
     assert peak_gb < 80, f"peak {peak_gb} GB"
@@ -2147,6 +2230,8 @@ def mesh_moe_phase(dev, seed: int, plain: dict) -> dict:
                        "skip_launches" if name.endswith("_skip")
                        else "launches")
                 for name in MESH_MOE_LAUNCHES_PER_LAYER}
+    counters.update({name: (counter(name), "launches")
+                     for name in NORM_KERNELS})
     valid = []
     real_layout = moe.grouped_layout
 
@@ -2156,7 +2241,8 @@ def mesh_moe_phase(dev, seed: int, plain: dict) -> dict:
         return lay
 
     with warnings.catch_warnings(record=True) as caught, \
-            mock.patch.object(moe, "grouped_layout", layout):
+            mock.patch.object(moe, "grouped_layout", layout), \
+            norm_plain_raise():
         warnings.simplefilter("always")
         rc, res, out, launches, peak_gb, world, backend = (
             main_in_one_rank_group(dev, MESH_MOE_ARGV, counters, seed))
@@ -2188,6 +2274,7 @@ def mesh_moe_phase(dev, seed: int, plain: dict) -> dict:
     assert not fell_back, fell_back
     want = {name: n * layers * REMAT_STEPS
             for name, n in MESH_MOE_LAUNCHES_PER_LAYER.items()}
+    want.update(norm_rope_want(NORM_CALLS_PER_LAYER, layers, REMAT_STEPS))
     assert launches == want, (launches, want)
     assert all(vt is not None for _, _, vt in valid), "an unsharded layout"
     assert all(np.isfinite(x) for x in rec["losses"]), rec["losses"]
@@ -3285,7 +3372,8 @@ def all_plain_raise():
     with contextlib.ExitStack() as stack:
         for mod, name in ((gm, "gmm_plain"), (gm, "gmm_swiglu_plain"),
                           (gm, "tgmm_plain"), (at, "flash_fwd_plain"),
-                          (at, "flash_dq_plain"), (at, "flash_dkv_plain")):
+                          (at, "flash_dq_plain"), (at, "flash_dkv_plain"),
+                          *((nr, name) for name in NORM_PLAIN)):
             stack.enter_context(mock.patch.object(mod, name, refuse))
         yield
 
@@ -4423,10 +4511,10 @@ def afmoe_phase(dev, seed: int) -> dict:
 
 def afmoe_layer_step(cfg: LlamaConfig, dev, seed: int, gen):
     """One step (forward and backward) of the model ``cfg`` builds from
-    ``seed`` on a batch of ``AFMOE_SHARE``'s shape; returns the model, the
-    loss and the launches of the step by wrapper (the grouped layout, the
-    grouped and flash kernels, their skip forms), from counters zeroed
-    just before."""
+    ``seed`` on a batch of ``AFMOE_SHARE``'s shape, the norm's plain
+    versions refused; returns the model, the loss and the launches of the
+    step by wrapper (the grouped layout, the grouped, flash and norm
+    kernels, their skip forms), from counters zeroed just before."""
     model = llama_init(cfg, torch.Generator(device=dev).manual_seed(seed),
                        dev, requires_grad=True)
     tokens = torch.randint(0, cfg.vocab_size, (AFMOE_SHARE["batch"],
@@ -4437,11 +4525,14 @@ def afmoe_layer_step(cfg: LlamaConfig, dev, seed: int, gen):
     for fn in skipping:
         fn.skip_launches = 0
     layouts = ml.moe_layout.launches
-    loss = llama_loss(model, tokens, cfg)
-    loss.backward()
+    norms = {n: counter(n).launches for n in NORM_KERNELS}
+    with norm_plain_raise():
+        loss = llama_loss(model, tokens, cfg)
+        loss.backward()
     torch.cuda.synchronize()
     launches = {"moe_layout": ml.moe_layout.launches - layouts,
-                **read_counters()}
+                **read_counters(),
+                **{n: counter(n).launches - norms[n] for n in NORM_KERNELS}}
     launches.update({f"{n}_skip": counter(n).skip_launches
                      for n in ("gmm", "tgmm") + FLASH_KERNELS})
     return model, loss, launches
@@ -4542,6 +4633,174 @@ def adamw_phase(dev) -> dict:
             for name, make in ADAMW_SETS.items()}
 
 
+# The benchmark's norm and rotation shapes (name, shape, norm, rotation):
+# Trinity-Mini's q and k, each head's norm then its rotation, and its
+# hidden rows; Mistral-7B's hidden rows and its q and k rotation alone.
+NORM_ROPE_CASES = (
+    ("trinity_q", (4, 8192, 32, 128), True, True),
+    ("trinity_k", (4, 8192, 4, 128), True, True),
+    ("trinity_hidden", (4, 8192, 2048), True, False),
+    ("mistral_hidden", (4, 4096, 4096), True, False),
+    ("mistral_q", (4, 4096, 32, 128), False, True),
+    ("mistral_k", (4, 4096, 8, 128), False, True),
+)
+# Edges: rows that fill no block, a row of 24 (4 threads), of 1000 (two
+# rows a block, partial units), of 6144 and 8192 (4 vectors a thread), a
+# 2048-wide rotation (128 threads a row, a shared-memory row sum), and
+# decode's q and k (``models/generate.py:paged_decode_step``): [B, 1, H, D]
+# seen as [1, B, H, D], the batch the rotation's T axis, each slot's table
+# row at its own scattered position.
+NORM_ROPE_EDGES = (
+    ("edge_small", (2, 5, 3, 32), True, True),
+    ("edge_rope", (1, 33, 2, 64), False, True),
+    ("edge_24", (7, 24), True, False),
+    ("edge_1000", (3, 5, 1000), True, False),
+    ("edge_6144", (2, 3, 6144), True, False),
+    ("edge_8192", (3, 8192), True, False),
+    ("edge_wide_rope", (1, 17, 5, 2048), True, True),
+    ("decode_q", (1, 8, 32, 128), False, True),
+    ("decode_k", (1, 8, 8, 128), False, True),
+)
+DECODE_MAX_POS = 4096      # decode's positions are drawn below this
+NORM_MAIN_SHAPE = "trinity_q"   # the kernels line's norm_rope shape
+NORM_EPS = 1e-5
+# A row's largest gap from the plain version, as a share of the row's
+# largest plain value (see the phase's docstring entry), and the scale's
+# gradient's, of its largest.
+NORM_ROW_TOL = 2.0 ** -6
+NORM_DS_TOL = 2.0 ** -7
+NORM_RSTD_TOL = 1e-5
+NORM_AUTOGRAD_TOL = 5e-2
+
+
+def norm_rope_tables(t: int, d: int, theta: float, dev):
+    """cos and sin [t, d] f32, as ``llama.rope_tables`` makes them."""
+    cfg = SimpleNamespace(head_dim=d, rope_theta=theta)
+    return llama_mod.rope_tables(cfg, torch.arange(t, device=dev))
+
+
+def row_gap(got, ref) -> float:
+    """The largest of each row's max |got - ref| over its max |ref|."""
+    d = ref.shape[-1]
+    a, b = got.float().reshape(-1, d), ref.float().reshape(-1, d)
+    return float(((a - b).abs().amax(-1)
+                  / b.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def norm_rope_bytes(shape, norm: bool, rope: bool):
+    """(forward, backward) least bytes: x read and the result written once
+    (bf16), rstd written (f32 a row) and the scale read with the norm, the
+    tables read once with the rotation; backward dy read and dx written,
+    with the norm x and rstd read and the scale's gradient written."""
+    d = shape[-1]
+    n = math.prod(shape)
+    rows = n // d
+    tables = 2 * shape[1] * d * 4 if rope else 0
+    fwd = 2 * n * 2 + tables + (rows * 4 + d * 2 if norm else 0)
+    bwd = 2 * n * 2 + tables + (n * 2 + rows * 4 + 2 * d * 2 if norm else 0)
+    return fwd, bwd
+
+
+def norm_rope_case(name, shape, norm, rope, gen, dev, timed) -> dict:
+    """One shape: the kernels against the plain versions (see the
+    phase's docstring entry); with ``timed``, their times."""
+    d = shape[-1]
+    theta = 1e6 if name.startswith("mistral") else 1e4
+    x = (torch.randn(shape, generator=gen, device=dev) * 2).to(torch.bfloat16)
+    dy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    scale = ((1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(
+        torch.bfloat16) if norm else None)
+    cos, sin = (norm_rope_tables(shape[1], d, theta, dev) if rope
+                else (None, None))
+    if name.startswith("decode"):
+        # [B, 1, H, D] transposed, as decode hands it over; the tables of
+        # each slot's own position.
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+        positions = torch.randint(0, DECODE_MAX_POS, (shape[1],),
+                                  generator=gen, device=dev)
+        cfg = SimpleNamespace(head_dim=d, rope_theta=theta)
+        cos, sin = llama_mod.rope_tables(cfg, positions)
+    args = (x, scale, cos, sin)
+    assert nr.norm_rule(*args) is None, (name, nr.norm_rule(*args))
+    launches = (nr.norm_rope_fwd.launches, nr.norm_rope_bwd.launches)
+    y, rstd = nr.norm_rope_fwd(*args, NORM_EPS)
+    dx, ds = nr.norm_rope_bwd(*args, rstd, dy)
+    dx2, ds2 = nr.norm_rope_bwd(*args, rstd, dy)
+    torch.cuda.synchronize()
+    assert (nr.norm_rope_fwd.launches, nr.norm_rope_bwd.launches) == (
+        launches[0] + 1, launches[1] + 2), name
+    y_p, rstd_p = nr.norm_rope_plain(*args, NORM_EPS)
+    dx_p, ds_p = nr.norm_rope_bwd_plain(*args, rstd_p, dy)
+    rec = {"shape": list(shape), "norm": norm, "rope": rope,
+           "row_threads": nr.row_threads(d, rope),
+           "y_row_gap": row_gap(y, y_p), "dx_row_gap": row_gap(dx, dx_p),
+           "y_differing": float((y != y_p).float().mean()),
+           "dx_differing": float((dx != dx_p).float().mean()),
+           "repeat_equal": bool(torch.equal(dx, dx2) and (
+               ds is None or torch.equal(ds, ds2)))}
+    if norm:
+        rec["rstd_rel_gap"] = float(((rstd - rstd_p).abs()
+                                     / rstd_p.abs()).max())
+        rec["ds_gap"] = float((ds.float() - ds_p.float()).abs().max()
+                              / ds_p.float().abs().max())
+    # Autograd through the plain composition: the path the kernel replaces.
+    xg = x.clone().requires_grad_()
+    sg = scale.clone().requires_grad_() if norm else None
+    nr.norm_rope_plain(xg, sg, cos, sin, NORM_EPS)[0].backward(dy)
+    rec["dx_autograd_gap"] = whole_rel_err(dx, xg.grad)
+    if norm:
+        rec["ds_autograd_gap"] = whole_rel_err(ds, sg.grad)
+    del xg, sg, dx2, ds2
+    if timed:
+        def plain_fwd_bwd():
+            xt = x.detach().requires_grad_()
+            st = scale.detach().requires_grad_() if norm else None
+            out = nr.norm_rope_plain(xt, st, cos, sin, NORM_EPS)[0]
+            torch.autograd.grad(out, [t for t in (xt, st) if t is not None],
+                                dy)
+
+        fwd_b, bwd_b = norm_rope_bytes(shape, norm, rope)
+        rec["fwd_ms"] = time_ms(lambda: nr.norm_rope_fwd(*args, NORM_EPS), 20)
+        rec["bwd_ms"] = time_ms(lambda: nr.norm_rope_bwd(*args, rstd, dy),
+                                20)
+        rec["fwd_bound_ms"], _ = bound(fwd_b, 0)
+        rec["bwd_bound_ms"], _ = bound(bwd_b, 0)
+        rec["fwd_roofline"] = rec["fwd_bound_ms"] / rec["fwd_ms"]
+        rec["bwd_roofline"] = rec["bwd_bound_ms"] / rec["bwd_ms"]
+        rec["plain_fwd_ms"] = time_ms(
+            lambda: nr.norm_rope_plain(*args, NORM_EPS), 5)
+        rec["plain_fwd_bwd_ms"] = time_ms(plain_fwd_bwd, 3, warmup=1)
+        rec["plain_over_kernel"] = rec["plain_fwd_bwd_ms"] / (
+            rec["fwd_ms"] + rec["bwd_ms"])
+    print(f"norm_rope[{name}] " + json.dumps(rec), flush=True)
+    if rope and not norm:
+        assert torch.equal(y, y_p) and torch.equal(dx, dx_p), (
+            f"{name}: the rotation alone is not the plain one's bits")
+    assert rec["y_row_gap"] <= NORM_ROW_TOL, (name, rec["y_row_gap"])
+    assert rec["dx_row_gap"] <= NORM_ROW_TOL, (name, rec["dx_row_gap"])
+    assert rec["repeat_equal"], f"{name}: dx or ds differ between runs"
+    assert rec["dx_autograd_gap"] <= NORM_AUTOGRAD_TOL, name
+    if norm:
+        assert rec["rstd_rel_gap"] <= NORM_RSTD_TOL, name
+        assert rec["ds_gap"] <= NORM_DS_TOL, (name, rec["ds_gap"])
+        assert rec["ds_autograd_gap"] <= NORM_AUTOGRAD_TOL, name
+    return rec
+
+
+def norm_rope_phase(dev, seed: int) -> dict:
+    """Phase 29 (see the docstring).  Returns each shape's record."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 29)
+    res = {}
+    for cases, timed in ((NORM_ROPE_EDGES, False), (NORM_ROPE_CASES, True)):
+        for name, shape, norm, rope in cases:
+            res[name] = norm_rope_case(name, shape, norm, rope, gen, dev,
+                                       timed)
+            gc.collect()
+            torch.cuda.empty_cache()
+    print("norm_rope " + json.dumps(res), flush=True)
+    return res
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4551,7 +4810,7 @@ def card_line() -> str:
 
 
 def kernels_line(results, flash, paths, serve_designs, generate_designs,
-                 adamw_sets):
+                 adamw_sets, norm):
     """One entry per kernel; ``launches`` is the MoE train run's (the
     path that launches all six) and the grouped kernels' top-level times
     are at its layout; ``launches_by_path`` gives each path's own run
@@ -4563,7 +4822,10 @@ def kernels_line(results, flash, paths, serve_designs, generate_designs,
     launches of ``gmm`` and ``tgmm`` that carried ``valid_tiles``, and
     ``serve_launches_by_design`` and ``generate_launches_by_design`` the
     serve run's and the generate call's ``gmm`` and ``gmm_swiglu``
-    launches by design."""
+    launches by design.  ``norm_rope``'s times are phase 29's, forward plus
+    backward at Trinity-Mini's q (``NORM_MAIN_SHAPE``), each benchmark
+    shape's beside them; its launches are the train paths' (phases 8, 10,
+    12, 13), a path's forward and backward launches together."""
     replaces = {
         "gmm": (f"{REF_FILE}:132 (_gmm_single_k_kernel, decode); "
                 f"{REF_FILE}:78 (_gmm_kernel, prefill); "
@@ -4617,6 +4879,27 @@ def kernels_line(results, flash, paths, serve_designs, generate_designs,
                                 "fuses); torch's foreach AdamW chain",
                     "shape": "mixtral8x7b_l2",
                     **adamw_sets["mixtral8x7b_l2"], **adamw_sets})
+
+    def both(n):
+        return {k: n[k] for k in NORM_KERNELS}
+
+    def timed(rec):
+        return {"ms": rec["fwd_ms"] + rec["bwd_ms"],
+                "bound_ms": rec["fwd_bound_ms"] + rec["bwd_bound_ms"],
+                "plain_ms": rec["plain_fwd_bwd_ms"]}
+
+    entries.append({"name": "norm_rope", "route": "cuda",
+                    "source": NORM_SOURCE,
+                    "replaces": "none (the JAX package leaves RMSNorm and "
+                                "RoPE to XLA); the plain composition's "
+                                "elementwise chain",
+                    "launches": both(main_path),
+                    "launches_by_path": {p: both(n) for p, n in paths.items()
+                                         if NORM_KERNELS[0] in n},
+                    "shape": NORM_MAIN_SHAPE, "bound_by": "bytes",
+                    **timed(norm[NORM_MAIN_SHAPE]),
+                    **{name: timed(rec) for name, rec in norm.items()
+                       if "fwd_ms" in rec}})
     return json.dumps({"kernels": entries})
 
 
@@ -4702,9 +4985,10 @@ def main(argv=None) -> int:
     window_flash_phase(dev, args.seed)
     afmoe_phase(dev, args.seed)
     moe_layout_phase(dev, args.seed)
+    norm = norm_rope_phase(dev, args.seed)
     print(card_line())
     print(kernels_line(results, flash, paths, serve_designs,
-                       generate_designs, adamw_sets))
+                       generate_designs, adamw_sets, norm))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,6 +12,9 @@ The rounding places follow the reference exactly: ``rmsnorm`` normalises
 in f32, casts to the activation dtype, then multiplies by the scale cast
 to that dtype; RoPE rotates in f32 and casts back; f32 parameters are cast
 to the activation dtype where they are used; logits and the loss are f32.
+On the card the norm and RoPE run as one hand-written pass each way
+(``ops/norm_rope.py``) with the same rounding places; only the order of
+the norm's sum differs.
 
 Parameters are created with ``requires_grad=False`` (the serving default);
 training asks for gradients (``Llama(..., requires_grad=True)``).
@@ -57,6 +60,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import DeviceLike, resolve_device, torch_dtype
 from ..obs.trace import in_step_span, step_span
 from ..ops.attention import TILE, flash_attention, kernel_rule
+from ..ops import norm_rope as nr
 from ..parallel.mesh import (
     AXIS_DATA,
     AXIS_EXPERT,
@@ -592,10 +596,18 @@ def _w(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 @in_step_span("kctpu.norm")
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    rms = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return (xf * rms).to(x.dtype) * scale.to(x.dtype)
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+            rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+            ) -> torch.Tensor:
+    """RMSNorm over the last dim, then with ``rope`` (cos, sin) RoPE as
+    :func:`apply_rope` rotates: off the CPU one pass of
+    ``ops/norm_rope.py``'s kernel (:func:`~..ops.norm_rope.norm_rope`, which
+    raises for what it cannot take), on the CPU the plain composition."""
+    cos, sin = rope if rope is not None else (None, None)
+    if nr.on_card(x):
+        return nr.norm_rope(x, scale, cos, sin, eps)
+    x = nr.rmsnorm_plain(x, scale, eps)
+    return x if rope is None else apply_rope(x, cos, sin)
 
 
 def rope_freqs(cfg: LlamaConfig, positions: torch.Tensor) -> torch.Tensor:
@@ -621,11 +633,12 @@ def rope_tables(cfg: LlamaConfig, positions: torch.Tensor
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
     """Rotate-half RoPE, x·cos + [-x2, x1]·sin in f32; x: [B, T, H, D],
-    cos/sin: [T, D] (:func:`rope_tables`)."""
-    xf = x.float()
-    x1, x2 = xf.chunk(2, dim=-1)
-    rot = torch.cat([-x2, x1], dim=-1)
-    return (xf * cos[None, :, None] + rot * sin[None, :, None]).to(x.dtype)
+    cos/sin: [T, D] (:func:`rope_tables`): off the CPU
+    ``ops/norm_rope.py``'s kernel with the norm off, on the CPU the plain
+    rotation."""
+    if nr.on_card(x):
+        return nr.norm_rope(x, None, cos, sin)
+    return nr.rope_plain(x, cos, sin)
 
 
 @in_step_span("kctpu.ffn")
@@ -870,9 +883,10 @@ def _pre_attention(x: torch.Tensor, lp: LlamaLayer, cfg: LlamaConfig,
 
     def heads(w, norm):
         t = _heads(h, _w(w, dtype))
+        rot = rope if lp.rope else None
         if lp.qk_norm:
-            t = rmsnorm(t, _w(getattr(lp, norm), dtype), eps)
-        return apply_rope(t, *rope) if rope is not None and lp.rope else t
+            return rmsnorm(t, _w(getattr(lp, norm), dtype), eps, rot)
+        return apply_rope(t, *rot) if rot is not None else t
 
     q, k = heads(lp.wq, "q_norm"), heads(lp.wk, "k_norm")
     v = _heads(h, _w(lp.wv, dtype))

@@ -13,6 +13,10 @@ version.
 - ``moe_layout`` — the MoE layer's grouped row layout, each routing slot's
   rank inside its expert and the maps built from it (CUDA C++,
   ``csrc/moe_layout.cu``), which ``models/moe.py:grouped_layout`` calls.
+- ``norm_rope`` — RMSNorm and rotate-half RoPE, each or both in one pass
+  over the rows, forward and backward (CUDA C++, ``csrc/norm_rope.cu``),
+  behind the differentiable ``kctpu::norm_rope`` op that
+  ``models/llama.py``'s ``rmsnorm`` and ``apply_rope`` call.
 - ``_build`` — compiles ``csrc/*.cu`` with ``nvcc`` at first use and loads
   the result with ``ctypes``.
 

@@ -82,6 +82,14 @@ _SIGNATURES = {
     # NULL), n, k, n_experts, first_expert, bm, stream
     "kctpu_moe_layout": ([_P] * 7 + [_I] * 3 + [ctypes.c_longlong, _I, _P],
                          _I),
+    # x, scale (or NULL), cos (or NULL), sin (or NULL), y, rstd (or NULL),
+    # rows, d, row threads, blocks, heads, T, eps, stream
+    "kctpu_norm_rope_fwd": ([_P] * 6 + [ctypes.c_longlong] + [_I] * 5
+                            + [_F, _P], _I),
+    # x, scale, rstd, cos, sin (each or NULL), dy, dx, partial (or NULL),
+    # dscale (or NULL), rows, d, row threads, blocks, heads, T, stream
+    "kctpu_norm_rope_bwd": ([_P] * 9 + [ctypes.c_longlong] + [_I] * 5
+                            + [_P], _I),
     "kctpu_error_string": ([_I], ctypes.c_char_p),
 }
 

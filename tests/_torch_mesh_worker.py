@@ -14,6 +14,10 @@ results to OUT (``OUT.<rank>`` for ``collectives``) with ``torch.save``:
   chunked CE); the full gradients (before and after the clip) and
   parameters, the shapes the flash forward ran at, and the all-gathers
   over fsdp.
+- ``step_norms ARGS...``: ``step`` with the norms and rotations routed as
+  on a card (``ops/norm_rope.py:on_card`` true: each DTensor through
+  ``norm_rope``'s local-shard path, whose op runs its plain versions on
+  the CPU); rank 0 adds each shard call's placements and local shape.
 - ``train STEPS [MODEL_DIR [hang]]``: ``llama_pretrain.train`` of the tiny
   model under fsdp; with ``hang``, one more step after the run and then a
   wait to be killed.
@@ -197,6 +201,24 @@ def step(out: str, dp: str, fsdp: str, tp: str, policy: str,
                     "params": after, "grads_misplaced": misplaced,
                     "norm": float(norm), "flash_shapes": flash_shapes,
                     "gathered": gathered, "shards": shards}, out)
+
+
+def step_norms(out: str, *args: str) -> None:
+    from kubeflow_controller_tpu_torch.ops import norm_rope as nr
+
+    calls, real = [], nr._norm_rope_shard
+
+    def shard(x, *rest):
+        calls.append((str(tuple(x.placements)), tuple(x.to_local().shape)))
+        return real(x, *rest)
+
+    with mock.patch.object(nr, "on_card", lambda x: True), \
+            mock.patch.object(nr, "_norm_rope_shard", shard):
+        step(out, *args)
+    if dist.get_rank() == 0:
+        rec = torch.load(out, weights_only=False)
+        rec["norm_shard_calls"] = calls
+        torch.save(rec, out)
 
 
 def train(out: str, steps: str, model_dir: str = "", hang: str = "") -> None:
@@ -926,7 +948,8 @@ def main(argv) -> int:
         main_run(out, *rest)
         return 0
     rt.initialize("cpu", timeout_s=120)
-    {"collectives": collectives, "step": step, "train": train, "moe": moe,
+    {"collectives": collectives, "step": step, "step_norms": step_norms,
+     "train": train, "moe": moe,
      "init": init, "seqpar": seqpar, "generate": generate,
      "pipeline": pipeline, "pp": pp, "pp_sp": pp_sp, "train_pp": train_pp,
      "moe_sp": moe_sp, "dryrun": dryrun,
